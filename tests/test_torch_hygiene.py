@@ -1,0 +1,88 @@
+"""Boundaries of the PyTorch port: it never imports JAX or the JAX package,
+it never falls back to the CPU silently, and it keeps no raw timers (timing
+lives in ``chip_smoke.py``)."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _forbidden(module):
+    root = module.split(".")[0]
+    return root in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_port_imports_no_jax_and_nothing_of_repro(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert bad == [], f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_forbidden_matches_repro_not_repro_torch():
+    assert _forbidden("repro") and _forbidden("repro.core.ota")
+    assert _forbidden("jax.numpy") and not _forbidden("repro_torch.core")
+
+
+def test_import_leaves_jax_unloaded():
+    code = ("import sys; import repro_torch.core.fedpg, repro_torch.kernels."
+            "ota_fused, repro_torch.configs.ota_pg_particle; "
+            "assert 'jax' not in sys.modules, 'jax'; "
+            "assert not any(m == 'repro' or m.startswith('repro.') "
+            "for m in sys.modules), 'repro'")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_no_raw_timers_in_package():
+    for path in PORT_FILES[:-1]:
+        assert "perf_counter" not in path.read_text(), path
+
+
+def test_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    from repro_torch import interop
+    from repro_torch.core import fedpg
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+
+    cfg = fedpg.FedPGConfig(n_agents=2, batch_m=1, horizon=2, n_rounds=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fedpg.run(LandmarkNav(), MLPPolicy(), cfg, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fedpg.monte_carlo(LandmarkNav(), MLPPolicy(), cfg, 0, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        interop.from_numpy({})
+
+
+def test_cuda_backend_on_cpu_tensor_raises():
+    from repro_torch.core import ota
+    from repro_torch.core.channel import RayleighChannel
+
+    grads = {"w": torch.ones(3, 4)}
+    cfg = ota.OTAConfig(RayleighChannel(), noise_sigma=0.1)
+    with pytest.raises(ValueError, match="cuda"):
+        ota.aggregate(grads, cfg, backend="cuda",
+                      generator=torch.Generator())
+    with pytest.raises(ValueError, match="cuda"):
+        ota.aggregate_apply(grads, cfg, {"w": torch.ones(4)}, alpha=0.1,
+                            backend="cuda", generator=torch.Generator())
