@@ -22,7 +22,27 @@ Phases, in order; any failure raises and exits non-zero:
 6. times    — K1's device time beside its byte bound, the plain version's
               time and ``torch.mv`` (the matvec alone);
 7. profile  — torch.profiler over 10 Algorithm-2 rounds: device time by
-              kernel and the device's busy share of a round.
+              kernel and the device's busy share of a round;
+8. K3       — the flash-attention kernel against its plain version on the
+              card: f32 and bf16, causal / window 128 / bidirectional, GQA
+              g = 1-4, Dh 64/112/128, ragged lengths and 2048 (bf16 also
+              within one bf16 ulp), and positions where some queries see no
+              key;
+9. K4       — the SSD-scan kernel (f32 out) against its plain version: the
+              JAX sweep's shapes and mamba2-130m's, f32 and bf16 in, and
+              against the sequential recurrence;
+10. llama   — serve llama3.2-3b at full width in bf16: prefill B=4 S=2048
+              (28 K3 launches), 32 greedy serve steps from a capacity-2080
+              cache, then the prefill again with K3's plain version: in
+              float32 (asserted within 2e-2) and in bf16 on 3 seeds
+              (reported beside the noise floor of two plain versions);
+11. mamba   — serve mamba2-130m at full width in bf16: prefill (24 K4
+              launches), 32 decode steps, the plain-version prefills;
+12. K3/K4 times — median of 60 CUDA-event timings at the serve shapes,
+              beside the bound, the plain version and (K3) SDPA;
+13. serve profile — torch.profiler over one prefill, then over 4 decode
+              steps, of each config: K3's and K4's share of device time,
+              launches, and the device's busy share of each.
 
 It prints the card line, then one ``{"kernels": [...]}`` line, and as its last
 line ``{"ok": true, "device": {...}}``.  The full record also goes to
@@ -43,6 +63,31 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM, bf16 tensor cores, dense
+BF16_ULP = 2 ** -7   # one bf16 ulp of a value, at most, relative to it
+FLOOR_SEEDS = (0, 1, 2)
+K3_CASES = [  # (b, h, hkv, s, dh, causal, window)
+    (1, 2, 2, 128, 64, True, None),       # g=1
+    (2, 4, 2, 256, 64, True, None),       # g=2
+    (1, 6, 2, 200, 112, True, None),      # g=3, zamba2's head dim, ragged
+    (1, 8, 2, 256, 128, True, None),      # g=4
+    (1, 2, 1, 1000, 64, True, 128),       # sliding window, ragged
+    (2, 2, 2, 384, 64, False, None),      # bidirectional
+    (4, 24, 8, 48, 128, True, None),      # a short prompt
+    (4, 24, 8, 2048, 128, True, None),    # llama3.2-3b's prefill
+]
+K3_BLIND_CASES = [  # (key position stride, shift, window): queries that see
+    (1, 100, None),   # no key: the first 100, and every odd one
+    (2, 0, 1),
+]
+K4_CASES = [  # (b, s, h, p, g, n, chunk): tests/test_kernels.py:69-72 + mamba2
+    (1, 128, 2, 64, 1, 64, 64),
+    (2, 256, 4, 64, 1, 128, 128),
+    (1, 256, 4, 32, 2, 16, 64),
+    (2, 128, 8, 64, 2, 64, 32),
+    (4, 2048, 24, 64, 1, 128, 128),
+]
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 32
 K1_SHAPES = [(1, 165), (10, 165), (7, 1000), (10_000, 165), (8, 2 ** 21 + 3)]
 FIG12_SETTINGS = [(1, 10), (5, 10), (10, 10), (10, 1), (10, 5)]  # (N, M)
 MAIN_ROUNDS = 100
@@ -449,6 +494,532 @@ def phase_profile(torch, ms_per_round):
     done("profile", t0)
 
 
+# ---------------------------------------------------------------------------
+# the serving path: K3 and K4
+# ---------------------------------------------------------------------------
+
+def counters():
+    from repro_torch.kernels import flash_attention, ota_fused, ssd_scan
+
+    return {"ota_fused": ota_fused, "flash_attention": flash_attention,
+            "ssd_scan": ssd_scan}
+
+
+def reset_counts():
+    for mod in counters().values():
+        mod.LAUNCHES = 0
+
+
+def read_counts():
+    return {name: mod.LAUNCHES for name, mod in counters().items()}
+
+
+def k3_inputs(torch, b, h, hkv, s, dh, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(device="cuda", dtype=torch.float32, generator=gen)
+    return tuple(torch.randn(shape, **kw).to(dtype) for shape in
+                 ((b, h, s, dh), (b, hkv, s, dh), (b, hkv, s, dh)))
+
+
+def phase_k3(torch):
+    from repro_torch.kernels import flash_attention, ref
+
+    t0 = phase("8. K3 against its plain version")
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = 3e-6 if dtype == torch.float32 else 2e-2
+        name = str(dtype)[6:]
+        for case in K3_CASES:
+            b, h, hkv, s, dh, causal, window = case
+            q, k, v = k3_inputs(torch, b, h, hkv, s, dh, dtype, s + dh)
+            got = flash_attention.flash_attention(q, k, v, causal=causal,
+                                                  window=window)
+            want = ref.flash_attention_plain(q, k, v, causal=causal,
+                                             window=window)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                       rtol=tol)
+            # the model's (B, S, H, Dh) layout, read through strides
+            pos = torch.arange(s, device="cuda")
+            bshd = flash_attention.attend_bshd(
+                *(x.transpose(1, 2).contiguous() for x in (q, k, v)),
+                q_pos=pos, k_pos=pos, causal=causal, window=window)
+            torch.cuda.synchronize()
+            check(torch.equal(bshd.transpose(1, 2), got),
+                  f"K3 layouts disagree at {case}")
+            if dtype == torch.bfloat16:
+                # both sides compute in f32 from the same inputs: only the
+                # output's rounding to bf16 may part them
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=1e-5, rtol=BF16_ULP)
+            err = (got.float() - want.float()).abs().max().item()
+            errs[name] = max(errs[name], err)
+            log(f"K3 {case} {name}: max abs err {err:.3e} (tol {tol}"
+                f"{'' if tol < 1e-3 else ', and one bf16 ulp'})")
+        for stride, shift, window in K3_BLIND_CASES:
+            q, k, v = (x.transpose(1, 2).contiguous() for x in
+                       k3_inputs(torch, 2, 4, 2, 200, 64, dtype, 7))
+            q_pos = torch.arange(200, device="cuda")
+            k_pos = torch.arange(200, device="cuda") * stride + shift
+            got = flash_attention.attend_bshd(q, k, v, q_pos=q_pos,
+                                              k_pos=k_pos, window=window)
+            want = plain_attention(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                                   window=window)
+            torch.cuda.synchronize()
+            blind = int((~ref.visible(q_pos, k_pos, True, window).any(1))
+                        .sum())
+            check(blind > 0, "no query without a visible key")
+            torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                       rtol=tol)
+            err = (got.float() - want.float()).abs().max().item()
+            errs[name] = max(errs[name], err)
+            log(f"K3 positions k = {stride}*i + {shift}, window {window} "
+                f"({blind} of 200 queries see no key) {name}: max abs err "
+                f"{err:.3e} (tol {tol})")
+    RECORD["k3_parity"] = {"cases": (len(K3_CASES) + len(K3_BLIND_CASES)) * 2,
+                           "max_abs_err": errs}
+    done("K3", t0)
+    return errs
+
+
+def ssd_inputs(torch, b, s, h, p, g, n, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(device="cuda", dtype=torch.float32, generator=gen)
+    x = torch.randn(b, s, h, p, **kw)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, **kw)) * 0.1
+    A = -torch.exp(torch.rand(h, **kw))
+    B = torch.randn(b, s, g, n, **kw) * 0.5
+    C = torch.randn(b, s, g, n, **kw) * 0.5
+    return x.to(dtype), dt.to(dtype), A, B.to(dtype), C.to(dtype)
+
+
+def phase_k4(torch):
+    from repro_torch.kernels import ref, ssd_scan
+
+    t0 = phase("9. K4 against its plain version")
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    tol = 5e-5   # the output is f32 whatever the input's dtype
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for case in K4_CASES:
+            b, s, h, p, g, n, chunk = case
+            x, dt, A, B, C = ssd_inputs(torch, b, s, h, p, g, n, dtype,
+                                        s + h * p)
+            got = ssd_scan.ssd_scan(x, dt, A, B, C, chunk=chunk)
+            want = ref.ssd_ref(x, dt, A, B, C, chunk)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.float32, "K4 output not float32")
+            torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+            err = (got - want).abs().max().item()
+            errs[name] = max(errs[name], err)
+            log(f"K4 {case} {name}: max abs err {err:.3e} (tol {tol})")
+    x, dt, A, B, C = ssd_inputs(torch, 1, 256, 2, 32, 1, 32, torch.float32, 11)
+    got = ssd_scan.ssd_scan(x, dt, A, B, C, chunk=64)
+    seq = ref.ssd_sequential_ref(x, dt, A, B, C)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, seq, atol=1e-4, rtol=0)
+    seq_err = (got - seq).abs().max().item()
+    log(f"K4 vs the sequential recurrence (1, 256, 2, 32, 1, 32, 64): max abs "
+        f"err {seq_err:.3e} (atol 1e-4)")
+    RECORD["k4_parity"] = {"cases": len(K4_CASES) * 2, "max_abs_err": errs,
+                           "sequential_max_abs_err": seq_err}
+    done("K4", t0)
+    return errs
+
+
+def plain_attention(q, k, v, *, q_pos, k_pos, causal=True, window=None,
+                    block_k=128):
+    """K3's plain version in the model's layout (for the cross-check);
+    another ``block_k`` sums in another order."""
+    from repro_torch.kernels import ref
+
+    return ref.flash_attention_plain(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window, q_pos=q_pos, k_pos=k_pos,
+        block_k=block_k).transpose(1, 2)
+
+
+def plain_ssd(x, dt, A, B, C, *, chunk=128, alt_chunk=None):
+    """K4's plain version (for the cross-check); ``alt_chunk`` chunks the
+    same scan otherwise, which sums in another order."""
+    from repro_torch.kernels import ref
+
+    return ref.ssd_ref(x, dt, A, B, C, alt_chunk or chunk)
+
+
+def rel_err(a, b):
+    """max|a - b| / max|b|, in float32."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def plain_prefill(torch, m, params, prompt, kernel, **alt):
+    """The prefill with the kernel's plain version patched in."""
+    import functools
+    from unittest import mock
+
+    from repro_torch.kernels import flash_attention, ssd_scan
+
+    target = ((flash_attention, "attend_bshd",
+               functools.partial(plain_attention, **alt))
+              if kernel == "flash_attention"
+              else (ssd_scan, "ssd_scan", functools.partial(plain_ssd, **alt)))
+    with torch.no_grad(), mock.patch.object(*target):
+        reset_counts()
+        logits, _ = m.prefill(params, prompt)
+        torch.cuda.synchronize()
+        check(read_counts()[kernel] == 0, "the plain prefill launched K3/K4")
+    return logits
+
+
+def events(torch):
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def widen_cache(m, cache, capacity):
+    """The dense prefill's KV copied into a cache of ``capacity`` slots, as
+    examples/serve_smoke.py does; the SSM prefill's cache (zeroed, as the
+    JAX package returns it) is kept as it is."""
+    if m.cfg.family != "dense":
+        return cache
+    b, s = cache.kv.k.shape[1], cache.kv.k.shape[2]   # (L, B, S, Hkv, Dh)
+    full = m.init_cache(b, capacity, device="cuda")
+    full.kv.k[:, :, :s] = cache.kv.k
+    full.kv.v[:, :, :s] = cache.kv.v
+    return full._replace(pos=cache.pos)
+
+
+def model_and_prompt(torch, m, seed):
+    """Random parameters on the card and a random prompt, from ``seed``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = m.init(gen, device="cuda")
+    prompt = torch.randint(0, m.cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                           device="cuda", generator=gen)
+    return params, prompt
+
+
+def bf16_cross_check(torch, m, params, prompt, kernel, logits):
+    """Last-position logits of the kernel's prefill against the plain
+    version's, in bf16, beside the noise floor: the plain version against
+    a plain version that sums in another order."""
+    alt = ({"block_k": 64} if kernel == "flash_attention"
+           else {"alt_chunk": 64})
+    plain = plain_prefill(torch, m, params, prompt, kernel)
+    floor = plain_prefill(torch, m, params, prompt, kernel, **alt)
+    out = {"rel_err": rel_err(logits, plain),
+           "noise_floor": rel_err(floor, plain),
+           "first_token_matches_plain": bool(torch.equal(
+               torch.argmax(logits[:, -1:, :], -1),
+               torch.argmax(plain[:, -1:, :], -1))), "floor_by": alt}
+    del plain, floor
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve(torch, arch, kernel, n_launches):
+    """Serve one config at full width: prefill, decode, plain cross-check.
+    ``kernel`` names the counter the prefill must advance by
+    ``n_launches``.  Returns the numbers, the model and its seed-0
+    parameters and prompt.
+
+    The cross-check against the plain version is asserted in float32: in
+    bf16, 24-28 layers of random weights amplify the rounding of either
+    version to about the 2e-2 bound (two plain versions that only sum in
+    another order differ by as much), so the bf16 difference is reported
+    beside that noise floor, on each of ``FLOOR_SEEDS``.  The kernels' bf16
+    arithmetic is held in phases 8 and 9."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.param import param_count
+    from repro_torch.train import server
+
+    cfg = get_config(arch)
+    m = model_lib.build(cfg)
+    s0, s1 = events(torch)
+    s0.record()
+    params, prompt = model_and_prompt(torch, m, FLOOR_SEEDS[0])
+    s1.record()
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    log(f"{arch}: {n_params / 1e9:.3f} B parameters ({cfg.dtype}), init "
+        f"{s0.elapsed_time(s1):.1f} ms")
+    b, s = SERVE_BATCH, SERVE_PROMPT
+    with torch.no_grad():
+        m.prefill(params, prompt)                 # warm-up: cuBLAS, library load
+        torch.cuda.synchronize()
+        reset_counts()
+        s0.record()
+        logits, cache = m.prefill(params, prompt)
+        s1.record()
+        torch.cuda.synchronize()
+        counts = read_counts()
+    prefill_ms = s0.elapsed_time(s1)
+    check(counts[kernel] == n_launches,
+          f"{arch} prefill: {counts[kernel]} {kernel} launches, expected "
+          f"{n_launches}")
+    check(logits.shape == (b, 1, cfg.vocab)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"{arch} prefill logits not finite / wrong shape")
+
+    cap = s + SERVE_STEPS
+    full = widen_cache(m, cache, cap)
+    del cache
+    step = server.make_serve_step(
+        m, InputShape("serve", seq_len=cap, global_batch=b, kind="decode"))
+    tok = torch.argmax(logits[:, -1:, :], -1)
+    step_logits = []
+    s0.record()
+    for _ in range(SERVE_STEPS):
+        tok, lg, full = step(params, full, tok)
+        step_logits.append(lg)
+    s1.record()
+    torch.cuda.synchronize()
+    decode_ms = s0.elapsed_time(s1)
+    check(all(bool(torch.isfinite(lg.float()).all()) for lg in step_logits),
+          f"{arch} decode logits not finite")
+    del step_logits
+    check(full.pos == (s + SERVE_STEPS if cfg.family == "dense"
+                       else SERVE_STEPS), f"{arch} cache position")
+    del full
+
+    # bf16: the kernel's prefill against the plain version's, on each seed
+    bf16 = [bf16_cross_check(torch, m, params, prompt, kernel, logits)]
+    del logits
+    for seed in FLOOR_SEEDS[1:]:
+        p_seed, prompt_seed = model_and_prompt(torch, m, seed)
+        with torch.no_grad():
+            lg, _ = m.prefill(p_seed, prompt_seed)
+        bf16.append(bf16_cross_check(torch, m, p_seed, prompt_seed, kernel,
+                                     lg))
+        del p_seed, prompt_seed, lg
+        torch.cuda.empty_cache()
+
+    # the asserted cross-check: the seed-0 model and prompt in float32
+    m32 = model_lib.build(cfg.with_(dtype="float32"))
+    params32 = m32.init(torch.Generator(device="cuda").manual_seed(
+        FLOOR_SEEDS[0]), device="cuda")
+    with torch.no_grad():
+        reset_counts()
+        logits32, _ = m32.prefill(params32, prompt)
+        torch.cuda.synchronize()
+        check(read_counts()[kernel] == n_launches,
+              f"{arch} f32 prefill: {kernel} launches")
+    plain32 = plain_prefill(torch, m32, params32, prompt, kernel)
+    rel32 = rel_err(logits32, plain32)
+    check(bool(torch.isfinite(logits32).all()), f"{arch} f32 logits")
+    check(rel32 < 2e-2, f"{arch}: f32 kernel vs plain prefill logits rel err "
+                        f"{rel32}")
+    del params32, logits32, plain32
+    torch.cuda.empty_cache()
+    res = {"params": n_params, "prefill_ms": prefill_ms,
+           "prefill_tokens_per_s": b * s / prefill_ms * 1e3,
+           "decode_ms_per_step": decode_ms / SERVE_STEPS,
+           "decode_tokens_per_s": b * SERVE_STEPS / decode_ms * 1e3,
+           "launches": counts, "plain_rel_err_f32": rel32,
+           "bf16_by_seed": dict(zip(FLOOR_SEEDS, bf16))}
+    log(f"{arch}: prefill B={b} S={s} {prefill_ms:.2f} ms "
+        f"({res['prefill_tokens_per_s']:.0f} tok/s), {kernel} launches "
+        f"{counts[kernel]}; decode {SERVE_STEPS} steps "
+        f"{res['decode_ms_per_step']:.2f} ms/step "
+        f"({res['decode_tokens_per_s']:.1f} tok/s)")
+    log(f"{arch}: last-position logits, kernel vs plain prefill, f32 "
+        f"{rel32:.3e} (asserted < 2e-2)")
+    for seed, r in zip(FLOOR_SEEDS, bf16):
+        log(f"{arch}: seed {seed} bf16 {r['rel_err']:.3e} beside a noise "
+            f"floor of {r['noise_floor']:.3e} (plain vs plain with "
+            f"{r['floor_by']}); first greedy token equal: "
+            f"{r['first_token_matches_plain']}")
+    return res, m, params, prompt
+
+
+def phase_serve(torch):
+    t0 = phase("10. serve llama3.2-3b (bf16, full width)")
+    llama = serve(torch, "llama3.2-3b", "flash_attention", 28)
+    done("llama", t0)
+    t0 = phase("11. serve mamba2-130m (bf16, full width)")
+    mamba = serve(torch, "mamba2-130m", "ssd_scan", 24)
+    done("mamba", t0)
+    RECORD["serve"] = {"llama3.2-3b": llama[0], "mamba2-130m": mamba[0]}
+    return llama, mamba
+
+
+def k3_bound(b, h, hkv, s, dh, elem_bytes):
+    """Least time in ms for causal attention at these shapes: 4*dh FLOP per
+    visible (query, key) pair over the bf16 tensor-core peak, against Q, K,
+    V read once and O written once over HBM bandwidth."""
+    pairs = s * (s + 1) // 2
+    flops = 4 * b * h * dh * pairs
+    nbytes = elem_bytes * (2 * b * h * s * dh + 2 * b * hkv * s * dh)
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), flops, nbytes
+
+
+def k4_bound(b, s, h, p, g, n, q, in_bytes, out_bytes):
+    """Least time in ms for the chunked SSD: the causal half of C.B^T per
+    group, the decay-weighted intra product, the inter-chunk read and the
+    state update per head, over the bf16 tensor-core peak; against x, dt,
+    A, B, C read once and y written once over HBM bandwidth."""
+    nc = -(-s // q)
+    tri = q * (q + 1) // 2
+    flops = nc * b * (g * tri * n * 2 + h * (tri * (p * 2 + 1)
+                                              + 4 * q * n * p + q * n))
+    nbytes = (b * s * h * p * (in_bytes + out_bytes) + b * s * h * 4 + h * 4
+              + 2 * b * s * g * n * in_bytes)
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), flops, nbytes
+
+
+def phase_k34_times(torch):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, ref, ssd_scan
+
+    t0 = phase("12. K3 and K4 times at the serve shapes (median of 60)")
+    b, h, hkv, s, dh = SERVE_BATCH, 24, 8, SERVE_PROMPT, 128
+    q, k, v = (x.transpose(1, 2).contiguous() for x in
+               k3_inputs(torch, b, h, hkv, s, dh, torch.bfloat16, 5))
+    pos = torch.arange(s, dtype=torch.int32, device="cuda")
+    ms = device_ms(torch, lambda: flash_attention.attend_bshd(
+        q, k, v, q_pos=pos, k_pos=pos))
+    plain_ms = device_ms(torch, lambda: plain_attention(
+        q, k, v, q_pos=pos, k_pos=pos), sleep_cycles=20_000_000)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    bound, by, flops, nbytes = k3_bound(b, h, hkv, s, dh, 2)
+    k3 = {"shape": [b, h, hkv, s, dh], "dtype": "bfloat16", "causal": True,
+          "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+          "library_call": "F.scaled_dot_product_attention(is_causal=True, "
+                          "enable_gqa=True)",
+          "bound_ms": bound, "bound_by": by, "flops": flops, "bytes": nbytes,
+          "achieved_tflops": flops / ms / 1e9}
+    log(f"K3 (B={b}, H={h}, Hkv={hkv}, S={s}, Dh={dh}) causal bf16: "
+        f"{ms:.4f} ms ({k3['achieved_tflops']:.2f} TFLOP/s; bound "
+        f"{bound:.4f} ms, {by}, {bound / ms:.2%} of it) | plain "
+        f"{plain_ms:.4f} ms | SDPA {lib_ms:.4f} ms")
+    del q, k, v, qt, kt, vt
+
+    b, s, h, p, g, n, chunk = SERVE_BATCH, SERVE_PROMPT, 24, 64, 1, 128, 128
+    x, dt, A, B, C = ssd_inputs(torch, b, s, h, p, g, n, torch.bfloat16, 6)
+    dt = dt.float()             # the model's dt is float32 (softplus)
+    ms = device_ms(torch, lambda: ssd_scan.ssd_scan(x, dt, A, B, C,
+                                                    chunk=chunk))
+    plain_ms = device_ms(torch, lambda: ref.ssd_ref(x, dt, A, B, C, chunk),
+                         sleep_cycles=20_000_000)
+    bound, by, flops, nbytes = k4_bound(b, s, h, p, g, n, chunk, 2, 4)
+    k4 = {"shape": [b, s, h, p, g, n, chunk], "dtype": "bfloat16 in, f32 out",
+          "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+          "bound_ms": bound, "bound_by": by, "flops": flops, "bytes": nbytes,
+          "achieved_tflops": flops / ms / 1e9}
+    log(f"K4 (B={b}, S={s}, H={h}, P={p}, G={g}, N={n}, Q={chunk}) bf16 in, "
+        f"f32 out: {ms:.4f} ms ({k4['achieved_tflops']:.2f} TFLOP/s; bound "
+        f"{bound:.4f} ms, {by}, {bound / ms:.2%} of it) | plain "
+        f"{plain_ms:.4f} ms | no single PyTorch call computes the scan")
+    RECORD["k34_times"] = {"flash_attention": k3, "ssd_scan": k4}
+    done("K3/K4 times", t0)
+    return k3, k4
+
+
+def device_kernels(torch, fn):
+    """torch.profiler around ``fn()``: the device events (by kernel name),
+    sorted by device time, and their total device time in us."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    check(kernels, "the profiler recorded no device activity")
+    kernels.sort(key=dev_us, reverse=True)
+    return kernels, sum(dev_us(e) for e in kernels), out
+
+
+def dev_us(e):
+    return getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0)
+
+
+def profile_serve(torch, m, params, prompt, kernel_name, res, steps=4):
+    """torch.profiler over one prefill, then (a second window) ``steps``
+    decode steps; busy shares against the unprofiled times in ``res``."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.train import server
+
+    b, s = prompt.shape
+    step = server.make_serve_step(
+        m, InputShape("serve", seq_len=s + steps, global_batch=b,
+                      kind="decode"))
+    out = {}
+    with torch.no_grad():
+        kernels, busy, (logits, cache) = device_kernels(
+            torch, lambda: m.prefill(params, prompt))
+        ours = sum(dev_us(e) for e in kernels if kernel_name in e.key)
+        out["prefill"] = {
+            "device_busy_us": busy, "kernel_us": ours,
+            "kernel_share": ours / busy, "launches": sum(
+                e.count for e in kernels),
+            "busy_share_of_unprofiled": busy / (res["prefill_ms"] * 1e3),
+            "top": [{"name": e.key[:90], "device_us": dev_us(e),
+                     "launches": e.count} for e in kernels[:8]]}
+        state = {"tok": torch.argmax(logits[:, -1:, :], -1),
+                 "cache": widen_cache(m, cache, s + steps)}
+        del cache
+
+        def decode():
+            for _ in range(steps):
+                state["tok"], _, state["cache"] = step(params, state["cache"],
+                                                       state["tok"])
+
+        kernels, busy, _ = device_kernels(torch, decode)
+        out["decode_step"] = {
+            "device_busy_us": busy / steps,
+            "launches": sum(e.count for e in kernels) / steps,
+            "busy_share_of_unprofiled": busy / steps / (
+                res["decode_ms_per_step"] * 1e3),
+            "top": [{"name": e.key[:90], "device_us": dev_us(e) / steps,
+                     "launches": e.count / steps} for e in kernels[:6]]}
+    del logits, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_profile(torch, llama, mamba):
+    t0 = phase("13. where the serve time goes: torch.profiler, one prefill, "
+               "then 4 decode steps")
+    out = {}
+    for arch, served, name in (("llama3.2-3b", llama, "flash_fwd_kernel"),
+                               ("mamba2-130m", mamba, "ssd_scan_kernel")):
+        res, m, params, prompt = served
+        prof = profile_serve(torch, m, params, prompt, name, res)
+        pre, dec = prof["prefill"], prof["decode_step"]
+        for t in pre["top"]:
+            log(f"prefill {t['device_us']:11.1f} us x{t['launches']:5d}  "
+                f"{t['name']}")
+        for t in dec["top"]:
+            log(f"decode  {t['device_us']:11.1f} us x{t['launches']:7.1f}  "
+                f"{t['name']} (per step)")
+        log(f"{arch} prefill: device busy {pre['device_busy_us']:.1f} us over "
+            f"{pre['launches']} launches; {name} {pre['kernel_us']:.1f} us "
+            f"({pre['kernel_share']:.2%} of device time); busy share of the "
+            f"unprofiled {res['prefill_ms']:.2f} ms prefill "
+            f"{pre['busy_share_of_unprofiled']:.2%}")
+        log(f"{arch} decode: device busy {dec['device_busy_us']:.1f} us over "
+            f"{dec['launches']:.0f} launches per step; busy share of the "
+            f"unprofiled {res['decode_ms_per_step']:.2f} ms step "
+            f"{dec['busy_share_of_unprofiled']:.2%}")
+        out[arch] = prof
+    RECORD["serve_profile"] = out
+    done("serve profile", t0)
+
+
 def main():
     import torch
 
@@ -466,6 +1037,11 @@ def main():
     phase_fig12(torch)
     rows = phase_times(torch)
     phase_profile(torch, main_res["alg2"]["ms_per_round"])
+    k3_err = phase_k3(torch)
+    k4_err = phase_k4(torch)
+    llama, mamba = phase_serve(torch)
+    k3, k4 = phase_k34_times(torch)
+    phase_serve_profile(torch, llama, mamba)
     RECORD["seconds"] = time.perf_counter() - t_all
 
     main_row = rows[0]   # (10, 165) f32 sgd: the shape of the main path
@@ -478,6 +1054,20 @@ def main():
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "shape": [main_row["A"], main_row["P"]], "timings": rows}]}
+    for name, src, body, res, err, t in (
+            ("flash_attention", "flash_attention.cu", "flash_attention.py:33",
+             llama[0], k3_err, k3),
+            ("ssd_scan", "ssd_scan.cu", "ssd_scan.py:33", mamba[0], k4_err,
+             k4)):
+        kernels["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/{body}", "parity": "ok",
+            "launches": res["launches"][name],
+            "max_abs_err": err["float32"], "max_abs_err_bf16": err["bfloat16"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "shape": t["shape"]})
     RECORD["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

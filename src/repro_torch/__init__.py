@@ -7,10 +7,13 @@ package imports ``torch`` and numpy only — never ``jax`` and nothing of
 
 Subpackages: ``core`` (channel, OTA uplink, G(PO)MDP, fedpg loops), ``rl``
 (LandmarkNav, MLPPolicy, batched sampler), ``kernels`` (the hand-written CUDA
-kernel for the fused uplink, its plain PyTorch version and the nvcc build),
-``configs`` (the paper's settings), ``utils`` (device resolution, dict-of-
-tensor helpers) and ``interop`` (weights to and from the JAX package's numpy
-layout).
+kernels — K1 fused uplink, K3 flash attention, K4 SSD scan — their plain
+PyTorch versions, the nvcc build and ``ops`` dispatch), ``models`` (the dense
+and SSM families: params, layers, attention, SSM mixer, transformer, model),
+``train`` (the greedy serve step), ``configs`` (the paper's settings and the
+llama3.2-3b / mamba2-130m configs), ``utils`` (device resolution, dict-of-
+tensor helpers) and ``interop`` (weights and caches to and from the JAX
+package's numpy layout).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no device given and no GPU present they raise instead of falling back.

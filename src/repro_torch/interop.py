@@ -1,13 +1,24 @@
-"""Carry weights between the JAX package's layout and the port's tensors.
+"""Carry weights and caches between the JAX package's layout and the port's
+tensors.
 
-The JAX package keeps parameters as a dict of arrays; handed over as numpy
-(``{k: np.asarray(v)}``) they become the port's dict of tensors on a chosen
-device with every shape kept as it is — ``w1`` stays ``(obs_dim, hidden)``,
-not ``nn.Linear``'s transpose — so both packages flatten to the same vector.
+The JAX package keeps parameters as (nested) dicts of arrays; handed over
+as numpy (``jax.tree.map(np.asarray, params)``) they become the port's
+dicts of tensors on a chosen device with every shape kept as it is — ``w1``
+stays ``(obs_dim, hidden)`` and ``wq`` stays ``(d, h, dh)``, not
+``nn.Linear``'s transpose — so both packages compute on the same layout.
+
+* :func:`from_numpy` / :func:`to_numpy`: a flat dict, float32 (the policy
+  parameters of the RL path).
+* :func:`params_from_jax` / :func:`params_to_jax`: a nested dict, each leaf
+  keeping its dtype.  bfloat16 leaves arrive as ``ml_dtypes.bfloat16``
+  arrays and go through float32, which is exact both ways.
+* :func:`cache_from_jax` / :func:`cache_to_numpy`: the model caches
+  (``transformer.Cache`` with ``KVCache`` / ``SSMState`` fields), matched by
+  field name, so the JAX package's named tuples convert without importing it.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -26,3 +37,82 @@ def from_numpy(params: Mapping[str, np.ndarray],
 def to_numpy(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The inverse: dict of tensors (any device) -> dict of numpy arrays."""
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+def _is_bf16(a: np.ndarray) -> bool:
+    return a.dtype.name == "bfloat16"
+
+
+def array_to_tensor(a, device: torch.device) -> torch.Tensor:
+    """One numpy array (bf16 from ``ml_dtypes`` included) -> tensor of the
+    same shape and dtype."""
+    a = np.asarray(a)
+    if _is_bf16(a):
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def tensor_to_array(t: torch.Tensor) -> np.ndarray:
+    """One tensor -> numpy; bfloat16 becomes ``ml_dtypes.bfloat16``."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # the JAX package's numpy bf16 type
+
+        return t.float().numpy().astype(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
+    """Nested dict of numpy arrays -> the same nesting of tensors on
+    ``device`` (``None``: cuda), shapes and dtypes kept."""
+    dev = resolve_device(device)
+    if isinstance(tree, Mapping):
+        return {k: params_from_jax(v, dev) for k, v in tree.items()}
+    return array_to_tensor(tree, dev)
+
+
+def params_to_jax(tree: Any) -> Any:
+    """The inverse: nested dict of tensors -> nested dict of numpy arrays."""
+    if isinstance(tree, Mapping):
+        return {k: params_to_jax(v) for k, v in tree.items()}
+    return tensor_to_array(tree)
+
+
+def cache_from_jax(cache: Any, device: DeviceLike = None):
+    """The JAX package's ``Cache`` (leaves as numpy) -> the port's."""
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.ssm import SSMState
+    from repro_torch.models.transformer import Cache
+
+    dev = resolve_device(device)
+    kinds = {"kv": KVCache, "ssm": SSMState}
+    fields = {}
+    for name, value in cache._asdict().items():
+        if name == "pos":
+            fields[name] = int(np.asarray(value))
+        elif value is None:
+            fields[name] = None
+        elif name in kinds:
+            fields[name] = kinds[name](*(array_to_tensor(v, dev)
+                                         for v in value))
+        else:
+            raise NotImplementedError(f"cache field {name!r} is not ported")
+    return Cache(**fields)
+
+
+def cache_to_numpy(cache: Any) -> Dict[str, Any]:
+    """A cache (the port's or the JAX package's, leaves tensors or arrays)
+    -> ``{field: {subfield: numpy array} | None, "pos": int}``, so two
+    caches compare field by field."""
+    out: Dict[str, Any] = {}
+    for name, value in cache._asdict().items():
+        if name == "pos":
+            out[name] = int(np.asarray(value))
+        elif value is None:
+            out[name] = None
+        else:
+            out[name] = {k: (tensor_to_array(v) if isinstance(v, torch.Tensor)
+                             else np.asarray(v))
+                         for k, v in value._asdict().items()}
+    return out

@@ -1,0 +1,126 @@
+"""Wrapper of K3, the hand-written CUDA flash-attention forward.
+
+Counterpart of ``repro/kernels/flash_attention.py``: :func:`flash_attention`
+keeps its (B, H, S, Dh) layout and signature, minus ``block_q``,
+``block_k`` and ``interpret`` (the tiles are the kernel's own).
+:func:`attend_bshd` is the same computation in the model's (B, S, H, Dh)
+layout with explicit positions, which ``models/attention.attend_blockwise``
+calls; the kernel reads either layout through its strides, so neither
+copies.  The kernel is ``csrc/flash_attention.cu``; its plain PyTorch version
+is ``ref.flash_attention_plain``.
+
+Dispatch is by the device of ``q``: a CPU tensor takes the plain version; a
+CUDA tensor is checked (device, dtype, shape, strides) and launched on
+PyTorch's current stream, or the call raises.  There is no fallback.
+``LAUNCHES`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+LAUNCHES = 0
+
+MAX_HEAD_DIM = 128
+_DTYPES = (torch.float32, torch.bfloat16)
+_BOUND = False
+
+
+def _lib() -> ctypes.CDLL:
+    global _BOUND
+    lib = build.load("flash_attention")
+    if not _BOUND:
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.flash_attention_launch.argtypes = (
+            [i] + [vp] * 6 + [ll] * 12 + [i] * 8 + [ctypes.c_float, vp])
+        lib.flash_attention_launch.restype = i
+        _BOUND = True
+    return lib
+
+
+def _check_window(window: Optional[int]) -> None:
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+
+
+def _positions(pos: Optional[torch.Tensor], n: int,
+               device: torch.device) -> torch.Tensor:
+    if pos is None:
+        return torch.arange(n, dtype=torch.int32, device=device)
+    if pos.shape != (n,) or pos.device != device:
+        raise ValueError(f"positions must be ({n},) on {device}, got "
+                         f"{tuple(pos.shape)} on {pos.device}")
+    return pos.to(torch.int32).contiguous()
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            out: torch.Tensor, q_pos: Optional[torch.Tensor],
+            k_pos: Optional[torch.Tensor], causal: bool,
+            window: Optional[int]) -> None:
+    """Check the CUDA operands, given as (B, H, S, Dh) views, and launch K3
+    writing into the (B, H, Sq, Dh) view ``out``."""
+    global LAUNCHES
+    dev = q.device
+    b, h, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    for name, x in (("k", k), ("v", v)):
+        if x.device != dev or x.dtype != q.dtype:
+            raise ValueError(f"{name} must be {q.dtype} on {dev}, got "
+                             f"{x.dtype} on {x.device}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"K3 takes float32 or bfloat16, got {q.dtype}")
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != dh:
+        raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} do not "
+                         f"fit q {tuple(q.shape)}")
+    if not 0 < dh <= MAX_HEAD_DIM or hkv < 1 or h % hkv:
+        raise ValueError(f"need 0 < Dh <= {MAX_HEAD_DIM} and H % Hkv == 0, "
+                         f"got Dh={dh}, H={h}, Hkv={hkv}")
+    if any(x.stride(-1) != 1 for x in (q, k, v, out)):
+        raise ValueError("q, k, v and out need a unit head-dim stride")
+    _check_window(window)
+    qp = _positions(q_pos, sq, dev)
+    kp = _positions(k_pos, sk, dev)
+    strides = [s for x in (q, k, v, out) for s in x.stride()[:3]]
+    rc = _lib().flash_attention_launch(
+        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), qp.data_ptr(), kp.data_ptr(), *strides,
+        b, h, hkv, sq, sk, dh, int(causal), window or 0, 1.0 / dh ** 0.5,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: "
+                           f"cudaError {rc}")
+    LAUNCHES += 1
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q (B, H, Sq, Dh), k/v (B, Hkv, Sk, Dh) -> (B, H, Sq, Dh) in q's
+    dtype; positions ``arange``.  Any Sq and Sk (the tails are masked)."""
+    if not q.is_cuda:
+        _check_window(window)
+        return ref.flash_attention_plain(q, k, v, causal=causal, window=window)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch(q, k, v, out, None, None, causal, window)
+    return out
+
+
+def attend_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool = True,
+                window: Optional[int] = None) -> torch.Tensor:
+    """The model's layout: q (B, Sq, H, Dh), k/v (B, Sk, Hkv, Dh), positions
+    (Sq,) and (Sk,) -> (B, Sq, H, Dh) in q's dtype."""
+    if not q.is_cuda:
+        _check_window(window)
+        return ref.flash_attention_plain(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window, q_pos=q_pos,
+            k_pos=k_pos).transpose(1, 2)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            out.transpose(1, 2), q_pos, k_pos, causal, window)
+    return out

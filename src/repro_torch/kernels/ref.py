@@ -1,10 +1,22 @@
-"""Plain PyTorch versions of the fused over-the-air uplink kernel (K1).
+"""Plain PyTorch versions of the port's kernels (K1, K3, K4).
 
-Counterpart of ``repro/kernels/ref.py`` (``ota_fused_ref`` and its sgd/adam
-forms) plus the kernel's counter PRNG, ``counter_noise``, which the JAX
-package keeps inside ``repro/kernels/ota_fused.py`` (``_mix``,
-``_counter_noise``).  These functions are the definitions the CUDA kernel in
-``csrc/ota_fused.cu`` is held to, op for op:
+Counterpart of ``repro/kernels/ref.py``.  Each kernel's wrapper takes its
+plain version for CPU tensors, and ``chip_smoke.py`` holds the kernel to it
+on the card:
+
+* K1, the fused over-the-air uplink: ``ota_fused_ref`` and its sgd/adam
+  forms, plus the kernel's counter PRNG, ``counter_noise``, which the JAX
+  package keeps inside ``repro/kernels/ota_fused.py`` (``_mix``,
+  ``_counter_noise``);
+* K3, flash attention: ``flash_attention_plain`` (blockwise online softmax,
+  the kernel's arithmetic) beside ``flash_attention_ref`` (the materialised
+  softmax oracle of the JAX package);
+* K4, the SSD scan: the chunked ``ssd_ref`` (``repro/models/ssm.py::ssd_ref``,
+  kept here so ``models/ssm.py`` and this module do not import each other)
+  and the sequential ``ssd_sequential_ref``.
+
+The K1 functions are the definitions the CUDA kernel in ``csrc/ota_fused.cu``
+is held to, op for op:
 
 * the gain matvec is a strict sequential fold over agents from zero,
   ``v = (((0 + h0*g0) + h1*g1) + ...)``, each product and sum rounded on its
@@ -133,3 +145,171 @@ def ota_fused_adam_ref(grads, gains, params, mu, nu, noise=None, *, alpha,
     nu_n = b2 * nu.float() + (1.0 - b2) * torch.square(u)
     delta = -(a * (mu_n / c1) / (torch.sqrt(nu_n / c2) + eps))
     return params.float() + delta, mu_n, nu_n
+
+
+# ---------------------------------------------------------------------------
+# K3: flash attention, layout (B, H, S, Dh); GQA reads kv head h // (H/Hkv)
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def visible(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+             window: Optional[int]) -> torch.Tensor:
+    """(Sq, Sk) bool: key visible from query."""
+    ok = torch.ones(q_pos.shape[0], k_pos.shape[0], dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        ok &= k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        ok &= k_pos[None, :] > q_pos[:, None] - window
+    return ok
+
+
+def _positions(pos: Optional[torch.Tensor], n: int, device) -> torch.Tensor:
+    if pos is None:
+        return torch.arange(n, dtype=torch.int32, device=device)
+    return pos
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """Materialised-softmax oracle (``repro/kernels/ref.py:16``): f32 scores
+    of ``q / sqrt(dh)``, NEG_INF where masked, softmax, f32 PV."""
+    b, h, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    kf = torch.repeat_interleave(k, g, dim=1).float()
+    vf = torch.repeat_interleave(v, g, dim=1).float()
+    qf = q.float() / torch.sqrt(torch.tensor(float(dh)))
+    scores = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+    ok = visible(torch.arange(sq, device=q.device),
+                  torch.arange(sk, device=q.device), causal, window)
+    scores = torch.where(ok, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: Optional[int] = None,
+                          q_pos: Optional[torch.Tensor] = None,
+                          k_pos: Optional[torch.Tensor] = None,
+                          block_k: int = 128) -> torch.Tensor:
+    """K3's plain version: the flash forward's arithmetic, KV block by KV
+    block.  Scores ``(q * scale) . k`` in f32 with ``scale = 1/sqrt(dh)``
+    rounded once to f32; NEG_INF where masked; online softmax with f32
+    ``(m, l, acc)``; output ``acc / max(l, 1e-30)`` in q's dtype.  GQA views
+    q as (B, Hkv, g, Sq, Dh), so the KV heads are never repeated.
+    ``q_pos``/``k_pos`` default to ``arange``."""
+    b, h, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    dev = q.device
+    q_pos = _positions(q_pos, sq, dev)
+    k_pos = _positions(k_pos, sk, dev)
+    qf = q.float().reshape(b, hkv, g, sq, dh) * (1.0 / dh ** 0.5)
+    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(b, hkv, g, sq, dh, dtype=torch.float32, device=dev)
+    for k0 in range(0, sk, block_k):
+        kb = k[:, :, k0:k0 + block_k].float()
+        vb = v[:, :, k0:k0 + block_k].float()
+        s = torch.einsum("bkgqd,bkcd->bkgqc", qf, kb)
+        ok = visible(q_pos, k_pos[k0:k0 + block_k], causal, window)
+        s = torch.where(ok, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgqc,bkcd->bkgqd", p, vb)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, h, sq, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# K4: the Mamba2 SSD scan, x (B, S, H, P), dt (B, S, H), A (H,),
+# B/C (B, S, G, N); f32 math
+# ---------------------------------------------------------------------------
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            B: torch.Tensor, C: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Chunked SSD scan, f32 math; returns y (B, S, H, P) in float32.
+
+    Sequences shorter than / not divisible by ``chunk`` are zero-padded on
+    the right: dt=0 padding steps have decay exp(0)=1 and zero input, so
+    they are exact no-ops on both the outputs and the carried state.
+    """
+    b, s_orig, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    hg = h // g
+    chunk = min(chunk, s_orig)
+    pad = -s_orig % chunk
+    if pad:
+        def zp(a):
+            return torch.cat([a, a.new_zeros((a.shape[0], pad) + a.shape[2:])],
+                             dim=1)
+        x, dt, B, C = zp(x), zp(dt), zp(B), zp(C)
+    s = s_orig + pad
+    nc = s // chunk
+
+    x, dt, B, C = x.float(), dt.float(), B.float(), C.float()
+    da = dt * A.float()[None, None, :]                          # (b,s,h) <= 0
+    dax = x * dt[..., None]                                     # dt-weighted input
+
+    xc = dax.reshape(b, nc, chunk, g, hg, p)
+    dac = da.reshape(b, nc, chunk, h)
+    Bc = B.reshape(b, nc, chunk, g, n)
+    Cc = C.reshape(b, nc, chunk, g, n)
+
+    cum = torch.cumsum(dac, dim=2)                              # (b,nc,Q,h)
+    cum_g = cum.reshape(b, nc, chunk, g, hg)
+
+    # intra-chunk (quadratic, attention-like)
+    scores = torch.einsum("bcqgn,bckgn->bcgqk", Cc, Bc)         # (b,nc,g,Q,Q)
+    # seg[q, k] = cum[q] - cum[k] = sum_{tau in (k, q]} da_tau   (<= 0)
+    seg = cum_g[:, :, :, None] - cum_g[:, :, None, :]            # (b,nc,Q,K,g,hg)
+    mask = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                 device=x.device))
+    decay = torch.where(mask[None, None, :, :, None, None], torch.exp(seg),
+                        0.0)
+    y_intra = torch.einsum("bcgqk,bcqkgh,bckghp->bcqghp", scores, decay, xc)
+
+    # chunk states
+    last = cum[:, :, -1:, :]                                    # (b,nc,1,h)
+    decay_to_end = torch.exp(last - cum).reshape(b, nc, chunk, g, hg)
+    states = torch.einsum("bcqgn,bcqgh,bcqghp->bcghpn", Bc, decay_to_end, xc)
+
+    # inter-chunk carry
+    chunk_decay = torch.exp(last[:, :, 0, :]).reshape(b, nc, g, hg)
+    s_prev = torch.zeros(b, g, hg, p, n, dtype=torch.float32, device=x.device)
+    s_prevs = []
+    for c in range(nc):
+        s_prevs.append(s_prev)
+        s_prev = s_prev * chunk_decay[:, c, ..., None, None] + states[:, c]
+    s_prevs = torch.stack(s_prevs, dim=1)                       # (b,nc,g,hg,p,n)
+
+    y_inter = torch.einsum("bcqgn,bcghpn,bcqgh->bcqghp", Cc, s_prevs,
+                           torch.exp(cum_g))
+    y = (y_intra + y_inter).reshape(b, s, h, p)
+    return y[:, :s_orig]
+
+
+def ssd_sequential_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       B: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """Fully sequential SSD recurrence — the definition (slow, exact)."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    hg = h // g
+    x, dt, B, C, A = x.float(), dt.float(), B.float(), C.float(), A.float()
+    state = torch.zeros(b, g, hg, p, n, dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dt[:, t] * A[None, :]).reshape(b, g, hg)
+        dax = (x[:, t] * dt[:, t, :, None]).reshape(b, g, hg, p)
+        state = (state * decay[..., None, None]
+                 + torch.einsum("bgn,bghp->bghpn", B[:, t], dax))
+        ys.append(torch.einsum("bgn,bghpn->bghp", C[:, t], state)
+                  .reshape(b, h, p))
+    return torch.stack(ys, dim=1)

@@ -1,0 +1,194 @@
+"""Grouped-query attention: full, sliding-window and cached decode.
+
+Counterpart of ``repro/models/attention.py``.  Two numerics paths:
+
+* ``attend`` — materialised scores (softmax in f32, probabilities cast to
+  q's dtype before the PV product), in its expanded and its grouped form;
+* ``attend_blockwise`` — the flash forward used by prefill.  Where the JAX
+  function takes its flash branch (``block_k = min(block_k, Sk)`` divides
+  ``Sk``) it runs K3 (``kernels/flash_attention.py``): the CUDA kernel on a
+  CUDA tensor, its plain PyTorch version on a CPU tensor.  Elsewhere it takes
+  the same materialised fallback as the JAX function.
+
+All shapes: q (B, Sq, H, Dh); k/v (B, Sk, Hkv, Dh); GQA via head grouping.
+``decode_self_attention`` writes the new token's K and V into the cache's
+tensors in place (one slot per step, not a copy of the cache) and returns
+the same tensors; its ``pos`` is a Python int, so the ring-buffer slot
+arithmetic stays on the host.
+``cross_attention`` and ``project_memory`` come with the vlm and encdec
+families (``ROADMAP.md``).
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ref
+from repro_torch.models.layers import apply_rope, rmsnorm, rmsnorm_plan
+from repro_torch.models.param import decl
+
+
+def attn_plan(cfg: ModelConfig) -> Dict:
+    d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "norm": rmsnorm_plan(d),
+        "wq": decl((d, h, dh), ("d_model", "heads", None)),
+        "wk": decl((d, hkv, dh), ("d_model", "kv_heads", None)),
+        "wv": decl((d, hkv, dh), ("d_model", "kv_heads", None)),
+        "wo": decl((h, dh, d), ("heads", None, "d_model"), fan_in_axes=(0, 1)),
+    }
+
+
+def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+               window: Optional[int],
+               k_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(Sq, Sk) additive bias: 0 where visible, NEG_INF (-1e30) elsewhere."""
+    ok = ref.visible(q_pos, k_pos, causal, window)
+    if k_valid is not None:
+        ok &= k_valid[None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
+    return torch.where(ok, zero, ref.NEG_INF)
+
+
+def _scale(dh: int) -> torch.Tensor:
+    """``1 / sqrt(float32(dh))`` in float32, as a 0-dim CPU tensor."""
+    return 1.0 / torch.sqrt(torch.tensor(float(dh), dtype=torch.float32))
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool = True,
+           window: Optional[int] = None,
+           k_valid: Optional[torch.Tensor] = None,
+           expand_kv: bool = False) -> torch.Tensor:
+    """Reference GQA attention with materialised (Sq, Sk) scores.
+
+    ``expand_kv=True`` repeats the KV heads up to the Q head count before
+    the score product; the grouped form (decode) views q as (Hkv, g)."""
+    b, sq, h, dh = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    bias = _mask_bias(q_pos, k_pos, causal=causal, window=window,
+                      k_valid=k_valid)
+    scale = _scale(dh)
+    if expand_kv:
+        if g > 1:
+            k = torch.repeat_interleave(k, g, dim=2)
+            v = torch.repeat_interleave(v, g, dim=2)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+        probs = torch.softmax(scores + bias, dim=-1).to(q.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    qr = q.reshape(b, sq, hkv, g, dh)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qr, k).float() * scale
+    probs = torch.softmax(scores + bias, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    return out.reshape(b, sq, h, dh)
+
+
+def attend_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     q_pos: torch.Tensor, k_pos: torch.Tensor,
+                     causal: bool = True, window: Optional[int] = None,
+                     block_k: int = 1024) -> torch.Tensor:
+    """Flash-style forward (no gradient): K3 where the JAX function takes
+    its flash branch, else the materialised fallback.  Output in q's
+    dtype."""
+    sk = k.shape[1]
+    block_k = min(block_k, sk)
+    if sk % block_k != 0:
+        # short/odd sequences: the materialised path, as the JAX function
+        return attend(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal,
+                      window=window, expand_kv=True)
+    return _fa.attend_bshd(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal,
+                           window=window)
+
+
+class KVCache(NamedTuple):
+    """Fixed-capacity cache; ring-buffered when capacity < full context."""
+
+    k: torch.Tensor          # (B, cap, Hkv, Dh) — rope already applied
+    v: torch.Tensor          # (B, cap, Hkv, Dh)
+
+    @property
+    def capacity(self) -> int:
+        return self.k.shape[-3]
+
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype,
+               device=None) -> KVCache:
+    shape = (batch, capacity, cfg.n_kv_heads, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _project_qkv(params, x: torch.Tensor):
+    """x (B, S, D) -> q (B, S, H, Dh), k and v (B, S, Hkv, Dh)."""
+    def proj(w):
+        d, heads, dh = w.shape
+        return (x @ w.to(x.dtype).reshape(d, heads * dh)).unflatten(
+            -1, (heads, dh))
+
+    return proj(params["wq"]), proj(params["wk"]), proj(params["wv"])
+
+
+def _out_proj(params, o: torch.Tensor) -> torch.Tensor:
+    h, dh, d = params["wo"].shape
+    return o.flatten(-2) @ params["wo"].to(o.dtype).reshape(h * dh, d)
+
+
+def self_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
+                   causal: bool = True, window: Optional[int] = None,
+                   blockwise: bool = False,
+                   positions: Optional[torch.Tensor] = None,
+                   return_kv: bool = False):
+    """Full-sequence self attention (prefill / encoder)."""
+    s = x.shape[1]
+    h = rmsnorm(params["norm"], x, cfg.norm_eps)
+    q, k, v = _project_qkv(params, h)
+    pos = (torch.arange(s, dtype=torch.int32, device=x.device)
+           if positions is None else positions)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    if blockwise:
+        o = attend_blockwise(q, k, v, q_pos=pos, k_pos=pos, causal=causal,
+                             window=window)
+    else:
+        o = attend(q, k, v, q_pos=pos, k_pos=pos, causal=causal,
+                   window=window, expand_kv=True)
+    out = _out_proj(params, o)
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def decode_self_attention(params, x: torch.Tensor, cache: KVCache, pos: int,
+                          cfg: ModelConfig, *,
+                          window: Optional[int] = None):
+    """One decode step against a (possibly ring-buffered) KV cache.
+
+    Capacity == full context  -> plain causal cache (slot = pos).
+    Capacity W < full context -> ring buffer (slot = pos mod W), giving
+    sliding-window attention with O(W) memory.  The new K and V are written
+    into ``cache``'s tensors in place.
+    """
+    dev = x.device
+    h = rmsnorm(params["norm"], x, cfg.norm_eps)
+    q, k, v = _project_qkv(params, h)
+    p = torch.full((1,), pos, dtype=torch.int32, device=dev)
+    q = apply_rope(q, p, cfg.rope_theta)
+    k = apply_rope(k, p, cfg.rope_theta)
+
+    cap = cache.capacity
+    slot = pos % cap
+    cache.k[:, slot:slot + 1] = k
+    cache.v[:, slot:slot + 1] = v
+
+    # Absolute position stored in each slot s: the largest p <= pos with
+    # p mod cap == s  ->  p = pos - ((pos - s) mod cap).
+    slots = torch.arange(cap, dtype=torch.int64, device=dev)
+    k_pos = pos - torch.remainder(pos - slots, cap)
+    eff_window = window if window is not None and window < cap else None
+    o = attend(q, cache.k, cache.v, q_pos=p, k_pos=k_pos, causal=True,
+               window=eff_window, k_valid=k_pos >= 0)
+    return _out_proj(params, o), cache

@@ -1,0 +1,82 @@
+"""Shared neural building blocks (plan builders + apply functions).
+
+Counterpart of ``repro/models/layers.py``: RMSNorm (float32 inside, cast
+back), token embedding and (tied) unembedding, rotary embeddings on halves
+(not interleaved), and the SwiGLU MLP with silu in float32.  Weights keep the
+JAX package's layouts (``gate`` is ``(d_model, d_ff)``), so a product is
+``x @ w``.  The LM losses come with the trainer.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.param import decl
+
+
+def rmsnorm_plan(d: int) -> Dict:
+    return {"scale": decl((d,), ("d_model",), init="ones", dtype="float32")}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"]).to(x.dtype)
+
+
+def embed_plan(cfg: ModelConfig) -> Dict:
+    p = {"tok": decl((cfg.vocab, cfg.d_model), ("vocab", "d_model"),
+                     scale=0.02)}
+    if not cfg.tie_embeddings:
+        p["head"] = decl((cfg.d_model, cfg.vocab), ("d_model", "vocab"))
+    return p
+
+
+def embed(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    return params["tok"][tokens].to(dtype)
+
+
+def unembed(params, x: torch.Tensor, tie: bool) -> torch.Tensor:
+    w = params["tok"].T if tie else params["head"]
+    return x @ w.to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    half = head_dim // 2
+    expo = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), expo)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)        # (half,)
+    angles = positions[..., :, None].float() * freqs              # (..., seq, half)
+    cos = torch.cos(angles)[..., :, None, :]                      # (..., seq, 1, half)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def mlp_plan(d_model: int, d_ff: int) -> Dict:
+    return {
+        "norm": rmsnorm_plan(d_model),
+        "gate": decl((d_model, d_ff), ("d_model", "d_ff")),
+        "up": decl((d_model, d_ff), ("d_model", "d_ff")),
+        "down": decl((d_ff, d_model), ("d_ff", "d_model")),
+    }
+
+
+def mlp(params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    h = rmsnorm(params["norm"], x, eps)
+    g = h @ params["gate"].to(x.dtype)
+    u = h @ params["up"].to(x.dtype)
+    act = F.silu(g.float()).to(x.dtype) * u
+    return act @ params["down"].to(x.dtype)

@@ -1,0 +1,194 @@
+"""Family assemblies: the dense and SSM families.
+
+Counterpart of ``repro/models/transformer.py`` for the families ported so
+far.  Each provides plain functions over a parameter tree built from one
+plan (``plan(cfg)``):
+
+    forward(params, cfg, tokens)          -> (logits, aux)
+    prefill(params, cfg, tokens)          -> (last-position logits, cache)
+    decode(params, cfg, cache, token)     -> (logits, cache')
+
+The JAX package scans over stacked layer parameters (leading 'layers' axis);
+here a Python loop indexes that axis.  ``Cache.pos`` is a Python int: the
+decode loop's slot arithmetic then needs no device scalar (and no host
+sync).  Decode writes the KV cache in place (``attention.py``) and returns
+new SSM states.  Every other family (moe, hybrid, vlm, encdec) raises
+``NotImplementedError``; ``ROADMAP.md`` lists them.
+
+SSM prefill keeps the JAX package's behaviour: it runs ``forward`` and
+returns the last-position logits with a zeroed capacity-1 cache at position
+0, not the state carried through the prompt.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (
+    embed, embed_plan, mlp, mlp_plan, rmsnorm, rmsnorm_plan, unembed,
+)
+from repro_torch.models.param import stack_plan
+from repro_torch.utils.device import resolve_device
+
+PORTED_FAMILIES = ("dense", "ssm")
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _unported(cfg: ModelConfig) -> NotImplementedError:
+    return NotImplementedError(
+        f"family {cfg.family!r} ({cfg.arch_id}) is not ported yet; the port "
+        f"runs {PORTED_FAMILIES} (ROADMAP.md lists the rest)")
+
+
+def cross_len(cfg: ModelConfig, seq_len: int) -> int:
+    """Length of the stub-frontend memory sequence."""
+    if cfg.family == "vlm":
+        return cfg.n_cross_tokens
+    if cfg.family == "encdec":
+        return max(seq_len // 4, 8)   # 4x-downsampled audio frames
+    return 0
+
+
+def dense_layer_plan(cfg: ModelConfig) -> Dict:
+    return {"attn": attn.attn_plan(cfg), "mlp": mlp_plan(cfg.d_model, cfg.d_ff)}
+
+
+def plan(cfg: ModelConfig) -> Dict:
+    p: Dict[str, Any] = {
+        "embed": embed_plan(cfg),
+        "final_norm": rmsnorm_plan(cfg.d_model),
+    }
+    if cfg.family == "dense":
+        p["layers"] = stack_plan(dense_layer_plan(cfg), cfg.n_layers)
+    elif cfg.family == "ssm":
+        p["layers"] = stack_plan(ssm_mod.ssm_plan(cfg), cfg.n_layers)
+    else:
+        raise _unported(cfg)
+    return p
+
+
+def layer(stacked, i: int):
+    """Layer ``i``'s parameters: index the leading axis of every leaf."""
+    if isinstance(stacked, torch.Tensor):
+        return stacked[i]
+    return {k: layer(v, i) for k, v in stacked.items()}
+
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
+            memory: Optional[torch.Tensor] = None, *, blockwise: bool = False,
+            return_hidden: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (logits | final-norm hidden, aux)."""
+    if cfg.family not in PORTED_FAMILIES:
+        raise _unported(cfg)
+    x = embed(params["embed"], tokens, _dtype(cfg))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        lp = layer(params["layers"], i)
+        if cfg.family == "dense":
+            x = x + attn.self_attention(lp["attn"], x, cfg, window=cfg.window,
+                                        blockwise=blockwise)
+            x = x + mlp(lp["mlp"], x, cfg.norm_eps)
+        else:
+            x = x + ssm_mod.ssm_mixer(lp, x, cfg)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if return_hidden:
+        return x, aux
+    return unembed(params["embed"], x, cfg.tie_embeddings), aux
+
+
+class Cache(NamedTuple):
+    """Decode-time state for every family (unused fields are None)."""
+
+    kv: Any = None           # dense/moe: KVCache with leading (L,) axes
+    ssm: Any = None          # ssm: SSMState with leading (L,)
+    groups_kv: Any = None    # hybrid / vlm (not ported)
+    groups_ssm: Any = None   # hybrid (not ported)
+    tail_ssm: Any = None     # hybrid (not ported)
+    cross_self_kv: Any = None  # vlm (not ported)
+    cross_kv: Any = None     # vlm/encdec (not ported)
+    pos: int = 0             # next absolute position (a Python int)
+
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int, mem_len: int = 0,
+               dtype=None, device=None) -> Cache:
+    """Zero-initialised cache; ``capacity`` already reflects serve_window
+    clamping (``model.serve_capacity``).  ``device`` None means cuda."""
+    dt = dtype or _dtype(cfg)
+    device = resolve_device(device)
+    if cfg.family == "dense":
+        c = attn.init_cache(cfg, batch, capacity, dt, device)
+        return Cache(kv=attn.KVCache(
+            *(x.new_zeros((cfg.n_layers,) + x.shape) for x in c)), pos=0)
+    if cfg.family == "ssm":
+        s = ssm_mod.init_state(cfg, batch, dt, device)
+        return Cache(ssm=ssm_mod.SSMState(
+            *(x.new_zeros((cfg.n_layers,) + x.shape) for x in s)), pos=0)
+    raise _unported(cfg)
+
+
+def decode(params, cfg: ModelConfig, cache: Cache, token: torch.Tensor, *,
+           window: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+    """serve_step: one new token per sequence. Returns (logits (B,1,V),
+    cache')."""
+    x = embed(params["embed"], token, _dtype(cfg))
+    pos = int(cache.pos)
+    if cfg.family == "dense":
+        for i in range(cfg.n_layers):
+            lp = layer(params["layers"], i)
+            c = attn.KVCache(cache.kv.k[i], cache.kv.v[i])
+            dx, _ = attn.decode_self_attention(lp["attn"], x, c, pos, cfg,
+                                               window=window)
+            x = x + dx
+            x = x + mlp(lp["mlp"], x, cfg.norm_eps)
+        new = cache
+    elif cfg.family == "ssm":
+        states = []
+        for i in range(cfg.n_layers):
+            lp = layer(params["layers"], i)
+            s = ssm_mod.SSMState(*(t[i] for t in cache.ssm))
+            dx, s2 = ssm_mod.ssm_step(lp, x, s, cfg)
+            x = x + dx
+            states.append(s2)
+        new = cache._replace(ssm=ssm_mod.SSMState(
+            *(torch.stack(t) for t in zip(*states))))
+    else:
+        raise _unported(cfg)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = unembed(params["embed"], x, cfg.tie_embeddings)
+    return logits, new._replace(pos=pos + 1)
+
+
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
+            memory: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Cache]:
+    """Process the prompt, return (last-position logits, filled cache)."""
+    b, s = tokens.shape
+    if cfg.family == "ssm":
+        # the JAX package's SSM prefill: forward, then a zeroed capacity-1
+        # cache (the prompt's state is not carried)
+        logits, _ = forward(params, cfg, tokens, memory, blockwise=False)
+        return logits[:, -1:, :], init_cache(cfg, b, 1, 0,
+                                             device=tokens.device)
+    if cfg.family != "dense":
+        raise _unported(cfg)
+    x = embed(params["embed"], tokens, _dtype(cfg))
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = layer(params["layers"], i)
+        out, (k, v) = attn.self_attention(lp["attn"], x, cfg,
+                                          window=cfg.window, blockwise=True,
+                                          return_kv=True)
+        x = x + out
+        x = x + mlp(lp["mlp"], x, cfg.norm_eps)
+        ks.append(k)
+        vs.append(v)
+    cache = Cache(kv=attn.KVCache(k=torch.stack(ks), v=torch.stack(vs)),
+                  pos=s)
+    x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
+    return unembed(params["embed"], x, cfg.tie_embeddings), cache

@@ -1,0 +1,1 @@
+"""Serving (the trainer comes with a later slice)."""

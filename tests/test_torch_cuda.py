@@ -1,6 +1,13 @@
-"""K1 on the card against its plain version, on the same inputs: bitwise for
-agg given the kernel's own noise, rtol 1e-6 for sgd and adam.  Needs a CUDA
-device and skips without one.  This file imports no JAX, so it also runs on a
+"""The port's kernels on the card against their plain versions, on the same
+numpy-made inputs.  K1: bitwise for agg given the kernel's own noise, rtol
+1e-6 for sgd and adam.  K3 (flash attention): atol = rtol = 3e-6 in f32 and
+2e-2 in bf16 (the JAX sweep's tolerances, ``tests/test_kernels.py:43``), and
+in bf16 also one bf16 ulp of the value (rtol 2**-7, atol 1e-5): both sides
+compute in f32 from the same inputs, so only the output's rounding may part.
+K4 (SSD scan): 5e-5 (``tests/test_kernels.py:84``) for f32 and bf16 inputs
+alike, as its output is f32 either way; 1e-4 against the sequential
+recurrence.  Needs a CUDA device and skips
+without one.  This file imports no JAX, so it also runs on a
 GPU machine without the JAX package:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -11,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ota_fused, ref
+from repro_torch.kernels import flash_attention, ota_fused, ref, ssd_scan
 
 
 def _inputs(seed, n_agents=7, n_params=1000):
@@ -78,3 +85,178 @@ def test_launch_count_and_validation(cuda):
     with pytest.raises(ValueError):
         ota_fused.fused_aggregate(g, h, threads=100)
     assert ota_fused.LAUNCHES == before + 1
+
+
+# ---------------------------------------------------------------------------
+# K3: flash attention
+# ---------------------------------------------------------------------------
+
+K3_CASES = [  # (b, h, hkv, sq, sk, dh, causal, window)
+    (1, 2, 2, 128, 128, 64, True, None),
+    (2, 4, 2, 256, 256, 64, True, None),       # GQA g=2
+    (1, 6, 2, 200, 200, 112, True, None),      # g=3, zamba2's head dim, ragged
+    (1, 8, 2, 256, 256, 128, True, None),      # g=4
+    (1, 2, 1, 1000, 1000, 64, True, 128),      # sliding window, ragged
+    (2, 2, 2, 384, 384, 64, False, None),      # bidirectional
+    (2, 4, 4, 48, 48, 128, True, None),        # a short prompt
+    (1, 3, 1, 128, 256, 112, True, None),      # Sq != Sk
+    (1, 24, 8, 2048, 2048, 128, True, None),   # llama3.2-3b's prefill heads
+]
+
+
+def _qkv(seed, b, h, hkv, sq, sk, dh, dtype, dev):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, sq, dh)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, sk, dh)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, sk, dh)).astype(np.float32)
+    return (torch.from_numpy(x).to(dev, dtype) for x in (q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", K3_CASES, ids=str)
+def test_flash_attention_matches_plain_version(cuda, case, dtype):
+    b, h, hkv, sq, sk, dh, causal, window = case
+    q, k, v = _qkv(sq + dh, b, h, hkv, sq, sk, dh, dtype, cuda)
+    got = flash_attention.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+    want = ref.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    tol = 3e-6 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-5,
+                                   rtol=2 ** -7)
+    if dtype == torch.float32 and sq == sk and sq <= 1000:
+        oracle = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(got, oracle, atol=tol, rtol=tol)
+    # the model's (B, S, H, Dh) layout, read through strides
+    pos_q = torch.arange(sq, device=cuda)
+    pos_k = torch.arange(sk, device=cuda)
+    got_bshd = flash_attention.attend_bshd(
+        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+        v.transpose(1, 2).contiguous(), q_pos=pos_q, k_pos=pos_k,
+        causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got_bshd.transpose(1, 2), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift,stride,window", [(100, 1, None), (0, 2, 1)])
+def test_flash_attention_rows_that_see_no_key(cuda, shift, stride, window):
+    """Positions where some queries see no key (keys after the first 100
+    queries; keys on even positions with a window of 1, so odd queries are
+    blind): such a row is the mean of V, as in the plain version, also
+    where the kernel skips every key tile of the block."""
+    q, k, v = (x.transpose(1, 2).contiguous() for x in
+               _qkv(7, 2, 4, 2, 200, 200, 64, torch.float32, cuda))
+    q_pos = torch.arange(200, device=cuda)
+    k_pos = torch.arange(200, device=cuda) * stride + shift
+    got = flash_attention.attend_bshd(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                                      window=window)
+    want = ref.flash_attention_plain(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        window=window, q_pos=q_pos, k_pos=k_pos).transpose(1, 2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=3e-6, rtol=3e-6)
+    blind = ~ref.visible(q_pos, k_pos, True, window).any(dim=1)
+    assert blind.any()
+    mean = v.float().mean(dim=1).repeat_interleave(2, dim=1)
+    torch.testing.assert_close(got[:, blind], mean[:, None].expand_as(
+        got[:, blind]), atol=3e-6, rtol=3e-6)
+
+
+@pytest.mark.cuda
+def test_flash_attention_launch_count_and_validation(cuda):
+    q, k, v = _qkv(0, 1, 4, 2, 64, 64, 64, torch.float32, cuda)
+    before = flash_attention.LAUNCHES
+    flash_attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == before + 1
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(q, k.double(), v)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(q, k[:, :1].repeat(1, 3, 1, 1),
+                                        v[:, :1].repeat(1, 3, 1, 1))
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(q, k, v, window=0)
+    assert flash_attention.LAUNCHES == before + 1
+
+
+# ---------------------------------------------------------------------------
+# K4: SSD scan
+# ---------------------------------------------------------------------------
+
+K4_CASES = [  # (b, s, h, p, g, n, chunk)
+    (1, 128, 2, 64, 1, 64, 64),
+    (2, 256, 4, 64, 1, 128, 128),      # mamba2-130m-like
+    (1, 256, 4, 32, 2, 16, 64),        # grouped B/C
+    (2, 128, 8, 64, 2, 64, 32),
+    (1, 200, 2, 32, 1, 16, 64),        # ragged: zero-padded tail chunk
+    (2, 48, 4, 32, 1, 16, 128),        # S < chunk: chunk = S
+    (4, 2048, 24, 64, 1, 128, 128),    # mamba2-130m's prefill
+]
+
+
+def _ssd_inputs(seed, b, s, h, p, g, n, dtype, dev):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = (np.log1p(np.exp(rng.standard_normal((b, s, h)))) * 0.1).astype(
+        np.float32)
+    A = -np.exp(rng.uniform(0.0, 1.0, h)).astype(np.float32)
+    B = (rng.standard_normal((b, s, g, n)) * 0.5).astype(np.float32)
+    C = (rng.standard_normal((b, s, g, n)) * 0.5).astype(np.float32)
+    to = lambda a, dt_=dtype: torch.from_numpy(a).to(dev, dt_)
+    return to(x), to(dt), to(A, torch.float32), to(B), to(C)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", K4_CASES, ids=str)
+def test_ssd_scan_matches_plain_version(cuda, case, dtype):
+    b, s, h, p, g, n, chunk = case
+    x, dt, A, B, C = _ssd_inputs(s + h * p, b, s, h, p, g, n, dtype, cuda)
+    got = ssd_scan.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    want = ref.ssd_ref(x, dt, A, B, C, chunk)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=5e-5, rtol=5e-5)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_matches_sequential_recurrence(cuda):
+    x, dt, A, B, C = _ssd_inputs(11, 1, 256, 2, 32, 1, 32, torch.float32, cuda)
+    got = ssd_scan.ssd_scan(x, dt, A, B, C, chunk=64)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.ssd_sequential_ref(x, dt, A, B, C),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_launch_count_and_validation(cuda):
+    x, dt, A, B, C = _ssd_inputs(1, 1, 64, 2, 32, 1, 16, torch.float32, cuda)
+    before = ssd_scan.LAUNCHES
+    ssd_scan.ssd_scan(x, dt, A, B, C, chunk=32)
+    torch.cuda.synchronize()
+    assert ssd_scan.LAUNCHES == before + 1
+    with pytest.raises(ValueError):
+        ssd_scan.ssd_scan(x, dt, A, B.bfloat16(), C, chunk=32)
+    with pytest.raises(ValueError):   # a chunk above the kernel's 128
+        ssd_scan.ssd_scan(*_ssd_inputs(2, 1, 256, 2, 32, 1, 16,
+                                       torch.float32, cuda), chunk=256)
+    with pytest.raises(ValueError):
+        ssd_scan.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2),
+                          dt, A, B, C, chunk=32)
+    assert ssd_scan.LAUNCHES == before + 1
+
+
+@pytest.mark.cuda
+def test_model_init_takes_a_generator_of_its_device(cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as model_lib
+
+    m = model_lib.build(get_smoke_config("mamba2-130m"))
+    with pytest.raises(ValueError, match="generator"):
+        m.init(torch.Generator().manual_seed(0))
+    params = m.init(torch.Generator(device=cuda).manual_seed(0))
+    assert params["layers"]["w_x"].is_cuda

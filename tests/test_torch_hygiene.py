@@ -42,7 +42,10 @@ def test_forbidden_matches_repro_not_repro_torch():
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys; import repro_torch.core.fedpg, repro_torch.kernels."
-            "ota_fused, repro_torch.configs.ota_pg_particle; "
+            "ota_fused, repro_torch.configs.ota_pg_particle, "
+            "repro_torch.kernels.ops, repro_torch.models.model, "
+            "repro_torch.train.server, repro_torch.interop, "
+            "repro_torch.configs.llama3_2_3b, repro_torch.configs.mamba2_130m; "
             "assert 'jax' not in sys.modules, 'jax'; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'repro'")
@@ -72,6 +75,16 @@ def test_entry_points_raise_without_cuda():
         fedpg.monte_carlo(LandmarkNav(), MLPPolicy(), cfg, 0, 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         interop.from_numpy({})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        interop.params_from_jax({})
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as model_lib
+
+    m = model_lib.build(get_smoke_config("llama3.2-3b"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        m.init_cache(1, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        m.init(torch.Generator())
 
 
 def test_cuda_backend_on_cpu_tensor_raises():
