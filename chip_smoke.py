@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one NVIDIA GPU and hold its kernel to its
-plain version.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and hold its kernels to
+their plain versions.
 
 Run from the root of a checkout, on a machine with a CUDA device and the
 CUDA toolkit (``nvcc``):
@@ -42,7 +42,24 @@ Phases, in order; any failure raises and exits non-zero:
               beside the bound, the plain version and (K3) SDPA;
 13. serve profile — torch.profiler over one prefill, then over 4 decode
               steps, of each config: K3's and K4's share of device time,
-              launches, and the device's busy share of each.
+              launches, and the device's busy share of each;
+14. K2      — the server-side update kernel against its plain version:
+              5 shapes, f32 and bf16, sigma 0/0.5, debias on/off, bitwise;
+              bitwise K1's unit-gain server pass; one K2 launch per
+              ``ops.ota_update`` call;
+15. K2 times — median of 60 CUDA-event timings at 16 MB (f32, bf16) and
+              256 MB (f32), beside the byte bound and the plain version;
+16. streamed — Algorithm 2 with ``agent_blocks`` 1, 3, 4, 10 at the paper's
+              width: histories bitwise equal, 2 K1 launches per block plus
+              the tail, gain means bitwise the stacked run's, reward and
+              grad_sq within rtol 1e-5 of the stacked run's (chained, and
+              round by round from a common state); Algorithm 1 streamed;
+17. large fleets — ``benchmarks/fig_large_n.py``'s settings at N = 10^2 ..
+              10^5, one round streamed (32 per block) and stacked: ms and
+              peak memory, the streamed peak below the stacked one;
+18. power control — Algorithm 2 with UnitPower, TruncatedInversion and
+              ConstantReceived, 3 Monte-Carlo runs: mean(h) against the
+              closed-form effective m_h, the theory's floor.
 
 It prints the card line, then one ``{"kernels": [...]}`` line, and as its last
 line ``{"ok": true, "device": {...}}``.  The full record also goes to
@@ -89,6 +106,13 @@ K4_CASES = [  # (b, s, h, p, g, n, chunk): tests/test_kernels.py:69-72 + mamba2
 ]
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 32
 K1_SHAPES = [(1, 165), (10, 165), (7, 1000), (10_000, 165), (8, 2 ** 21 + 3)]
+K2_SHAPES = [(7,), (37, 65), (3, 5, 129), (4096, 1024), (2 ** 26,)]
+RAYLEIGH_MH = 1.2533141373155003   # sqrt(pi / 2), Rayleigh(1)'s mean
+STREAM_BLOCKS = (1, 3, 4, 10)
+STREAM_COMPARE_ROUNDS = 10
+LARGE_N = (10 ** 2, 10 ** 3, 10 ** 4, 10 ** 5)
+LARGE_BLOCKS = 32              # benchmarks/fig_large_n.py's agent_blocks
+PC_RUNS = 3
 FIG12_SETTINGS = [(1, 10), (5, 10), (10, 10), (10, 1), (10, 5)]  # (N, M)
 MAIN_ROUNDS = 100
 RECORD = {}
@@ -189,7 +213,8 @@ def phase_build():
         log(f"{name}: {b.path.name}")
         log("\n".join(line for line in b.log.splitlines()
                       if "registers" in line or "spill" in line))
-    check("ota_fused" in built, "K1 source missing")
+    check({"ota_fused", "ota_channel", "flash_attention", "ssd_scan"}
+          <= set(built), f"a kernel source is missing: built {sorted(built)}")
     done("build", t0)
 
 
@@ -310,12 +335,13 @@ def alg_config(n_agents, batch_m, n_rounds):
     return cfg, ota
 
 
-def timed_run(torch, fedpg, env, pol, cfg, ota, seed, backend="auto"):
+def timed_run(torch, fedpg, env, pol, cfg, ota, seed, backend="auto",
+              agent_blocks=None):
     s = torch.cuda.Event(enable_timing=True)
     e = torch.cuda.Event(enable_timing=True)
     s.record()
     theta, hist = fedpg.run(env, pol, cfg, seed, ota=ota, ota_backend=backend,
-                            device="cuda")
+                            agent_blocks=agent_blocks, device="cuda")
     e.record()
     torch.cuda.synchronize()
     return theta, hist, s.elapsed_time(e) / cfg.n_rounds
@@ -499,10 +525,12 @@ def phase_profile(torch, ms_per_round):
 # ---------------------------------------------------------------------------
 
 def counters():
-    from repro_torch.kernels import flash_attention, ota_fused, ssd_scan
+    from repro_torch.kernels import (
+        flash_attention, ota_channel, ota_fused, ssd_scan,
+    )
 
-    return {"ota_fused": ota_fused, "flash_attention": flash_attention,
-            "ssd_scan": ssd_scan}
+    return {"ota_fused": ota_fused, "ota_channel": ota_channel,
+            "flash_attention": flash_attention, "ssd_scan": ssd_scan}
 
 
 def reset_counts():
@@ -1020,6 +1048,318 @@ def phase_serve_profile(torch, llama, mamba):
     done("serve profile", t0)
 
 
+# ---------------------------------------------------------------------------
+# K2, the agent-streamed round, large fleets, power control
+# ---------------------------------------------------------------------------
+
+def k2_bound(numel, elem_bytes, noise):
+    """Least time in ms for the function K2 computes: one read and one
+    write of v over HBM bandwidth, against float32 operations (noise about
+    14 per element, as for K1, then sigma, add and scale: 17; 1 without
+    noise) over the non-tensor-core peak."""
+    nbytes = 2 * numel * elem_bytes
+    flops = (17 if noise else 1) * numel
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_k2(torch):
+    from repro_torch.kernels import ops, ota_channel, ota_fused, ref
+
+    t0 = phase("14. K2 against its plain version")
+    checks = 0
+    for i, shape in enumerate(K2_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(100 + i)
+        base = torch.randn(shape, device="cuda", generator=gen)
+        seed = 7919 * (i + 1)
+        for dtype in (torch.float32, torch.bfloat16):
+            v = base.to(dtype)
+            for sigma in (0.0, 0.5):
+                for debias in (True, False):
+                    kw = dict(sigma=sigma, n_agents=7, m_h=RAYLEIGH_MH,
+                              debias=debias, seed=seed)
+                    got = ota_channel.ota_channel_apply(v, **kw)
+                    want = ref.ota_channel_plain(v, **kw)
+                    check(got.dtype == dtype and got.shape == v.shape,
+                          f"K2 {shape} {dtype}: got {got.dtype} "
+                          f"{tuple(got.shape)}")
+                    check(torch.equal(got, want),
+                          f"K2 not bitwise at {shape} {dtype} sigma={sigma} "
+                          f"debias={debias}: max err "
+                          f"{(got.float() - want.float()).abs().max().item()}")
+                    checks += 1
+        # the streams are equal: K2 on a flat float32 v is K1's unit-gain
+        # server pass on the same seed
+        flat = base.reshape(-1)
+        k2 = ota_channel.ota_channel_apply(flat, sigma=0.5, n_agents=7,
+                                           m_h=RAYLEIGH_MH, seed=seed)
+        k1 = ota_fused.fused_server_pass(
+            flat, sigma=0.5, scale=ref.ota_channel_scale(7, RAYLEIGH_MH, True),
+            seed=seed)
+        check(torch.equal(k2, k1), f"K2 != K1 server pass at {shape}")
+        log(f"K2 {shape}: f32 and bf16, sigma 0/0.5, debias on/off bitwise "
+            f"equal to the plain version; == fused_server_pass (f32 flat)")
+        del base, flat, k1, k2
+    # the path: one ops.ota_update call at microbench's 16 MB
+    v = torch.randn(4096, 1024, device="cuda")
+    reset_counts()
+    out = ops.ota_update(v, sigma=1e-3, n_agents=10, m_h=RAYLEIGH_MH, seed=3)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == {"ota_fused": 0, "ota_channel": 1, "flash_attention": 0,
+                     "ssd_scan": 0},
+          f"ops.ota_update launched {counts}, expected one K2 launch")
+    check(bool(torch.isfinite(out).all()), "ota_update output not finite")
+    log(f"ops.ota_update on a CUDA (4096, 1024) tensor: {counts}")
+    RECORD["k2_parity"] = {"checks": checks, "max_abs_err": 0.0,
+                           "launches": counts["ota_channel"]}
+    done("K2", t0)
+    return counts["ota_channel"]
+
+
+def phase_k2_times(torch):
+    from repro_torch.kernels import ota_channel, ref
+
+    t0 = phase("15. K2 times (median of 60, CUDA events)")
+    rows = []
+    kw = dict(sigma=1e-3, n_agents=10, m_h=RAYLEIGH_MH, seed=17)
+    for shape, dtype in (((4096, 1024), torch.float32),
+                         ((4096, 1024), torch.bfloat16),
+                         ((2 ** 26,), torch.float32)):
+        v = torch.randn(shape, device="cuda").to(dtype)
+        ms = device_ms(torch, lambda: ota_channel.ota_channel_apply(v, **kw))
+        plain_ms = device_ms(torch, lambda: ref.ota_channel_plain(v, **kw),
+                             sleep_cycles=20_000_000)
+        bound, by = k2_bound(v.numel(), v.element_size(), True)
+        row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+               "mbytes": v.numel() * v.element_size() / 1e6, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+               "library_ms": None}
+        rows.append(row)
+        log(f"K2 {shape} {row['dtype']} ({row['mbytes']:.1f} MB): "
+            f"{ms * 1e3:.2f} us (bound {bound * 1e3:.2f} us, {by}; "
+            f"{bound / ms:.2%} of it) | plain {plain_ms * 1e3:.2f} us | no "
+            f"PyTorch call draws this noise stream")
+        del v
+    log("the 16 MB cases fit the 50 MB L2 after the warm-up, so their share "
+        "of the HBM bound can pass 100 %; the kernel's row is the 2^26 one")
+    RECORD["k2_times"] = rows
+    done("K2 times", t0)
+    return rows
+
+
+def history_equal(torch, a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_streamed(torch):
+    from repro_torch.core import fedpg, ota as ota_lib
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+    from repro_torch.utils.device import make_generator
+
+    t0 = phase("16. agent-streamed Algorithm 2 at the paper's width")
+    env, pol = LandmarkNav(), MLPPolicy()
+    cfg, ota = alg_config(10, 10, MAIN_ROUNDS)
+    fedpg.run(env, pol, dataclasses.replace(cfg, n_rounds=2), 99, ota=ota,
+              agent_blocks=3, device="cuda")
+    torch.cuda.synchronize()
+    _, stacked, stacked_ms = timed_run(torch, fedpg, env, pol, cfg, ota, 0)
+    hists, res = {}, {}
+    for b in STREAM_BLOCKS:
+        n_blocks = ota_lib.blocked_layout(cfg.n_agents, b)[0]
+        reset_counts()
+        theta, hist, ms = timed_run(torch, fedpg, env, pol, cfg, ota, 0,
+                                    agent_blocks=b)
+        counts = read_counts()
+        expect = (2 * n_blocks + 1) * cfg.n_rounds
+        check(counts["ota_fused"] == expect and counts["ota_channel"] == 0,
+              f"agent_blocks={b}: {counts}, expected {expect} K1 launches")
+        check(all(bool(torch.isfinite(x).all()) for x in hist)
+              and all(bool(torch.isfinite(t).all()) for t in theta.values()),
+              f"agent_blocks={b}: not finite")
+        hists[b] = (theta, hist)
+        res[b] = {"n_blocks": n_blocks, "ms_per_round": ms,
+                  "k1_launches_per_round": counts["ota_fused"] / cfg.n_rounds,
+                  "avg_grad_sq": fedpg.avg_grad_sq(hist).item()}
+        log(f"agent_blocks={b} ({n_blocks} blocks): {ms:.3f} ms/round, "
+            f"{counts['ota_fused'] / cfg.n_rounds:.0f} K1 launches per round, "
+            f"avg_grad_sq={res[b]['avg_grad_sq']:.4f}")
+    first = STREAM_BLOCKS[0]
+    for b in STREAM_BLOCKS[1:]:
+        check(history_equal(torch, hists[first][1], hists[b][1])
+              and all(torch.equal(hists[first][0][k], hists[b][0][k])
+                      for k in hists[first][0]),
+              f"history of agent_blocks={b} is not bitwise that of "
+              f"agent_blocks={first}")
+    streamed = hists[first][1]
+    check(torch.equal(streamed.gain_mean, stacked.gain_mean),
+          "streamed gain means are not bitwise the stacked round's")
+    drift = {f: ((getattr(streamed, f) - getattr(stacked, f)).abs()
+                 / getattr(stacked, f).abs()).max().item()
+             for f in ("rewards", "grad_sq")}
+    check(max(drift.values()) <= 1e-5,
+          f"streamed vs stacked history beyond rtol 1e-5: {drift}")
+    log(f"histories bitwise equal for agent_blocks {STREAM_BLOCKS}; gain "
+        f"means bitwise the stacked run's ({stacked_ms:.3f} ms/round); over "
+        f"{cfg.n_rounds} chained rounds reward and grad_sq differ from the "
+        f"stacked run's by at most {drift['rewards']:.3e} and "
+        f"{drift['grad_sq']:.3e} relative (rtol 1e-5)")
+
+    # one round at a time from the same theta and generator state: the
+    # streamed round against the stacked round, rtol 1e-5
+    stk = fedpg.make_round_fn(env, pol, cfg, ota)
+    stm = fedpg.make_round_fn(env, pol, cfg, ota, agent_blocks=3)
+    gen = make_generator(5, "cuda")
+    theta = pol.init(gen, "cuda")
+    worst = {"reward": 0.0, "grad_sq": 0.0}
+    for _ in range(STREAM_COMPARE_ROUNDS):
+        state = gen.get_state()
+        th_a, m_a = stk(theta, gen)
+        gen.set_state(state)
+        _, m_b = stm(theta, gen)
+        check(torch.equal(m_a[2], m_b[2]), "gain mean differs")
+        for name, x, y in (("reward", m_a[0], m_b[0]),
+                           ("grad_sq", m_a[1], m_b[1])):
+            torch.testing.assert_close(y, x, rtol=1e-5, atol=0)
+            worst[name] = max(worst[name],
+                              ((y - x).abs() / x.abs()).item())
+        theta = th_a
+    log(f"{STREAM_COMPARE_ROUNDS} rounds from the same theta and draws: "
+        f"streamed vs stacked largest relative difference reward "
+        f"{worst['reward']:.3e}, grad_sq {worst['grad_sq']:.3e} (rtol 1e-5)")
+
+    # Algorithm 1 streamed: one K1 fold per block
+    alg1 = {}
+    for b in (3, 10):
+        n_blocks = ota_lib.blocked_layout(cfg.n_agents, b)[0]
+        reset_counts()
+        _, h1, ms = timed_run(torch, fedpg, env, pol, cfg, None, 0,
+                              agent_blocks=b)
+        counts = read_counts()
+        check(counts["ota_fused"] == n_blocks * cfg.n_rounds,
+              f"Algorithm 1 agent_blocks={b}: {counts}")
+        check(all(bool(torch.isfinite(x).all()) for x in h1),
+              "Algorithm 1 streamed not finite")
+        alg1[b] = (h1, ms)
+    check(history_equal(torch, alg1[3][0], alg1[10][0]),
+          "Algorithm 1 streamed history depends on agent_blocks")
+    log(f"Algorithm 1 streamed: {alg1[3][1]:.3f} ms/round (3 per block), "
+        f"{alg1[10][1]:.3f} ms/round (5 per block), bitwise equal, "
+        f"avg_grad_sq={fedpg.avg_grad_sq(alg1[3][0]).item():.4f}")
+    RECORD["streamed"] = {"blocks": res, "stacked_ms_per_round": stacked_ms,
+                          "chained_drift": drift, "per_round_worst": worst,
+                          "alg1_ms_per_round": {b: alg1[b][1] for b in alg1}}
+    done("streamed", t0)
+    return res
+
+
+def phase_large_fleet(torch):
+    from repro_torch.core import fedpg, ota as ota_lib
+    from repro_torch.core.channel import RayleighChannel
+    from repro_torch.core.ota import OTAConfig
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+
+    t0 = phase("17. large fleets (benchmarks/fig_large_n.py settings, one "
+               "round)")
+    env, pol = LandmarkNav(), MLPPolicy()
+    ota = OTAConfig(RayleighChannel(), noise_sigma=1e-3, debias=True)
+    rows = []
+    for n in LARGE_N:
+        cfg = dataclasses.replace(alg_config(n, 1, 1)[0], horizon=3)
+        row = {"N": n}
+        for form, blocks in (("streamed", LARGE_BLOCKS), ("stacked", None)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            reset_counts()
+            theta, hist, ms = timed_run(torch, fedpg, env, pol, cfg, ota, 1,
+                                        agent_blocks=blocks)
+            counts = read_counts()
+            check(all(bool(torch.isfinite(x).all()) for x in hist)
+                  and all(bool(torch.isfinite(t).all())
+                          for t in theta.values()),
+                  f"N={n} {form}: not finite")
+            expect = 1 if blocks is None else (
+                2 * ota_lib.blocked_layout(n, blocks)[0] + 1)
+            check(counts["ota_fused"] == expect,
+                  f"N={n} {form}: {counts['ota_fused']} K1 launches, "
+                  f"expected {expect}")
+            # the run's own peak: above what was allocated before it
+            peak = torch.cuda.max_memory_allocated() - resident
+            row[form] = {"ms_per_round": ms, "peak_mb": peak / 1e6,
+                         "k1_launches": counts["ota_fused"]}
+        rows.append(row)
+        log(f"N={n:6d}: streamed ({LARGE_BLOCKS} per block) "
+            f"{row['streamed']['ms_per_round']:.1f} ms, peak "
+            f"{row['streamed']['peak_mb']:.1f} MB | stacked "
+            f"{row['stacked']['ms_per_round']:.1f} ms, peak "
+            f"{row['stacked']['peak_mb']:.1f} MB")
+    big = rows[-1]
+    check(big["streamed"]["peak_mb"] < big["stacked"]["peak_mb"],
+          f"N={big['N']}: streamed peak {big['streamed']['peak_mb']:.1f} MB "
+          f"not below stacked {big['stacked']['peak_mb']:.1f} MB")
+    RECORD["large_fleet"] = rows
+    done("large fleet", t0)
+
+
+def phase_power_control(torch):
+    from repro_torch.core import fedpg, theory
+    from repro_torch.core.power_control import (
+        ConstantReceived, TruncatedInversion, UnitPower, effective_moments,
+    )
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+
+    t0 = phase("18. power control: Algorithm 2 at the paper's width, "
+               f"{PC_RUNS} Monte-Carlo runs")
+    env, pol = LandmarkNav(), MLPPolicy()
+    cfg, base_ota = alg_config(10, 10, MAIN_ROUNDS)
+    consts = theory.constants_for_env(env, horizon=cfg.horizon,
+                                      gamma=cfg.gamma, G=2 ** 0.5, F=0.5)
+    rows = []
+    for policy in (UnitPower(), TruncatedInversion(), ConstantReceived()):
+        ota = dataclasses.replace(base_ota, power_control=policy)
+        m_h, var_h = effective_moments(ota.channel, policy,
+                                       n_agents=cfg.n_agents)
+        hist = fedpg.monte_carlo(env, pol, cfg, 0, PC_RUNS, ota=ota,
+                                 device="cuda")
+        check(all(bool(torch.isfinite(x).all()) for x in hist),
+              f"{type(policy).__name__}: not finite")
+        mean_h = hist.gain_mean.double().mean().item()
+        n_gains = cfg.n_agents * cfg.n_rounds * PC_RUNS
+        se = (var_h / n_gains) ** 0.5
+        # 5 standard errors of the mean of n_gains iid gains, plus 4 float32
+        # ulps of m_h for c * (target / c), which is target only in exact
+        # arithmetic (ConstantReceived has no variance to give an error)
+        allow = 5 * se + 4 * 2 ** -23 * m_h
+        check(abs(mean_h - m_h) <= allow,
+              f"{type(policy).__name__}: mean(h)={mean_h} vs m_h={m_h} "
+              f"(allowed {allow})")
+        which, bound = theory.applicable_bound(
+            K=cfg.n_rounds, n_agents=cfg.n_agents, batch_m=cfg.batch_m,
+            alpha=cfg.alpha, m_h=m_h, sigma_h2=var_h,
+            noise_sigma2=ota.noise_sigma ** 2,
+            delta_J=consts.l_bar / (1 - cfg.gamma), V=consts.V())
+        floor = (theory.theorem1_floor if which == "theorem1"
+                 else theory.theorem2_floor)(
+            n_agents=cfg.n_agents, batch_m=cfg.batch_m, m_h=m_h,
+            sigma_h2=var_h, noise_sigma2=ota.noise_sigma ** 2, V=consts.V())
+        row = {"policy": type(policy).__name__,
+               "avg_grad_sq": fedpg.avg_grad_sq(hist).mean().item(),
+               "mean_h": mean_h, "m_h": m_h, "sigma_h2": var_h,
+               "se": se, "which": which, "bound": bound, "floor": floor}
+        rows.append(row)
+        log(f"{row['policy']:18s} avg_grad_sq={row['avg_grad_sq']:.4f} "
+            f"mean(h)={mean_h:.6f} m_h={m_h:.6f} (|diff| "
+            f"{abs(mean_h - m_h):.2e}, se {se:.2e}) sigma_h^2={var_h:.5f} "
+            f"{which} bound={bound:.4e} floor={floor:.4e}")
+    RECORD["power_control"] = rows
+    done("power control", t0)
+
+
 def main():
     import torch
 
@@ -1042,6 +1382,13 @@ def main():
     llama, mamba = phase_serve(torch)
     k3, k4 = phase_k34_times(torch)
     phase_serve_profile(torch, llama, mamba)
+    llama, mamba = llama[0], mamba[0]   # free the served models' weights
+    torch.cuda.empty_cache()
+    k2_launches = phase_k2(torch)
+    k2_rows = phase_k2_times(torch)
+    phase_streamed(torch)
+    phase_large_fleet(torch)
+    phase_power_control(torch)
     RECORD["seconds"] = time.perf_counter() - t_all
 
     main_row = rows[0]   # (10, 165) f32 sgd: the shape of the main path
@@ -1054,10 +1401,20 @@ def main():
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "shape": [main_row["A"], main_row["P"]], "timings": rows}]}
+    k2_row = k2_rows[-1]  # (2^26,) float32: past the L2, the bound's shape
+    kernels["kernels"].append({
+        "name": "ota_channel", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ota_channel.cu",
+        "replaces": "src/repro/kernels/ota_channel.py:40", "parity": "ok",
+        "launches": k2_launches,
+        "max_abs_err": RECORD["k2_parity"]["max_abs_err"],
+        "ms": k2_row["ms"], "plain_ms": k2_row["plain_ms"],
+        "bound_ms": k2_row["bound_ms"], "bound_by": k2_row["bound_by"],
+        "library_ms": None, "shape": k2_row["shape"], "timings": k2_rows})
     for name, src, body, res, err, t in (
             ("flash_attention", "flash_attention.cu", "flash_attention.py:33",
-             llama[0], k3_err, k3),
-            ("ssd_scan", "ssd_scan.cu", "ssd_scan.py:33", mamba[0], k4_err,
+             llama, k3_err, k3),
+            ("ssd_scan", "ssd_scan.cu", "ssd_scan.py:33", mamba, k4_err,
              k4)):
         kernels["kernels"].append({
             "name": name, "route": "cuda",

@@ -19,8 +19,20 @@ kernel seed from the round's ``torch.Generator``.  Both backends take their
 AWGN from the kernel's counter PRNG keyed on that seed and the absolute flat
 index, so the two backends see the same gains and the same noise for the
 same generator state.  ``gains=`` and ``seed=`` inject the draws (the parity
-tests feed the JAX package's own).  ``power_control``, the axis forms and
-agent streaming come with later parts of the port.
+tests feed the JAX package's own).  ``power_control`` shapes the transmit
+power, so the effective gain is ``h = c * p(c)`` and a debiased update
+divides by the effective mean (``repro_torch.core.power_control``).
+
+``agent_blocks`` streams the agent axis (:func:`stream_fold_block`): the
+superposition is a strict sequential left fold ``acc + h_0 g_0 + h_1 g_1 +
+...`` over blocks of agents, then one server tail (:func:`stream_finalize`),
+so the result is bitwise the same for every block size.  On the ``cuda``
+backend one K1 launch folds a whole block: K1's ``agg`` mode folds its rows
+from zero in order, so the stack ``[acc; g_block]`` with gains ``[1;
+h_block]``, sigma 0 and scale 1 gives ``acc + h_0 g_0 + ...`` with the
+roundings of the per-agent fold (``0 + 1 * acc`` is ``acc`` exactly).  The
+tail is K1's unit-gain server pass.  The axis forms come with the sweep
+slice.
 """
 from __future__ import annotations
 
@@ -31,6 +43,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.core.channel import Channel
+from repro_torch.core.power_control import PowerPolicy, effective_moments
 from repro_torch.kernels import ota_fused, ref
 from repro_torch.utils.tree import (
     Params, flatten_agent_stack, flatten_params, theta_device, tree_keys,
@@ -43,6 +56,9 @@ Seed = Union[int, torch.Tensor]
 class OTAConfig:
     """Static configuration of the over-the-air uplink.
 
+    ``power_control`` shapes the transmit power so the effective gain is
+    ``h = c * p(c)``; with ``debias=True`` the update is then divided by the
+    effective mean ``E[c p(c)]`` (:meth:`norm_const_for`).
     ``update_scale`` overrides the server normalisation ``1 / (N * m_h)``;
     ``wire_dtype="bfloat16"`` narrows the uplink payload on the kernel path
     (compute and the parameter master copy stay float32)."""
@@ -50,32 +66,42 @@ class OTAConfig:
     channel: Channel
     noise_sigma: float = 0.0   # sigma of the AWGN on the *sum* (Eq. 6)
     debias: bool = False       # divide by m_h (unbiased grad estimate)
-    power_control: Optional[object] = None
+    power_control: Optional[PowerPolicy] = None
     update_scale: Optional[float] = None
     wire_dtype: str = ""       # "" (native) | "bfloat16"
 
     def __post_init__(self):
-        if self.power_control is not None:
-            raise NotImplementedError(
-                "power_control is not ported yet (see ROADMAP.md)")
+        if self.power_control is not None \
+                and not isinstance(self.power_control, PowerPolicy):
+            raise TypeError(f"power_control must be a PowerPolicy, got "
+                            f"{type(self.power_control).__name__}")
         if self.wire_dtype not in ("", "bfloat16"):
             raise ValueError(f"wire_dtype must be '' or 'bfloat16', got "
                              f"{self.wire_dtype!r}")
         if self.debias and self.update_scale is None \
                 and not math.isfinite(self.channel.mean):
-            raise ValueError(f"debias=True needs a finite channel mean, got "
-                             f"m_h={self.channel.mean!r}")
+            raise ValueError(
+                f"debias=True needs a finite channel mean, got "
+                f"m_h={self.channel.mean!r}; build power-controlled channels "
+                f"with make_controlled_channel so their effective moments "
+                f"are computed")
 
     @property
     def norm_const(self) -> float:
-        """The debias normaliser m_h (1 without debias)."""
+        """The raw-channel debias normaliser m_h (1 without debias); the
+        aggregation uses :meth:`norm_const_for`, which folds in
+        ``power_control``."""
         return self.channel.mean if self.debias else 1.0
 
     def norm_const_for(self, n_agents: Optional[int] = None) -> float:
-        """The normaliser the aggregation divides by; with power control
-        (not ported yet) it would be the effective mean for ``n_agents``."""
-        del n_agents
-        return self.norm_const
+        """The normaliser the aggregation divides by: the effective mean
+        ``E[c p(c)]`` when ``power_control`` is set (closed form or the
+        fixed-seed Monte Carlo of ``effective_moments``), the channel mean
+        otherwise.  ``n_agents`` is needed by per-agent policies."""
+        if not self.debias or self.power_control is None:
+            return self.norm_const
+        return effective_moments(self.channel, self.power_control,
+                                 n_agents=n_agents)[0]
 
 
 _BACKENDS = ("auto", "torch", "cuda")
@@ -108,8 +134,28 @@ class AggregateSpec:
 
 def sample_gains(cfg: OTAConfig, generator: torch.Generator, n_agents: int,
                  device) -> torch.Tensor:
-    """h_{i,k} for every agent for one round: shape (n_agents,)."""
-    return cfg.channel.sample(generator, (n_agents,), device)
+    """h_{i,k} for every agent for one round: shape (n_agents,).  With
+    power control the effective gain is ``h = c * p(c)``."""
+    c = cfg.channel.sample(generator, (n_agents,), device)
+    if cfg.power_control is not None:
+        c = c * cfg.power_control.apply(c)
+    return c
+
+
+def effective_gain_mean(cfg: Optional[OTAConfig],
+                        n_agents: Optional[int] = None) -> float:
+    """The effective gain mean m_h a config realises (what ``mean(h)``
+    estimates): 1 for the exact uplink, the mean a debiased ``update_scale``
+    implies, the channel mean without power control, else the closed-form /
+    Monte-Carlo ``effective_moments``."""
+    if cfg is None:
+        return 1.0
+    if cfg.debias and cfg.update_scale is not None and n_agents is not None:
+        return 1.0 / (n_agents * cfg.update_scale)
+    if cfg.power_control is None:
+        return cfg.channel.mean
+    return effective_moments(cfg.channel, cfg.power_control,
+                             n_agents=n_agents)[0]
 
 
 def sample_seed(generator: torch.Generator, device) -> torch.Tensor:
@@ -200,22 +246,231 @@ def _aggregate_apply_cuda(cfg: OTAConfig, h: torch.Tensor, seed: Seed,
     return punflatten(p_next)
 
 
+# ---------------------------------------------------------------------------
+# Agent streaming (``agent_blocks``): a strict sequential fold over blocks of
+# agents, then one server tail.  The fold's association never depends on
+# where the block boundaries fall, so every partition of the agent axis
+# (dividing or not) gives the same bits; gains and noise are the unblocked
+# form's draws.
+# ---------------------------------------------------------------------------
+
+def blocked_layout(n_agents: int, agent_blocks: int) -> Tuple[int, int, int]:
+    """Resolve a block partition: ``(n_blocks, block, pad)``.
+
+    ``pad`` phantom agents fill the tail block when ``block`` does not
+    divide ``n_agents``.  The block is capped at ``ceil(n_agents / 2)``, as
+    in the JAX package (where a one-step scan would be inlined and fuse
+    differently), so every ``agent_blocks`` resolves as it does there."""
+    if agent_blocks < 1:
+        raise ValueError(f"agent_blocks must be >= 1, got {agent_blocks}")
+    block = min(int(agent_blocks), max(1, -(-n_agents // 2)))
+    n_blocks = -(-n_agents // block)
+    return n_blocks, block, n_blocks * block - n_agents
+
+
+def pad_agent_axis(tree: Union[Params, torch.Tensor],
+                   pad: int) -> Union[Params, torch.Tensor]:
+    """Append ``pad`` phantom rows (copies of row 0) to every leaf's leading
+    axis; every streamed consumer masks them."""
+    if pad == 0:
+        return tree
+    if isinstance(tree, torch.Tensor):
+        return torch.cat([tree, tree[:1].expand((pad,) + tree.shape[1:])])
+    return {k: pad_agent_axis(v, pad) for k, v in tree.items()}
+
+
+def block_view(tree: Union[Params, torch.Tensor], n_blocks: int,
+               block: int) -> Union[Params, torch.Tensor]:
+    """Reshape padded leading-axis leaves to ``(n_blocks, block, ...)``;
+    block b holds agents ``[b*block, (b+1)*block)``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.reshape((n_blocks, block) + tree.shape[1:])
+    return {k: block_view(v, n_blocks, block) for k, v in tree.items()}
+
+
+def block_valid_mask(n_agents: int, n_blocks: int, block: int,
+                     device=None) -> torch.Tensor:
+    """(n_blocks, block) bool: False on phantom (padding) rows."""
+    return (torch.arange(n_blocks * block, device=device)
+            < n_agents).reshape(n_blocks, block)
+
+
+def _fold_backend(spec: AggregateSpec, device: torch.device) -> str:
+    """Where a streamed fold runs.  The exact uplink's fold has no backend
+    of its own: it takes K1 for CUDA tensors unless ``"torch"`` was asked
+    for (both folds give the same bits)."""
+    if spec.exact:
+        return ("cuda" if device.type == "cuda" and spec.backend != "torch"
+                else "torch")
+    return spec.resolved_backend(device)
+
+
+def stream_fold_block(acc: Params, grads_block: Params,
+                      gains_block: Optional[torch.Tensor] = None,
+                      valid: Optional[torch.Tensor] = None, *,
+                      wire_dtype: Optional[torch.dtype] = None,
+                      backend: str = "torch") -> Params:
+    """Fold one agent block into the running sum, strictly sequentially:
+    ``acc + h_0 g_0 + h_1 g_1 + ...`` (``gains_block=None`` folds the plain
+    gradients, the exact-mean numerator).  ``valid`` masks phantom rows to
+    exact zeros, a bitwise no-op (``acc`` is never ``-0.0``).
+    ``wire_dtype`` quantises each row (cast down and back to float32), as
+    the kernel's wire does.
+
+    ``backend="cuda"`` is one K1 launch over the stack ``[acc; g_block]``
+    with gains ``[1; h_block]`` (phantom gains 0), sigma 0 and scale 1:
+    K1's fold from zero with ``__fmul_rn``/``__fadd_rn`` makes it bitwise
+    the per-agent fold of ``backend="torch"``."""
+    if backend == "cuda":
+        acc_flat, unflatten = flatten_params(acc)
+        g, n, _ = flatten_agent_stack(grads_block)
+        if wire_dtype is not None:
+            g = g.to(wire_dtype).float()
+        h = (torch.ones(n, device=g.device) if gains_block is None
+             else gains_block.float())
+        if valid is not None:
+            h = torch.where(valid, h, torch.zeros_like(h))
+        ones = torch.ones(1, device=g.device)
+        out = ota_fused.fused_aggregate(
+            torch.cat([acc_flat.reshape(1, -1), g]), torch.cat([ones, h]),
+            sigma=0.0, scale=1.0, with_noise=False)
+        return unflatten(out)
+    n = grads_block[tree_keys(grads_block)[0]].shape[0]
+    acc = dict(acc)
+    for i in range(n):
+        for k in tree_keys(acc):
+            row = grads_block[k][i]
+            if wire_dtype is not None:
+                row = row.to(wire_dtype).float()
+            if gains_block is not None:
+                row = gains_block[i].to(row.dtype) * row
+            if valid is not None:
+                row = torch.where(valid[i], row, torch.zeros_like(row))
+            acc[k] = acc[k] + row.to(acc[k].dtype)
+    return acc
+
+
+def stream_zeros(like: Params, backend: str) -> Params:
+    """The fold's starting value: zeros of each leaf's shape (float32 on
+    the kernel path, the leaf's dtype on the plain chain)."""
+    return {k: torch.zeros(v.shape, device=v.device,
+                           dtype=torch.float32 if backend == "cuda"
+                           else v.dtype) for k, v in like.items()}
+
+
+def _stream_superpose(grads_stacked: Params, gains: Optional[torch.Tensor],
+                      agent_blocks: int, *,
+                      wire_dtype: Optional[torch.dtype] = None,
+                      backend: str = "torch") -> Params:
+    """Blocked fold over an already-materialised agent stack: the running
+    superposition ``sum_i h_i g_i`` (or ``sum_i g_i``)."""
+    keys = tree_keys(grads_stacked)
+    n = grads_stacked[keys[0]].shape[0]
+    dev = grads_stacked[keys[0]].device
+    n_blocks, block, pad = blocked_layout(n, agent_blocks)
+    gp = block_view(pad_agent_axis(grads_stacked, pad), n_blocks, block)
+    valid = block_valid_mask(n, n_blocks, block, dev)
+    hp = None
+    if gains is not None:
+        hp = block_view(torch.cat([gains, gains.new_zeros(pad)]), n_blocks,
+                        block)
+    v = stream_zeros({k: grads_stacked[k][0] for k in keys}, backend)
+    for b in range(n_blocks):
+        v = stream_fold_block(v, {k: gp[k][b] for k in keys},
+                              None if hp is None else hp[b], valid[b],
+                              wire_dtype=wire_dtype, backend=backend)
+    return v
+
+
+def stream_finalize(cfg: OTAConfig, seed: Seed, v: Params, n_agents: int, *,
+                    backend: str = "torch") -> Params:
+    """Server tail over a streamed superposition: ONE AWGN draw and the
+    debias normalisation.  The noise is the counter stream on the absolute
+    flat index, so it too is the unblocked form's.  On ``"cuda"`` the tail
+    is K1's unit-gain server pass over the flattened ``v``."""
+    if backend == "cuda":
+        flat, unflatten = flatten_params(v)
+        return unflatten(ota_fused.fused_server_pass(
+            flat, sigma=cfg.noise_sigma,
+            scale=_server_scale(cfg, n_agents, n_agents), seed=seed,
+            with_noise=cfg.noise_sigma > 0.0))
+    return _server_epilogue(cfg, seed, v, n_agents, n_agents)
+
+
+def stream_finalize_apply(cfg: OTAConfig, seed: Seed, v: Params,
+                          params: Params, alpha, n_agents: int, *,
+                          backend: str = "torch") -> Params:
+    """:func:`stream_finalize` fused with the server SGD step
+    ``theta' = theta - alpha * u`` (one K1 launch on ``"cuda"``)."""
+    if backend == "cuda":
+        flat, _ = flatten_params(v)
+        pflat, punflatten = flatten_params(params)
+        return punflatten(ota_fused.fused_server_pass(
+            flat, sigma=cfg.noise_sigma,
+            scale=_server_scale(cfg, n_agents, n_agents), seed=seed,
+            with_noise=cfg.noise_sigma > 0.0, alpha=alpha, params=pflat))
+    u = _server_epilogue(cfg, seed, v, n_agents, n_agents)
+    return {k: params[k] - alpha * u[k] for k in tree_keys(params)}
+
+
+def _aggregate_stacked_streamed(cfg: OTAConfig, h: torch.Tensor, seed: Seed,
+                                grads: Params, agent_blocks: int,
+                                backend: str) -> Params:
+    """The stacked form as a blocked fold: the same gains and noise as the
+    unblocked form of the same backend; only the agent-sum association
+    differs."""
+    n = grads[tree_keys(grads)[0]].shape[0]
+    wire = _wire_dtype(cfg) if backend == "cuda" else None
+    v = _stream_superpose(grads, h, agent_blocks, wire_dtype=wire,
+                          backend=backend)
+    u = stream_finalize(cfg, seed, v, n, backend=backend)
+    return {k: u[k].to(grads[k].dtype) for k in tree_keys(u)}
+
+
+def _aggregate_apply_streamed_cuda(cfg: OTAConfig, h: torch.Tensor,
+                                   seed: Seed, grads: Params, params: Params,
+                                   alpha, agent_blocks: int) -> Params:
+    n = grads[tree_keys(grads)[0]].shape[0]
+    v = _stream_superpose(grads, h, agent_blocks, wire_dtype=_wire_dtype(cfg),
+                          backend="cuda")
+    return stream_finalize_apply(cfg, seed, v, params, alpha, n,
+                                 backend="cuda")
+
+
+def _exact_mean_streamed(grads: Params, agent_blocks: int,
+                         backend: str = "torch") -> Params:
+    """Algorithm 1's mean as a blocked fold: ``(fold_i g_i) / N``."""
+    n = grads[tree_keys(grads)[0]].shape[0]
+    v = _stream_superpose(grads, None, agent_blocks, backend=backend)
+    return {k: (v[k] / n).to(grads[k].dtype) for k in tree_keys(v)}
+
+
 def aggregate(grads: Params, cfg: Optional[OTAConfig], *,
               generator: Optional[torch.Generator] = None,
               backend: str = "auto", gains: Optional[torch.Tensor] = None,
-              seed: Optional[Seed] = None) -> Tuple[Params, torch.Tensor]:
+              seed: Optional[Seed] = None,
+              agent_blocks: Optional[int] = None
+              ) -> Tuple[Params, torch.Tensor]:
     """OTA-aggregate the (N, ...) stack ``grads``; returns ``(u_k, h)``.
 
     ``cfg=None`` is the exact Algorithm-1 uplink (mean; ``h == 1``).
     ``gains``/``seed`` inject the round's draws instead of drawing them from
-    ``generator``."""
+    ``generator``.  ``agent_blocks`` streams the agent sum in blocks of that
+    many agents (see :func:`stream_fold_block`): the same draws, a result
+    bitwise invariant to the block size."""
     spec = AggregateSpec(exact=cfg is None, backend=backend)
     dev = theta_device(grads)
-    be = spec.resolved_backend(dev)
+    be = _fold_backend(spec, dev)
     if spec.exact:
+        if agent_blocks is not None:
+            return (_exact_mean_streamed(grads, agent_blocks, be),
+                    torch.ones((), device=dev))
         return _exact_mean(grads), torch.ones((), device=dev)
     n = grads[tree_keys(grads)[0]].shape[0]
     h, s = _round_draws(cfg, generator, n, dev, gains, seed)
+    if agent_blocks is not None:
+        return _aggregate_stacked_streamed(cfg, h, s, grads, agent_blocks,
+                                           be), h
     if be == "cuda":
         return _aggregate_stacked_cuda(cfg, h, s, grads), h
     return _aggregate_stacked_torch(cfg, h, s, grads), h
@@ -225,16 +480,23 @@ def aggregate_apply(grads: Params, cfg: Optional[OTAConfig], params: Params,
                     *, alpha, generator: Optional[torch.Generator] = None,
                     backend: str = "auto",
                     gains: Optional[torch.Tensor] = None,
-                    seed: Optional[Seed] = None) -> Tuple[Params, torch.Tensor]:
+                    seed: Optional[Seed] = None,
+                    agent_blocks: Optional[int] = None
+                    ) -> Tuple[Params, torch.Tensor]:
     """Aggregate + server SGD step ``theta' = theta - alpha * u_k``; returns
     ``(theta', h)``.  On the kernel path the gain matvec, AWGN, debias and
-    update are one launch of K1 (``fused_aggregate_sgd``)."""
+    update are one launch of K1 (``fused_aggregate_sgd``); with
+    ``agent_blocks`` the blocks fold through K1 and the noise, debias and
+    update are one more launch (the server pass)."""
     spec = AggregateSpec(exact=cfg is None, backend=backend)
     dev = theta_device(grads)
     if spec.exact or spec.resolved_backend(dev) == "torch":
-        u, h = aggregate(grads, cfg, generator=generator, backend="torch",
-                         gains=gains, seed=seed)
+        u, h = aggregate(grads, cfg, generator=generator, backend=backend,
+                         gains=gains, seed=seed, agent_blocks=agent_blocks)
         return {k: params[k] - alpha * u[k] for k in tree_keys(params)}, h
     n = grads[tree_keys(grads)[0]].shape[0]
     h, s = _round_draws(cfg, generator, n, dev, gains, seed)
+    if agent_blocks is not None:
+        return _aggregate_apply_streamed_cuda(cfg, h, s, grads, params, alpha,
+                                              agent_blocks), h
     return _aggregate_apply_cuda(cfg, h, s, grads, params, alpha), h

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own by
 ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/repro_torch_kernels/`` at the root of the checkout, then loaded with
-``ctypes``.  The library's file name carries a hash of its source and flags,
-so an edited source is rebuilt and a stale library is never loaded.
+``ctypes``.  The library's file name carries a hash of its source, of the
+headers beside it (``csrc/*.cuh``) and of the flags, so an edited source or
+header is rebuilt and a stale library is never loaded.
 :func:`build` starts one ``nvcc`` per source, all at once.
 
 Nothing here runs when the module is imported: the CPU tests import every
@@ -59,10 +60,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return default_build_dir() / f"lib{name}-{digest}.so"
+    """The library's path; its name hashes the source, every header under
+    ``csrc/`` (a source may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return default_build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Sequence[str]] = None) -> Dict[str, Built]:

@@ -28,7 +28,8 @@
 //   * the noise counter is the absolute index j (uint32), mixed by the same
 //     murmur3 finalizer and salts as the TPU kernel, then Box-Muller with
 //     logf / cosf (no --use_fast_math), so the uniform bits are bitwise the
-//     TPU kernel's and the normals agree to a few ulp.
+//     TPU kernel's and the normals agree to a few ulp.  The generator lives
+//     in ota_counter.cuh, shared with K2 (ota_channel.cu).
 //   * runtime scalars are kernel arguments; the seed is read from device
 //     memory when a pointer is given, so a seed drawn on the card needs no
 //     host synchronisation.
@@ -41,7 +42,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "ota_counter.cuh"
+
 namespace {
+
+using ota_counter::counter_bits;
+using ota_counter::counter_normal;
 
 constexpr int kModeAgg = 0;
 constexpr int kModeSgd = 1;
@@ -62,31 +68,6 @@ struct Args {
   const long long* seed_ptr;  // device seed, or null to use seed_val
   uint32_t seed_val;
 };
-
-__device__ __forceinline__ uint32_t mix(uint32_t x, uint32_t salt) {
-  x ^= salt;
-  x = (x ^ (x >> 16)) * 0x85EBCA6Bu;
-  x = (x ^ (x >> 13)) * 0xC2B2AE35u;
-  return x ^ (x >> 16);
-}
-
-__device__ __forceinline__ void counter_bits(uint32_t j, uint32_t seed,
-                                             uint32_t* b1, uint32_t* b2) {
-  const uint32_t base = mix(j, seed * 0x9E3779B9u);
-  *b1 = mix(base, 0xA511E9B3u) >> 8;
-  *b2 = mix(base, 0x63D83595u) >> 8;
-}
-
-__device__ __forceinline__ float counter_normal(uint32_t j, uint32_t seed) {
-  uint32_t b1, b2;
-  counter_bits(j, seed, &b1, &b2);
-  // (bits >> 8) * 2^-24 (+ 2^-25 for f1, so f1 is never 0): exact in f32
-  const float f1 = __fadd_rn(__fmul_rn(__uint2float_rn(b1), 5.9604644775390625e-08f),
-                             2.98023223876953125e-08f);
-  const float f2 = __fmul_rn(__uint2float_rn(b2), 5.9604644775390625e-08f);
-  const float r = sqrtf(__fmul_rn(-2.0f, logf(f1)));
-  return __fmul_rn(r, cosf(__fmul_rn(6.2831855f, f2)));  // float32(2 pi)
-}
 
 __device__ __forceinline__ uint32_t load_seed(const Args& a) {
   return a.seed_ptr ? static_cast<uint32_t>(*a.seed_ptr) : a.seed_val;

@@ -3,8 +3,7 @@
 Counterpart of ``repro/kernels/ops.py`` with the JAX signatures minus
 ``use_pallas``, ``interpret`` and ``block_*``: each function launches its
 CUDA kernel for CUDA tensors and runs the kernel's plain PyTorch version for
-CPU tensors (the wrappers decide, by device).  ``ota_update`` waits for K2
-(``ROADMAP.md``).
+CPU tensors (the wrappers decide, by device).
 """
 from __future__ import annotations
 
@@ -13,6 +12,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ota_channel as _ota
 from repro_torch.kernels import ota_fused as _fused
 from repro_torch.kernels import ssd_scan as _ssd
 
@@ -29,6 +29,18 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     """(B, S, H, P) Mamba2 SSD scan through K4, float32 out (as the JAX
     model's ``ssd_ref``)."""
     return _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+
+
+def ota_update(v: torch.Tensor, *, sigma: float, n_agents: int,
+               m_h: float = 1.0, debias: bool = True,
+               seed: int = 0) -> torch.Tensor:
+    """The paper's fused server update ``(v + sigma*n) / (N * m_h)`` (K2).
+
+    On the CPU it runs K2's plain version, which draws the kernel's counter
+    stream: the port equals the JAX package's *kernel* here, where the JAX
+    function with ``use_pallas=False`` draws threefry noise instead."""
+    return _ota.ota_channel_apply(v, sigma=sigma, n_agents=n_agents,
+                                  m_h=m_h, debias=debias, seed=seed)
 
 
 def ota_aggregate(grads: torch.Tensor, gains: torch.Tensor, *, sigma=0.0,

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's kernels (K1, K3, K4).
+"""Plain PyTorch versions of the port's kernels (K1, K2, K3, K4).
 
 Counterpart of ``repro/kernels/ref.py``.  Each kernel's wrapper takes its
 plain version for CPU tensors, and ``chip_smoke.py`` holds the kernel to it
@@ -8,6 +8,9 @@ on the card:
   forms, plus the kernel's counter PRNG, ``counter_noise``, which the JAX
   package keeps inside ``repro/kernels/ota_fused.py`` (``_mix``,
   ``_counter_noise``);
+* K2, the server-side update ``(v + sigma*n) / (N*m_h)`` over a tensor of
+  any shape: ``ota_channel_ref`` (the JAX package's oracle, op for op) and
+  ``ota_channel_plain`` (that oracle on the counter stream);
 * K3, flash attention: ``flash_attention_plain`` (blockwise online softmax,
   the kernel's arithmetic) beside ``flash_attention_ref`` (the materialised
   softmax oracle of the JAX package);
@@ -145,6 +148,42 @@ def ota_fused_adam_ref(grads, gains, params, mu, nu, noise=None, *, alpha,
     nu_n = b2 * nu.float() + (1.0 - b2) * torch.square(u)
     delta = -(a * (mu_n / c1) / (torch.sqrt(nu_n / c2) + eps))
     return params.float() + delta, mu_n, nu_n
+
+
+# ---------------------------------------------------------------------------
+# K2: the server-side OTA update over a tensor of any shape
+# ---------------------------------------------------------------------------
+
+K2_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def ota_channel_scale(n_agents: int, m_h: float, debias: bool) -> float:
+    """``1 / (N * m_h)`` (``1 / N`` without debias) in Python double, as
+    the TPU wrapper computes it; kernels round it to float32 once."""
+    return 1.0 / (n_agents * (m_h if debias else 1.0))
+
+
+def ota_channel_ref(v: torch.Tensor, noise: Optional[torch.Tensor], *,
+                    sigma: float, n_agents: int, m_h: float,
+                    debias: bool = True) -> torch.Tensor:
+    """``(v + sigma * noise) / (N * m_h)`` in float32, written in v's dtype
+    (the JAX package's ``ota_channel_ref``).  ``noise=None`` skips the noise
+    term, as K2 does for sigma = 0."""
+    x = v.float()
+    if noise is not None:
+        x = x + f32(sigma) * noise.float().reshape(v.shape)
+    return (x * f32(ota_channel_scale(n_agents, m_h, debias))).to(v.dtype)
+
+
+def ota_channel_plain(v: torch.Tensor, *, sigma: float, n_agents: int,
+                      m_h: float = 1.0, debias: bool = True,
+                      seed: int = 0) -> torch.Tensor:
+    """The plain K2: :func:`ota_channel_ref` on the counter stream keyed on
+    the absolute flat index (no noise when ``sigma <= 0``)."""
+    noise = (counter_noise(seed, v.numel(), v.device) if sigma > 0.0
+             else None)
+    return ota_channel_ref(v, noise, sigma=sigma, n_agents=n_agents,
+                           m_h=m_h, debias=debias)
 
 
 # ---------------------------------------------------------------------------

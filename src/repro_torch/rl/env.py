@@ -10,6 +10,7 @@ place of the JAX version's ``vmap``.
 from __future__ import annotations
 
 import functools
+import math
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -54,3 +55,17 @@ class LandmarkNav:
         """Distance to the landmark, ``sqrt(sum d^2 + 1e-12)``."""
         d = state[..., :2] - state[..., 2:]
         return torch.sqrt(torch.sum(d * d, dim=-1) + 1e-12)
+
+    def l_bar_for(self, horizon: int) -> float:
+        """Loss envelope of Assumption 1 at the configured horizon: positions
+        start in [-a, a]^2 and drift up to ``step_size * T`` further, so the
+        worst distance to the landmark is the diagonal of
+        [-(a + step_size*T), a + step_size*T]^2 (theory tables only)."""
+        reach = self.arena + self.step_size * horizon
+        return float(2.0 * reach * math.sqrt(2.0))
+
+    @property
+    def l_bar(self) -> float:
+        """The fixed-horizon envelope ``l_bar_for(20)`` (the paper's T=20);
+        other horizons must use :meth:`l_bar_for`."""
+        return self.l_bar_for(20)

@@ -9,6 +9,7 @@ leading dims.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -44,12 +45,23 @@ class MLPPolicy:
         logp = torch.log_softmax(self.logits(params, obs), dim=-1)
         return torch.gather(logp, -1, action.unsqueeze(-1)).squeeze(-1)
 
+    def sample_uniforms(self, generator: torch.Generator, batch, device
+                        ) -> torch.Tensor:
+        """The uniforms :meth:`sample` draws for observations of leading
+        shape ``batch``: one ``(*batch, n_actions)`` float32 draw."""
+        return torch.rand(tuple(batch) + (self.n_actions,),
+                          generator=generator, device=device,
+                          dtype=torch.float32)
+
     def sample(self, params: Params, obs: torch.Tensor,
-               generator: torch.Generator) -> torch.Tensor:
-        """Categorical draw by Gumbel-max: ``argmax(logits + G)``."""
+               generator: Optional[torch.Generator],
+               uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Categorical draw by Gumbel-max: ``argmax(logits + G)``, with
+        ``G = -log(-log(u))``.  ``uniforms`` replaces the draw of ``u`` (the
+        agent-streamed round draws them up front, in the stacked order)."""
         logits = self.logits(params, obs)
-        u = torch.rand(logits.shape, generator=generator,
-                       device=logits.device, dtype=logits.dtype)
+        u = (self.sample_uniforms(generator, logits.shape[:-1], logits.device)
+             if uniforms is None else uniforms)
         tiny = torch.finfo(logits.dtype).tiny
         gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
         return torch.argmax(logits + gumbel, dim=-1)

@@ -5,7 +5,9 @@ over trajectories and the round vmaps once more over agents; here the batch
 shape ``(N, M)`` is a leading dimension of every tensor and ``lax.scan`` is a
 Python loop over the T+1 steps (t = 0..T inclusive, as the paper's objective
 sums).  ``s0`` and ``actions`` may be injected: the test hook that replays the
-JAX package's own draws, as ``gains=`` does for the uplink.
+JAX package's own draws, as ``gains=`` does for the uplink.  ``uniforms``
+injects the policy's sampling uniforms: the agent-streamed round draws them
+for the whole fleet up front and hands each block its slice.
 """
 from __future__ import annotations
 
@@ -31,17 +33,21 @@ class Trajectory(NamedTuple):
 def rollout_batch(env, policy, params, generator: Optional[torch.Generator],
                   horizon: int, batch: Tuple[int, ...], *,
                   s0: Optional[torch.Tensor] = None,
-                  actions: Optional[torch.Tensor] = None) -> Trajectory:
+                  actions: Optional[torch.Tensor] = None,
+                  uniforms: Optional[torch.Tensor] = None) -> Trajectory:
     """Sample ``s_0 ~ rho`` then T+1 policy steps for every trajectory of
     the ``batch`` shape.  With ``s0`` and/or ``actions`` given, those draws
-    are replayed instead of sampled (``actions`` is ``(*batch, T+1)``)."""
+    are replayed instead of sampled (``actions`` is ``(*batch, T+1)``);
+    ``uniforms`` (``(T+1, *batch, n_actions)``) hands the policy the
+    uniforms of its step-``t`` draw instead of drawing them."""
     device = theta_device(params)
     batch = tuple(batch)
     state = env.reset(generator, batch, device) if s0 is None else s0
     obs, acts, losses = [], [], []
     for t in range(horizon + 1):
         if actions is None:
-            a = policy.sample(params, state, generator)
+            a = policy.sample(params, state, generator,
+                              None if uniforms is None else uniforms[t])
         else:
             a = actions[..., t]
         nxt, loss = env.step(state, a)

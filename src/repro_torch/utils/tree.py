@@ -35,6 +35,11 @@ def tree_global_norm_sq(tree: Params) -> torch.Tensor:
     return total
 
 
+def tree_global_norm(tree: Params) -> torch.Tensor:
+    """sqrt(sum of squared leaves): the norm of the paper's analysis."""
+    return torch.sqrt(tree_global_norm_sq(tree))
+
+
 def ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 

@@ -6,7 +6,10 @@ in bf16 also one bf16 ulp of the value (rtol 2**-7, atol 1e-5): both sides
 compute in f32 from the same inputs, so only the output's rounding may part.
 K4 (SSD scan): 5e-5 (``tests/test_kernels.py:84``) for f32 and bf16 inputs
 alike, as its output is f32 either way; 1e-4 against the sequential
-recurrence.  Needs a CUDA device and skips
+recurrence.  K2 (server-side update): bitwise, for f32 and bf16, and
+bitwise K1's unit-gain server pass.  The streamed fold through K1 and the
+streamed round: bitwise the per-agent fold and across block sizes.  Needs a
+CUDA device and skips
 without one.  This file imports no JAX, so it also runs on a
 GPU machine without the JAX package:
 
@@ -18,7 +21,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import flash_attention, ota_fused, ref, ssd_scan
+from repro_torch.kernels import (
+    flash_attention, ota_channel, ota_fused, ref, ssd_scan,
+)
 
 
 def _inputs(seed, n_agents=7, n_params=1000):
@@ -260,3 +265,101 @@ def test_model_init_takes_a_generator_of_its_device(cuda):
         m.init(torch.Generator().manual_seed(0))
     params = m.init(torch.Generator(device=cuda).manual_seed(0))
     assert params["layers"]["w_x"].is_cuda
+
+
+# ---------------------------------------------------------------------------
+# K2 and the agent-streamed round
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(7,), (37, 65), (3, 5, 129), (1000, 33)])
+def test_k2_matches_plain_version(cuda, shape, dtype):
+    """Bitwise: both sides round one float32 value per element, from the
+    same counter bits and the same libdevice log/cos."""
+    v = torch.from_numpy(np.random.default_rng(2).standard_normal(shape)
+                         .astype(np.float32)).to(cuda).to(dtype)
+    for sigma in (0.0, 0.5):
+        for debias in (True, False):
+            kw = dict(sigma=sigma, n_agents=7, m_h=1.2533, debias=debias,
+                      seed=11)
+            got = ota_channel.ota_channel_apply(v, **kw)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and got.shape == v.shape
+            assert torch.equal(got, ref.ota_channel_plain(v, **kw))
+
+
+@pytest.mark.cuda
+def test_k2_is_k1_server_pass_and_unaligned_input(cuda):
+    v = torch.randn(10_001, device=cuda)
+    k2 = ota_channel.ota_channel_apply(v, sigma=0.5, n_agents=7, m_h=1.3,
+                                       seed=5)
+    k1 = ota_fused.fused_server_pass(v, sigma=0.5, scale=1.0 / (7 * 1.3),
+                                     seed=5)
+    assert torch.equal(k2, k1)
+    odd = v[1:]                      # 4-byte aligned only: the scalar path
+    assert torch.equal(
+        ota_channel.ota_channel_apply(odd, sigma=0.5, n_agents=3, seed=2),
+        ref.ota_channel_plain(odd, sigma=0.5, n_agents=3, seed=2))
+
+
+@pytest.mark.cuda
+def test_ota_update_launches_k2_once(cuda):
+    from repro_torch.kernels import ops
+
+    v = torch.randn(64, 128, device=cuda)
+    before = ota_channel.LAUNCHES
+    ops.ota_update(v, sigma=1e-3, n_agents=10, m_h=1.25, seed=3)
+    torch.cuda.synchronize()
+    assert ota_channel.LAUNCHES == before + 1
+    with pytest.raises(ValueError):
+        ota_channel.ota_channel_apply(v.half(), sigma=0.1, n_agents=1)
+    assert ota_channel.LAUNCHES == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", [None, torch.bfloat16])
+def test_kernel_fold_is_the_per_agent_fold_on_the_card(cuda, wire):
+    from repro_torch.core import ota
+
+    rng = np.random.default_rng(6)
+    g = {"a": torch.from_numpy(rng.standard_normal((9, 4, 5))
+                               .astype(np.float32)).to(cuda),
+         "b": torch.from_numpy(rng.standard_normal((9, 3))
+                               .astype(np.float32)).to(cuda)}
+    h = torch.rand(9, device=cuda) + 0.1
+    acc = {k: v[0] * 2.0 for k, v in g.items()}
+    valid = torch.arange(9, device=cuda) < 7
+    before = ota_fused.LAUNCHES
+    a = ota.stream_fold_block(acc, g, h, valid, wire_dtype=wire,
+                              backend="cuda")
+    assert ota_fused.LAUNCHES == before + 1
+    b = ota.stream_fold_block(acc, g, h, valid, wire_dtype=wire,
+                              backend="torch")
+    torch.cuda.synchronize()
+    for k in g:
+        assert torch.equal(a[k], b[k])
+
+
+@pytest.mark.cuda
+def test_streamed_round_is_bitwise_invariant_on_the_card(cuda):
+    from repro_torch.core import fedpg
+    from repro_torch.core.channel import RayleighChannel
+    from repro_torch.core.ota import OTAConfig
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+
+    cfg = fedpg.FedPGConfig(n_agents=7, batch_m=4, horizon=9, n_rounds=3,
+                            alpha=1e-2)
+    ota_cfg = OTAConfig(RayleighChannel(), noise_sigma=1e-3, debias=True)
+    runs = [fedpg.run(LandmarkNav(), MLPPolicy(), cfg, 3, ota=ota_cfg,
+                      agent_blocks=b, device=cuda) for b in (None, 1, 2, 4)]
+    torch.cuda.synchronize()
+    _, stacked = runs[0]
+    _, first = runs[1]
+    for theta, hist in runs[2:]:
+        assert all(torch.equal(x, y) for x, y in zip(first, hist))
+        assert all(torch.equal(runs[1][0][k], theta[k]) for k in theta)
+    assert torch.equal(first.gain_mean, stacked.gain_mean)
+    torch.testing.assert_close(first.grad_sq, stacked.grad_sq, rtol=1e-5,
+                               atol=0)

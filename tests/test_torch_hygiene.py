@@ -42,7 +42,9 @@ def test_forbidden_matches_repro_not_repro_torch():
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys; import repro_torch.core.fedpg, repro_torch.kernels."
-            "ota_fused, repro_torch.configs.ota_pg_particle, "
+            "ota_fused, repro_torch.kernels.ota_channel, "
+            "repro_torch.core.power_control, repro_torch.core.theory, "
+            "repro_torch.optim.optimizers, repro_torch.configs.ota_pg_particle, "
             "repro_torch.kernels.ops, repro_torch.models.model, "
             "repro_torch.train.server, repro_torch.interop, "
             "repro_torch.configs.llama3_2_3b, repro_torch.configs.mamba2_130m; "
@@ -71,6 +73,8 @@ def test_entry_points_raise_without_cuda():
     cfg = fedpg.FedPGConfig(n_agents=2, batch_m=1, horizon=2, n_rounds=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         fedpg.run(LandmarkNav(), MLPPolicy(), cfg, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fedpg.run(LandmarkNav(), MLPPolicy(), cfg, 0, agent_blocks=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         fedpg.monte_carlo(LandmarkNav(), MLPPolicy(), cfg, 0, 2)
     with pytest.raises(RuntimeError, match="CUDA"):

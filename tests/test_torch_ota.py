@@ -182,7 +182,7 @@ def test_config_and_backend_validation():
         ota.aggregate(_torch(g), cfg, backend="xla", seed=1)
     with pytest.raises(ValueError):
         ota.aggregate(_torch(g), cfg)  # no generator, nothing injected
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         ota.OTAConfig(channel.RayleighChannel(), power_control=object())
     with pytest.raises(ValueError):
         ota.OTAConfig(channel.RayleighChannel(), wire_dtype="float16")
