@@ -10,7 +10,9 @@ CUDA toolkit (``nvcc``):
 Phases, in order; any failure raises and exits non-zero:
 
 1. card     — versions, ``nvidia-smi`` name and power limit, TF32 off;
-2. build    — nvcc builds every ``src/repro_torch/kernels/csrc/*.cu``;
+2. build    — nvcc builds every ``src/repro_torch/kernels/csrc/*.cu`` and
+              prints ptxas's registers, shared memory and spills, and the
+              HGMMA/HMMA count of the tensor-core kernels' SASS;
 3. K1       — the fused uplink kernel against its plain PyTorch version on
               the card: agg/sgd/adam, f32 and bf16 wire, at the paper's width
               and beyond; bitwise where the contract says so;
@@ -23,26 +25,35 @@ Phases, in order; any failure raises and exits non-zero:
               time and ``torch.mv`` (the matvec alone);
 7. profile  — torch.profiler over 10 Algorithm-2 rounds: device time by
               kernel and the device's busy share of a round;
-8. K3       — the flash-attention kernel against its plain version on the
-              card: f32 and bf16, causal / window 128 / bidirectional, GQA
-              g = 1-4, Dh 64/112/128, ragged lengths and 2048 (bf16 also
-              within one bf16 ulp), and positions where some queries see no
-              key;
-9. K4       — the SSD-scan kernel (f32 out) against its plain version: the
-              JAX sweep's shapes and mamba2-130m's, f32 and bf16 in, and
+8. K3       — the flash-attention kernels against their plain version on
+              the card: f32 and bf16, causal / window 128 / bidirectional, GQA
+              g = 1-4, Dh 64/80/112/128, ragged lengths, Sq != Sk and 2048
+              (bf16 also within one bf16 ulp), positions where some queries
+              see no key, and views the tensor-core kernel refuses (Dh 72,
+              stride 68); each call must launch the kernel the dispatch rule
+              names (bf16 on tensor cores, the rest on f32 cores), and the
+              tensor-core kernel also within one bf16 ulp of its plain model;
+              then how far a single bf16 P would part from the plain version;
+9. K4       — the SSD-scan kernels (f32 out) against their plain version: the
+              JAX sweep's shapes and mamba2-130m's, P and S not multiples of
+              the 16-column slice and the chunk, f32 and bf16 in, the
+              tensor-core kernel also against its plain model, and both
               against the sequential recurrence;
 10. llama   — serve llama3.2-3b at full width in bf16: prefill B=4 S=2048
-              (28 K3 launches), 32 greedy serve steps from a capacity-2080
-              cache, then the prefill again with K3's plain version: in
-              float32 (asserted within 2e-2) and in bf16 on 3 seeds
-              (reported beside the noise floor of two plain versions);
-11. mamba   — serve mamba2-130m at full width in bf16: prefill (24 K4
-              launches), 32 decode steps, the plain-version prefills;
-12. K3/K4 times — median of 60 CUDA-event timings at the serve shapes,
+              (28 launches of the tensor-core K3, none of PR 12's), 32 greedy
+              serve steps from a capacity-2080 cache, then the prefill again
+              with K3's plain version: in float32 (28 launches of PR 12's K3;
+              asserted within 2e-2) and in bf16 on 3 seeds (reported beside
+              the noise floor of two plain versions);
+11. mamba   — serve mamba2-130m at full width in bf16: prefill (24 launches
+              of the tensor-core K4), 32 decode steps, the plain-version
+              prefills (float32: 24 launches of PR 12's K4);
+12. K3/K4 times — median of 60 CUDA-event timings at the serve shapes, the
+              tensor-core kernels and PR 12's on the same inputs in turns,
               beside the bound, the plain version and (K3) SDPA;
 13. serve profile — torch.profiler over one prefill, then over 4 decode
-              steps, of each config: K3's and K4's share of device time,
-              launches, and the device's busy share of each;
+              steps, of each config: the tensor-core K3's and K4's share of
+              device time, launches, and the device's busy share of each;
 14. K2      — the server-side update kernel against its plain version:
               5 shapes, f32 and bf16, sigma 0/0.5, debias on/off, bitwise;
               bitwise K1's unit-gain server pass; one K2 launch per
@@ -93,6 +104,13 @@ K3_CASES = [  # (b, h, hkv, s, dh, causal, window)
     (4, 24, 8, 48, 128, True, None),      # a short prompt
     (4, 24, 8, 2048, 128, True, None),    # llama3.2-3b's prefill
 ]
+K3_EDGE_CASES = [  # (b, h, hkv, sq, sk, dh, causal, window, row pad)
+    (1, 3, 1, 130, 300, 128, True, None, 0),   # Sq != Sk, neither of 128
+    (1, 4, 2, 300, 170, 80, True, None, 0),    # Dh 80: a box of zero columns
+    (1, 2, 2, 200, 200, 112, True, 64, 0),     # Dh 112 with a window
+    (1, 2, 2, 200, 200, 72, True, None, 0),    # Dh 72: the f32-core kernel
+    (1, 2, 2, 200, 200, 64, True, None, 4),    # stride 68: the f32-core kernel
+]
 K3_BLIND_CASES = [  # (key position stride, shift, window): queries that see
     (1, 100, None),   # no key: the first 100, and every odd one
     (2, 0, 1),
@@ -104,6 +122,14 @@ K4_CASES = [  # (b, s, h, p, g, n, chunk): tests/test_kernels.py:69-72 + mamba2
     (2, 128, 8, 64, 2, 64, 32),
     (4, 2048, 24, 64, 1, 128, 128),
 ]
+K4_EDGE_CASES = [  # P and S not multiples of the 16-column slice and the chunk
+    (1, 200, 2, 40, 1, 16, 64),
+    (1, 300, 3, 24, 1, 32, 40),      # a chunk that is not a multiple of 16
+    (2, 48, 4, 32, 1, 16, 128),      # S < chunk: chunk = S
+    (1, 130, 2, 8, 1, 8, 128),       # one slice narrower than 16
+    (1, 128, 2, 36, 1, 16, 64),      # P = 36: the f32-core kernel
+]
+K34 = ("flash_attention", "flash_attention_wgmma", "ssd_scan", "ssd_scan_tc")
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 32
 K1_SHAPES = [(1, 165), (10, 165), (7, 1000), (10_000, 165), (8, 2 ** 21 + 3)]
 K2_SHAPES = [(7,), (37, 65), (3, 5, 129), (4096, 1024), (2 ** 26,)]
@@ -210,11 +236,28 @@ def phase_build():
     t0 = phase("2. build")
     built = build.build()
     for name, b in built.items():
+        # ptxas -v: per entry function, registers, shared memory and spills
         log(f"{name}: {b.path.name}")
-        log("\n".join(line for line in b.log.splitlines()
-                      if "registers" in line or "spill" in line))
-    check({"ota_fused", "ota_channel", "flash_attention", "ssd_scan"}
-          <= set(built), f"a kernel source is missing: built {sorted(built)}")
+        log("\n".join(line.strip() for line in b.log.splitlines()
+                      if any(w in line for w in ("Compiling entry", "registers",
+                                                  "spill", "smem", "arning"))))
+    RECORD["ptxas"] = {name: b.log for name, b in built.items()}
+    check(set(counters()) <= set(built),
+          f"a kernel source is missing: built {sorted(built)}")
+    # which tensor-core instructions the tensor-core kernels compiled to
+    cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
+    sass = {}
+    for name in ("flash_attention_wgmma", "ssd_scan_tc"):
+        text = subprocess.run([str(cuobjdump), "-sass", str(built[name].path)],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        sass[name] = {op: sum(f" {op}." in line for line in text.splitlines())
+                      for op in ("HGMMA", "HMMA")}
+        log(f"{name} SASS: {sass[name]['HGMMA']} HGMMA, "
+            f"{sass[name]['HMMA']} HMMA instructions")
+    check(sass["flash_attention_wgmma"]["HGMMA"] > 0,
+          "the wgmma K3 compiled to no HGMMA")
+    RECORD["sass"] = sass
     done("build", t0)
 
 
@@ -525,87 +568,176 @@ def phase_profile(torch, ms_per_round):
 # ---------------------------------------------------------------------------
 
 def counters():
+    """Each kernel's launch counter: (wrapper module, attribute)."""
     from repro_torch.kernels import (
         flash_attention, ota_channel, ota_fused, ssd_scan,
     )
 
-    return {"ota_fused": ota_fused, "ota_channel": ota_channel,
-            "flash_attention": flash_attention, "ssd_scan": ssd_scan}
+    return {"ota_fused": (ota_fused, "LAUNCHES"),
+            "ota_channel": (ota_channel, "LAUNCHES"),
+            "flash_attention": (flash_attention, "LAUNCHES"),
+            "flash_attention_wgmma": (flash_attention, "LAUNCHES_TC"),
+            "ssd_scan": (ssd_scan, "LAUNCHES"),
+            "ssd_scan_tc": (ssd_scan, "LAUNCHES_TC")}
 
 
 def reset_counts():
-    for mod in counters().values():
-        mod.LAUNCHES = 0
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
 
 
 def read_counts():
-    return {name: mod.LAUNCHES for name, mod in counters().items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in counters().items()}
 
 
-def k3_inputs(torch, b, h, hkv, s, dh, dtype, seed):
+def old_kernel(mod):
+    """Within the block, the wrapper ``mod`` sends every CUDA call to its
+    f32 kernel (PR 12's K3 or K4), whatever the dtype: to time that kernel
+    beside the tensor-core one on the same inputs."""
+    from unittest import mock
+
+    return mock.patch.object(mod, "takes_tensor_cores",
+                             lambda *args: False)
+
+
+def k3_inputs(torch, b, h, hkv, s, dh, dtype, seed, sk=None, pad=0):
+    """q (B, H, S, Dh), k/v (B, Hkv, Sk, Dh) from ``seed``; ``pad`` > 0
+    gives views into rows of Dh + pad elements (a sequence stride the
+    tensor-core kernel does not take)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     kw = dict(device="cuda", dtype=torch.float32, generator=gen)
-    return tuple(torch.randn(shape, **kw).to(dtype) for shape in
-                 ((b, h, s, dh), (b, hkv, s, dh), (b, hkv, s, dh)))
+    sk = s if sk is None else sk
+    return tuple(torch.randn(shape[:3] + (dh + pad,), **kw).to(dtype)[..., :dh]
+                 for shape in ((b, h, s, dh), (b, hkv, sk, dh), (b, hkv, sk, dh)))
+
+
+def k3_expect(torch, q, k, v):
+    """The kernel the K3 wrapper's dispatch rule picks for these views."""
+    from repro_torch.kernels import flash_attention
+
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    return ("flash_attention_wgmma"
+            if flash_attention.takes_tensor_cores(q, k, v, out)
+            else "flash_attention")
+
+
+def ulp_excess(got, want):
+    """max(|got - want| - (1e-5 + 2^-7 |want|)): <= 0 within one bf16 ulp."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() - (1e-5 + BF16_ULP * want.abs())).max().item()
+
+
+def launched(torch, fn, expect):
+    """``fn()`` must launch the kernel ``expect`` once and no other."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts[expect] == 1 and sum(counts.values()) == 1,
+          f"expected one {expect} launch, counted {counts}")
+    return out
 
 
 def phase_k3(torch):
     from repro_torch.kernels import flash_attention, ref
 
     t0 = phase("8. K3 against its plain version")
-    errs = {"float32": 0.0, "bfloat16": 0.0}
+    errs = {"flash_attention": {"float32": 0.0, "bfloat16": 0.0},
+            "flash_attention_wgmma": {"bfloat16": 0.0}}
+    model_err = 0.0
+    cases = [(b, h, hkv, s, s, dh, causal, window, 0)
+             for b, h, hkv, s, dh, causal, window in K3_CASES] + K3_EDGE_CASES
     for dtype in (torch.float32, torch.bfloat16):
         tol = 3e-6 if dtype == torch.float32 else 2e-2
         name = str(dtype)[6:]
-        for case in K3_CASES:
-            b, h, hkv, s, dh, causal, window = case
-            q, k, v = k3_inputs(torch, b, h, hkv, s, dh, dtype, s + dh)
-            got = flash_attention.flash_attention(q, k, v, causal=causal,
-                                                  window=window)
+        for case in cases:
+            b, h, hkv, sq, sk, dh, causal, window, pad = case
+            q, k, v = k3_inputs(torch, b, h, hkv, sq, dh, dtype, sq + dh, sk,
+                                pad)
+            kernel = k3_expect(torch, q, k, v)
+            got = launched(torch, lambda: flash_attention.flash_attention(
+                q, k, v, causal=causal, window=window), kernel)
             want = ref.flash_attention_plain(q, k, v, causal=causal,
                                              window=window)
-            torch.cuda.synchronize()
             torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                        rtol=tol)
             # the model's (B, S, H, Dh) layout, read through strides
-            pos = torch.arange(s, device="cuda")
             bshd = flash_attention.attend_bshd(
                 *(x.transpose(1, 2).contiguous() for x in (q, k, v)),
-                q_pos=pos, k_pos=pos, causal=causal, window=window)
+                q_pos=torch.arange(sq, device="cuda"),
+                k_pos=torch.arange(sk, device="cuda"), causal=causal,
+                window=window)
             torch.cuda.synchronize()
-            check(torch.equal(bshd.transpose(1, 2), got),
-                  f"K3 layouts disagree at {case}")
+            if not pad:
+                check(torch.equal(bshd.transpose(1, 2), got),
+                      f"K3 layouts disagree at {case}")
+            extra = ""
             if dtype == torch.bfloat16:
                 # both sides compute in f32 from the same inputs: only the
                 # output's rounding to bf16 may part them
-                torch.testing.assert_close(got.float(), want.float(),
-                                           atol=1e-5, rtol=BF16_ULP)
+                check(ulp_excess(got, want) <= 0,
+                      f"K3 {case}: more than one bf16 ulp from the plain "
+                      f"version ({ulp_excess(got, want):.3e})")
+            if kernel == "flash_attention_wgmma":
+                model = ref.flash_attention_tc(q, k, v, causal=causal,
+                                               window=window)
+                check(ulp_excess(got, model) <= 0,
+                      f"K3 {case}: more than one bf16 ulp from its model")
+                m_err = (got.float() - model.float()).abs().max().item()
+                model_err = max(model_err, m_err)
+                extra = f"; vs its model {m_err:.3e}"
             err = (got.float() - want.float()).abs().max().item()
-            errs[name] = max(errs[name], err)
-            log(f"K3 {case} {name}: max abs err {err:.3e} (tol {tol}"
-                f"{'' if tol < 1e-3 else ', and one bf16 ulp'})")
+            errs[kernel][name] = max(errs[kernel][name], err)
+            log(f"K3 {case} {name} -> {kernel}: max abs err {err:.3e} (tol "
+                f"{tol}{'' if tol < 1e-3 else ', and one bf16 ulp'}){extra}")
         for stride, shift, window in K3_BLIND_CASES:
             q, k, v = (x.transpose(1, 2).contiguous() for x in
                        k3_inputs(torch, 2, 4, 2, 200, 64, dtype, 7))
             q_pos = torch.arange(200, device="cuda")
             k_pos = torch.arange(200, device="cuda") * stride + shift
-            got = flash_attention.attend_bshd(q, k, v, q_pos=q_pos,
-                                              k_pos=k_pos, window=window)
+            kernel = ("flash_attention_wgmma" if dtype == torch.bfloat16
+                      else "flash_attention")
+            got = launched(torch, lambda: flash_attention.attend_bshd(
+                q, k, v, q_pos=q_pos, k_pos=k_pos, window=window), kernel)
             want = plain_attention(q, k, v, q_pos=q_pos, k_pos=k_pos,
                                    window=window)
-            torch.cuda.synchronize()
             blind = int((~ref.visible(q_pos, k_pos, True, window).any(1))
                         .sum())
             check(blind > 0, "no query without a visible key")
             torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                        rtol=tol)
+            if dtype == torch.bfloat16:
+                check(ulp_excess(got, want) <= 0,
+                      "K3 blind rows: more than one bf16 ulp")
             err = (got.float() - want.float()).abs().max().item()
-            errs[name] = max(errs[name], err)
+            errs[kernel][name] = max(errs[kernel][name], err)
             log(f"K3 positions k = {stride}*i + {shift}, window {window} "
-                f"({blind} of 200 queries see no key) {name}: max abs err "
-                f"{err:.3e} (tol {tol})")
-    RECORD["k3_parity"] = {"cases": (len(K3_CASES) + len(K3_BLIND_CASES)) * 2,
-                           "max_abs_err": errs}
+                f"({blind} of 200 queries see no key) {name} -> {kernel}: "
+                f"max abs err {err:.3e} (tol {tol})")
+
+    # what the P split buys: the same arithmetic with a single bf16 P
+    b, h, hkv, s, dh = SERVE_BATCH, 24, 8, SERVE_PROMPT, 128
+    q, k, v = k3_inputs(torch, b, h, hkv, s, dh, torch.bfloat16, 5)
+    plain = ref.flash_attention_plain(q, k, v).float()
+    single = {}
+    for terms in (1, 2):
+        out = ref.flash_attention_tc(q, k, v, p_terms=terms).float()
+        diff = (out - plain).abs()
+        single[terms] = {
+            "max_abs_err": diff.max().item(),
+            "ulp_excess": ulp_excess(out, plain),
+            "share_beyond_one_ulp": (diff > 1e-5 + BF16_ULP * plain.abs())
+            .float().mean().item()}
+        log(f"K3 model with P in {terms} bf16 term(s), serve shape: max abs "
+            f"err {single[terms]['max_abs_err']:.3e} against the plain "
+            f"version, {single[terms]['share_beyond_one_ulp']:.3e} of the "
+            f"outputs beyond one bf16 ulp")
+    check(single[2]["ulp_excess"] <= 0, "the split-P model leaves one ulp")
+    del q, k, v, plain
+    RECORD["k3_parity"] = {"cases": (len(cases) + len(K3_BLIND_CASES)) * 2,
+                           "max_abs_err": errs, "wgmma_vs_model": model_err,
+                           "p_terms": single}
     done("K3", t0)
     return errs
 
@@ -625,31 +757,48 @@ def phase_k4(torch):
     from repro_torch.kernels import ref, ssd_scan
 
     t0 = phase("9. K4 against its plain version")
-    errs = {"float32": 0.0, "bfloat16": 0.0}
+    errs = {"ssd_scan": {"float32": 0.0, "bfloat16": 0.0},
+            "ssd_scan_tc": {"bfloat16": 0.0}}
+    model_err = 0.0
     tol = 5e-5   # the output is f32 whatever the input's dtype
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
-        for case in K4_CASES:
+        for case in K4_CASES + K4_EDGE_CASES:
             b, s, h, p, g, n, chunk = case
             x, dt, A, B, C = ssd_inputs(torch, b, s, h, p, g, n, dtype,
                                         s + h * p)
-            got = ssd_scan.ssd_scan(x, dt, A, B, C, chunk=chunk)
+            kernel = ("ssd_scan_tc" if ssd_scan.takes_tensor_cores(x, B, C)
+                      else "ssd_scan")
+            got = launched(torch, lambda: ssd_scan.ssd_scan(
+                x, dt, A, B, C, chunk=chunk), kernel)
             want = ref.ssd_ref(x, dt, A, B, C, chunk)
-            torch.cuda.synchronize()
             check(got.dtype == torch.float32, "K4 output not float32")
             torch.testing.assert_close(got, want, atol=tol, rtol=tol)
             err = (got - want).abs().max().item()
-            errs[name] = max(errs[name], err)
-            log(f"K4 {case} {name}: max abs err {err:.3e} (tol {tol})")
-    x, dt, A, B, C = ssd_inputs(torch, 1, 256, 2, 32, 1, 32, torch.float32, 11)
-    got = ssd_scan.ssd_scan(x, dt, A, B, C, chunk=64)
-    seq = ref.ssd_sequential_ref(x, dt, A, B, C)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, seq, atol=1e-4, rtol=0)
-    seq_err = (got - seq).abs().max().item()
-    log(f"K4 vs the sequential recurrence (1, 256, 2, 32, 1, 32, 64): max abs "
-        f"err {seq_err:.3e} (atol 1e-4)")
-    RECORD["k4_parity"] = {"cases": len(K4_CASES) * 2, "max_abs_err": errs,
+            errs[kernel][name] = max(errs[kernel][name], err)
+            extra = ""
+            if kernel == "ssd_scan_tc":
+                model = ref.ssd_tc(x, dt, A, B, C, chunk)
+                torch.testing.assert_close(got, model, atol=tol, rtol=tol)
+                m_err = (got - model).abs().max().item()
+                model_err = max(model_err, m_err)
+                extra = f"; vs its model {m_err:.3e}"
+            log(f"K4 {case} {name} -> {kernel}: max abs err {err:.3e} (tol "
+                f"{tol}){extra}")
+    seq_err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dt, A, B, C = ssd_inputs(torch, 1, 256, 2, 32, 1, 32, dtype, 11)
+        kernel = "ssd_scan_tc" if dtype == torch.bfloat16 else "ssd_scan"
+        got = launched(torch, lambda: ssd_scan.ssd_scan(x, dt, A, B, C,
+                                                        chunk=64), kernel)
+        seq = ref.ssd_sequential_ref(x, dt, A, B, C)
+        torch.testing.assert_close(got, seq, atol=1e-4, rtol=0)
+        seq_err[kernel] = (got - seq).abs().max().item()
+        log(f"K4 vs the sequential recurrence (1, 256, 2, 32, 1, 32, 64) "
+            f"{str(dtype)[6:]} -> {kernel}: max abs err {seq_err[kernel]:.3e} "
+            f"(atol 1e-4)")
+    RECORD["k4_parity"] = {"cases": (len(K4_CASES) + len(K4_EDGE_CASES)) * 2,
+                           "max_abs_err": errs, "tc_vs_model": model_err,
                            "sequential_max_abs_err": seq_err}
     done("K4", t0)
     return errs
@@ -690,13 +839,15 @@ def plain_prefill(torch, m, params, prompt, kernel, **alt):
 
     target = ((flash_attention, "attend_bshd",
                functools.partial(plain_attention, **alt))
-              if kernel == "flash_attention"
+              if kernel.startswith("flash_attention")
               else (ssd_scan, "ssd_scan", functools.partial(plain_ssd, **alt)))
     with torch.no_grad(), mock.patch.object(*target):
         reset_counts()
         logits, _ = m.prefill(params, prompt)
         torch.cuda.synchronize()
-        check(read_counts()[kernel] == 0, "the plain prefill launched K3/K4")
+        counts = read_counts()
+        check(not any(counts[k] for k in K34), "the plain prefill launched "
+              f"K3/K4: {counts}")
     return logits
 
 
@@ -731,7 +882,7 @@ def bf16_cross_check(torch, m, params, prompt, kernel, logits):
     """Last-position logits of the kernel's prefill against the plain
     version's, in bf16, beside the noise floor: the plain version against
     a plain version that sums in another order."""
-    alt = ({"block_k": 64} if kernel == "flash_attention"
+    alt = ({"block_k": 64} if kernel.startswith("flash_attention")
            else {"alt_chunk": 64})
     plain = plain_prefill(torch, m, params, prompt, kernel)
     floor = plain_prefill(torch, m, params, prompt, kernel, **alt)
@@ -745,10 +896,11 @@ def bf16_cross_check(torch, m, params, prompt, kernel, logits):
     return out
 
 
-def serve(torch, arch, kernel, n_launches):
+def serve(torch, arch, kernel, kernel32, n_launches):
     """Serve one config at full width: prefill, decode, plain cross-check.
-    ``kernel`` names the counter the prefill must advance by
-    ``n_launches``.  Returns the numbers, the model and its seed-0
+    ``kernel`` names the counter the bf16 prefill must advance by
+    ``n_launches`` (and no other K3/K4 counter), ``kernel32`` the one the
+    float32 prefill must.  Returns the numbers, the model and its seed-0
     parameters and prompt.
 
     The cross-check against the plain version is asserted in float32: in
@@ -784,9 +936,10 @@ def serve(torch, arch, kernel, n_launches):
         torch.cuda.synchronize()
         counts = read_counts()
     prefill_ms = s0.elapsed_time(s1)
-    check(counts[kernel] == n_launches,
-          f"{arch} prefill: {counts[kernel]} {kernel} launches, expected "
-          f"{n_launches}")
+    check(counts[kernel] == n_launches
+          and sum(counts[k] for k in K34) == n_launches,
+          f"{arch} prefill: {counts} launches, expected {n_launches} of "
+          f"{kernel} and no other K3/K4")
     check(logits.shape == (b, 1, cfg.vocab)
           and bool(torch.isfinite(logits.float()).all()),
           f"{arch} prefill logits not finite / wrong shape")
@@ -832,8 +985,10 @@ def serve(torch, arch, kernel, n_launches):
         reset_counts()
         logits32, _ = m32.prefill(params32, prompt)
         torch.cuda.synchronize()
-        check(read_counts()[kernel] == n_launches,
-              f"{arch} f32 prefill: {kernel} launches")
+        counts32 = read_counts()
+        check(counts32[kernel32] == n_launches,
+              f"{arch} f32 prefill: {counts32} launches, expected "
+              f"{n_launches} of {kernel32}")
     plain32 = plain_prefill(torch, m32, params32, prompt, kernel)
     rel32 = rel_err(logits32, plain32)
     check(bool(torch.isfinite(logits32).all()), f"{arch} f32 logits")
@@ -845,7 +1000,8 @@ def serve(torch, arch, kernel, n_launches):
            "prefill_tokens_per_s": b * s / prefill_ms * 1e3,
            "decode_ms_per_step": decode_ms / SERVE_STEPS,
            "decode_tokens_per_s": b * SERVE_STEPS / decode_ms * 1e3,
-           "launches": counts, "plain_rel_err_f32": rel32,
+           "launches": counts, "launches_f32": counts32,
+           "plain_rel_err_f32": rel32,
            "bf16_by_seed": dict(zip(FLOOR_SEEDS, bf16))}
     log(f"{arch}: prefill B={b} S={s} {prefill_ms:.2f} ms "
         f"({res['prefill_tokens_per_s']:.0f} tok/s), {kernel} launches "
@@ -864,10 +1020,11 @@ def serve(torch, arch, kernel, n_launches):
 
 def phase_serve(torch):
     t0 = phase("10. serve llama3.2-3b (bf16, full width)")
-    llama = serve(torch, "llama3.2-3b", "flash_attention", 28)
+    llama = serve(torch, "llama3.2-3b", "flash_attention_wgmma",
+                  "flash_attention", 28)
     done("llama", t0)
     t0 = phase("11. serve mamba2-130m (bf16, full width)")
-    mamba = serve(torch, "mamba2-130m", "ssd_scan", 24)
+    mamba = serve(torch, "mamba2-130m", "ssd_scan_tc", "ssd_scan", 24)
     done("mamba", t0)
     RECORD["serve"] = {"llama3.2-3b": llama[0], "mamba2-130m": mamba[0]}
     return llama, mamba
@@ -904,17 +1061,34 @@ def k4_bound(b, s, h, p, g, n, q, in_bytes, out_bytes):
 
 
 def phase_k34_times(torch):
+    """The tensor-core K3 and K4 at the serve shapes beside their PR 12
+    kernels (forced through the wrapper on the same inputs), the plain
+    versions and, for K3, SDPA; kernels timed in turns (new, old, old,
+    new) and each kernel's number the median of its two turns' medians."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention, ref, ssd_scan
 
     t0 = phase("12. K3 and K4 times at the serve shapes (median of 60)")
+
+    def turns(new, old, mod, iters_old=60):
+        a = device_ms(torch, new)
+        with old_kernel(mod):
+            b = device_ms(torch, old, iters=iters_old,
+                          sleep_cycles=20_000_000)
+            c = device_ms(torch, old, iters=iters_old,
+                          sleep_cycles=20_000_000)
+        d = device_ms(torch, new)
+        return statistics.median([a, d]), statistics.median([b, c]), \
+            [a, b, c, d]
+
     b, h, hkv, s, dh = SERVE_BATCH, 24, 8, SERVE_PROMPT, 128
     q, k, v = (x.transpose(1, 2).contiguous() for x in
                k3_inputs(torch, b, h, hkv, s, dh, torch.bfloat16, 5))
     pos = torch.arange(s, dtype=torch.int32, device="cuda")
-    ms = device_ms(torch, lambda: flash_attention.attend_bshd(
-        q, k, v, q_pos=pos, k_pos=pos))
+    call = lambda: flash_attention.attend_bshd(q, k, v, q_pos=pos, k_pos=pos)
+    launched(torch, call, "flash_attention_wgmma")
+    ms, old_ms, order = turns(call, call, flash_attention, iters_old=20)
     plain_ms = device_ms(torch, lambda: plain_attention(
         q, k, v, q_pos=pos, k_pos=pos), sleep_cycles=20_000_000)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -922,33 +1096,40 @@ def phase_k34_times(torch):
         qt, kt, vt, is_causal=True, enable_gqa=True))
     bound, by, flops, nbytes = k3_bound(b, h, hkv, s, dh, 2)
     k3 = {"shape": [b, h, hkv, s, dh], "dtype": "bfloat16", "causal": True,
-          "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+          "ms": ms, "ms_pr12_kernel": old_ms, "turns_new_old_old_new": order,
+          "plain_ms": plain_ms, "library_ms": lib_ms,
           "library_call": "F.scaled_dot_product_attention(is_causal=True, "
                           "enable_gqa=True)",
           "bound_ms": bound, "bound_by": by, "flops": flops, "bytes": nbytes,
-          "achieved_tflops": flops / ms / 1e9}
+          "achieved_tflops": flops / ms / 1e9,
+          "achieved_tflops_pr12_kernel": flops / old_ms / 1e9}
     log(f"K3 (B={b}, H={h}, Hkv={hkv}, S={s}, Dh={dh}) causal bf16: "
-        f"{ms:.4f} ms ({k3['achieved_tflops']:.2f} TFLOP/s; bound "
-        f"{bound:.4f} ms, {by}, {bound / ms:.2%} of it) | plain "
-        f"{plain_ms:.4f} ms | SDPA {lib_ms:.4f} ms")
+        f"wgmma {ms:.4f} ms ({k3['achieved_tflops']:.2f} TFLOP/s; bound "
+        f"{bound:.4f} ms, {by}, {bound / ms:.2%} of it) | PR 12 kernel "
+        f"{old_ms:.4f} ms ({bound / old_ms:.2%}) | plain {plain_ms:.4f} ms | "
+        f"SDPA {lib_ms:.4f} ms | turns {[round(t, 4) for t in order]}")
     del q, k, v, qt, kt, vt
 
     b, s, h, p, g, n, chunk = SERVE_BATCH, SERVE_PROMPT, 24, 64, 1, 128, 128
     x, dt, A, B, C = ssd_inputs(torch, b, s, h, p, g, n, torch.bfloat16, 6)
     dt = dt.float()             # the model's dt is float32 (softplus)
-    ms = device_ms(torch, lambda: ssd_scan.ssd_scan(x, dt, A, B, C,
-                                                    chunk=chunk))
+    call = lambda: ssd_scan.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    launched(torch, call, "ssd_scan_tc")
+    ms, old_ms, order = turns(call, call, ssd_scan)
     plain_ms = device_ms(torch, lambda: ref.ssd_ref(x, dt, A, B, C, chunk),
                          sleep_cycles=20_000_000)
     bound, by, flops, nbytes = k4_bound(b, s, h, p, g, n, chunk, 2, 4)
     k4 = {"shape": [b, s, h, p, g, n, chunk], "dtype": "bfloat16 in, f32 out",
-          "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+          "ms": ms, "ms_pr12_kernel": old_ms, "turns_new_old_old_new": order,
+          "plain_ms": plain_ms, "library_ms": None,
           "bound_ms": bound, "bound_by": by, "flops": flops, "bytes": nbytes,
           "achieved_tflops": flops / ms / 1e9}
     log(f"K4 (B={b}, S={s}, H={h}, P={p}, G={g}, N={n}, Q={chunk}) bf16 in, "
-        f"f32 out: {ms:.4f} ms ({k4['achieved_tflops']:.2f} TFLOP/s; bound "
-        f"{bound:.4f} ms, {by}, {bound / ms:.2%} of it) | plain "
-        f"{plain_ms:.4f} ms | no single PyTorch call computes the scan")
+        f"f32 out: tensor cores {ms:.4f} ms (bound {bound:.4f} ms, {by}, "
+        f"{bound / ms:.2%} of it) | PR 12 kernel {old_ms:.4f} ms "
+        f"({bound / old_ms:.2%}) | plain {plain_ms:.4f} ms | no single "
+        f"PyTorch call computes the scan | turns "
+        f"{[round(t, 4) for t in order]}")
     RECORD["k34_times"] = {"flash_attention": k3, "ssd_scan": k4}
     done("K3/K4 times", t0)
     return k3, k4
@@ -1023,8 +1204,9 @@ def phase_serve_profile(torch, llama, mamba):
     t0 = phase("13. where the serve time goes: torch.profiler, one prefill, "
                "then 4 decode steps")
     out = {}
-    for arch, served, name in (("llama3.2-3b", llama, "flash_fwd_kernel"),
-                               ("mamba2-130m", mamba, "ssd_scan_kernel")):
+    for arch, served, name in (("llama3.2-3b", llama,
+                                "flash_fwd_wgmma_kernel"),
+                               ("mamba2-130m", mamba, "ssd_scan_tc_kernel")):
         res, m, params, prompt = served
         prof = profile_serve(torch, m, params, prompt, name, res)
         pre, dec = prof["prefill"], prof["decode_step"]
@@ -1107,8 +1289,7 @@ def phase_k2(torch):
     out = ops.ota_update(v, sigma=1e-3, n_agents=10, m_h=RAYLEIGH_MH, seed=3)
     torch.cuda.synchronize()
     counts = read_counts()
-    check(counts == {"ota_fused": 0, "ota_channel": 1, "flash_attention": 0,
-                     "ssd_scan": 0},
+    check(counts["ota_channel"] == 1 and sum(counts.values()) == 1,
           f"ops.ota_update launched {counts}, expected one K2 launch")
     check(bool(torch.isfinite(out).all()), "ota_update output not finite")
     log(f"ops.ota_update on a CUDA (4096, 1024) tensor: {counts}")
@@ -1411,20 +1592,30 @@ def main():
         "ms": k2_row["ms"], "plain_ms": k2_row["plain_ms"],
         "bound_ms": k2_row["bound_ms"], "bound_by": k2_row["bound_by"],
         "library_ms": None, "shape": k2_row["shape"], "timings": k2_rows})
-    for name, src, body, res, err, t in (
+    # K3 and K4: the tensor-core kernels run the bf16 prefills; PR 12's
+    # f32-core kernels run the float32 prefills (their launches are counted
+    # there) and are timed on the bf16 serve inputs beside the new ones
+    for name, src, body, res, err, t, new in (
+            ("flash_attention_wgmma", "flash_attention_wgmma.cu",
+             "flash_attention.py:33", llama, k3_err, k3, True),
             ("flash_attention", "flash_attention.cu", "flash_attention.py:33",
-             llama, k3_err, k3),
-            ("ssd_scan", "ssd_scan.cu", "ssd_scan.py:33", mamba, k4_err,
-             k4)):
+             llama, k3_err, k3, False),
+            ("ssd_scan_tc", "ssd_scan_tc.cu", "ssd_scan.py:33", mamba, k4_err,
+             k4, True),
+            ("ssd_scan", "ssd_scan.cu", "ssd_scan.py:33", mamba, k4_err, k4,
+             False)):
         kernels["kernels"].append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": f"src/repro/kernels/{body}", "parity": "ok",
-            "launches": res["launches"][name],
-            "max_abs_err": err["float32"], "max_abs_err_bf16": err["bfloat16"],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "shape": t["shape"]})
+            "launches": res["launches" if new else "launches_f32"][name],
+            "launches_from": ("bf16 prefill" if new else "float32 prefill"),
+            "max_abs_err": max(err[name].values()),
+            "max_abs_err_by_dtype": err[name],
+            "ms": t["ms" if new else "ms_pr12_kernel"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "shape": t["shape"]})
     RECORD["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

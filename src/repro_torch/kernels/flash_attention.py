@@ -5,14 +5,25 @@ keeps its (B, H, S, Dh) layout and signature, minus ``block_q``,
 ``block_k`` and ``interpret`` (the tiles are the kernel's own).
 :func:`attend_bshd` is the same computation in the model's (B, S, H, Dh)
 layout with explicit positions, which ``models/attention.attend_blockwise``
-calls; the kernel reads either layout through its strides, so neither
-copies.  The kernel is ``csrc/flash_attention.cu``; its plain PyTorch version
-is ``ref.flash_attention_plain``.
+calls; the kernels read either layout through their strides, so neither
+copies.  Its plain PyTorch version is ``ref.flash_attention_plain``.
 
-Dispatch is by the device of ``q``: a CPU tensor takes the plain version; a
-CUDA tensor is checked (device, dtype, shape, strides) and launched on
-PyTorch's current stream, or the call raises.  There is no fallback.
-``LAUNCHES`` counts kernel launches.
+Two CUDA kernels compute it:
+
+* ``csrc/flash_attention_wgmma.cu``, on bf16 tensor cores (wgmma, TMA),
+  takes bf16 inputs whose head dim is a multiple of 16 up to 128 and whose
+  q, k, v and output have 16-byte-aligned pointers and (batch, head,
+  sequence) strides that are multiples of 8 elements (what TMA needs);
+  ``ref.flash_attention_tc`` is the plain model of its arithmetic;
+* ``csrc/flash_attention.cu`` (f32 CUDA cores) takes everything else:
+  float32, other head dims, unaligned views.
+
+Dispatch is by the device of ``q``, then by those properties alone: a CPU
+tensor takes the plain version; a CUDA tensor is checked (device, dtype,
+shape, strides) and launched on PyTorch's current stream, or the call
+raises.  There is no fallback: a failed build or launch raises.
+``LAUNCHES`` counts the f32 kernel's launches, ``LAUNCHES_TC`` the tensor-
+core kernel's.
 """
 from __future__ import annotations
 
@@ -24,22 +35,47 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES = 0
+LAUNCHES_TC = 0
 
 MAX_HEAD_DIM = 128
 _DTYPES = (torch.float32, torch.bfloat16)
-_BOUND = False
+_BOUND = set()
 
 
-def _lib() -> ctypes.CDLL:
-    global _BOUND
-    lib = build.load("flash_attention")
-    if not _BOUND:
+def _lib(name: str) -> ctypes.CDLL:
+    """``csrc/flash_attention.cu`` (``flash_attention_launch``, which takes a
+    leading dtype flag) or ``csrc/flash_attention_wgmma.cu``
+    (``flash_attention_wgmma_launch``, bf16 only)."""
+    lib = build.load(name)
+    if name not in _BOUND:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flash_attention_launch.argtypes = (
-            [i] + [vp] * 6 + [ll] * 12 + [i] * 8 + [ctypes.c_float, vp])
-        lib.flash_attention_launch.restype = i
-        _BOUND = True
+        fn = getattr(lib, f"{name}_launch")
+        lead = [i] if name == "flash_attention" else []
+        fn.argtypes = lead + [vp] * 6 + [ll] * 12 + [i] * 8 + [ctypes.c_float, vp]
+        fn.restype = i
+        _BOUND.add(name)
     return lib
+
+
+def takes_tensor_cores(*views: torch.Tensor) -> bool:
+    """Whether (B, H, S, Dh) views go to the tensor-core kernel: bf16, a
+    head dim that is a multiple of 16 up to 128, 16-byte-aligned pointers
+    and (batch, head, sequence) strides that are positive multiples of 8
+    elements (a dim of size 1 has no stride that matters)."""
+    dh = views[0].shape[-1]
+    if views[0].dtype != torch.bfloat16 or dh % 16 or not 0 < dh <= 128:
+        return False
+    return all(x.data_ptr() % 16 == 0 and all(
+        n == 1 or (st > 0 and st % 8 == 0)
+        for n, st in zip(x.shape[:3], x.stride()[:3])) for x in views)
+
+
+def _tma_strides(x: torch.Tensor):
+    """(batch, head, sequence) strides for a tensor map: a dim of size 1 gets
+    the tensor's whole extent, a valid stride that is never stepped."""
+    extent = max(n * st for n, st in zip(x.shape, x.stride()))
+    return [st if n > 1 else extent for n, st in zip(x.shape[:3],
+                                                       x.stride()[:3])]
 
 
 def _check_window(window: Optional[int]) -> None:
@@ -63,7 +99,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             window: Optional[int]) -> None:
     """Check the CUDA operands, given as (B, H, S, Dh) views, and launch K3
     writing into the (B, H, Sq, Dh) view ``out``."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_TC
     dev = q.device
     b, h, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -84,16 +120,22 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_window(window)
     qp = _positions(q_pos, sq, dev)
     kp = _positions(k_pos, sk, dev)
-    strides = [s for x in (q, k, v, out) for s in x.stride()[:3]]
-    rc = _lib().flash_attention_launch(
-        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), out.data_ptr(), qp.data_ptr(), kp.data_ptr(), *strides,
-        b, h, hkv, sq, sk, dh, int(causal), window or 0, 1.0 / dh ** 0.5,
+    tc = takes_tensor_cores(q, k, v, out)
+    name = "flash_attention_wgmma" if tc else "flash_attention"
+    lead = [] if tc else [int(q.dtype == torch.bfloat16)]
+    strides = [s for x in (q, k, v, out) for s in
+               (_tma_strides(x) if tc else x.stride()[:3])]
+    rc = getattr(_lib(name), f"{name}_launch")(
+        *lead, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        qp.data_ptr(), kp.data_ptr(), *strides, b, h, hkv, sq, sk, dh,
+        int(causal), window or 0, 1.0 / dh ** 0.5,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"cudaError {rc}")
-    LAUNCHES += 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    if tc:
+        LAUNCHES_TC += 1
+    else:
+        LAUNCHES += 1
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

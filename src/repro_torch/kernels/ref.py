@@ -12,11 +12,15 @@ on the card:
   any shape: ``ota_channel_ref`` (the JAX package's oracle, op for op) and
   ``ota_channel_plain`` (that oracle on the counter stream);
 * K3, flash attention: ``flash_attention_plain`` (blockwise online softmax,
-  the kernel's arithmetic) beside ``flash_attention_ref`` (the materialised
-  softmax oracle of the JAX package);
+  the f32 kernel's arithmetic) beside ``flash_attention_ref`` (the
+  materialised softmax oracle of the JAX package), and
+  ``flash_attention_tc``, the plain model of the bf16 tensor-core kernel's
+  arithmetic (bf16 score products, the P split into two bf16 terms);
 * K4, the SSD scan: the chunked ``ssd_ref`` (``repro/models/ssm.py::ssd_ref``,
   kept here so ``models/ssm.py`` and this module do not import each other)
-  and the sequential ``ssd_sequential_ref``.
+  and the sequential ``ssd_sequential_ref``, and ``ssd_tc``, the plain model
+  of the tensor-core kernel's arithmetic (P-column slices, f32 operands as
+  three bf16 terms).
 
 The K1 functions are the definitions the CUDA kernel in ``csrc/ota_fused.cu``
 is held to, op for op:
@@ -36,7 +40,7 @@ modulo 2^32 in 16-bit halves so no intermediate leaves the int64 range.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import torch
 
@@ -267,6 +271,62 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, h, sq, dh).to(q.dtype)
 
 
+def split_bf16(x: torch.Tensor, terms: int) -> List[torch.Tensor]:
+    """f32 ``x`` as ``terms`` bf16 parts (returned in f32) whose sum is x to
+    about 8 * terms significant bits: each part is the bf16 rounding (RNE)
+    of what the earlier parts leave."""
+    parts = []
+    rest = x.float()
+    for _ in range(terms):
+        part = rest.to(torch.bfloat16).float()
+        parts.append(part)
+        rest = rest - part
+    return parts
+
+
+def flash_attention_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       *, causal: bool = True, window: Optional[int] = None,
+                       q_pos: Optional[torch.Tensor] = None,
+                       k_pos: Optional[torch.Tensor] = None,
+                       p_terms: int = 2) -> torch.Tensor:
+    """Plain model of the arithmetic of the bf16 tensor-core K3
+    (``csrc/flash_attention_wgmma.cu``): scores ``(q . k) * scale`` with the
+    bf16 products summed in f32 and the f32 scale applied after; 128-key
+    tiles; online softmax with f32 ``(m, l)``; ``P . V`` as
+    ``p_hi . V + p_lo . V`` with ``p_hi = bf16(p)``, ``p_lo = bf16(p -
+    p_hi)`` (``p_terms=1`` models a single bf16 P, which the kernel does not
+    use); ``l`` sums the f32 ``p``; output ``acc / max(l, 1e-30)`` in q's
+    dtype.  Tiles the kernel skips add nothing here either: their
+    probabilities are 0 or are wiped by the correction of a later tile."""
+    b, h, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    dev = q.device
+    q_pos = _positions(q_pos, sq, dev)
+    k_pos = _positions(k_pos, sk, dev)
+    scale = torch.tensor(1.0 / dh ** 0.5, dtype=torch.float32)
+    qf = q.float().reshape(b, hkv, g, sq, dh)
+    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(b, hkv, g, sq, dh, dtype=torch.float32, device=dev)
+    for k0 in range(0, sk, 128):
+        kb = k[:, :, k0:k0 + 128].float()
+        vb = v[:, :, k0:k0 + 128].float()
+        s = torch.einsum("bkgqd,bkcd->bkgqc", qf, kb) * scale.to(dev)
+        ok = visible(q_pos, k_pos[k0:k0 + 128], causal, window)
+        s = torch.where(ok, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None]
+        for part in split_bf16(p, p_terms):
+            acc = acc + torch.einsum("bkgqc,bkcd->bkgqd", part, vb)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, h, sq, dh).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # K4: the Mamba2 SSD scan, x (B, S, H, P), dt (B, S, H), A (H,),
 # B/C (B, S, G, N); f32 math
@@ -333,6 +393,66 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                            torch.exp(cum_g))
     y = (y_intra + y_inter).reshape(b, s, h, p)
     return y[:, :s_orig]
+
+
+def ssd_tc(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+           B: torch.Tensor, C: torch.Tensor, chunk: int,
+           p_slice: int = 16) -> torch.Tensor:
+    """Plain model of the arithmetic of the tensor-core K4
+    (``csrc/ssd_scan_tc.cu``); returns y (B, S, H, P) in float32.
+
+    The P columns are scanned in slices of ``p_slice``, each on its own (the
+    kernel's blocks; the split is exact).  ``C . B^T`` multiplies the bf16
+    values exactly and sums in f32.  Each other product has one exact
+    operand (x or C) and one f32 operand, taken as three bf16 terms
+    (:func:`split_bf16`): ``(C.B^T o decay o dt) . x``, ``C . S`` and
+    ``(B o exp(last - cum) o dt)^T . x``.  The state carries in f32:
+    ``S <- exp(last) S + ...``."""
+    b, s_orig, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    hg = h // g
+    chunk = min(chunk, s_orig)
+    pad = -s_orig % chunk
+    if pad:
+        def zp(a):
+            return torch.cat([a, a.new_zeros((a.shape[0], pad) + a.shape[2:])],
+                             dim=1)
+        x, dt, B, C = zp(x), zp(dt), zp(B), zp(C)
+    s = s_orig + pad
+    nc = s // chunk
+    x, dt, B, C = x.float(), dt.float(), B.float(), C.float()
+    dtc = dt.reshape(b, nc, chunk, g, hg)
+    cum = torch.cumsum((dt * A.float()[None, None, :]).reshape(
+        b, nc, chunk, g, hg), dim=2)                              # (b,nc,Q,g,hg)
+    last = cum[:, :, -1:]
+    Bc = B.reshape(b, nc, chunk, g, n)
+    Cc = C.reshape(b, nc, chunk, g, n)
+    scores = torch.einsum("bcqgn,bckgn->bcgqk", Cc, Bc)           # exact products
+    seg = cum[:, :, :, None] - cum[:, :, None, :]                 # (b,nc,Q,K,g,hg)
+    mask = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                 device=x.device))[None, None, :, :, None, None]
+    lw = torch.where(mask, scores.permute(0, 1, 3, 4, 2)[..., None]
+                     * torch.exp(torch.where(mask, seg, 0.0))
+                     * dtc[:, :, None], 0.0)                      # (b,nc,Q,K,g,hg)
+    bw = Bc[..., None] * (torch.exp(last - cum) * dtc)[:, :, :, :, None]
+    bw = bw.permute(0, 1, 2, 3, 5, 4)                             # (b,nc,K,g,hg,n)
+    decay = torch.exp(last[:, :, 0])                              # (b,nc,g,hg)
+    ys = []
+    for p0 in range(0, p, p_slice):
+        xs = x[..., p0:p0 + p_slice].reshape(b, nc, chunk, g, hg, -1)
+        y_intra = sum(torch.einsum("bcqkgh,bckghp->bcqghp", part, xs)
+                      for part in split_bf16(lw, 3))
+        states = sum(torch.einsum("bckghn,bckghp->bcghpn", part, xs)
+                     for part in split_bf16(bw, 3))
+        s_prev = torch.zeros_like(states[:, 0])
+        y_inter = []
+        for c in range(nc):
+            y_inter.append(sum(torch.einsum("bqgn,bghpn->bqghp", Cc[:, c], part)
+                               for part in split_bf16(s_prev, 3)))
+            s_prev = s_prev * decay[:, c, ..., None, None] + states[:, c]
+        y_inter = torch.stack(y_inter, dim=1) * torch.exp(cum)[..., None]
+        ys.append((y_intra + y_inter).reshape(b, s, h, -1))
+    return torch.cat(ys, dim=-1)[:, :s_orig]
 
 
 def ssd_sequential_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -5,13 +5,24 @@ signature minus ``interpret``.  It returns float32, which is what the JAX
 model's ``ssd_ref`` returns and the model uses (the TPU kernel writes x's
 dtype).  Unlike the TPU kernel it takes any length:
 a length that is not a multiple of ``chunk`` is handled as ``ssd_ref``'s
-right zero-padding, and ``chunk = S`` when ``S < chunk``.  The kernel is
-``csrc/ssd_scan.cu``; its plain PyTorch version is ``ref.ssd_ref``.
+right zero-padding, and ``chunk = S`` when ``S < chunk``.  Its plain
+PyTorch version is ``ref.ssd_ref``.
 
-Dispatch is by the device of ``x``: a CPU tensor takes the plain version; a
-CUDA tensor is checked (device, dtype, shape, contiguity) and launched on
-PyTorch's current stream, or the call raises.  There is no fallback.
-``LAUNCHES`` counts kernel launches.
+Two CUDA kernels compute it:
+
+* ``csrc/ssd_scan_tc.cu``, on bf16 tensor cores, takes bf16 x, B and C
+  whose head dim P and state size N are multiples of 8 and whose pointers
+  are 16-byte aligned (what its 16-byte asynchronous copies need);
+  ``ref.ssd_tc`` is the plain model of its arithmetic;
+* ``csrc/ssd_scan.cu`` (f32 CUDA cores) takes everything else: float32
+  inputs, other P and N.
+
+Dispatch is by the device of ``x``, then by those properties alone: a CPU
+tensor takes the plain version; a CUDA tensor is checked (device, dtype,
+shape, contiguity) and launched on PyTorch's current stream, or the call
+raises.  There is no fallback: a failed build or launch raises.
+``LAUNCHES`` counts the f32 kernel's launches, ``LAUNCHES_TC`` the tensor-
+core kernel's.
 """
 from __future__ import annotations
 
@@ -22,23 +33,36 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES = 0
+LAUNCHES_TC = 0
 
 MAX_CHUNK = 128
 MAX_STATE = 128
 MAX_HEAD_DIM = 64
 _DTYPES = (torch.float32, torch.bfloat16)
-_BOUND = False
+_BOUND = set()
 
 
-def _lib() -> ctypes.CDLL:
-    global _BOUND
-    lib = build.load("ssd_scan")
-    if not _BOUND:
+def _lib(name: str) -> ctypes.CDLL:
+    """``csrc/ssd_scan.cu`` (``ssd_scan_launch``, which takes a leading dtype
+    flag) or ``csrc/ssd_scan_tc.cu`` (``ssd_scan_tc_launch``, bf16 only)."""
+    lib = build.load(name)
+    if name not in _BOUND:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.ssd_scan_launch.argtypes = [i] + [vp] * 6 + [i] * 7 + [vp]
-        lib.ssd_scan_launch.restype = i
-        _BOUND = True
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = ([i] if name == "ssd_scan" else []) + [vp] * 6 + \
+            [i] * 7 + [vp]
+        fn.restype = i
+        _BOUND.add(name)
     return lib
+
+
+def takes_tensor_cores(x: torch.Tensor, B: torch.Tensor,
+                       C: torch.Tensor) -> bool:
+    """Whether contiguous operands go to the tensor-core kernel: bf16, P and
+    N multiples of 8, 16-byte-aligned pointers."""
+    return (x.dtype == torch.bfloat16 and x.shape[-1] % 8 == 0
+            and B.shape[-1] % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, B, C)))
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -46,7 +70,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              chunk: int = 128) -> torch.Tensor:
     """x (B, S, H, P), dt (B, S, H) post-softplus, A (H,) negative,
     B/C (B, S, G, N) -> y (B, S, H, P) in float32."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_TC
     if not x.is_cuda:
         return ref.ssd_ref(x, dt, A, B, C, chunk)
     b, s, h, p = x.shape
@@ -74,11 +98,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dt32 = dt.float().contiguous()
     a32 = A.float().contiguous()
     y = torch.empty(x.shape, dtype=torch.float32, device=dev)
-    rc = _lib().ssd_scan_launch(
-        int(x.dtype == torch.bfloat16), x.data_ptr(), dt32.data_ptr(),
-        a32.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(), b, s, h,
-        p, g, n, q, torch.cuda.current_stream(dev).cuda_stream)
+    tc = takes_tensor_cores(x, B, C)
+    name = "ssd_scan_tc" if tc else "ssd_scan"
+    lead = [] if tc else [int(x.dtype == torch.bfloat16)]
+    rc = getattr(_lib(name), f"{name}_launch")(
+        *lead, x.data_ptr(), dt32.data_ptr(), a32.data_ptr(), B.data_ptr(),
+        C.data_ptr(), y.data_ptr(), b, s, h, p, g, n, q,
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    if tc:
+        LAUNCHES_TC += 1
+    else:
+        LAUNCHES += 1
     return y

@@ -1,5 +1,9 @@
 """The port's kernels on the card against their plain versions, on the same
-numpy-made inputs.  K1: bitwise for agg given the kernel's own noise, rtol
+numpy-made inputs.  K3 and K4 each have two kernels: bf16 inputs of the
+shapes and strides the tensor-core kernels take go there (and are also
+held to those kernels' plain models, ``ref.flash_attention_tc`` and
+``ref.ssd_tc``), the rest to the f32-core kernels; the launch counters
+show which ran.  K1: bitwise for agg given the kernel's own noise, rtol
 1e-6 for sgd and adam.  K3 (flash attention): atol = rtol = 3e-6 in f32 and
 2e-2 in bf16 (the JAX sweep's tolerances, ``tests/test_kernels.py:43``), and
 in bf16 also one bf16 ulp of the value (rtol 2**-7, atol 1e-5): both sides
@@ -188,6 +192,88 @@ def test_flash_attention_launch_count_and_validation(cuda):
     assert flash_attention.LAUNCHES == before + 1
 
 
+K3_TC_EDGES = [  # (b, h, hkv, sq, sk, dh, window): the tensor-core kernel's tiles
+    (1, 3, 1, 130, 300, 128, None),   # Sq != Sk, neither a multiple of 128
+    (1, 4, 2, 300, 170, 80, None),    # Dh 80: a TMA box with zero columns
+    (1, 2, 2, 200, 200, 112, 64),     # Dh 112 with a window
+    (2, 4, 4, 48, 48, 128, None),     # one short query and key tile
+    (1, 2, 2, 129, 129, 16, None),    # Dh 16; one row and key past a tile
+]
+
+
+def _within_one_ulp(got, want):
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-5,
+                               rtol=2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K3_TC_EDGES, ids=str)
+def test_flash_attention_tensor_cores_edges(cuda, case):
+    """bf16 shapes that leave the tensor-core kernel's 128-row tiles ragged
+    or its 64-column boxes part empty: one launch of that kernel, within
+    one bf16 ulp of the plain version and of its plain model."""
+    b, h, hkv, sq, sk, dh, window = case
+    q, k, v = _qkv(sq + sk + dh, b, h, hkv, sq, sk, dh, torch.bfloat16, cuda)
+    before = (flash_attention.LAUNCHES, flash_attention.LAUNCHES_TC)
+    got = flash_attention.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert (flash_attention.LAUNCHES, flash_attention.LAUNCHES_TC) == (
+        before[0], before[1] + 1)
+    _within_one_ulp(got, ref.flash_attention_plain(q, k, v, window=window))
+    _within_one_ulp(got, ref.flash_attention_tc(q, k, v, window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift,stride,window", [(100, 1, None), (0, 2, 1)])
+def test_flash_attention_tensor_cores_rows_that_see_no_key(cuda, shift, stride,
+                                                           window):
+    """The tensor-core kernel gives a query that sees no key the mean of V,
+    also where it skips every key tile of the block."""
+    q, k, v = (x.transpose(1, 2).contiguous() for x in
+               _qkv(7, 2, 4, 2, 200, 200, 64, torch.bfloat16, cuda))
+    q_pos = torch.arange(200, device=cuda)
+    k_pos = torch.arange(200, device=cuda) * stride + shift
+    before = flash_attention.LAUNCHES_TC
+    got = flash_attention.attend_bshd(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                                      window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES_TC == before + 1
+    want = ref.flash_attention_plain(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        window=window, q_pos=q_pos, k_pos=k_pos).transpose(1, 2)
+    _within_one_ulp(got, want)
+    blind = ~ref.visible(q_pos, k_pos, True, window).any(dim=1)
+    assert blind.any()
+
+
+@pytest.mark.cuda
+def test_flash_attention_dispatch_counts(cuda):
+    """bf16 with Dh a multiple of 16 and aligned strides takes the
+    tensor-core kernel; f32, Dh 72 and a sequence stride of 68 take the
+    f32-core kernel; each within its contract."""
+    def run(dtype, dh, pad=0):
+        rng = np.random.default_rng(dh + pad)
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (1, 2, 160, dh + pad)).astype(np.float32)).to(cuda, dtype)[..., :dh]
+            for _ in range(3))
+        before = (flash_attention.LAUNCHES, flash_attention.LAUNCHES_TC)
+        got = flash_attention.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_plain(q, k, v)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=3e-6, rtol=3e-6)
+        else:
+            _within_one_ulp(got, want)
+        return (flash_attention.LAUNCHES - before[0],
+                flash_attention.LAUNCHES_TC - before[1])
+    assert run(torch.bfloat16, 128) == (0, 1)
+    assert run(torch.bfloat16, 64) == (0, 1)
+    assert run(torch.float32, 128) == (1, 0)
+    assert run(torch.bfloat16, 72) == (1, 0)
+    assert run(torch.bfloat16, 64, pad=4) == (1, 0)
+
+
 # ---------------------------------------------------------------------------
 # K4: SSD scan
 # ---------------------------------------------------------------------------
@@ -253,6 +339,51 @@ def test_ssd_scan_launch_count_and_validation(cuda):
         ssd_scan.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2),
                           dt, A, B, C, chunk=32)
     assert ssd_scan.LAUNCHES == before + 1
+
+
+K4_TC_EDGES = [  # (b, s, h, p, g, n, chunk): P, S off the slice and chunk
+    (1, 200, 2, 40, 1, 16, 64),
+    (1, 300, 3, 24, 1, 32, 40),     # a chunk that is not a multiple of 16
+    (1, 130, 2, 8, 1, 8, 128),      # one slice narrower than 16
+    (2, 48, 4, 32, 1, 16, 128),     # S < chunk
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K4_TC_EDGES, ids=str)
+def test_ssd_scan_tensor_cores_edges(cuda, case):
+    b, s, h, p, g, n, chunk = case
+    x, dt, A, B, C = _ssd_inputs(s + h * p, b, s, h, p, g, n, torch.bfloat16,
+                                 cuda)
+    before = (ssd_scan.LAUNCHES, ssd_scan.LAUNCHES_TC)
+    got = ssd_scan.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert (ssd_scan.LAUNCHES, ssd_scan.LAUNCHES_TC) == (before[0],
+                                                        before[1] + 1)
+    torch.testing.assert_close(got, ref.ssd_ref(x, dt, A, B, C, chunk),
+                               atol=5e-5, rtol=5e-5)
+    torch.testing.assert_close(got, ref.ssd_tc(x, dt, A, B, C, chunk),
+                               atol=5e-5, rtol=5e-5)
+    torch.testing.assert_close(got, ref.ssd_sequential_ref(x, dt, A, B, C),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_dispatch_counts(cuda):
+    """bf16 with P and N multiples of 8 takes the tensor-core kernel; f32
+    and P = 36 take the f32-core kernel."""
+    def run(dtype, p):
+        x, dt, A, B, C = _ssd_inputs(p, 1, 128, 2, p, 1, 16, dtype, cuda)
+        before = (ssd_scan.LAUNCHES, ssd_scan.LAUNCHES_TC)
+        got = ssd_scan.ssd_scan(x, dt, A, B, C, chunk=64)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref.ssd_ref(x, dt, A, B, C, 64),
+                                   atol=5e-5, rtol=5e-5)
+        return (ssd_scan.LAUNCHES - before[0],
+                ssd_scan.LAUNCHES_TC - before[1])
+    assert run(torch.bfloat16, 32) == (0, 1)
+    assert run(torch.float32, 32) == (1, 0)
+    assert run(torch.bfloat16, 36) == (1, 0)
 
 
 @pytest.mark.cuda
