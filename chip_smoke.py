@@ -70,7 +70,29 @@ Phases, in order; any failure raises and exits non-zero:
               peak memory, the streamed peak below the stacked one;
 18. power control — Algorithm 2 with UnitPower, TruncatedInversion and
               ConstantReceived, 3 Monte-Carlo runs: mean(h) against the
-              closed-form effective m_h, the theory's floor.
+              closed-form effective m_h, the theory's floor;
+19. service — the round service at the paper's width: Bernoulli 0.5
+              (realised and expected debias), subset 3, Bernoulli 0.5 with
+              an exp(1) straggler and deadline 2, each with and without
+              staleness (4, 0.8); stacked (K=100, 1 K1 launch a round) and
+              streamed at ``agent_blocks`` 1/3/4/10 (K=25, 2 or 3 K1
+              launches a block + 1): histories bitwise equal across block
+              sizes, gain means bitwise the stacked run's, the realised
+              rate within 5 standard errors; full participation bitwise the
+              plain round; rounds nobody makes leave theta unchanged;
+20. service large — ``benchmarks/fig_participation.py``'s width, N = 10^4
+              M=1 T=3: rates 0.25/0.5 x staleness off/(4, 0.8), and 0.5
+              with a straggler; stacked and streamed in blocks of 64, 5
+              rounds each: ms, peak MB, the realised rate, K1 launches; K1's
+              time at (10^4, 165);
+21. ET      — Fig. 3's argument (``benchmarks/et_baseline.py``: N=20 M=5
+              K=200 alpha=3e-3): OTA, the event-triggered baseline at tau
+              0.01 and 0.1, and with Bernoulli 0.5 participation at
+              ``agent_blocks`` None and 4 (bitwise equal): final reward,
+              channel uses per round, ms per round;
+22. zoo     — each registered family through Algorithm 2 with K1 at its
+              default policy (K=20), then G(PO)MDP on a Garnet MDP against
+              ``exact_J``'s autograd gradient (5 standard errors).
 
 It prints the card line, then one ``{"kernels": [...]}`` line, and as its last
 line ``{"ok": true, "device": {...}}``.  The full record also goes to
@@ -141,6 +163,13 @@ LARGE_BLOCKS = 32              # benchmarks/fig_large_n.py's agent_blocks
 PC_RUNS = 3
 FIG12_SETTINGS = [(1, 10), (5, 10), (10, 10), (10, 1), (10, 5)]  # (N, M)
 MAIN_ROUNDS = 100
+SERVICE_STREAM_ROUNDS = 25     # streamed service runs: K cut from 100
+SERVICE_LARGE_N = 10 ** 4      # benchmarks/fig_participation.py
+SERVICE_LARGE_ROUNDS = 5
+LARGE_SERVICE_BLOCKS = 64      # benchmarks/fig_participation.py
+ET_ROUNDS = 200                # benchmarks/et_baseline.py
+ZOO_ROUNDS = 20
+ZOO_GRAD_AGENTS, ZOO_GRAD_M = 100, 100
 RECORD = {}
 
 
@@ -273,11 +302,13 @@ def k1_inputs(torch, n_agents, n_params, seed):
 
 
 def phase_k1(torch):
+    from repro_torch.core import ota as ota_lib
     from repro_torch.kernels import ota_fused, ref
 
     t0 = phase("3. K1 against its plain version")
     max_err = 0.0
     checks = 0
+    rescale_checks = 0
 
     # counter stream: bits and uniforms bitwise, normals to a few ulp,
     # statistics over 2^22 draws
@@ -349,16 +380,40 @@ def phase_k1(torch):
             for x, y, z in zip(ad, ad512, want_a):
                 check(torch.equal(x, y), "adam depends on threads")
                 torch.testing.assert_close(x, z, rtol=1e-6, atol=1e-7)
+            # the device rescale factor (the round service's N / W, made
+            # on the card as the streamed round makes it): agg bitwise,
+            # sgd rtol 1e-6, a zero factor a zero update
+            for w in (3.0, 7.0, 0.0):
+                r = ota_lib._participation_rescale(
+                    n_agents, torch.tensor(w, device="cuda")).reshape(1)
+                ar = ota_fused.fused_aggregate(g, h, wire_dtype=wire,
+                                               rescale=r, **kw)
+                check(torch.equal(ar, ref.ota_fused_ref(gw, h, noise,
+                                                        rescale=r, **rkw)),
+                      f"agg with rescale not bitwise at "
+                      f"{(n_agents, n_params)} wire={wire} W={w}")
+                check(w > 0 or not bool(torch.any(ar != 0)),
+                      "a zero rescale left a nonzero update")
+                sr = ota_fused.fused_aggregate_sgd(g, h, p, alpha=0.05,
+                                                   wire_dtype=wire, rescale=r,
+                                                   **kw)
+                torch.testing.assert_close(
+                    sr, ref.ota_fused_sgd_ref(gw, h, p, noise, alpha=0.05,
+                                              rescale=r, **rkw),
+                    rtol=1e-6, atol=1e-7)
+                rescale_checks += 1
             errs = [(s128 - want_s).abs().max().item()] + [
                 (x - z).abs().max().item() for x, z in zip(ad, want_a)]
             max_err = max(max_err, *errs)
             checks += 1
             log(f"K1 (A={n_agents}, P={n_params}) wire="
                 f"{'bf16' if wire else 'f32'}: agg bitwise, threads "
-                f"128==512, sgd/adam max abs err {max(errs):.3e}")
+                f"128==512, sgd/adam max abs err {max(errs):.3e}; device "
+                f"rescale N/W for W 3, 7, 0: agg bitwise, sgd rtol 1e-6")
         del g, p, mu, nu
     torch.cuda.synchronize()
-    RECORD["k1_parity"] = {"checks": checks, "max_abs_err": max_err}
+    RECORD["k1_parity"] = {"checks": checks, "max_abs_err": max_err,
+                           "rescale_checks": rescale_checks}
     done("K1", t0)
     return max_err
 
@@ -517,23 +572,15 @@ def phase_times(torch):
     return rows
 
 
-def phase_profile(torch, ms_per_round):
-    """torch.profiler over 10 Algorithm-2 rounds at the paper's width:
-    device time by kernel, launches per round, and the device's busy share
-    of an unprofiled round (``ms_per_round`` from the main phase)."""
+def profile_rounds(torch, run, rounds, ms_per_round):
+    """torch.profiler over ``run()`` (``rounds`` rounds): device time by
+    kernel, launches per round, K1's time, and the device's busy share of
+    an unprofiled round of ``ms_per_round``."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import fedpg
-    from repro_torch.rl.env import LandmarkNav
-    from repro_torch.rl.policy import MLPPolicy
-
-    t0 = phase("7. where the time goes: torch.profiler, 10 Algorithm-2 "
-               "rounds")
-    rounds = 10
-    cfg, ota = alg_config(10, 10, rounds)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fedpg.run(LandmarkNav(), MLPPolicy(), cfg, 2, ota=ota, device="cuda")
+        run()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")]
@@ -545,21 +592,43 @@ def phase_profile(torch, ms_per_round):
 
     kernels.sort(key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in kernels) / rounds
-    launches = sum(e.count for e in kernels) / rounds
-    k1 = sum(dev_us(e) for e in kernels if "ota_fused" in e.key) / rounds
-    top = [{"name": e.key[:90], "device_us_per_round": dev_us(e) / rounds,
-            "launches_per_round": e.count / rounds} for e in kernels[:12]]
-    for t in top:
+    return {"device_busy_us_per_round": busy,
+            "device_launches_per_round":
+                sum(e.count for e in kernels) / rounds,
+            "k1_us_per_round": sum(dev_us(e) for e in kernels
+                                   if "ota_fused" in e.key) / rounds,
+            "busy_share": busy / (ms_per_round * 1e3),
+            "kernel_names": len(kernels),
+            "top": [{"name": e.key[:90],
+                     "device_us_per_round": dev_us(e) / rounds,
+                     "launches_per_round": e.count / rounds}
+                    for e in kernels[:12]]}
+
+
+def phase_profile(torch, ms_per_round):
+    """torch.profiler over 10 Algorithm-2 rounds at the paper's width:
+    device time by kernel, launches per round, and the device's busy share
+    of an unprofiled round (``ms_per_round`` from the main phase)."""
+    from repro_torch.core import fedpg
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+
+    t0 = phase("7. where the time goes: torch.profiler, 10 Algorithm-2 "
+               "rounds")
+    rounds = 10
+    cfg, ota = alg_config(10, 10, rounds)
+    res = profile_rounds(torch, lambda: fedpg.run(
+        LandmarkNav(), MLPPolicy(), cfg, 2, ota=ota, device="cuda"), rounds,
+        ms_per_round)
+    for t in res["top"]:
         log(f"{t['device_us_per_round']:9.1f} us/round "
             f"x{t['launches_per_round']:6.1f}  {t['name']}")
-    share = busy / (ms_per_round * 1e3)
-    log(f"per round: device busy {busy:.1f} us over {launches:.0f} device "
-        f"launches ({len(kernels)} kernel names); K1 {k1:.1f} us; busy "
-        f"share of an unprofiled {ms_per_round:.3f} ms round {share:.2%}")
-    RECORD["profile"] = {"device_busy_us_per_round": busy,
-                         "device_launches_per_round": launches,
-                         "k1_us_per_round": k1, "busy_share": share,
-                         "top": top}
+    log(f"per round: device busy {res['device_busy_us_per_round']:.1f} us "
+        f"over {res['device_launches_per_round']:.0f} device launches "
+        f"({res['kernel_names']} kernel names); K1 "
+        f"{res['k1_us_per_round']:.1f} us; busy share of an unprofiled "
+        f"{ms_per_round:.3f} ms round {res['busy_share']:.2%}")
+    RECORD["profile"] = res
     done("profile", t0)
 
 
@@ -1541,6 +1610,409 @@ def phase_power_control(torch):
     done("power control", t0)
 
 
+# ---------------------------------------------------------------------------
+# the round service, the event-triggered baseline, the environment zoo
+# ---------------------------------------------------------------------------
+
+def service_seed(torch, pol, seed):
+    """The mask-stream seed ``fedpg.run`` draws for a service run from
+    ``seed``: theta_0 first, then one uint32 (fedpg's module docstring)."""
+    from repro_torch.core.ota import sample_seed
+    from repro_torch.utils.device import make_generator
+
+    gen = make_generator(seed, "cuda")
+    pol.init(gen, "cuda")
+    return sample_seed(gen, "cuda")
+
+
+def realised_rate(torch, part, seed_t, n, rounds):
+    """The realised participation rate of ``rounds`` rounds and its
+    expected value (closed form, faults included)."""
+    from repro_torch.service import participation as P
+
+    ids = torch.arange(n, device="cuda")
+    count = sum(P.round_mask(part, seed_t, r, ids, n).sum().item()
+                for r in range(rounds))
+    return count / (n * rounds), P.expected_count(part, n) / n
+
+
+def rate_within(rate, expect, n_draws, what):
+    """The realised rate within 5 standard errors of the expected one (a
+    PRNG-free subset mask must hit it exactly)."""
+    se = (expect * (1 - expect) / n_draws) ** 0.5
+    check(abs(rate - expect) <= 5 * se + 1e-12,
+          f"{what}: realised rate {rate} vs {expect} (5 se = {5 * se})")
+    return se
+
+
+def service_configs():
+    from repro_torch.service import (
+        FaultConfig, ParticipationConfig, StragglerModel,
+    )
+
+    strag = FaultConfig(stragglers=StragglerModel("exp", mean=1.0),
+                        deadline=2.0)
+    return [("bernoulli 0.5 realized", ParticipationConfig(rate=0.5)),
+            ("bernoulli 0.5 expected",
+             ParticipationConfig(rate=0.5, debias="expected")),
+            ("subset 3", ParticipationConfig(kind="subset", subset=3)),
+            ("bernoulli 0.5 + exp(1) straggler, deadline 2",
+             ParticipationConfig(rate=0.5, faults=strag))]
+
+
+def service_timed(torch, fedpg, env, pol, cfg, ota, seed, part, stale,
+                  agent_blocks=None, theta0=None):
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    theta, hist = fedpg.run(env, pol, cfg, seed, ota=ota, theta0=theta0,
+                            agent_blocks=agent_blocks, participation=part,
+                            staleness=stale, device="cuda")
+    e.record()
+    torch.cuda.synchronize()
+    return theta, hist, s.elapsed_time(e) / cfg.n_rounds
+
+
+def finite(torch, theta, hist):
+    return (all(bool(torch.isfinite(x).all()) for x in hist)
+            and all(bool(torch.isfinite(t).all()) for t in theta.values()))
+
+
+def phase_service(torch):
+    from repro_torch.core import fedpg, ota as ota_lib
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+    from repro_torch.service import (
+        CrashSchedule, FaultConfig, ParticipationConfig, StalenessConfig,
+    )
+
+    t0 = phase("19. the round service at the paper's width (N=10 M=10 T=20, "
+               "Rayleigh, debias)")
+    env, pol = LandmarkNav(), MLPPolicy()
+    cfg, ota = alg_config(10, 10, MAIN_ROUNDS)
+    short = dataclasses.replace(cfg, n_rounds=SERVICE_STREAM_ROUNDS)
+    stale_cfg = StalenessConfig(max_age=4, decay=0.8)
+    # warm-up of every form, outside the counted runs
+    for b in (None, 3):
+        fedpg.run(env, pol, dataclasses.replace(cfg, n_rounds=2), 99, ota=ota,
+                  participation=ParticipationConfig(rate=0.5),
+                  staleness=stale_cfg, agent_blocks=b, device="cuda")
+    torch.cuda.synchronize()
+    seed_t = service_seed(torch, pol, 0)
+    rows = []
+    for name, part in service_configs():
+        rate, expect = realised_rate(torch, part, seed_t, cfg.n_agents,
+                                     cfg.n_rounds)
+        rate_within(rate, expect, cfg.n_agents * cfg.n_rounds, name)
+        for stale in (None, stale_cfg):
+            row = {"config": name, "staleness": stale is not None,
+                   "realised_rate": rate, "expected_rate": expect}
+            reset_counts()
+            theta, stacked, ms = service_timed(torch, fedpg, env, pol, cfg,
+                                               ota, 0, part, stale)
+            counts = read_counts()
+            check(counts["ota_fused"] == cfg.n_rounds
+                  and sum(counts.values()) == cfg.n_rounds,
+                  f"{name}: stacked service launched {counts}, expected "
+                  f"{cfg.n_rounds} K1 launches")
+            check(finite(torch, theta, stacked), f"{name}: not finite")
+            row["stacked"] = {"ms_per_round": ms, "k1_per_round": 1,
+                              "reward_last10":
+                                  stacked.rewards[-10:].mean().item(),
+                              "avg_grad_sq": fedpg.avg_grad_sq(stacked).item()}
+            hists = {}
+            for b in STREAM_BLOCKS:
+                n_blocks = ota_lib.blocked_layout(cfg.n_agents, b)[0]
+                reset_counts()
+                th_b, h_b, ms_b = service_timed(torch, fedpg, env, pol, short,
+                                                ota, 0, part, stale,
+                                                agent_blocks=b)
+                counts = read_counts()
+                per_block = 3 if stale is not None else 2
+                expect_k1 = (per_block * n_blocks + 1) * short.n_rounds
+                check(counts["ota_fused"] == expect_k1
+                      and sum(counts.values()) == expect_k1,
+                      f"{name} agent_blocks={b}: {counts}, expected "
+                      f"{expect_k1} K1 launches")
+                check(finite(torch, th_b, h_b), f"{name} b={b}: not finite")
+                hists[b] = (th_b, h_b)
+                row[f"streamed_{b}"] = {
+                    "ms_per_round": ms_b, "n_blocks": n_blocks,
+                    "k1_per_round": counts["ota_fused"] / short.n_rounds}
+            first = hists[STREAM_BLOCKS[0]]
+            for b in STREAM_BLOCKS[1:]:
+                check(history_equal(torch, first[1], hists[b][1])
+                      and all(torch.equal(first[0][k], hists[b][0][k])
+                              for k in first[0]),
+                      f"{name}: agent_blocks={b} is not bitwise "
+                      f"agent_blocks={STREAM_BLOCKS[0]}")
+            k = short.n_rounds
+            check(torch.equal(first[1].gain_mean, stacked.gain_mean[:k]),
+                  f"{name}: streamed gain means are not the stacked run's")
+            drift = max(((first[1].rewards - stacked.rewards[:k]).abs()
+                         / stacked.rewards[:k].abs().clamp_min(1e-30))
+                        .max().item(),
+                        ((first[1].grad_sq - stacked.grad_sq[:k]).abs()
+                         / stacked.grad_sq[:k].abs().clamp_min(1e-30))
+                        .max().item())
+            row["streamed_vs_stacked_rel"] = drift
+            rows.append(row)
+            log(f"{name}{' + staleness (4, 0.8)' if stale else ''}: rate "
+                f"{rate:.4f} (expected {expect:.4f}); stacked "
+                f"{ms:.3f} ms/round (1 K1/round); streamed "
+                + ", ".join(f"b={b} {row[f'streamed_{b}']['ms_per_round']:.3f}"
+                            for b in STREAM_BLOCKS)
+                + f" ms/round ({per_block} K1/block + 1), bitwise equal; "
+                f"vs stacked {drift:.2e} relative")
+
+    # full participation is the plain round, bit for bit
+    plain_cfg = dataclasses.replace(cfg, n_rounds=SERVICE_STREAM_ROUNDS)
+    for b in (None, 3):
+        _, plain = fedpg.run(env, pol, plain_cfg, 0, ota=ota, agent_blocks=b,
+                             device="cuda")
+        _, full = fedpg.run(env, pol, plain_cfg, 0, ota=ota, agent_blocks=b,
+                            participation=ParticipationConfig(rate=1.0),
+                            staleness=stale_cfg, device="cuda")
+        check(history_equal(torch, plain, full),
+              f"full participation is not the plain round (agent_blocks={b})")
+    # a round nobody makes leaves theta bitwise unchanged
+    nobody = ParticipationConfig(kind="full", faults=FaultConfig(
+        crashes=CrashSchedule(frac=1.0, period=1, down=1)))
+    theta0 = pol.init(torch.Generator(device="cuda").manual_seed(3), "cuda")
+    for b in (None, 3):
+        for debias in ("realized", "expected"):
+            th, h, _ = service_timed(
+                torch, fedpg, env, pol, dataclasses.replace(cfg, n_rounds=3),
+                ota, 0, dataclasses.replace(nobody, debias=debias), None,
+                agent_blocks=b, theta0=theta0)
+            check(all(torch.equal(th[k], theta0[k]) for k in th)
+                  and bool(torch.all(h.grad_sq == 0)),
+                  f"an empty round moved theta (agent_blocks={b}, {debias})")
+    log("full participation == the plain round (stacked and streamed); "
+        "empty rounds leave theta bitwise unchanged (realized, expected)")
+    # where the time goes: 10 stacked service rounds, Bernoulli 0.5 with
+    # staleness, beside the unprofiled time of the same configuration
+    prof = profile_rounds(torch, lambda: fedpg.run(
+        env, pol, dataclasses.replace(cfg, n_rounds=10), 2, ota=ota,
+        participation=ParticipationConfig(rate=0.5), staleness=stale_cfg,
+        device="cuda"), 10, rows[1]["stacked"]["ms_per_round"])
+    log(f"stacked service round, bernoulli 0.5 + staleness, profiled: device "
+        f"busy {prof['device_busy_us_per_round']:.1f} us over "
+        f"{prof['device_launches_per_round']:.0f} launches a round; K1 "
+        f"{prof['k1_us_per_round']:.1f} us; busy share of an unprofiled "
+        f"{rows[1]['stacked']['ms_per_round']:.3f} ms round "
+        f"{prof['busy_share']:.2%}")
+    RECORD["service_profile"] = prof
+    RECORD["service"] = rows
+    done("service", t0)
+    return rows
+
+
+def phase_service_large(torch):
+    from repro_torch.core import fedpg, ota as ota_lib
+    from repro_torch.core.channel import RayleighChannel
+    from repro_torch.core.ota import OTAConfig
+    from repro_torch.kernels import ota_fused
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+    from repro_torch.service import (
+        FaultConfig, ParticipationConfig, StalenessConfig, StragglerModel,
+    )
+
+    t0 = phase("20. the round service at benchmarks/fig_participation.py's "
+               "width (N=10^4 M=1 T=3)")
+    env, pol = LandmarkNav(), MLPPolicy()
+    ota = OTAConfig(RayleighChannel(), noise_sigma=1e-3, debias=True)
+    n = SERVICE_LARGE_N
+    cfg = dataclasses.replace(alg_config(n, 1, SERVICE_LARGE_ROUNDS)[0],
+                              horizon=3)
+    stale = StalenessConfig(max_age=4, decay=0.8)
+    strag = FaultConfig(stragglers=StragglerModel("exp", mean=1.0),
+                        deadline=2.0)
+    cases = [(f"rate {r}", ParticipationConfig(rate=r), s)
+             for r in (0.25, 0.5) for s in (None, stale)]
+    cases.append(("rate 0.5 + exp(1) straggler, deadline 2",
+                  ParticipationConfig(rate=0.5, faults=strag), stale))
+    fedpg.run(env, pol, dataclasses.replace(cfg, n_rounds=1), 99, ota=ota,
+              participation=cases[0][1], staleness=stale,
+              agent_blocks=LARGE_SERVICE_BLOCKS, device="cuda")
+    torch.cuda.synchronize()
+    seed_t = service_seed(torch, pol, 1)
+    rows = []
+    for name, part, st in cases:
+        rate, expect = realised_rate(torch, part, seed_t, n, cfg.n_rounds)
+        se = rate_within(rate, expect, n * cfg.n_rounds, name)
+        row = {"config": name, "staleness": st is not None,
+               "realised_rate": rate, "expected_rate": expect, "se": se}
+        for form, blocks in (("stacked", None),
+                             ("streamed", LARGE_SERVICE_BLOCKS)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            reset_counts()
+            theta, hist, ms = service_timed(torch, fedpg, env, pol, cfg, ota,
+                                            1, part, st, agent_blocks=blocks)
+            counts = read_counts()
+            check(finite(torch, theta, hist), f"N={n} {name} {form}: "
+                  "not finite")
+            n_blocks = ota_lib.blocked_layout(n, LARGE_SERVICE_BLOCKS)[0]
+            per_round = 1 if blocks is None else (
+                (3 if st is not None else 2) * n_blocks + 1)
+            check(counts["ota_fused"] == per_round * cfg.n_rounds,
+                  f"N={n} {name} {form}: {counts['ota_fused']} K1 launches, "
+                  f"expected {per_round * cfg.n_rounds}")
+            row[form] = {"ms_per_round": ms,
+                         "peak_mb": (torch.cuda.max_memory_allocated()
+                                     - resident) / 1e6,
+                         "k1_per_round": per_round}
+        rows.append(row)
+        log(f"N={n} {name}{' + staleness (4, 0.8)' if st else ''}: rate "
+            f"{rate:.5f} (expected {expect:.5f}, se {se:.1e}) | stacked "
+            f"{row['stacked']['ms_per_round']:.1f} ms, peak "
+            f"{row['stacked']['peak_mb']:.1f} MB, 1 K1/round | streamed "
+            f"({LARGE_SERVICE_BLOCKS} per block) "
+            f"{row['streamed']['ms_per_round']:.1f} ms, peak "
+            f"{row['streamed']['peak_mb']:.1f} MB, "
+            f"{row['streamed']['k1_per_round']} K1/round")
+    # K1 at the stacked service round's shape: (10^4, 165), masked gains
+    g, h, p, _, _ = k1_inputs(torch, n, 165, 5)
+    h = torch.where(torch.rand(n, device="cuda") < 0.5, h,
+                    torch.zeros_like(h))
+    kw = dict(sigma=1e-3, scale=1.0 / (n * RAYLEIGH_MH), seed=11)
+    ms = device_ms(torch, lambda: ota_fused.fused_aggregate(g, h, **kw))
+    bound, by = k1_bound(n, 165, 4, "agg")
+    k1 = {"A": n, "P": 165, "mode": "agg", "ms": ms, "bound_ms": bound,
+          "bound_by": by}
+    log(f"K1 agg at (10^4, 165) f32: {ms * 1e3:.2f} us (bound "
+        f"{bound * 1e3:.3f} us, {by}; {bound / ms:.2%} of it)")
+    RECORD["service_large"] = {"rows": rows, "k1": k1}
+    done("service large", t0)
+    return rows, k1
+
+
+def phase_et(torch):
+    from repro_torch.core import event_triggered as et
+    from repro_torch.core import fedpg
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+    from repro_torch.service import ParticipationConfig
+
+    t0 = phase("21. Fig. 3: OTA against the event-triggered baseline "
+               "(benchmarks/et_baseline.py: N=20 M=5 K=200 alpha=3e-3)")
+    env, pol = LandmarkNav(), MLPPolicy()
+    cfg, ota = alg_config(20, 5, ET_ROUNDS)
+    cfg = dataclasses.replace(cfg, alpha=3e-3)
+    et.run(env, pol, dataclasses.replace(cfg, n_rounds=2),
+           et.ETConfig(0.1), 99, agent_blocks=4,
+           participation=ParticipationConfig(rate=0.5), device="cuda")
+    reset_counts()
+    theta, hist, ms = timed_run(torch, fedpg, env, pol, cfg, ota, 0)
+    check(read_counts()["ota_fused"] == cfg.n_rounds,
+          "the OTA run did not launch K1 once per round")
+    rows = [{"run": "ota", "final_reward": hist.rewards[-20:].mean().item(),
+             "channel_uses_per_round": 1.0, "ms_per_round": ms}]
+
+    def et_timed(tau, part=None, blocks=None):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        th, h = et.run(env, pol, cfg, et.ETConfig(tau), 0, agent_blocks=blocks,
+                       participation=part, device="cuda")
+        e.record()
+        torch.cuda.synchronize()
+        check(finite(torch, th, h), f"ET tau={tau}: not finite")
+        return h, s.elapsed_time(e) / cfg.n_rounds
+
+    runs = {}
+    for name, tau, part, blocks in (
+            ("et tau 0.01", 0.01, None, None), ("et tau 0.1", 0.1, None, None),
+            ("et tau 0.1, bernoulli 0.5", 0.1,
+             ParticipationConfig(rate=0.5), None),
+            ("et tau 0.1, bernoulli 0.5, agent_blocks 4", 0.1,
+             ParticipationConfig(rate=0.5), 4)):
+        reset_counts()
+        h, ms = et_timed(tau, part, blocks)
+        check(read_counts()["ota_fused"] == 0, "the ET uplink launched K1")
+        runs[name] = h
+        rows.append({"run": name, "final_reward": h.rewards[-20:].mean().item(),
+                     "channel_uses_per_round": h.uploads.mean().item(),
+                     "ms_per_round": ms})
+    check(history_equal(torch, runs["et tau 0.1, bernoulli 0.5"],
+                        runs["et tau 0.1, bernoulli 0.5, agent_blocks 4"]),
+          "ET with participation depends on agent_blocks")
+    for r in rows:
+        log(f"{r['run']:42s} final reward {r['final_reward']:.4f}  channel "
+            f"uses/round {r['channel_uses_per_round']:.2f}  "
+            f"{r['ms_per_round']:.3f} ms/round")
+    log("ET with participation: agent_blocks None and 4 bitwise equal")
+    RECORD["et"] = rows
+    done("ET", t0)
+    return rows
+
+
+def phase_zoo(torch):
+    from repro_torch.core import fedpg, gpomdp
+    from repro_torch.rl import envs
+    from repro_torch.rl.sampler import rollout_batch
+
+    t0 = phase("22. the environment zoo through Algorithm 2 (N=10 M=10 T=20, "
+               "K=20, K1)")
+    _, ota = alg_config(10, 10, ZOO_ROUNDS)
+    cfg = fedpg.FedPGConfig(n_agents=10, batch_m=10, horizon=20, gamma=0.99,
+                            alpha=1e-4, n_rounds=ZOO_ROUNDS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    fleet = envs.make_heterogeneous_env(
+        [envs.WindyLandmarkNav(wind=0.02 * i) for i in range(cfg.n_agents)])
+    zoo = [("landmark", envs.make_env("landmark")),
+           ("windy", envs.WindyLandmarkNav(wind=0.05)),
+           ("multilandmark", envs.MultiLandmarkNav(n_landmarks=3)),
+           ("cliffwalk", envs.CliffWalk(width=6, height=4, slip=0.05)),
+           ("lqr", envs.LQRTask()),
+           ("tabular", envs.garnet(gen, n_states=8, n_actions=4,
+                                   branching=3)),
+           ("hetero", fleet)]
+    check(sorted(n for n, _ in zoo) == sorted(envs.registered_envs()),
+          "a registered family is missing from the zoo phase")
+    rows = []
+    for name, env in zoo:
+        pol = envs.default_policy(env)
+        reset_counts()
+        theta, hist, ms = timed_run(torch, fedpg, env, pol, cfg, ota, 0)
+        counts = read_counts()
+        check(counts["ota_fused"] == cfg.n_rounds,
+              f"{name}: {counts['ota_fused']} K1 launches, expected "
+              f"{cfg.n_rounds}")
+        check(finite(torch, theta, hist), f"{name}: not finite")
+        rows.append({"env": name, "policy": type(pol).__name__,
+                     "ms_per_round": ms, "k1_launches": counts["ota_fused"],
+                     "reward_first5": hist.rewards[:5].mean().item(),
+                     "reward_last5": hist.rewards[-5:].mean().item()})
+        log(f"{name:14s} {type(pol).__name__:21s} {ms:7.3f} ms/round, "
+            f"{counts['ota_fused']} K1 launches, reward first5 "
+            f"{rows[-1]['reward_first5']:.4f} last5 "
+            f"{rows[-1]['reward_last5']:.4f}")
+    # the exact anchor: G(PO)MDP on the card against exact_J's gradient
+    mdp = dict(zoo)["tabular"]
+    pol = mdp.default_policy()
+    theta = pol.init(gen, "cuda")
+    t = theta["theta"].clone().requires_grad_()
+    (g_exact,) = torch.autograd.grad(
+        mdp.exact_J(pol.action_probs({"theta": t})), t)
+    trajs = rollout_batch(mdp, pol, theta, gen, mdp.horizon,
+                          (ZOO_GRAD_AGENTS, ZOO_GRAD_M))
+    g = gpomdp.per_agent_gradients(pol, theta, trajs, mdp.gamma)["theta"]
+    se = g.std(0) / ZOO_GRAD_AGENTS ** 0.5
+    z = ((g.mean(0) - g_exact).abs() / se).max().item()
+    check(z <= 5.0, f"G(PO)MDP mean {z:.2f} standard errors from exact_J's "
+          "gradient")
+    log(f"garnet (8 states, 4 actions): G(PO)MDP mean over {ZOO_GRAD_AGENTS} "
+        f"agents x {ZOO_GRAD_M} trajectories within {z:.2f} standard errors "
+        f"of exact_J's autograd gradient (largest component; 5 allowed)")
+    RECORD["zoo"] = {"rows": rows, "exact_grad_max_z": z}
+    done("zoo", t0)
+    return rows
+
+
 def main():
     import torch
 
@@ -1570,6 +2042,10 @@ def main():
     phase_streamed(torch)
     phase_large_fleet(torch)
     phase_power_control(torch)
+    service_rows = phase_service(torch)
+    large_rows, k1_large = phase_service_large(torch)
+    phase_et(torch)
+    zoo_rows = phase_zoo(torch)
     RECORD["seconds"] = time.perf_counter() - t_all
 
     main_row = rows[0]   # (10, 165) f32 sgd: the shape of the main path
@@ -1581,7 +2057,20 @@ def main():
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
-        "shape": [main_row["A"], main_row["P"]], "timings": rows}]}
+        "shape": [main_row["A"], main_row["P"]], "timings": rows,
+        # K1 launches per round on this slice's paths, each read from its
+        # own counted run (phases 19, 20, 22)
+        "launches_per_round_by_path": {
+            "service stacked (10, 165)":
+                service_rows[0]["stacked"]["k1_per_round"],
+            "service streamed, agent_blocks 1, staleness (10, 165)":
+                service_rows[1]["streamed_1"]["k1_per_round"],
+            "service stacked (10^4, 165)":
+                large_rows[0]["stacked"]["k1_per_round"],
+            "service streamed in 64s, staleness (10^4, 165)":
+                large_rows[1]["streamed"]["k1_per_round"],
+            "zoo, each family": zoo_rows[0]["k1_launches"] / ZOO_ROUNDS},
+        "service_shape_timing": k1_large}]}
     k2_row = k2_rows[-1]  # (2^26,) float32: past the L2, the bound's shape
     kernels["kernels"].append({
         "name": "ota_channel", "route": "cuda",

@@ -85,7 +85,7 @@ def log_prob_grads(policy, params: Params, obs: torch.Tensor,
     return torch.cat(parts) if len(parts) > 1 else parts[0]
 
 
-def _tree_sum_rows(x: torch.Tensor) -> torch.Tensor:
+def tree_sum_rows(x: torch.Tensor) -> torch.Tensor:
     """(n, R, P) -> (n, P): the sum over R as a pairwise tree whose shape
     depends on R alone (row i meets row i + R//2, an odd last row is carried
     up), in elementwise adds, so no reduction kernel chooses its order."""
@@ -111,7 +111,7 @@ def _estimate(policy, params: Params, traj: Trajectory, gamma: float,
     acts = traj.actions.reshape((n * m * steps,)
                                 + traj.actions.shape[len(lead) + 2:])
     flat = log_prob_grads(policy, params, obs, acts)     # (rows, P)
-    acc = _tree_sum_rows(flat.reshape(n, m * steps, -1) * w)
+    acc = tree_sum_rows(flat.reshape(n, m * steps, -1) * w)
     out, off = {}, 0
     for k in sorted(params):
         size = params[k].numel()

@@ -188,10 +188,30 @@ def _server_scale(cfg: OTAConfig, n_total: int,
     return 1.0 / (n_total * cfg.norm_const_for(n_agents))
 
 
+def _participation_rescale(n_total: int, n_eff) -> torch.Tensor:
+    """``n_total / n_eff`` in float32: the round service's correction that
+    retargets the full-fleet normaliser ``1 / (n_total * m_h)`` at the
+    round's contribution weight ``n_eff`` (the realised participating count,
+    or its closed-form expectation, fractional under staleness decay).  An
+    exact zero at ``n_eff == 0``: an empty round commits a zero update,
+    never the amplified noise draw.  ``n_eff`` may be a device tensor; the
+    factor stays on its device."""
+    w = torch.as_tensor(n_eff, dtype=torch.float32)
+    # a tensor numerator: ``n_total / w`` would be reciprocal(w) * n_total
+    # in PyTorch, an ulp off the division the JAX package (and K1) rounds
+    num = torch.full_like(w, float(n_total))
+    return torch.where(w > 0, num / torch.where(w > 0, w, 1.0),
+                       torch.zeros_like(w))
+
+
 def _server_epilogue(cfg: OTAConfig, seed: Seed, v: Params,
-                     n_total: int, n_agents: Optional[int]) -> Params:
+                     n_total: int, n_agents: Optional[int],
+                     n_eff=None) -> Params:
     """The server tail of the plain chain: AWGN on the summed signal from
-    the counter stream over the flat layout, then the normalisation."""
+    the counter stream over the flat layout, then the normalisation.
+    ``n_eff`` (round service) multiplies the scale by
+    :func:`_participation_rescale` in float32, as K1 does with its device
+    factor; ``None`` leaves the scale as it was."""
     dev = theta_device(v)
     if cfg.noise_sigma > 0.0:
         flat, unflatten = flatten_params(v)
@@ -199,6 +219,8 @@ def _server_epilogue(cfg: OTAConfig, seed: Seed, v: Params,
         sigma = ref.f32(cfg.noise_sigma)
         v = {k: v[k] + sigma * noise[k] for k in tree_keys(v)}
     scale = ref.f32(_server_scale(cfg, n_total, n_agents))
+    if n_eff is not None:
+        scale = scale * _participation_rescale(n_total, n_eff)
     return {k: v[k] * scale for k in tree_keys(v)}
 
 
@@ -382,24 +404,35 @@ def _stream_superpose(grads_stacked: Params, gains: Optional[torch.Tensor],
     return v
 
 
+def _device_rescale(n_agents: int, n_eff, device) -> Optional[torch.Tensor]:
+    """K1's device factor for ``n_eff`` (None when there is none)."""
+    if n_eff is None:
+        return None
+    return _participation_rescale(n_agents, n_eff).to(device).reshape(1)
+
+
 def stream_finalize(cfg: OTAConfig, seed: Seed, v: Params, n_agents: int, *,
-                    backend: str = "torch") -> Params:
+                    backend: str = "torch", n_eff=None) -> Params:
     """Server tail over a streamed superposition: ONE AWGN draw and the
     debias normalisation.  The noise is the counter stream on the absolute
     flat index, so it too is the unblocked form's.  On ``"cuda"`` the tail
-    is K1's unit-gain server pass over the flattened ``v``."""
+    is K1's unit-gain server pass over the flattened ``v``.  ``n_eff``
+    retargets the normaliser at the round service's contribution weight
+    (:func:`_participation_rescale`); on ``"cuda"`` it reaches K1 as a
+    device factor, so a weight computed on the card costs no host sync."""
     if backend == "cuda":
         flat, unflatten = flatten_params(v)
         return unflatten(ota_fused.fused_server_pass(
             flat, sigma=cfg.noise_sigma,
             scale=_server_scale(cfg, n_agents, n_agents), seed=seed,
-            with_noise=cfg.noise_sigma > 0.0))
-    return _server_epilogue(cfg, seed, v, n_agents, n_agents)
+            with_noise=cfg.noise_sigma > 0.0,
+            rescale=_device_rescale(n_agents, n_eff, flat.device)))
+    return _server_epilogue(cfg, seed, v, n_agents, n_agents, n_eff)
 
 
 def stream_finalize_apply(cfg: OTAConfig, seed: Seed, v: Params,
                           params: Params, alpha, n_agents: int, *,
-                          backend: str = "torch") -> Params:
+                          backend: str = "torch", n_eff=None) -> Params:
     """:func:`stream_finalize` fused with the server SGD step
     ``theta' = theta - alpha * u`` (one K1 launch on ``"cuda"``)."""
     if backend == "cuda":
@@ -408,8 +441,9 @@ def stream_finalize_apply(cfg: OTAConfig, seed: Seed, v: Params,
         return punflatten(ota_fused.fused_server_pass(
             flat, sigma=cfg.noise_sigma,
             scale=_server_scale(cfg, n_agents, n_agents), seed=seed,
-            with_noise=cfg.noise_sigma > 0.0, alpha=alpha, params=pflat))
-    u = _server_epilogue(cfg, seed, v, n_agents, n_agents)
+            with_noise=cfg.noise_sigma > 0.0, alpha=alpha, params=pflat,
+            rescale=_device_rescale(n_agents, n_eff, flat.device)))
+    u = _server_epilogue(cfg, seed, v, n_agents, n_agents, n_eff)
     return {k: params[k] - alpha * u[k] for k in tree_keys(params)}
 
 

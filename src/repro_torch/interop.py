@@ -8,7 +8,12 @@ stays ``(obs_dim, hidden)`` and ``wq`` stays ``(d, h, dh)``, not
 ``nn.Linear``'s transpose — so both packages compute on the same layout.
 
 * :func:`from_numpy` / :func:`to_numpy`: a flat dict, float32 (the policy
-  parameters of the RL path).
+  parameters of the RL path: ``MLPPolicy``'s ``w1 b1 w2 b2``,
+  ``TabularSoftmaxPolicy``'s ``theta``, ``GaussianPolicy``'s ``w b
+  log_std``).
+* :func:`env_from_jax`: one of the JAX package's zoo environments as the
+  port's, matched by class name, array fields (``TabularMDP``'s tables, a
+  ``HeterogeneousEnv``'s per-agent stacks) as float32 tensors.
 * :func:`params_from_jax` / :func:`params_to_jax`: a nested dict, each leaf
   keeping its dtype.  bfloat16 leaves arrive as ``ml_dtypes.bfloat16``
   arrays and go through float32, which is exact both ways.
@@ -37,6 +42,35 @@ def from_numpy(params: Mapping[str, np.ndarray],
 def to_numpy(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The inverse: dict of tensors (any device) -> dict of numpy arrays."""
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+def env_from_jax(env: Any, device: DeviceLike = None) -> Any:
+    """A JAX zoo environment (``LandmarkNav``, ``WindyLandmarkNav``,
+    ``MultiLandmarkNav``, ``CliffWalk``, ``LQRTask``, ``TabularMDP``, or a
+    ``HeterogeneousEnv`` over one of them) -> the port's, with the same
+    field values; duck-typed, so this module imports nothing of JAX."""
+    import dataclasses
+
+    from repro_torch.rl.envs import HeterogeneousEnv, registered_envs
+
+    dev = resolve_device(device)
+    name = type(env).__name__
+    if name == "HeterogeneousEnv":
+        return HeterogeneousEnv(
+            base=env_from_jax(env.base, dev),
+            params={k: torch.from_numpy(np.array(v, np.float32)).to(dev)
+                    for k, v in env.params.items()},
+            n_agents=int(env.n_agents))
+    classes = {c.__name__: c for c in registered_envs().values()}
+    if name not in classes:
+        raise ValueError(f"no port of environment {name}")
+    kwargs = {}
+    for f in dataclasses.fields(env):
+        v = getattr(env, f.name)
+        if hasattr(v, "shape") and np.ndim(v) > 0:
+            v = torch.from_numpy(np.array(v, np.float32)).to(dev)
+        kwargs[f.name] = v
+    return classes[name](**kwargs)
 
 
 def _is_bf16(a: np.ndarray) -> bool:

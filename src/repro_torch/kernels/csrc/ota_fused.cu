@@ -8,6 +8,14 @@
 //     v_j = v_j + sigma * n_j             counter-PRNG AWGN (optional)
 //     u_j = v_j * scale                   debias 1 / (N * m_h)
 //
+// with, when a device rescale factor r is given (the round service's
+// participation correction N / W, ota.py::_participation_rescale), the scale
+// taken as __fmul_rn(scale, r) in float32 first, as the JAX package forms it
+// (a host float times a float32 device value), so a W that depends on the
+// round's mask costs no host synchronisation.  r = 0 (nobody made the round)
+// makes u an exact zero whatever the noise.  Without r no extra operation
+// runs, so the bits are those of the plain scale.
+//
 // and writes u (mode agg), p - alpha * u (mode sgd), or the bias-corrected
 // Adam update (p', mu', nu') (mode adam).  G arrives as float32 or on a
 // bfloat16 wire; the master parameters and all arithmetic stay float32.
@@ -30,9 +38,10 @@
 //     logf / cosf (no --use_fast_math), so the uniform bits are bitwise the
 //     TPU kernel's and the normals agree to a few ulp.  The generator lives
 //     in ota_counter.cuh, shared with K2 (ota_channel.cu).
-//   * runtime scalars are kernel arguments; the seed is read from device
-//     memory when a pointer is given, so a seed drawn on the card needs no
-//     host synchronisation.
+//   * runtime scalars are kernel arguments; the seed and the rescale factor
+//     are read from device memory when a pointer is given, so a seed drawn
+//     on the card, or a normaliser computed there, needs no host
+//     synchronisation.
 //
 // Left for later: at a huge fleet and a small d (A=10^4, P=165) only one or
 // two blocks are in flight and each thread runs the whole agent loop.
@@ -67,6 +76,7 @@ struct Args {
   float sigma, scale, alpha, b1, b2, c1, c2, eps;
   const long long* seed_ptr;  // device seed, or null to use seed_val
   uint32_t seed_val;
+  const float* rescale_ptr;   // device factor on scale, or null for none
 };
 
 __device__ __forceinline__ uint32_t load_seed(const Args& a) {
@@ -92,7 +102,8 @@ __global__ void ota_fused_kernel(Args a) {
     const float n = counter_normal(static_cast<uint32_t>(j), load_seed(a));
     acc = __fadd_rn(acc, __fmul_rn(a.sigma, n));
   }
-  const float u = __fmul_rn(acc, a.scale);
+  const float scale = a.rescale_ptr ? __fmul_rn(a.scale, *a.rescale_ptr) : a.scale;
+  const float u = __fmul_rn(acc, scale);
 
   if (MODE == kModeAgg) {
     a.out0[j] = u;
@@ -149,7 +160,8 @@ dim3 grid_for(unsigned long long n, int threads) {
 
 }  // namespace
 
-// Launch K1 on `stream`.  mode: 0 agg, 1 sgd, 2 adam.  Returns the
+// Launch K1 on `stream`.  mode: 0 agg, 1 sgd, 2 adam.  rescale_ptr (one
+// float32 on the device, or null) multiplies scale as above.  Returns the
 // cudaGetLastError() code after the launch (0 on success); the caller
 // validates shapes, dtypes and devices before calling.
 extern "C" int ota_fused_launch(int mode, int wire_bf16, int with_noise,
@@ -159,10 +171,12 @@ extern "C" int ota_fused_launch(int mode, int wire_bf16, int with_noise,
                                 float* out1, float* out2, float sigma, float scale,
                                 float alpha, float b1, float b2, float c1, float c2,
                                 float eps, const long long* seed_ptr,
-                                unsigned int seed_val, int threads, void* stream) {
+                                unsigned int seed_val, const float* rescale_ptr,
+                                int threads, void* stream) {
   if (mode < kModeAgg || mode > kModeAdam) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{g,     h,     n_agents, n_params, p,  mu, nu,  out0,     out1,    out2,
-               sigma, scale, alpha,    b1,       b2, c1, c2,  eps,      seed_ptr, seed_val};
+               sigma, scale, alpha,    b1,       b2, c1, c2,  eps,      seed_ptr, seed_val,
+               rescale_ptr};
   const dim3 grid = grid_for(n_params, threads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wire_bf16) {

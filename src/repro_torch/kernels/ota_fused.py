@@ -13,6 +13,13 @@ Dispatch is by the device of the gradient stack:
 * a CUDA tensor is checked (device, dtype, shape, contiguity) and launched
   on PyTorch's current stream, or the call raises.  There is no fallback.
 
+``rescale`` (``fused_aggregate``, ``fused_aggregate_sgd``,
+``fused_server_pass``) is an optional one-element float32 tensor on the
+gradients' device that multiplies ``scale``: the kernel forms
+``float32(scale) * rescale`` in float32 and scales by that, so a normaliser
+computed on the card (the round service's ``N / W``) reaches the kernel
+without a host synchronisation.  ``None`` leaves the bits unchanged.
+
 ``LAUNCHES`` counts kernel launches (one per call that reaches the card), so
 a run can show that its rounds went through the kernel.
 """
@@ -42,7 +49,7 @@ def _lib() -> ctypes.CDLL:
         vp, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
         lib.ota_fused_launch.argtypes = (
             [i, i, i, vp, vp, i, ctypes.c_ulonglong] + [vp] * 6 + [f] * 8
-            + [vp, ctypes.c_uint, i, vp])
+            + [vp, ctypes.c_uint, vp, i, vp])
         lib.ota_fused_launch.restype = i
         lib.ota_counter_bits_launch.argtypes = [
             ctypes.c_ulonglong, vp, ctypes.c_uint, vp, vp, i, vp]
@@ -77,10 +84,21 @@ def _check_vector(name: str, x: torch.Tensor, n: int,
                          f"{x.device}")
 
 
+def _check_rescale(rescale: Optional[torch.Tensor],
+                   device: torch.device) -> None:
+    if rescale is not None and (rescale.device != device
+                                or rescale.dtype != torch.float32
+                                or rescale.numel() != 1):
+        raise ValueError(f"rescale must be one float32 element on {device}, "
+                         f"got {rescale.dtype} {tuple(rescale.shape)} on "
+                         f"{rescale.device}")
+
+
 def _launch(mode: str, grads: torch.Tensor, gains: torch.Tensor,
             states: Sequence[torch.Tensor], *, with_noise: bool, seed: Seed,
             sigma=0.0, scale=1.0, alpha=0.0, b1=0.0, b2=0.0, c1=1.0, c2=1.0,
-            eps=0.0, threads: int = 256) -> Tuple[torch.Tensor, ...]:
+            eps=0.0, rescale: Optional[torch.Tensor] = None,
+            threads: int = 256) -> Tuple[torch.Tensor, ...]:
     """Validate the CUDA operands, allocate the outputs, launch K1."""
     global LAUNCHES
     dev = grads.device
@@ -95,6 +113,7 @@ def _launch(mode: str, grads: torch.Tensor, gains: torch.Tensor,
     _check_vector("gains", gains, n_agents, dev)
     for name, x in zip(("params", "mu", "nu"), states):
         _check_vector(name, x, n_params, dev)
+    _check_rescale(rescale, dev)
     n_out = 3 if mode == "adam" else 1
     outs = [torch.empty(n_params, dtype=torch.float32, device=dev)
             for _ in range(n_out)]
@@ -106,7 +125,8 @@ def _launch(mode: str, grads: torch.Tensor, gains: torch.Tensor,
         grads.data_ptr(), gains.data_ptr(), n_agents, n_params,
         *ptrs, *out_ptrs,
         *(float(x) for x in (sigma, scale, alpha, b1, b2, c1, c2, eps)),
-        seed_ptr, seed_val, threads, torch.cuda.current_stream(dev).cuda_stream)
+        seed_ptr, seed_val, None if rescale is None else rescale.data_ptr(),
+        threads, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ota_fused kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
@@ -134,36 +154,43 @@ def _noise(with_noise: Optional[bool], seed: Seed, grads: torch.Tensor):
 def fused_aggregate(grads: torch.Tensor, gains: torch.Tensor, *, sigma=0.0,
                     scale=1.0, seed: Seed = 0,
                     with_noise: Optional[bool] = None, wire_dtype=None,
+                    rescale: Optional[torch.Tensor] = None,
                     threads: int = 256) -> torch.Tensor:
-    """u = (sum_i h_i g_i + sigma*n) * scale, fused; returns (P,) float32."""
+    """u = (sum_i h_i g_i + sigma*n) * scale, fused; returns (P,) float32.
+    ``rescale`` multiplies ``scale`` on the device (module docstring)."""
     grads = _prep(grads, gains, wire_dtype)
     if not grads.is_cuda:
         return ref.ota_fused_ref(grads, gains, _noise(with_noise, seed, grads),
-                                 sigma=sigma, scale=scale)
+                                 sigma=sigma, scale=scale, rescale=rescale)
     (out,) = _launch("agg", grads, gains, (), with_noise=with_noise is not False,
-                     seed=seed, sigma=sigma, scale=scale, threads=threads)
+                     seed=seed, sigma=sigma, scale=scale, rescale=rescale,
+                     threads=threads)
     return out
 
 
 def fused_aggregate_sgd(grads: torch.Tensor, gains: torch.Tensor,
                         params: torch.Tensor, *, alpha, sigma=0.0, scale=1.0,
                         seed: Seed = 0, with_noise: Optional[bool] = None,
-                        wire_dtype=None, threads: int = 256) -> torch.Tensor:
+                        wire_dtype=None, rescale: Optional[torch.Tensor] = None,
+                        threads: int = 256) -> torch.Tensor:
     """p' = p - alpha * u with u the fused OTA update; (P,) float32."""
     grads = _prep(grads, gains, wire_dtype)
     if not grads.is_cuda:
         return ref.ota_fused_sgd_ref(grads, gains, params,
                                      _noise(with_noise, seed, grads),
-                                     alpha=alpha, sigma=sigma, scale=scale)
+                                     alpha=alpha, sigma=sigma, scale=scale,
+                                     rescale=rescale)
     (out,) = _launch("sgd", grads, gains, (params,),
                      with_noise=with_noise is not False, seed=seed,
-                     sigma=sigma, scale=scale, alpha=alpha, threads=threads)
+                     sigma=sigma, scale=scale, alpha=alpha, rescale=rescale,
+                     threads=threads)
     return out
 
 
 def fused_server_pass(v: torch.Tensor, *, sigma=0.0, scale=1.0,
                       seed: Seed = 0, with_noise: Optional[bool] = None,
                       alpha=None, params: Optional[torch.Tensor] = None,
+                      rescale: Optional[torch.Tensor] = None,
                       threads: int = 256) -> torch.Tensor:
     """The server tail over an already-accumulated superposition ``v``:
     AWGN + debias, and the SGD step when ``params`` (and ``alpha``) are
@@ -174,12 +201,12 @@ def fused_server_pass(v: torch.Tensor, *, sigma=0.0, scale=1.0,
     if params is None:
         return fused_aggregate(flat, ones, sigma=sigma, scale=scale,
                                seed=seed, with_noise=with_noise,
-                               threads=threads)
+                               rescale=rescale, threads=threads)
     if alpha is None:
         raise ValueError("fused_server_pass with params needs alpha")
     return fused_aggregate_sgd(flat, ones, params, alpha=alpha, sigma=sigma,
                                scale=scale, seed=seed, with_noise=with_noise,
-                               threads=threads)
+                               rescale=rescale, threads=threads)
 
 
 def fused_aggregate_adam(grads: torch.Tensor, gains: torch.Tensor,

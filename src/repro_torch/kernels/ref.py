@@ -29,7 +29,9 @@ is held to, op for op:
   ``v = (((0 + h0*g0) + h1*g1) + ...)``, each product and sum rounded on its
   own (the kernel uses ``__fmul_rn``/``__fadd_rn``, which are never
   contracted into an FMA);
-* then ``v + sigma*n``, then ``* scale``, then the mode's epilogue.
+* then ``v + sigma*n``, then ``* scale``, then the mode's epilogue; with a
+  device ``rescale`` factor the scale is ``float32(scale) * rescale``,
+  rounded to float32 first.
 
 Given the kernel's own noise realisation, ``ota_fused_ref`` is bitwise equal
 to the kernel's ``agg`` mode in fp32 and through the bf16 wire.
@@ -114,8 +116,10 @@ def f32(x) -> torch.Tensor:
 
 def ota_fused_ref(grads: torch.Tensor, gains: torch.Tensor,
                   noise: Optional[torch.Tensor] = None, *, sigma=0.0,
-                  scale=1.0) -> torch.Tensor:
-    """u = (sum_i h_i g_i + sigma*n) * scale over an (A, P) stack."""
+                  scale=1.0,
+                  rescale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """u = (sum_i h_i g_i + sigma*n) * scale over an (A, P) stack; a
+    ``rescale`` tensor multiplies ``scale`` (in float32) first."""
     dev = grads.device
     g = grads.float()
     h = gains.float()
@@ -124,13 +128,17 @@ def ota_fused_ref(grads: torch.Tensor, gains: torch.Tensor,
         v = v + h[a] * g[a]
     if noise is not None:
         v = v + f32(sigma) * noise.float()
-    return v * f32(scale)
+    s = f32(scale)
+    if rescale is not None:
+        s = s * rescale.float().reshape(())
+    return v * s
 
 
 def ota_fused_sgd_ref(grads, gains, params, noise=None, *, alpha, sigma=0.0,
-                      scale=1.0) -> torch.Tensor:
+                      scale=1.0, rescale=None) -> torch.Tensor:
     """p' = p - alpha * u over :func:`ota_fused_ref`."""
-    u = ota_fused_ref(grads, gains, noise, sigma=sigma, scale=scale)
+    u = ota_fused_ref(grads, gains, noise, sigma=sigma, scale=scale,
+                      rescale=rescale)
     return params.float() - f32(alpha) * u
 
 

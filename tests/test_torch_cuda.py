@@ -12,7 +12,11 @@ K4 (SSD scan): 5e-5 (``tests/test_kernels.py:84``) for f32 and bf16 inputs
 alike, as its output is f32 either way; 1e-4 against the sequential
 recurrence.  K2 (server-side update): bitwise, for f32 and bf16, and
 bitwise K1's unit-gain server pass.  The streamed fold through K1 and the
-streamed round: bitwise the per-agent fold and across block sizes.  Needs a
+streamed round: bitwise the per-agent fold and across block sizes.  K1's
+device rescale factor (the round service's N / W): bitwise its plain
+version (sgd rtol 1e-6); the service's mask stream: the same bits on the
+card as on the CPU; the streamed service round bitwise across block
+sizes.  Needs a
 CUDA device and skips
 without one.  This file imports no JAX, so it also runs on a
 GPU machine without the JAX package:
@@ -494,3 +498,93 @@ def test_streamed_round_is_bitwise_invariant_on_the_card(cuda):
     assert torch.equal(first.gain_mean, stacked.gain_mean)
     torch.testing.assert_close(first.grad_sq, stacked.grad_sq, rtol=1e-5,
                                atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["agg", "sgd", "server_pass"])
+@pytest.mark.parametrize("w", [3.0, 2.5, 0.0])
+def test_k1_device_rescale_matches_plain_version(cuda, mode, w):
+    """The round service's N / W reaches K1 as a device factor: given the
+    kernel's own noise, agg and the server pass are bitwise their plain
+    version, sgd within rtol 1e-6 (K1's sgd contract); W = 0 gives a zero
+    update whatever the noise."""
+    from repro_torch.core import ota
+
+    g, h, p, _, _ = (torch.from_numpy(x).to(cuda) for x in _inputs(9))
+    r = ota._participation_rescale(7, torch.tensor(w, device=cuda)).reshape(1)
+    noise = ota_fused.fused_aggregate(
+        torch.zeros(1, g.shape[1], device=cuda), torch.ones(1, device=cuda),
+        sigma=1.0, scale=1.0, seed=5)
+    kw = dict(sigma=0.5, scale=0.2, seed=5)
+    one = torch.ones(1, device=cuda)
+    before = ota_fused.LAUNCHES
+    if mode == "agg":
+        got = ota_fused.fused_aggregate(g, h, rescale=r, **kw)
+        want = ref.ota_fused_ref(g, h, noise, sigma=0.5, scale=0.2,
+                                 rescale=r)
+    elif mode == "sgd":
+        got = ota_fused.fused_aggregate_sgd(g, h, p, alpha=0.05, rescale=r,
+                                            **kw)
+        want = ref.ota_fused_sgd_ref(g, h, p, noise, alpha=0.05, sigma=0.5,
+                                     scale=0.2, rescale=r)
+    else:
+        got = ota_fused.fused_server_pass(g[0], rescale=r, **kw)
+        want = ref.ota_fused_ref(g[:1], one, noise, sigma=0.5, scale=0.2,
+                                 rescale=r)
+    torch.cuda.synchronize()
+    assert ota_fused.LAUNCHES == before + 1
+    if mode == "sgd":
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+    else:
+        assert torch.equal(got, want)
+        if w == 0.0:
+            assert not bool(torch.any(got != 0))
+    with pytest.raises(ValueError, match="rescale"):
+        ota_fused.fused_aggregate(g, h, rescale=r.cpu(), **kw)
+
+
+@pytest.mark.cuda
+def test_mask_stream_bits_on_the_card_equal_the_cpu(cuda):
+    from repro_torch.service import faults, participation, stream
+
+    ids = torch.arange(100_000)
+    for salt in (stream.SALT_BERNOULLI, stream.SALT_DELAY, stream.SALT_CRASH,
+                 stream.SALT_PHASE):
+        for seed in (0, 12345, torch.tensor(2 ** 32 - 1)):
+            cpu = stream.agent_bits(seed, 17, ids, salt)
+            dev_seed = seed.to(cuda) if isinstance(seed, torch.Tensor) else seed
+            card = stream.agent_bits(dev_seed, 17, ids.to(cuda), salt)
+            assert torch.equal(cpu, card.cpu())
+    p = participation.ParticipationConfig(rate=0.5, faults=faults.FaultConfig(
+        stragglers=faults.StragglerModel("pareto", 1.0, 2.5), deadline=1.0,
+        crashes=faults.CrashSchedule(0.3, 5, 2)))
+    for r in range(5):
+        cpu = participation.round_mask(p, torch.tensor(9), r, ids, 100_000)
+        card = participation.round_mask(p, torch.tensor(9, device=cuda), r,
+                                        ids.to(cuda), 100_000)
+        assert torch.equal(cpu, card.cpu())
+
+
+@pytest.mark.cuda
+def test_streamed_service_round_is_bitwise_invariant_on_the_card(cuda):
+    from repro_torch.core import fedpg
+    from repro_torch.core.channel import RayleighChannel
+    from repro_torch.core.ota import OTAConfig
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+    from repro_torch.service import ParticipationConfig, StalenessConfig
+
+    cfg = fedpg.FedPGConfig(n_agents=7, batch_m=4, horizon=9, n_rounds=4,
+                            alpha=1e-2)
+    ota_cfg = OTAConfig(RayleighChannel(), noise_sigma=1e-3, debias=True)
+    runs = [fedpg.run(LandmarkNav(), MLPPolicy(), cfg, 3, ota=ota_cfg,
+                      participation=ParticipationConfig(rate=0.5),
+                      staleness=StalenessConfig(3, 0.8), agent_blocks=b,
+                      device=cuda) for b in (None, 1, 2, 4)]
+    torch.cuda.synchronize()
+    _, stacked = runs[0]
+    _, first = runs[1]
+    for theta, hist in runs[2:]:
+        assert all(torch.equal(x, y) for x, y in zip(first, hist))
+        assert all(torch.equal(runs[1][0][k], theta[k]) for k in theta)
+    assert torch.equal(first.gain_mean, stacked.gain_mean)

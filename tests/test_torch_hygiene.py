@@ -47,7 +47,9 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.optim.optimizers, repro_torch.configs.ota_pg_particle, "
             "repro_torch.kernels.ops, repro_torch.models.model, "
             "repro_torch.train.server, repro_torch.interop, "
-            "repro_torch.configs.llama3_2_3b, repro_torch.configs.mamba2_130m; "
+            "repro_torch.configs.llama3_2_3b, repro_torch.configs.mamba2_130m, "
+            "repro_torch.service, repro_torch.service.stream, "
+            "repro_torch.rl.envs, repro_torch.core.event_triggered; "
             "assert 'jax' not in sys.modules, 'jax'; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'repro'")
@@ -77,6 +79,15 @@ def test_entry_points_raise_without_cuda():
         fedpg.run(LandmarkNav(), MLPPolicy(), cfg, 0, agent_blocks=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         fedpg.monte_carlo(LandmarkNav(), MLPPolicy(), cfg, 0, 2)
+    from repro_torch.core import event_triggered
+    from repro_torch.service import ParticipationConfig
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fedpg.run(LandmarkNav(), MLPPolicy(), cfg, 0,
+                  participation=ParticipationConfig(rate=0.5))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        event_triggered.run(LandmarkNav(), MLPPolicy(), cfg,
+                            event_triggered.ETConfig(), 0)
     with pytest.raises(RuntimeError, match="CUDA"):
         interop.from_numpy({})
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -103,3 +114,11 @@ def test_cuda_backend_on_cpu_tensor_raises():
     with pytest.raises(ValueError, match="cuda"):
         ota.aggregate_apply(grads, cfg, {"w": torch.ones(4)}, alpha=0.1,
                             backend="cuda", generator=torch.Generator())
+
+
+@pytest.mark.parametrize("sub", ["service", "rl/envs"])
+def test_new_subpackages_are_covered(sub):
+    """The import check above walks every file of the port, the round
+    service and the environment zoo included."""
+    files = sorted((ROOT / "src" / "repro_torch" / sub).glob("*.py"))
+    assert files and all(f in PORT_FILES for f in files)
