@@ -14,15 +14,25 @@ Phases, in order; any failure raises and exits non-zero:
               prints ptxas's registers, shared memory and spills, and the
               HGMMA/HMMA count of the tensor-core kernels' SASS;
 3. K1       — the fused uplink kernel against its plain PyTorch version on
-              the card: agg/sgd/adam, f32 and bf16 wire, at the paper's width
-              and beyond; bitwise where the contract says so;
+              the card, each of its two bodies (wide, tall) forced in turn:
+              agg/sgd/adam, f32 and bf16 wire, with the device rescale
+              factor, at the paper's width, (64, 165), (10^4, 165), (10^5,
+              165) and beyond; bitwise where the contract says so, the
+              bodies bitwise each other; lanes (3 x (4, 800), 20 x (10,
+              165), the stack shared or per lane): bitwise the plain lane
+              loop and every lane its one-lane launch, per body;
 4. main     — Algorithm 2 at the paper's width through ``fedpg.run`` with
               ``ota_backend="auto"``: every round must launch K1 once; then
               Algorithm 1; then a small run where the kernel path and the
               plain chain must agree;
 5. fig12    — the Fig. 1-2 (N, M) table, K=250, 5 Monte-Carlo runs;
-6. times    — K1's device time beside its byte bound, the plain version's
-              time and ``torch.mv`` (the matvec alone);
+6. times    — K1's device time at (10, 165), (33, 165), (65, 165), (10^4,
+              165), (10^5, 165) and (8, 2^21), f32 (and bf16 at 10^4 and
+              2^21): agg with and without noise for the rule's body and the
+              other one in turns, beside the byte bound, the sequential
+              fold's floor and ``torch.mv`` (the matvec alone); sgd and the
+              plain version at the main path's shape; then the A sweep at P
+              = 165 to 1000 that the dispatch rule's crossovers come from;
 7. profile  — torch.profiler over 10 Algorithm-2 rounds: device time by
               kernel and the device's busy share of a round;
 8. K3       — the flash-attention kernels against their plain version on
@@ -67,7 +77,8 @@ Phases, in order; any failure raises and exits non-zero:
               round by round from a common state); Algorithm 1 streamed;
 17. large fleets — ``benchmarks/fig_large_n.py``'s settings at N = 10^2 ..
               10^5, one round streamed (32 per block) and stacked: ms and
-              peak memory, the streamed peak below the stacked one;
+              peak memory, the streamed peak below the stacked one; the
+              stacked round's K1 launch is the tall body's;
 18. power control — Algorithm 2 with UnitPower, TruncatedInversion and
               ConstantReceived, 3 Monte-Carlo runs: mean(h) against the
               closed-form effective m_h, the theory's floor;
@@ -83,8 +94,9 @@ Phases, in order; any failure raises and exits non-zero:
 20. service large — ``benchmarks/fig_participation.py``'s width, N = 10^4
               M=1 T=3: rates 0.25/0.5 x staleness off/(4, 0.8), and 0.5
               with a straggler; stacked and streamed in blocks of 64, 5
-              rounds each: ms, peak MB, the realised rate, K1 launches; K1's
-              time at (10^4, 165);
+              rounds each: ms, peak MB, the realised rate, K1 launches (the
+              stacked rounds' all the tall body's); K1's time at (10^4,
+              165), the tall body against the wide body in turns;
 21. ET      — Fig. 3's argument (``benchmarks/et_baseline.py``: N=20 M=5
               K=200 alpha=3e-3): OTA, the event-triggered baseline at tau
               0.01 and 0.1, and with Bernoulli 0.5 participation at
@@ -94,7 +106,8 @@ Phases, in order; any failure raises and exits non-zero:
               default policy (K=20), then G(PO)MDP on a Garnet MDP against
               ``exact_J``'s autograd gradient (5 standard errors).
 
-It prints the card line, then one ``{"kernels": [...]}`` line, and as its last
+It prints the card line, then one ``{"kernels": [...]}`` line (K1 as its two
+bodies, ``ota_fused_wide`` and ``ota_fused_tall``), and as its last
 line ``{"ok": true, "device": {...}}``.  The full record also goes to
 ``chiprun_out/chip_smoke.json``.  It imports nothing of JAX.
 """
@@ -153,7 +166,16 @@ K4_EDGE_CASES = [  # P and S not multiples of the 16-column slice and the chunk
 ]
 K34 = ("flash_attention", "flash_attention_wgmma", "ssd_scan", "ssd_scan_tc")
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 32
-K1_SHAPES = [(1, 165), (10, 165), (7, 1000), (10_000, 165), (8, 2 ** 21 + 3)]
+K1_SHAPES = [(1, 165), (10, 165), (33, 165), (64, 165), (65, 165),
+             (7, 1000), (10_000, 165), (100_000, 165), (8, 2 ** 21 + 3)]
+K1_LANE_CASES = [(3, 4, 800), (20, 10, 165)]   # (lanes, A, P)
+K1_TIME_SHAPES = [(10, 165), (33, 165), (65, 165), (10_000, 165),
+                  (100_000, 165), (8, 2 ** 21)]
+K1_SWEEP = ([(a, 165) for a in (32, 48, 64, 256, 1024, 4096, 10_000,
+                                 100_000)]
+            + [(a, p) for p in (330, 500) for a in (64, 128, 1024, 10_000)]
+            + [(a, p) for p in (700, 1000) for a in (1024, 4096, 10_000)])
+L2_BYTES = 50e6                # H100 SXM L2
 K2_SHAPES = [(7,), (37, 65), (3, 5, 129), (4096, 1024), (2 ** 26,)]
 RAYLEIGH_MH = 1.2533141373155003   # sqrt(pi / 2), Rayleigh(1)'s mean
 STREAM_BLOCKS = (1, 3, 4, 10)
@@ -234,6 +256,32 @@ def k1_bound(n_agents, n_params, wire_bytes, mode):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def k1_fold_floor(n_agents):
+    """Least time in ms of K1's contract, a strict sequential fold: one
+    dependent float add per agent, about 4 clocks each at the card's
+    maximum SM clock (``phase_card``), whatever the bandwidth."""
+    return n_agents * 4 / (RECORD["sm_clock_max_mhz"] * 1e6) * 1e3
+
+
+def k1_forced(body):
+    """Within the block every CUDA call of K1 takes ``body`` ("wide" or
+    "tall"), whatever the dispatch rule says: to time or check one body
+    beside the other on the same inputs."""
+    from unittest import mock
+
+    from repro_torch.kernels import ota_fused
+
+    return mock.patch.object(ota_fused, "k1_body", lambda *a, **k: body)
+
+
+def k1_bodies(n_params):
+    """K1's bodies that take P (the tall one up to ``TALL_MAX_PARAMS``)."""
+    from repro_torch.kernels import ota_fused
+
+    return [b for b in ota_fused.BODIES
+            if b == "wide" or n_params <= ota_fused.TALL_MAX_PARAMS]
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -247,6 +295,12 @@ def phase_card(torch):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     log(smi)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    RECORD["sm_clock_max_mhz"] = float(clock)
+    log(f"max SM clock {clock} MHz")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
@@ -307,6 +361,7 @@ def phase_k1(torch):
 
     t0 = phase("3. K1 against its plain version")
     max_err = 0.0
+    body_err = {"wide": 0.0, "tall": 0.0}
     checks = 0
     rescale_checks = 0
 
@@ -343,79 +398,193 @@ def phase_k1(torch):
             torch.ones(1, device="cuda"), sigma=1.0, scale=1.0, seed=seed)
         kw = dict(sigma=0.5, scale=1.0 / (n_agents * 1.2533141373155), seed=seed)
         rkw = dict(sigma=kw["sigma"], scale=kw["scale"])
+        akw = dict(alpha=1e-3, step=7, b1=0.9, b2=0.999, eps=1e-8)
+        bodies = k1_bodies(n_params)
         for wire in (None, torch.bfloat16):
             gw = g if wire is None else g.to(wire)
-            # agg: bitwise, noisy and noiseless, and invariant to threads
-            a128 = ota_fused.fused_aggregate(g, h, wire_dtype=wire,
-                                             threads=128, **kw)
-            a512 = ota_fused.fused_aggregate(g, h, wire_dtype=wire,
-                                             threads=512, **kw)
+            # the plain versions, once for both bodies
             want = ref.ota_fused_ref(gw, h, noise, **rkw)
-            check(torch.equal(a128, a512), "agg depends on threads")
-            check(torch.equal(a128, want),
-                  f"agg not bitwise at {(n_agents, n_params)} wire={wire}: "
-                  f"max err {(a128 - want).abs().max().item()}")
-            a0 = ota_fused.fused_aggregate(g, h, wire_dtype=wire,
-                                           with_noise=False, **kw)
-            check(torch.equal(a0, ref.ota_fused_ref(gw, h, None, **rkw)),
-                  "noiseless agg not bitwise")
-            # sgd and adam: rtol 1e-6
-            s128 = ota_fused.fused_aggregate_sgd(g, h, p, alpha=0.05,
-                                                 wire_dtype=wire, threads=128,
-                                                 **kw)
-            s512 = ota_fused.fused_aggregate_sgd(g, h, p, alpha=0.05,
-                                                 wire_dtype=wire, threads=512,
-                                                 **kw)
+            want0 = ref.ota_fused_ref(gw, h, None, **rkw)
             want_s = ref.ota_fused_sgd_ref(gw, h, p, noise, alpha=0.05, **rkw)
-            check(torch.equal(s128, s512), "sgd depends on threads")
-            torch.testing.assert_close(s128, want_s, rtol=1e-6, atol=1e-7)
-            akw = dict(alpha=1e-3, step=7, b1=0.9, b2=0.999, eps=1e-8)
-            ad = ota_fused.fused_aggregate_adam(g, h, p, mu, nu,
-                                                wire_dtype=wire, **akw, **kw)
-            ad512 = ota_fused.fused_aggregate_adam(g, h, p, mu, nu,
-                                                   wire_dtype=wire,
-                                                   threads=512, **akw, **kw)
             want_a = ref.ota_fused_adam_ref(gw, h, p, mu, nu, noise, **akw,
                                             **rkw)
-            for x, y, z in zip(ad, ad512, want_a):
-                check(torch.equal(x, y), "adam depends on threads")
-                torch.testing.assert_close(x, z, rtol=1e-6, atol=1e-7)
             # the device rescale factor (the round service's N / W, made
-            # on the card as the streamed round makes it): agg bitwise,
-            # sgd rtol 1e-6, a zero factor a zero update
-            for w in (3.0, 7.0, 0.0):
-                r = ota_lib._participation_rescale(
-                    n_agents, torch.tensor(w, device="cuda")).reshape(1)
-                ar = ota_fused.fused_aggregate(g, h, wire_dtype=wire,
-                                               rescale=r, **kw)
-                check(torch.equal(ar, ref.ota_fused_ref(gw, h, noise,
-                                                        rescale=r, **rkw)),
-                      f"agg with rescale not bitwise at "
-                      f"{(n_agents, n_params)} wire={wire} W={w}")
-                check(w > 0 or not bool(torch.any(ar != 0)),
-                      "a zero rescale left a nonzero update")
-                sr = ota_fused.fused_aggregate_sgd(g, h, p, alpha=0.05,
-                                                   wire_dtype=wire, rescale=r,
-                                                   **kw)
-                torch.testing.assert_close(
-                    sr, ref.ota_fused_sgd_ref(gw, h, p, noise, alpha=0.05,
-                                              rescale=r, **rkw),
-                    rtol=1e-6, atol=1e-7)
-                rescale_checks += 1
-            errs = [(s128 - want_s).abs().max().item()] + [
-                (x - z).abs().max().item() for x, z in zip(ad, want_a)]
-            max_err = max(max_err, *errs)
-            checks += 1
-            log(f"K1 (A={n_agents}, P={n_params}) wire="
-                f"{'bf16' if wire else 'f32'}: agg bitwise, threads "
-                f"128==512, sgd/adam max abs err {max(errs):.3e}; device "
-                f"rescale N/W for W 3, 7, 0: agg bitwise, sgd rtol 1e-6")
+            # on the card as the streamed round makes it)
+            factors = [ota_lib._participation_rescale(
+                n_agents, torch.tensor(w, device="cuda")).reshape(1)
+                for w in (3.0, 7.0, 0.0)]
+            want_r = [(ref.ota_fused_ref(gw, h, noise, rescale=r, **rkw),
+                       ref.ota_fused_sgd_ref(gw, h, p, noise, alpha=0.05,
+                                             rescale=r, **rkw))
+                      for r in factors]
+            outs = {}
+            for body in bodies:
+                with k1_forced(body):
+                    # agg: bitwise, noisy and noiseless, and invariant to
+                    # threads (the wide body's block size)
+                    a128 = ota_fused.fused_aggregate(g, h, wire_dtype=wire,
+                                                     threads=128, **kw)
+                    a512 = ota_fused.fused_aggregate(g, h, wire_dtype=wire,
+                                                     threads=512, **kw)
+                    check(torch.equal(a128, a512), "agg depends on threads")
+                    check(torch.equal(a128, want),
+                          f"{body} agg not bitwise at {(n_agents, n_params)} "
+                          f"wire={wire}: max err "
+                          f"{(a128 - want).abs().max().item()}")
+                    a0 = ota_fused.fused_aggregate(g, h, wire_dtype=wire,
+                                                   with_noise=False, **kw)
+                    check(torch.equal(a0, want0),
+                          f"{body} noiseless agg not bitwise")
+                    # sgd and adam: rtol 1e-6
+                    s128 = ota_fused.fused_aggregate_sgd(
+                        g, h, p, alpha=0.05, wire_dtype=wire, threads=128,
+                        **kw)
+                    s512 = ota_fused.fused_aggregate_sgd(
+                        g, h, p, alpha=0.05, wire_dtype=wire, threads=512,
+                        **kw)
+                    check(torch.equal(s128, s512), "sgd depends on threads")
+                    torch.testing.assert_close(s128, want_s, rtol=1e-6,
+                                               atol=1e-7)
+                    ad = ota_fused.fused_aggregate_adam(
+                        g, h, p, mu, nu, wire_dtype=wire, **akw, **kw)
+                    ad512 = ota_fused.fused_aggregate_adam(
+                        g, h, p, mu, nu, wire_dtype=wire, threads=512, **akw,
+                        **kw)
+                    for x, y, z in zip(ad, ad512, want_a):
+                        check(torch.equal(x, y), "adam depends on threads")
+                        torch.testing.assert_close(x, z, rtol=1e-6, atol=1e-7)
+                    # agg with the factor bitwise, sgd rtol 1e-6, a zero
+                    # factor a zero update
+                    for r, w, (wa, ws) in zip(factors, (3, 7, 0), want_r):
+                        ar = ota_fused.fused_aggregate(g, h, wire_dtype=wire,
+                                                       rescale=r, **kw)
+                        check(torch.equal(ar, wa),
+                              f"{body} agg with rescale not bitwise at "
+                              f"{(n_agents, n_params)} wire={wire} W={w}")
+                        check(w > 0 or not bool(torch.any(ar != 0)),
+                              "a zero rescale left a nonzero update")
+                        sr = ota_fused.fused_aggregate_sgd(
+                            g, h, p, alpha=0.05, wire_dtype=wire, rescale=r,
+                            **kw)
+                        torch.testing.assert_close(sr, ws, rtol=1e-6,
+                                                   atol=1e-7)
+                        rescale_checks += 1
+                outs[body] = [a128, s128, *ad]
+                errs = [(s128 - want_s).abs().max().item()] + [
+                    (x - z).abs().max().item() for x, z in zip(ad, want_a)]
+                max_err = max(max_err, *errs)
+                body_err[body] = max(body_err[body], *errs)
+                checks += 1
+                log(f"K1 {body} (A={n_agents}, P={n_params}) wire="
+                    f"{'bf16' if wire else 'f32'}: agg bitwise, sgd/adam max "
+                    f"abs err {max(errs):.3e}; device rescale N/W for W 3, 7, "
+                    f"0: agg bitwise, sgd rtol 1e-6")
+            if len(outs) == 2:
+                check(all(torch.equal(x, y)
+                          for x, y in zip(outs["wide"], outs["tall"])),
+                      f"the bodies differ at {(n_agents, n_params)}")
+            else:  # a stack the tall body cannot take: it refuses it
+                try:
+                    with k1_forced("tall"):
+                        ota_fused.fused_aggregate(g, h, wire_dtype=wire, **kw)
+                except ValueError:
+                    pass
+                else:
+                    raise AssertionError(f"the tall body took P={n_params}")
         del g, p, mu, nu
+    # a view off the 16-byte grid (rows 1.. of a 10^4 + 1 stack): the rule
+    # gives it to the wide body before launch; a forced tall body refuses it
+    g, h, _, _, _ = k1_inputs(torch, 10_001, 165, 9)
+    view, hv = g[1:], h[1:]
+    check(view.data_ptr() % 16 and ota_fused.k1_body(10_000, 165) == "tall",
+          "the view is aligned, or the rule keeps 10^4 wide")
+    wide0 = ota_fused.LAUNCHES_WIDE
+    got = ota_fused.fused_aggregate(view, hv, sigma=0.5, seed=3)
+    check(ota_fused.LAUNCHES_WIDE == wide0 + 1,
+          "the rule sent an unaligned view to the tall body")
+    check(torch.equal(got, ref.ota_fused_ref(
+        view, hv, ref.counter_noise(3, 165, "cuda"), sigma=0.5, scale=1.0)),
+          "agg of an unaligned view not bitwise")
+    try:
+        with k1_forced("tall"):
+            ota_fused.fused_aggregate(view, hv)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("the tall body took an unaligned view")
+    log("K1 unaligned view (10^4, 165): the rule launched the wide body, agg "
+        "bitwise; the tall body forced refuses it")
+    del g, view
+    lane_checks = k1_lane_checks(torch)
     torch.cuda.synchronize()
     RECORD["k1_parity"] = {"checks": checks, "max_abs_err": max_err,
-                           "rescale_checks": rescale_checks}
+                           "max_abs_err_by_body": body_err,
+                           "rescale_checks": rescale_checks,
+                           "lane_checks": lane_checks}
     done("K1", t0)
-    return max_err
+    return body_err
+
+
+def k1_lane_checks(torch):
+    """K1's lane axis, per body: lanes with per-lane sigma, scale, alpha,
+    seed and rescale on the card, the stack shared or per lane; agg bitwise
+    the plain lane loop, and every lane (agg and sgd) bitwise a one-lane
+    launch of the same body.  Per-lane stacks off the 16-byte grid, which
+    the rule keeps wide, are refused by the tall body."""
+    from repro_torch.kernels import ota_fused, ref
+
+    n = 0
+    for lanes, a, p in K1_LANE_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(lanes * a + p)
+        f32 = dict(device="cuda", dtype=torch.float32, generator=gen)
+        sig, sc, al, r = (torch.rand(lanes, **f32) for _ in range(4))
+        seeds = torch.arange(lanes, device="cuda", dtype=torch.int64) * 7 + 3
+        params = torch.randn(lanes, p, **f32)
+        for shared in (True, False):
+            g = torch.randn((a, p) if shared else (lanes, a, p), **f32)
+            h = torch.rand(lanes, a, **f32) + 0.1
+            noise = torch.stack([ref.counter_noise(int(x), p, "cuda")
+                                 for x in seeds])
+            want = ref.ota_fused_lanes_ref(
+                g.expand(lanes, a, p), h, noise, sigma=sig.tolist(),
+                scale=sc.tolist(), rescale=r)
+            for body in ota_fused.BODIES:
+                with k1_forced(body):
+                    if body == "tall" and not shared and (a * p * 4) % 16:
+                        try:
+                            ota_fused.fused_aggregate_lanes(g, h, sigma=sig)
+                        except ValueError:
+                            continue
+                        raise AssertionError("the tall body took lane "
+                                             "stacks off the 16-byte grid")
+                    agg = ota_fused.fused_aggregate_lanes(
+                        g, h, sigma=sig, scale=sc, seed=seeds, rescale=r)
+                    sgd = ota_fused.fused_aggregate_sgd_lanes(
+                        g, h, params, alpha=al, sigma=sig, scale=sc,
+                        seed=seeds)
+                    check(torch.equal(agg, want),
+                          f"{body} lanes {(lanes, a, p)}: agg not bitwise "
+                          f"the plain lane loop")
+                    for lane in range(lanes):
+                        gl = g if shared else g[lane].clone()
+                        one = dict(sigma=sig[lane].item(),
+                                   scale=sc[lane].item(),
+                                   seed=int(seeds[lane]))
+                        check(torch.equal(agg[lane], ota_fused.fused_aggregate(
+                            gl, h[lane].clone(),
+                            rescale=r[lane:lane + 1].clone(), **one))
+                              and torch.equal(
+                                  sgd[lane], ota_fused.fused_aggregate_sgd(
+                                      gl, h[lane].clone(),
+                                      params[lane].clone(),
+                                      alpha=al[lane].item(), **one)),
+                              f"{body} lane {lane} of {(lanes, a, p)} is not "
+                              f"bitwise its one-lane launch")
+                n += 1
+                log(f"K1 {body} lanes {lanes} x (A={a}, P={p}), stack "
+                    f"{'shared' if shared else 'per lane'}: agg bitwise the "
+                    f"plain lane loop, every lane bitwise its one-lane launch")
+    return n
 
 
 def alg_config(n_agents, batch_m, n_rounds):
@@ -447,7 +616,6 @@ def timed_run(torch, fedpg, env, pol, cfg, ota, seed, backend="auto",
 
 def phase_main(torch):
     from repro_torch.core import fedpg
-    from repro_torch.kernels import ota_fused
     from repro_torch.rl.env import LandmarkNav
     from repro_torch.rl.policy import MLPPolicy
 
@@ -464,12 +632,14 @@ def phase_main(torch):
 
     results = {}
     for name, o in (("alg2", ota), ("alg1", None)):
-        ota_fused.LAUNCHES = 0
+        reset_counts()
         theta, hist, ms = timed_run(torch, fedpg, env, pol, cfg, o, 0)
-        launches = ota_fused.LAUNCHES
+        launches = read_counts()["ota_fused"]
+        bodies = k1_body_counts()
         expect = cfg.n_rounds if o is not None else 0
-        check(launches == expect,
-              f"{name}: {launches} K1 launches, expected {expect}")
+        check(launches == expect == bodies["wide"],
+              f"{name}: {launches} K1 launches ({bodies}), expected "
+              f"{expect}, all of the wide body")
         for field, x in zip(hist._fields, hist):
             check(x.shape == (cfg.n_rounds,) and bool(torch.isfinite(x).all()),
                   f"{name} history {field} not finite / wrong shape")
@@ -530,44 +700,107 @@ def phase_fig12(torch):
     done("fig12", t0)
 
 
+def k1_turns(torch, fn, bodies, **kw):
+    """``fn``'s device time with each of K1's bodies forced, in turns
+    (a, b, b, a): the mean of the two timings of each."""
+    order = list(bodies) + list(reversed(bodies))
+    times = {b: [] for b in bodies}
+    for b in order:
+        with k1_forced(b):
+            times[b].append(device_ms(torch, fn, **kw))
+    return {b: statistics.mean(t) for b, t in times.items()}
+
+
 def phase_times(torch):
+    """K1 beside its bounds and PyTorch's matvec: at each shape, both bodies
+    in turns (agg with and without noise), ``torch.mv(G.T, h)``, the byte
+    bound and the sequential fold's floor; sgd and the plain version at the
+    main path's shapes; then the A sweep the dispatch rule's crossover is
+    read from."""
     from repro_torch.kernels import ota_fused, ref
 
-    t0 = phase("6. K1 times (median of 60, CUDA events)")
+    t0 = phase("6. K1 times (median of 60, CUDA events; bodies in turns)")
     rows = []
-    for n_agents, n_params in ((10, 165), (8, 2 ** 21)):
+    for n_agents, n_params in K1_TIME_SHAPES:
         g, h, p, _, _ = k1_inputs(torch, n_agents, n_params, 1)
-        kw = dict(sigma=1e-3, scale=1.0 / (n_agents * 1.2533141373155),
-                  seed=17)
+        kw = dict(sigma=1e-3, scale=1.0 / (n_agents * RAYLEIGH_MH), seed=17)
+        bodies = k1_bodies(n_params)
         for wire in (torch.float32, torch.bfloat16):
+            if wire == torch.bfloat16 and n_params < 2 ** 21 \
+                    and n_agents != 10_000:
+                continue
             gw = g.to(wire).contiguous()
             wb = gw.element_size()
             hw = h.to(wire)
-            ms = device_ms(torch, lambda: ota_fused.fused_aggregate_sgd(
-                gw, h, p, alpha=1e-3, **kw))
-            ms_agg = device_ms(torch, lambda: ota_fused.fused_aggregate(
-                gw, h, with_noise=False, scale=kw["scale"]))
-            plain_ms = device_ms(torch, lambda: ref.ota_fused_sgd_ref(
-                gw, h, p, ref.counter_noise(17, n_params, "cuda"),
-                alpha=1e-3, sigma=kw["sigma"], scale=kw["scale"]),
-                sleep_cycles=20_000_000)
+            rule = ota_fused.k1_body(n_agents, n_params, wire)
+            agg = k1_turns(torch, lambda: ota_fused.fused_aggregate(
+                gw, h, **kw), bodies)
+            agg0 = k1_turns(torch, lambda: ota_fused.fused_aggregate(
+                gw, h, with_noise=False, scale=kw["scale"]), bodies)
             lib_ms = device_ms(torch, lambda: torch.mv(gw.T, hw))
-            bound, by = k1_bound(n_agents, n_params, wb, "sgd")
-            bound_agg, _ = k1_bound(n_agents, n_params, wb, "agg")
+            bound, by = k1_bound(n_agents, n_params, wb, "agg")
+            nbytes = n_agents * n_params * wb
             row = {"A": n_agents, "P": n_params,
-                   "wire": "bf16" if wb == 2 else "f32", "mode": "sgd",
-                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                   "bound_by": by, "ms_agg_noiseless": ms_agg,
-                   "bound_agg_ms": bound_agg, "library_ms": lib_ms,
-                   "library_call": "torch.mv(G.T, h)"}
+                   "wire": "bf16" if wb == 2 else "f32", "body": rule,
+                   "ms": agg[rule], "agg_ms": agg, "agg_noiseless_ms": agg0,
+                   "bound_ms": bound, "bound_by": by,
+                   "library_ms": lib_ms, "library_call": "torch.mv(G.T, h)",
+                   "g_in_l2": nbytes < L2_BYTES}
+            def noise():   # the plain version draws its noise each call
+                return ref.counter_noise(17, n_params, "cuda")
+
+            if n_agents == 10 or n_params >= 2 ** 21:
+                # sgd and its plain version at the main path's shape (the
+                # Algorithm-2 round) and at (8, 2^21)
+                row["sgd_ms"] = device_ms(
+                    torch, lambda: ota_fused.fused_aggregate_sgd(
+                        gw, h, p, alpha=1e-3, **kw))
+                row["plain_sgd_ms"] = device_ms(
+                    torch, lambda: ref.ota_fused_sgd_ref(
+                        gw, h, p, noise(), alpha=1e-3, sigma=kw["sigma"],
+                        scale=kw["scale"]), sleep_cycles=20_000_000)
+            if n_agents == 10_000:
+                # agg's plain version at the stacked round's shape at 10^4
+                row["plain_agg_ms"] = device_ms(
+                    torch, lambda: ref.ota_fused_ref(
+                        gw, h, noise(), sigma=kw["sigma"], scale=kw["scale"]),
+                    iters=5, warmup=1, sleep_cycles=20_000_000)
             rows.append(row)
-            log(f"(A={n_agents}, P={n_params}) {row['wire']}: sgd "
-                f"{ms * 1e3:.2f} us (bound {bound * 1e3:.4f} us, {by}; "
-                f"{bound / ms:.2%} of it) | plain {plain_ms * 1e3:.2f} us | "
-                f"noiseless agg {ms_agg * 1e3:.2f} us vs torch.mv "
-                f"{lib_ms * 1e3:.2f} us")
+            other = [b for b in bodies if b != rule]
+            floor = k1_fold_floor(n_agents)
+            RECORD.setdefault("k1_fold_floor_ms", {})[n_agents] = floor
+            log(f"(A={n_agents}, P={n_params}) {row['wire']}: rule {rule} "
+                f"agg {agg[rule] * 1e3:.2f} us ({bound / agg[rule]:.2%} of "
+                f"the {bound * 1e3:.4f} us {by} bound; fold floor "
+                f"{floor * 1e3:.2f} us)"
+                + "".join(f" | {b} {agg[b] * 1e3:.2f} us" for b in other)
+                + f" | noiseless {', '.join(f'{b} {agg0[b] * 1e3:.2f}' for b in bodies)} us"
+                f" | torch.mv {lib_ms * 1e3:.2f} us"
+                + (f" | sgd {row['sgd_ms'] * 1e3:.2f} us, plain "
+                   f"{row['plain_sgd_ms'] * 1e3:.2f} us" if "sgd_ms" in row
+                   else "")
+                + (f" | plain agg {row['plain_agg_ms']:.3f} ms"
+                   if "plain_agg_ms" in row else "")
+                + ("" if row["g_in_l2"] else " (G past the L2)"))
         del g, p
+    sweep = []
+    for n_agents, n_params in K1_SWEEP:
+        g, h, _, _, _ = k1_inputs(torch, n_agents, n_params, 2)
+        kw = dict(sigma=1e-3, scale=1.0 / n_agents, seed=5)
+        agg = k1_turns(torch, lambda: ota_fused.fused_aggregate(g, h, **kw),
+                       ota_fused.BODIES)
+        rule = ota_fused.k1_body(n_agents, n_params)
+        fastest = min(agg, key=agg.get)
+        sweep.append({"A": n_agents, "P": n_params, "rule": rule,
+                      "fastest": fastest, "agg_ms": agg})
+        log(f"sweep (A={n_agents}, P={n_params}): wide "
+            f"{agg['wide'] * 1e3:.2f} us, tall {agg['tall'] * 1e3:.2f} us; "
+            f"the rule takes {rule}"
+            + ("" if rule == fastest else
+               f", {agg[rule] / agg[fastest] - 1:.1%} slower than {fastest}"))
+        del g
     RECORD["times"] = rows
+    RECORD["k1_sweep"] = sweep
     done("times", t0)
     return rows
 
@@ -637,7 +870,9 @@ def phase_profile(torch, ms_per_round):
 # ---------------------------------------------------------------------------
 
 def counters():
-    """Each kernel's launch counter: (wrapper module, attribute)."""
+    """Each kernel's launch counter: (wrapper module, attribute).  K1's
+    (the sum of its two bodies') is reset here but read from the two
+    (``k1_body_counts``)."""
     from repro_torch.kernels import (
         flash_attention, ota_channel, ota_fused, ssd_scan,
     )
@@ -651,13 +886,25 @@ def counters():
 
 
 def reset_counts():
+    from repro_torch.kernels import ota_fused
+
     for mod, attr in counters().values():
         setattr(mod, attr, 0)
+    ota_fused.LAUNCHES_WIDE = ota_fused.LAUNCHES_TALL = 0
+
+
+def k1_body_counts():
+    """K1's launches of each body since ``reset_counts``."""
+    from repro_torch.kernels import ota_fused
+
+    return {"wide": ota_fused.LAUNCHES_WIDE, "tall": ota_fused.LAUNCHES_TALL}
 
 
 def read_counts():
-    return {name: getattr(mod, attr)
-            for name, (mod, attr) in counters().items()}
+    counts = {name: getattr(mod, attr)
+              for name, (mod, attr) in counters().items()}
+    counts["ota_fused"] = sum(k1_body_counts().values())
+    return counts
 
 
 def old_kernel(mod):
@@ -1537,16 +1784,23 @@ def phase_large_fleet(torch):
             check(counts["ota_fused"] == expect,
                   f"N={n} {form}: {counts['ota_fused']} K1 launches, "
                   f"expected {expect}")
+            # the stacked round folds N rows in one launch: the tall body
+            bodies = k1_body_counts()
+            check(blocks is not None or bodies["tall"] == 1,
+                  f"N={n} stacked: {bodies}, expected the tall body")
             # the run's own peak: above what was allocated before it
             peak = torch.cuda.max_memory_allocated() - resident
             row[form] = {"ms_per_round": ms, "peak_mb": peak / 1e6,
-                         "k1_launches": counts["ota_fused"]}
+                         "k1_launches": counts["ota_fused"],
+                         "k1_tall_launches": bodies["tall"]}
         rows.append(row)
         log(f"N={n:6d}: streamed ({LARGE_BLOCKS} per block) "
             f"{row['streamed']['ms_per_round']:.1f} ms, peak "
-            f"{row['streamed']['peak_mb']:.1f} MB | stacked "
+            f"{row['streamed']['peak_mb']:.1f} MB, "
+            f"{row['streamed']['k1_tall_launches']} of "
+            f"{row['streamed']['k1_launches']} K1 launches tall | stacked "
             f"{row['stacked']['ms_per_round']:.1f} ms, peak "
-            f"{row['stacked']['peak_mb']:.1f} MB")
+            f"{row['stacked']['peak_mb']:.1f} MB, K1 tall")
     big = rows[-1]
     check(big["streamed"]["peak_mb"] < big["stacked"]["peak_mb"],
           f"N={big['N']}: streamed peak {big['streamed']['peak_mb']:.1f} MB "
@@ -1861,10 +2115,15 @@ def phase_service_large(torch):
             check(counts["ota_fused"] == per_round * cfg.n_rounds,
                   f"N={n} {name} {form}: {counts['ota_fused']} K1 launches, "
                   f"expected {per_round * cfg.n_rounds}")
+            bodies = k1_body_counts()
+            check(blocks is not None or bodies["tall"] == cfg.n_rounds,
+                  f"N={n} {name} stacked: {bodies}, expected the tall body "
+                  f"every round")
             row[form] = {"ms_per_round": ms,
                          "peak_mb": (torch.cuda.max_memory_allocated()
                                      - resident) / 1e6,
-                         "k1_per_round": per_round}
+                         "k1_per_round": per_round,
+                         "k1_tall_launches": bodies["tall"]}
         rows.append(row)
         log(f"N={n} {name}{' + staleness (4, 0.8)' if st else ''}: rate "
             f"{rate:.5f} (expected {expect:.5f}, se {se:.1e}) | stacked "
@@ -1874,18 +2133,26 @@ def phase_service_large(torch):
             f"{row['streamed']['ms_per_round']:.1f} ms, peak "
             f"{row['streamed']['peak_mb']:.1f} MB, "
             f"{row['streamed']['k1_per_round']} K1/round")
-    # K1 at the stacked service round's shape: (10^4, 165), masked gains
+    # K1 at the stacked service round's shape: (10^4, 165), masked gains,
+    # the rule's tall body against the wide body, in turns
     g, h, p, _, _ = k1_inputs(torch, n, 165, 5)
     h = torch.where(torch.rand(n, device="cuda") < 0.5, h,
                     torch.zeros_like(h))
     kw = dict(sigma=1e-3, scale=1.0 / (n * RAYLEIGH_MH), seed=11)
-    ms = device_ms(torch, lambda: ota_fused.fused_aggregate(g, h, **kw))
+    check(ota_fused.k1_body(n, 165) == "tall", "the rule keeps 10^4 wide")
+    ms = k1_turns(torch, lambda: ota_fused.fused_aggregate(g, h, **kw),
+                  ("tall", "wide"))
     bound, by = k1_bound(n, 165, 4, "agg")
-    k1 = {"A": n, "P": 165, "mode": "agg", "ms": ms, "bound_ms": bound,
-          "bound_by": by}
-    log(f"K1 agg at (10^4, 165) f32: {ms * 1e3:.2f} us (bound "
-        f"{bound * 1e3:.3f} us, {by}; {bound / ms:.2%} of it)")
-    RECORD["service_large"] = {"rows": rows, "k1": k1}
+    k1 = {"A": n, "P": 165, "mode": "agg", "ms": ms["tall"],
+          "ms_wide_body": ms["wide"], "bound_ms": bound, "bound_by": by}
+    floor = k1_fold_floor(n)
+    log(f"K1 agg at (10^4, 165) f32: tall {ms['tall'] * 1e3:.2f} us, the "
+        f"wide body {ms['wide'] * 1e3:.2f} us "
+        f"({ms['wide'] / ms['tall']:.2f}x; "
+        f"bound {bound * 1e3:.3f} us, {by}, {bound / ms['tall']:.2%} of it; "
+        f"fold floor {floor * 1e3:.2f} us)")
+    RECORD["service_large"] = {"rows": rows, "k1": k1,
+                               "k1_fold_floor_ms": floor}
     done("service large", t0)
     return rows, k1
 
@@ -2025,7 +2292,7 @@ def main():
     t_all = time.perf_counter()
     smi = phase_card(torch)
     phase_build()
-    max_err = phase_k1(torch)
+    k1_err = phase_k1(torch)
     launches, main_res = phase_main(torch)
     phase_fig12(torch)
     rows = phase_times(torch)
@@ -2048,28 +2315,50 @@ def main():
     zoo_rows = phase_zoo(torch)
     RECORD["seconds"] = time.perf_counter() - t_all
 
-    main_row = rows[0]   # (10, 165) f32 sgd: the shape of the main path
+    # K1's two bodies.  The wide body runs the main path (Algorithm 2 at
+    # the paper's width: fused sgd at (10, 165), phase 4's launches); the
+    # tall body runs this slice's path, the stacked round at N = 10^4
+    # (phase 20's stacked service rounds, counted there) and is timed at
+    # its shape, agg (10^4, 165), beside the wide body in the same run.
+    main_row = rows[0]   # (10, 165) f32
+    sgd_bound, sgd_by = k1_bound(main_row["A"], main_row["P"], 4, "sgd")
+    big_row = next(r for r in rows
+                   if (r["A"], r["P"], r["wire"]) == (10_000, 165, "f32"))
+    per_path = {
+        "service stacked (10, 165)":
+            service_rows[0]["stacked"]["k1_per_round"],
+        "service streamed, agent_blocks 1, staleness (10, 165)":
+            service_rows[1]["streamed_1"]["k1_per_round"],
+        "service stacked (10^4, 165)":
+            large_rows[0]["stacked"]["k1_per_round"],
+        "service streamed in 64s, staleness (10^4, 165)":
+            large_rows[1]["streamed"]["k1_per_round"],
+        "zoo, each family": zoo_rows[0]["k1_launches"] / ZOO_ROUNDS}
     kernels = {"kernels": [{
-        "name": "ota_fused", "route": "cuda",
+        "name": "ota_fused_wide", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ota_fused.cu",
         "replaces": "src/repro/kernels/ota_fused.py:85",
-        "parity": "ok", "launches": launches, "max_abs_err": max_err,
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "parity": "ok", "launches": launches,
+        "launches_from": "Algorithm 2, K=100, (10, 165) (phase 4)",
+        "max_abs_err": k1_err["wide"],
+        "ms": main_row["sgd_ms"], "plain_ms": main_row["plain_sgd_ms"],
+        "bound_ms": sgd_bound, "bound_by": sgd_by,
         "library_ms": main_row["library_ms"],
-        "shape": [main_row["A"], main_row["P"]], "timings": rows,
-        # K1 launches per round on this slice's paths, each read from its
-        # own counted run (phases 19, 20, 22)
-        "launches_per_round_by_path": {
-            "service stacked (10, 165)":
-                service_rows[0]["stacked"]["k1_per_round"],
-            "service streamed, agent_blocks 1, staleness (10, 165)":
-                service_rows[1]["streamed_1"]["k1_per_round"],
-            "service stacked (10^4, 165)":
-                large_rows[0]["stacked"]["k1_per_round"],
-            "service streamed in 64s, staleness (10^4, 165)":
-                large_rows[1]["streamed"]["k1_per_round"],
-            "zoo, each family": zoo_rows[0]["k1_launches"] / ZOO_ROUNDS},
+        "shape": [main_row["A"], main_row["P"]], "mode": "sgd",
+        "timings": rows, "sweep": RECORD["k1_sweep"],
+        "launches_per_round_by_path": per_path}, {
+        "name": "ota_fused_tall", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ota_fused.cu",
+        "replaces": "src/repro/kernels/ota_fused.py:85",
+        "parity": "ok",
+        "launches": sum(r["stacked"]["k1_tall_launches"] for r in large_rows),
+        "launches_from": "stacked service rounds at N = 10^4 (phase 20)",
+        "max_abs_err": k1_err["tall"],
+        "ms": big_row["agg_ms"]["tall"], "plain_ms": big_row["plain_agg_ms"],
+        "bound_ms": big_row["bound_ms"], "bound_by": big_row["bound_by"],
+        "library_ms": big_row["library_ms"],
+        "shape": [big_row["A"], big_row["P"]], "mode": "agg",
+        "ms_wide_body": big_row["agg_ms"]["wide"],
         "service_shape_timing": k1_large}]}
     k2_row = k2_rows[-1]  # (2^26,) float32: past the L2, the bound's shape
     kernels["kernels"].append({

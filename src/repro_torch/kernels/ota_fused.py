@@ -2,16 +2,37 @@
 
 Counterpart of ``repro/kernels/ota_fused.py``: the same four entry points
 with the same signatures, minus ``interpret`` and ``block_rows`` (the TPU's
-VMEM blocking has no counterpart), plus ``threads`` (the CUDA block size,
-which the result does not depend on).  The kernel itself is
+VMEM blocking has no counterpart), plus ``threads`` (the CUDA block size of
+the wide body, which the result does not depend on).  The kernel itself is
 ``csrc/ota_fused.cu``; its plain PyTorch version is ``kernels/ref.py``.
 
 Dispatch is by the device of the gradient stack:
 
 * a CPU tensor takes the plain version (the counter PRNG then the op-for-op
   fold of ``ref.ota_fused_ref``), which is how the CPU tests reach it;
-* a CUDA tensor is checked (device, dtype, shape, contiguity) and launched
-  on PyTorch's current stream, or the call raises.  There is no fallback.
+* a CUDA tensor is checked (device, dtype, shape, contiguity, and what the
+  chosen body needs) and launched on PyTorch's current stream, or the call
+  raises.  There is no fallback.
+
+K1 has two bodies, both the same strict sequential fold over agents, so
+both are bitwise the plain version (agg) and bitwise each other in every
+mode; :func:`k1_body` picks one from the shapes and the wire dtype alone:
+
+* ``"wide"`` (the port's first body): one thread per parameter element;
+  it takes every shape and wins where A is small or P wide (the paper's
+  width, the streamed fold blocks of up to 32 agents, (8, 2^21));
+* ``"tall"``: one block per lane folds the whole parameter row, fed by a
+  ring of bulk asynchronous copies into shared memory; for large fleets at
+  a small d (:func:`k1_body`).  It needs a 16-byte-aligned stack (pointer
+  and lane stride) and P <= ``TALL_MAX_PARAMS``; the rule sees the pointer
+  and the lane stride, so it gives an unaligned stack (a sliced view) to the
+  wide body before launch.  A body that was forced on a stack it cannot
+  take raises (:func:`check_body`); nothing goes to the other body after
+  the choice.
+
+To time one body against the other on the same inputs, patch
+``k1_body`` (``unittest.mock.patch.object(ota_fused, "k1_body", lambda
+*a, **k: "tall")``), as ``chip_smoke.py`` does.
 
 ``rescale`` (``fused_aggregate``, ``fused_aggregate_sgd``,
 ``fused_server_pass``) is an optional one-element float32 tensor on the
@@ -20,8 +41,21 @@ gradients' device that multiplies ``scale``: the kernel forms
 computed on the card (the round service's ``N / W``) reaches the kernel
 without a host synchronisation.  ``None`` leaves the bits unchanged.
 
-``LAUNCHES`` counts kernel launches (one per call that reaches the card), so
-a run can show that its rounds went through the kernel.
+Lanes: ``fused_aggregate_lanes`` and ``fused_aggregate_sgd_lanes`` run L
+independent uplinks in one launch (lane = ``blockIdx.y`` of either body),
+the counterpart of ``jax.vmap`` over the JAX kernel, whose batching rule
+folds the lane axis into the Pallas grid.  They are twins rather than a
+leading axis on the one-lane functions, because a lane takes its sigma,
+scale, alpha and seed as per-lane device arrays where the one-lane round
+passes host scalars by value (no host-to-device copy a round), and because
+the JAX one-lane function refuses a 3-D stack.  Each lane is bitwise a
+one-lane launch of the same body.  No caller on a path uses lanes yet:
+``fedpg.monte_carlo``'s lane axis comes with the sweep slice.
+
+``LAUNCHES_WIDE`` and ``LAUNCHES_TALL`` count each body's kernel launches
+(one per call that reaches the card), so a run can show that its rounds
+went through the kernel, and which body.  ``LAUNCHES`` is always their sum:
+it counts K1 as one kernel for the callers that do not ask which body.
 """
 from __future__ import annotations
 
@@ -33,6 +67,14 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES = 0
+LAUNCHES_WIDE = 0
+LAUNCHES_TALL = 0
+
+BODIES = ("wide", "tall")
+TALL_MAX_PARAMS = 1984        # csrc/ota_fused.cu kTallMaxParams
+TALL_MIN_AGENTS = 48          # the rule: the crossover in A at P = 165
+TALL_RULE_MAX_PARAMS = 512    # the rule: the widest P it gives the tall body
+MAX_LANES = 65535             # grid y
 
 _MODES = {"agg": 0, "sgd": 1, "adam": 2}
 _WIRE_DTYPES = (torch.float32, torch.bfloat16)
@@ -40,22 +82,82 @@ _MAX_PARAMS = 2 ** 32 - 1     # the noise counter is a uint32 flat index
 _BOUND = False
 
 Seed = Union[int, torch.Tensor]
+Lanes = Union[float, Sequence[float], torch.Tensor]
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of a build of ``csrc/ota_fused.cu``."""
+    vp, f, i, ll = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, \
+        ctypes.c_longlong
+    lib.ota_fused_launch.argtypes = (
+        [i, i, i, i, vp, vp, i, i, ctypes.c_ulonglong, ll, ll, ll]
+        + [vp] * 6 + [f] * 8 + [vp] * 4 + [ctypes.c_uint, vp, i, vp])
+    lib.ota_fused_launch.restype = i
+    lib.ota_counter_bits_launch.argtypes = [
+        ctypes.c_ulonglong, vp, ctypes.c_uint, vp, vp, i, vp]
+    lib.ota_counter_bits_launch.restype = i
+    return lib
 
 
 def _lib() -> ctypes.CDLL:
     global _BOUND
     lib = build.load("ota_fused")
     if not _BOUND:
-        vp, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-        lib.ota_fused_launch.argtypes = (
-            [i, i, i, vp, vp, i, ctypes.c_ulonglong] + [vp] * 6 + [f] * 8
-            + [vp, ctypes.c_uint, vp, i, vp])
-        lib.ota_fused_launch.restype = i
-        lib.ota_counter_bits_launch.argtypes = [
-            ctypes.c_ulonglong, vp, ctypes.c_uint, vp, vp, i, vp]
-        lib.ota_counter_bits_launch.restype = i
+        bind(lib)
         _BOUND = True
     return lib
+
+
+def _elem(wire_dtype) -> int:
+    return 2 if wire_dtype == torch.bfloat16 else 4
+
+
+def k1_body(n_agents: int, n_params: int, wire_dtype=torch.float32,
+            lanes: int = 1, data_ptr: int = 0) -> str:
+    """The body of K1 that takes a CUDA (A, P) stack at address
+    ``data_ptr``, from shapes, the wire dtype and the pointer alone:
+    ``"tall"`` for a large fleet at a small d (P <= ``TALL_RULE_MAX_PARAMS``
+    and A >= max(``TALL_MIN_AGENTS``, P / 4)), ``"wide"`` otherwise.  The
+    bounds are the H100 sweep's (``PERF.md``): the tall body wins from A =
+    48 at P = 165 and from A = 128 at P = 500; at P = 1000 only at A = 10^4
+    of the sizes swept, which no path reaches, so the rule leaves wider P
+    to the wide body.  The tall body copies 16-byte tiles, so a stack whose
+    pointer is not 16-byte aligned (a sliced view) goes wide, and with
+    several lanes so does one whose lanes do not each start a multiple of
+    16 bytes after the last (A * P * wire bytes), as the rule cannot see
+    whether the lanes share one stack."""
+    if n_params > TALL_RULE_MAX_PARAMS \
+            or n_agents < max(TALL_MIN_AGENTS, n_params / 4):
+        return "wide"
+    if data_ptr % 16:
+        return "wide"
+    if lanes > 1 and (n_agents * n_params * _elem(wire_dtype)) % 16:
+        return "wide"
+    return "tall"
+
+
+def check_body(body: str, n_agents: int, n_params: int, wire_dtype, *,
+               data_ptr: int = 0, lane_stride: int = 0,
+               lanes: int = 1) -> None:
+    """Raise ``ValueError`` if ``body`` cannot take this CUDA stack: the
+    tall body needs P <= ``TALL_MAX_PARAMS`` and a 16-byte-aligned pointer
+    and lane stride (elements); both need 1 <= lanes <= ``MAX_LANES``."""
+    if body not in BODIES:
+        raise ValueError(f"K1 has no body {body!r}; bodies: {BODIES}")
+    if not 1 <= lanes <= MAX_LANES:
+        raise ValueError(f"{lanes} lanes out of range (1 .. {MAX_LANES})")
+    if body == "wide":
+        return
+    elem = _elem(wire_dtype)
+    if n_params > TALL_MAX_PARAMS:
+        raise ValueError(f"K1's tall body takes P <= {TALL_MAX_PARAMS}, got "
+                         f"(A, P) = ({n_agents}, {n_params})")
+    if data_ptr % 16 or (lane_stride * elem) % 16:
+        raise ValueError(
+            f"K1's tall body copies 16-byte tiles: the stack's pointer "
+            f"(offset {data_ptr % 16} bytes from 16) and lane stride "
+            f"({lane_stride} elements) must be 16-byte aligned; pass a "
+            f"fresh copy (clone())")
 
 
 def _check_threads(threads: int) -> None:
@@ -75,60 +177,109 @@ def _seed_args(seed: Seed, device: torch.device):
     return None, int(seed) & ref.MASK32
 
 
-def _check_vector(name: str, x: torch.Tensor, n: int,
+def _check_vector(name: str, x: torch.Tensor, shape: Tuple[int, ...],
                   device: torch.device) -> None:
-    if x.device != device or x.dtype != torch.float32 or x.shape != (n,) \
-            or not x.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous float32 ({n},) tensor "
+    if x.device != device or x.dtype != torch.float32 \
+            or tuple(x.shape) != shape or not x.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous float32 {shape} tensor "
                          f"on {device}, got {x.dtype} {tuple(x.shape)} on "
                          f"{x.device}")
 
 
-def _check_rescale(rescale: Optional[torch.Tensor],
-                   device: torch.device) -> None:
+def _check_rescale(rescale: Optional[torch.Tensor], device: torch.device,
+                   n: int = 1) -> None:
     if rescale is not None and (rescale.device != device
                                 or rescale.dtype != torch.float32
-                                or rescale.numel() != 1):
-        raise ValueError(f"rescale must be one float32 element on {device}, "
-                         f"got {rescale.dtype} {tuple(rescale.shape)} on "
-                         f"{rescale.device}")
+                                or rescale.numel() != n
+                                or not rescale.is_contiguous()):
+        raise ValueError(f"rescale must be {n} contiguous float32 element(s) "
+                         f"on {device}, got {rescale.dtype} "
+                         f"{tuple(rescale.shape)} on {rescale.device}")
 
 
 def _launch(mode: str, grads: torch.Tensor, gains: torch.Tensor,
             states: Sequence[torch.Tensor], *, with_noise: bool, seed: Seed,
             sigma=0.0, scale=1.0, alpha=0.0, b1=0.0, b2=0.0, c1=1.0, c2=1.0,
             eps=0.0, rescale: Optional[torch.Tensor] = None,
-            threads: int = 256) -> Tuple[torch.Tensor, ...]:
-    """Validate the CUDA operands, allocate the outputs, launch K1."""
-    global LAUNCHES
+            threads: int = 256, lanes: int = 0,
+            per_lane: Optional[dict] = None) -> Tuple[torch.Tensor, ...]:
+    """Validate the CUDA operands, allocate the outputs, launch K1.
+
+    ``lanes=0`` is a one-lane call on an (A, P) stack with (P,) outputs.
+    With ``lanes=L`` the stack is (A, P) shared or (L, A, P), the gains (A,)
+    or (L, A), each state (P,) or (L, P), the outputs (L, P), and
+    ``per_lane`` may hold contiguous device arrays of L values under
+    ``sigma``, ``scale``, ``alpha`` (float32) and ``seed`` (int64);
+    ``rescale`` then has L elements."""
+    global LAUNCHES, LAUNCHES_WIDE, LAUNCHES_TALL
     dev = grads.device
     if grads.dtype not in _WIRE_DTYPES or not grads.is_contiguous():
         raise ValueError(f"grads must be contiguous float32 or bfloat16, got "
                          f"{grads.dtype} (contiguous={grads.is_contiguous()})")
-    n_agents, n_params = grads.shape
+    n_agents, n_params = grads.shape[-2:]
     if n_agents < 1 or not 0 < n_params <= _MAX_PARAMS:
         raise ValueError(f"grads shape {tuple(grads.shape)} out of range "
                          f"(1 <= A, 0 < P < 2^32)")
     _check_threads(threads)
-    _check_vector("gains", gains, n_agents, dev)
+    n_lanes = max(lanes, 1)
+    if not lanes and grads.ndim != 2:
+        raise ValueError(f"grads must be (n_agents, n_params), got "
+                         f"{tuple(grads.shape)}")
+    # one lane reads only lane 0: its stride is never stepped
+    g_lane = n_agents * n_params if grads.ndim == 3 and n_lanes > 1 else 0
+    h_lane = n_agents if lanes and gains.ndim == 2 else 0
+    _check_vector("gains", gains,
+                  (n_lanes, n_agents) if h_lane else (n_agents,), dev)
+    state_lane = 0
     for name, x in zip(("params", "mu", "nu"), states):
-        _check_vector(name, x, n_params, dev)
-    _check_rescale(rescale, dev)
+        state_lane = n_params if lanes and x.ndim == 2 else 0
+        _check_vector(name, x, (n_lanes, n_params) if state_lane
+                      else (n_params,), dev)
+    if len({x.ndim for x in states}) > 1:
+        raise ValueError("params, mu and nu must all be shared or all per "
+                         "lane")
+    _check_rescale(rescale, dev, n_lanes)
+    body = k1_body(n_agents, n_params, grads.dtype, n_lanes,
+                   data_ptr=grads.data_ptr())
+    check_body(body, n_agents, n_params, grads.dtype,
+               data_ptr=grads.data_ptr(), lane_stride=g_lane, lanes=n_lanes)
+    per_lane = per_lane or {}
+    ptrs = {}
+    for name, dtype in (("sigma", torch.float32), ("scale", torch.float32),
+                        ("alpha", torch.float32), ("seed", torch.int64)):
+        x = per_lane.get(name)
+        if x is not None:
+            if x.device != dev or x.dtype != dtype or x.shape != (n_lanes,) \
+                    or not x.is_contiguous():
+                raise ValueError(f"per-lane {name} must be a contiguous "
+                                 f"{dtype} ({n_lanes},) tensor on {dev}")
+            ptrs[name] = x.data_ptr()
+    out_shape = (n_lanes, n_params) if lanes else (n_params,)
     n_out = 3 if mode == "adam" else 1
-    outs = [torch.empty(n_params, dtype=torch.float32, device=dev)
+    outs = [torch.empty(out_shape, dtype=torch.float32, device=dev)
             for _ in range(n_out)]
-    ptrs = [x.data_ptr() for x in states] + [None] * (3 - len(states))
+    state_ptrs = [x.data_ptr() for x in states] + [None] * (3 - len(states))
     out_ptrs = [x.data_ptr() for x in outs] + [None] * (3 - n_out)
-    seed_ptr, seed_val = _seed_args(seed, dev)
+    if "seed" in ptrs:
+        seed_ptr, seed_val = ptrs["seed"], 0
+    else:
+        seed_ptr, seed_val = _seed_args(seed, dev)
     rc = _lib().ota_fused_launch(
-        _MODES[mode], int(grads.dtype == torch.bfloat16), int(with_noise),
-        grads.data_ptr(), gains.data_ptr(), n_agents, n_params,
-        *ptrs, *out_ptrs,
+        BODIES.index(body), _MODES[mode], int(grads.dtype == torch.bfloat16),
+        int(with_noise), grads.data_ptr(), gains.data_ptr(), n_lanes,
+        n_agents, n_params, g_lane, h_lane, state_lane,
+        *state_ptrs, *out_ptrs,
         *(float(x) for x in (sigma, scale, alpha, b1, b2, c1, c2, eps)),
+        ptrs.get("sigma"), ptrs.get("scale"), ptrs.get("alpha"),
         seed_ptr, seed_val, None if rescale is None else rescale.data_ptr(),
         threads, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"ota_fused kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"ota_fused kernel launch failed ({body} body): "
+                           f"cudaError {rc}")
+    if body == "tall":
+        LAUNCHES_TALL += 1
+    else:
+        LAUNCHES_WIDE += 1
     LAUNCHES += 1
     return tuple(outs)
 
@@ -148,7 +299,7 @@ def _noise(with_noise: Optional[bool], seed: Seed, grads: torch.Tensor):
     """The plain version's noise realisation, or None."""
     if with_noise is False:
         return None
-    return ref.counter_noise(seed, grads.shape[1], grads.device)
+    return ref.counter_noise(seed, grads.shape[-1], grads.device)
 
 
 def fused_aggregate(grads: torch.Tensor, gains: torch.Tensor, *, sigma=0.0,
@@ -230,6 +381,164 @@ def fused_aggregate_adam(grads: torch.Tensor, gains: torch.Tensor,
                    with_noise=with_noise is not False, seed=seed, sigma=sigma,
                    scale=scale, alpha=alpha, b1=b1, b2=b2, c1=c1, c2=c2,
                    eps=eps, threads=threads)
+
+
+# ---------------------------------------------------------------------------
+# Lanes: L independent uplinks in one launch (jax.vmap of the JAX kernel)
+# ---------------------------------------------------------------------------
+
+def _is_lanes(x) -> bool:
+    """Whether a per-lane argument holds one value per lane."""
+    if isinstance(x, torch.Tensor):
+        return x.ndim == 1
+    return isinstance(x, (list, tuple))
+
+
+def _n_lanes(grads, gains, params, scalars, rescale) -> int:
+    counts = set()
+    if grads.ndim == 3:
+        counts.add(grads.shape[0])
+    if gains.ndim == 2:
+        counts.add(gains.shape[0])
+    if params is not None and params.ndim == 2:
+        counts.add(params.shape[0])
+    for x in scalars:
+        if _is_lanes(x):
+            counts.add(len(x))
+    if rescale is not None and rescale.numel() != 1:
+        counts.add(rescale.numel())
+    if len(counts) > 1:
+        raise ValueError(f"the lane-batched operands disagree on the lane "
+                         f"count: {sorted(counts)}")
+    return counts.pop() if counts else 1
+
+
+def _lane_values(x, n: int) -> list:
+    """A per-lane argument as a list of n Python numbers or seeds."""
+    if isinstance(x, torch.Tensor):
+        return (list(x.reshape(-1)) if x.ndim == 1
+                else [x.reshape(())] * n)
+    return list(x) if _is_lanes(x) else [x] * n
+
+
+def _lane_array(x, n: int, dtype, device) -> Optional[torch.Tensor]:
+    """A contiguous (n,) device array of a per-lane argument, or None when
+    every lane shares one host number (passed by value)."""
+    if isinstance(x, torch.Tensor):
+        if x.ndim > 1 or (x.ndim == 1 and x.numel() != n):
+            raise ValueError(f"a per-lane argument must be a scalar or {n} "
+                             f"values, got {tuple(x.shape)}")
+        return x.to(device=device, dtype=dtype).reshape(-1).expand(n) \
+            .contiguous()
+    if _is_lanes(x):
+        vals = [int(v) & ref.MASK32 for v in x] if dtype == torch.int64 \
+            else [float(v) for v in x]
+        return torch.tensor(vals, dtype=dtype, device=device)
+    return None
+
+
+def _prep_lanes(grads, gains, wire_dtype):
+    if grads.ndim not in (2, 3) or gains.ndim not in (1, 2):
+        raise ValueError(f"lanes take grads (A, P) or (L, A, P) and gains "
+                         f"(A,) or (L, A), got {tuple(grads.shape)} and "
+                         f"{tuple(gains.shape)}")
+    if gains.device != grads.device:
+        raise ValueError(f"gains on {gains.device}, grads on {grads.device}")
+    if wire_dtype is not None:
+        grads = grads.to(wire_dtype)
+    return grads
+
+
+def _plain_lanes(mode, grads, gains, params, n, *, sigma, scale, seed,
+                 with_noise, alpha, rescale):
+    """The plain version on the CPU: ``ref``'s per-lane loop."""
+    p_dim = grads.shape[-1]
+    seeds = _lane_values(seed, n)
+    noise = None if with_noise is False else torch.stack(
+        [ref.counter_noise(s, p_dim, grads.device) for s in seeds])
+    kw = dict(sigma=[float(v) for v in _lane_values(sigma, n)],
+              scale=[float(v) for v in _lane_values(scale, n)],
+              rescale=None if rescale is None
+              else rescale.reshape(-1).expand(n))
+    g = grads.expand((n,) + tuple(grads.shape[-2:]))
+    h = gains.expand((n, gains.shape[-1]))
+    if mode == "agg":
+        return ref.ota_fused_lanes_ref(g, h, noise, **kw)
+    return ref.ota_fused_sgd_lanes_ref(
+        g, h, params.expand((n, p_dim)), noise,
+        alpha=[float(v) for v in _lane_values(alpha, n)], **kw)
+
+
+def _cuda_lanes(mode, grads, gains, params, n, *, sigma, scale, seed,
+                with_noise, alpha, rescale, threads):
+    dev = grads.device
+    per_lane = {
+        "sigma": _lane_array(sigma, n, torch.float32, dev),
+        "scale": _lane_array(scale, n, torch.float32, dev),
+        "alpha": _lane_array(alpha, n, torch.float32, dev),
+        "seed": (_lane_array(seed, n, torch.int64, dev)
+                 if _is_lanes(seed) or (isinstance(seed, torch.Tensor)
+                                        and seed.device == dev and n > 1)
+                 else None)}
+    if rescale is not None:
+        rescale = rescale.reshape(-1).expand(n).contiguous()
+
+    def host(x):   # the by-value fallback of a shared host number
+        return 0.0 if isinstance(x, torch.Tensor) or _is_lanes(x) \
+            else float(x)
+
+    states = () if params is None else (params,)
+    (out,) = _launch(mode, grads, gains, states,
+                     with_noise=with_noise is not False,
+                     seed=0 if per_lane["seed"] is not None else seed,
+                     sigma=host(sigma), scale=host(scale), alpha=host(alpha),
+                     rescale=rescale, threads=threads, lanes=n,
+                     per_lane=per_lane)
+    return out
+
+
+def fused_aggregate_lanes(grads: torch.Tensor, gains: torch.Tensor, *,
+                          sigma: Lanes = 0.0, scale: Lanes = 1.0,
+                          seed=0, with_noise: Optional[bool] = None,
+                          wire_dtype=None,
+                          rescale: Optional[torch.Tensor] = None,
+                          threads: int = 256) -> torch.Tensor:
+    """``fused_aggregate`` over L lanes in one launch; returns (L, P).
+
+    ``grads`` is (A, P) (shared by every lane) or (L, A, P); ``gains`` (A,)
+    or (L, A); ``sigma``, ``scale`` and ``seed`` a scalar (shared) or L
+    values (a sequence or a 1-D tensor); ``rescale`` None, or a float32
+    device tensor of 1 or L elements.  Lane l is bitwise
+    ``fused_aggregate`` on lane l's operands through the same body."""
+    grads = _prep_lanes(grads, gains, wire_dtype)
+    n = _n_lanes(grads, gains, None, (sigma, scale, seed), rescale)
+    kw = dict(sigma=sigma, scale=scale, seed=seed, with_noise=with_noise,
+              alpha=0.0, rescale=rescale)
+    if not grads.is_cuda:
+        return _plain_lanes("agg", grads, gains, None, n, **kw)
+    return _cuda_lanes("agg", grads, gains, None, n, threads=threads, **kw)
+
+
+def fused_aggregate_sgd_lanes(grads: torch.Tensor, gains: torch.Tensor,
+                              params: torch.Tensor, *, alpha: Lanes,
+                              sigma: Lanes = 0.0, scale: Lanes = 1.0,
+                              seed=0, with_noise: Optional[bool] = None,
+                              wire_dtype=None,
+                              rescale: Optional[torch.Tensor] = None,
+                              threads: int = 256) -> torch.Tensor:
+    """``fused_aggregate_sgd`` over L lanes in one launch; returns (L, P).
+    ``params`` is (P,) (shared) or (L, P), ``alpha`` a scalar or L values;
+    the rest as :func:`fused_aggregate_lanes`."""
+    grads = _prep_lanes(grads, gains, wire_dtype)
+    if params.ndim not in (1, 2):
+        raise ValueError(f"params must be (P,) or (L, P), got "
+                         f"{tuple(params.shape)}")
+    n = _n_lanes(grads, gains, params, (sigma, scale, seed, alpha), rescale)
+    kw = dict(sigma=sigma, scale=scale, seed=seed, with_noise=with_noise,
+              alpha=alpha, rescale=rescale)
+    if not grads.is_cuda:
+        return _plain_lanes("sgd", grads, gains, params, n, **kw)
+    return _cuda_lanes("sgd", grads, gains, params, n, threads=threads, **kw)
 
 
 def counter_bits(seed: Seed, n: int, device,

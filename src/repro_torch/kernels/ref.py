@@ -42,7 +42,7 @@ modulo 2^32 in 16-bit halves so no intermediate leaves the int64 range.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -140,6 +140,35 @@ def ota_fused_sgd_ref(grads, gains, params, noise=None, *, alpha, sigma=0.0,
     u = ota_fused_ref(grads, gains, noise, sigma=sigma, scale=scale,
                       rescale=rescale)
     return params.float() - f32(alpha) * u
+
+
+def ota_fused_lanes_ref(grads: torch.Tensor, gains: torch.Tensor,
+                        noise: Optional[torch.Tensor] = None, *,
+                        sigma: Sequence[float], scale: Sequence[float],
+                        rescale: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """(L, P): lane l is :func:`ota_fused_ref` over ``grads[l]`` (A, P),
+    ``gains[l]``, ``noise[l]``, ``sigma[l]``, ``scale[l]`` and
+    ``rescale[l]``, a loop over lanes (K1's lane form, ``jax.vmap`` of the
+    JAX kernel)."""
+    return torch.stack([
+        ota_fused_ref(grads[l], gains[l], None if noise is None else noise[l],
+                      sigma=sigma[l], scale=scale[l],
+                      rescale=None if rescale is None else rescale[l])
+        for l in range(grads.shape[0])])
+
+
+def ota_fused_sgd_lanes_ref(grads, gains, params, noise=None, *,
+                            alpha: Sequence[float], sigma: Sequence[float],
+                            scale: Sequence[float],
+                            rescale=None) -> torch.Tensor:
+    """(L, P): lane l is :func:`ota_fused_sgd_ref` over lane l's operands."""
+    return torch.stack([
+        ota_fused_sgd_ref(grads[l], gains[l], params[l],
+                          None if noise is None else noise[l],
+                          alpha=alpha[l], sigma=sigma[l], scale=scale[l],
+                          rescale=None if rescale is None else rescale[l])
+        for l in range(grads.shape[0])])
 
 
 def adam_bias_corrections(b1, b2, step) -> Tuple[torch.Tensor, torch.Tensor]:

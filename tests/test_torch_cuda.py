@@ -12,13 +12,14 @@ K4 (SSD scan): 5e-5 (``tests/test_kernels.py:84``) for f32 and bf16 inputs
 alike, as its output is f32 either way; 1e-4 against the sequential
 recurrence.  K2 (server-side update): bitwise, for f32 and bf16, and
 bitwise K1's unit-gain server pass.  The streamed fold through K1 and the
-streamed round: bitwise the per-agent fold and across block sizes.  K1's
-device rescale factor (the round service's N / W): bitwise its plain
-version (sgd rtol 1e-6); the service's mask stream: the same bits on the
-card as on the CPU; the streamed service round bitwise across block
-sizes.  Needs a
-CUDA device and skips
-without one.  This file imports no JAX, so it also runs on a
+streamed round: bitwise the per-agent fold and across block sizes (also
+through K1's tall body at N = 10^4 in one block).  K1's tall body: bitwise
+its plain version (agg) and the wide body (every mode), f32 and bf16; its
+lanes bitwise one-lane launches; what it cannot take raises.  K1's device
+rescale factor (the round service's N / W): bitwise its plain version (sgd
+rtol 1e-6); the service's mask stream: the same bits on the card as on the
+CPU; the streamed service round bitwise across block sizes.  Needs a CUDA
+device and skips without one.  This file imports no JAX, so it also runs on a
 GPU machine without the JAX package:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -588,3 +589,169 @@ def test_streamed_service_round_is_bitwise_invariant_on_the_card(cuda):
         assert all(torch.equal(x, y) for x, y in zip(first, hist))
         assert all(torch.equal(runs[1][0][k], theta[k]) for k in theta)
     assert torch.equal(first.gain_mean, stacked.gain_mean)
+
+
+# ---------------------------------------------------------------------------
+# K1's tall body (large fleets at a small d) and its lane axis
+# ---------------------------------------------------------------------------
+
+def _body(name):
+    """Within the block every CUDA call of K1 takes body ``name``."""
+    from unittest import mock
+
+    return mock.patch.object(ota_fused, "k1_body", lambda *a, **k: name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", [True, False])
+@pytest.mark.parametrize("wire", [None, torch.bfloat16])
+@pytest.mark.parametrize("n_params", [1, 3, 165, 1000])
+@pytest.mark.parametrize("n_agents", [4, 63, 64, 65, 10_000])
+def test_k1_tall_body_matches_plain_version(cuda, n_agents, n_params, wire,
+                                            noise):
+    """The tall body: agg bitwise its plain version (also with the device
+    rescale factor), sgd and adam within rtol 1e-6, all three bitwise the
+    wide body, and one tall launch per call."""
+    g, h, p, mu, nu = (torch.from_numpy(x).to(cuda)
+                       for x in _inputs(n_agents + n_params, n_agents,
+                                        n_params))
+    gw = g if wire is None else g.to(wire)
+    nz = ref.counter_noise(5, n_params, cuda) if noise else None
+    r = torch.tensor([0.75], device=cuda)
+    kw = dict(sigma=0.5, scale=0.2, seed=5, with_noise=noise,
+              wire_dtype=wire)
+    pkw = dict(sigma=0.5, scale=0.2)
+    akw = dict(alpha=1e-3, step=3)
+    outs = {}
+    for body in ("tall", "wide"):
+        before = ota_fused.LAUNCHES_TALL
+        with _body(body):
+            outs[body] = [ota_fused.fused_aggregate(g, h, **kw),
+                          ota_fused.fused_aggregate(g, h, rescale=r, **kw),
+                          ota_fused.fused_aggregate_sgd(g, h, p, alpha=0.05,
+                                                        **kw),
+                          *ota_fused.fused_aggregate_adam(g, h, p, mu, nu,
+                                                          **akw, **kw)]
+        assert ota_fused.LAUNCHES_TALL - before == (4 if body == "tall"
+                                                    else 0)
+    torch.cuda.synchronize()
+    tall = outs["tall"]
+    assert torch.equal(tall[0], ref.ota_fused_ref(gw, h, nz, **pkw))
+    assert torch.equal(tall[1], ref.ota_fused_ref(gw, h, nz, rescale=r,
+                                                  **pkw))
+    torch.testing.assert_close(tall[2], ref.ota_fused_sgd_ref(
+        gw, h, p, nz, alpha=0.05, **pkw), rtol=1e-6, atol=1e-7)
+    for x, y in zip(tall[3:], ref.ota_fused_adam_ref(gw, h, p, mu, nu, nz,
+                                                     **akw, **pkw)):
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-7)
+    assert all(torch.equal(x, y) for x, y in zip(tall, outs["wide"]))
+
+
+@pytest.mark.cuda
+def test_k1_tall_body_refuses_what_it_cannot_take(cuda):
+    """A forced tall body refuses a view off the 16-byte grid and a P past
+    its widest; the rule gives such a view to the wide body before launch
+    (bitwise the plain version), and a fresh copy to the tall body."""
+    g = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (10_001, 165)).astype(np.float32)).to(cuda)
+    h = torch.ones(10_000, device=cuda)
+    view = g[1:]                                   # 660 bytes off the grid
+    assert ota_fused.k1_body(10_000, 165) == "tall"
+    before = ota_fused.LAUNCHES
+    with _body("tall"), pytest.raises(ValueError, match="aligned"):
+        ota_fused.fused_aggregate(view, h)
+    with _body("tall"), pytest.raises(ValueError, match="takes P"):
+        ota_fused.fused_aggregate(torch.ones(64, 2000, device=cuda),
+                                  torch.ones(64, device=cuda))
+    assert ota_fused.LAUNCHES == before
+    wide, tall = ota_fused.LAUNCHES_WIDE, ota_fused.LAUNCHES_TALL
+    got = ota_fused.fused_aggregate(view, h, sigma=0.5, seed=3)
+    assert (ota_fused.LAUNCHES_WIDE - wide, ota_fused.LAUNCHES_TALL - tall) \
+        == (1, 0)
+    assert torch.equal(got, ref.ota_fused_ref(
+        view, h, ref.counter_noise(3, 165, cuda), sigma=0.5, scale=1.0))
+    fresh = ota_fused.fused_aggregate(view.clone(), h, sigma=0.5, seed=3)
+    assert ota_fused.LAUNCHES_TALL - tall == 1
+    assert torch.equal(fresh, got)
+    # one lane of a (1, A, P) stack whose A * P * 4 bytes is off the grid:
+    # the lane stride is never stepped, so the tall body takes it
+    h1 = torch.ones(10_001, device=cuda)
+    one = ota_fused.fused_aggregate_lanes(g[None], h1[None], sigma=0.5,
+                                          seed=3)
+    assert ota_fused.LAUNCHES_TALL - tall == 2
+    assert torch.equal(one[0], ota_fused.fused_aggregate(g, h1, sigma=0.5,
+                                                         seed=3))
+    assert ota_fused.LAUNCHES == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["tall", "wide"])
+@pytest.mark.parametrize("shape", [(3, 4, 800), (20, 10, 165),
+                                   (4, 10_000, 165)], ids=str)
+@pytest.mark.parametrize("shared", [True, False])
+def test_k1_lanes_are_single_lane_launches_bitwise(cuda, body, shape,
+                                                   shared):
+    """Each lane of one launch is bitwise a one-lane launch of the same body
+    (JAX's vmap-folds-lanes-into-the-grid contract), agg and sgd, with
+    per-lane sigma, scale, alpha, seed and rescale on the card."""
+    lanes, a, p = shape
+    rng = np.random.default_rng(lanes * a)
+    g = torch.from_numpy(rng.standard_normal(
+        (a, p) if shared else (lanes, a, p)).astype(np.float32)).to(cuda)
+    h = torch.from_numpy(rng.random((lanes, a)).astype(np.float32)).to(cuda)
+    params = torch.from_numpy(rng.standard_normal((lanes, p))
+                              .astype(np.float32)).to(cuda)
+    sig, sc, al, r = (torch.from_numpy(rng.random(lanes).astype(np.float32))
+                      .to(cuda) for _ in range(4))
+    seeds = torch.arange(lanes, device=cuda, dtype=torch.int64) * 7 + 3
+    with _body(body):
+        if body == "tall" and not shared and (a * p * 4) % 16:
+            # per-lane stacks off the 16-byte grid (the rule keeps them
+            # wide): the tall body refuses them
+            with pytest.raises(ValueError, match="aligned"):
+                ota_fused.fused_aggregate_lanes(g, h, sigma=sig, seed=seeds)
+            return
+        before = ota_fused.LAUNCHES
+        agg = ota_fused.fused_aggregate_lanes(g, h, sigma=sig, scale=sc,
+                                              seed=seeds, rescale=r)
+        sgd = ota_fused.fused_aggregate_sgd_lanes(g, h, params, alpha=al,
+                                                  sigma=sig, scale=sc,
+                                                  seed=seeds)
+        assert ota_fused.LAUNCHES == before + 2
+        for lane in range(lanes):
+            gl = g if shared else g[lane].clone()
+            one = dict(sigma=sig[lane].item(), scale=sc[lane].item(),
+                       seed=int(seeds[lane]))
+            assert torch.equal(agg[lane], ota_fused.fused_aggregate(
+                gl, h[lane].clone(), rescale=r[lane:lane + 1].clone(),
+                **one))
+            assert torch.equal(sgd[lane], ota_fused.fused_aggregate_sgd(
+                gl, h[lane].clone(), params[lane].clone(),
+                alpha=al[lane].item(), **one))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_k1_stream_fold_of_ten_thousand_agents_in_one_block(cuda):
+    """``stream_fold_block`` at N = 10^4 in one block: one tall launch over
+    the [acc; G] stack, bitwise the torch fold (the streamed round's
+    invariance to ``agent_blocks`` rests on it)."""
+    from repro_torch.core import ota
+
+    rng = np.random.default_rng(12)
+    n = 10_000
+    g = {"w": torch.from_numpy(rng.standard_normal((n, 16, 5))
+                               .astype(np.float32)).to(cuda),
+         "b": torch.from_numpy(rng.standard_normal((n, 85))
+                               .astype(np.float32)).to(cuda)}
+    h = torch.from_numpy(rng.random(n).astype(np.float32)).to(cuda) + 0.1
+    acc = {k: v[0] * 0.5 for k, v in g.items()}
+    valid = torch.arange(n, device=cuda) < n - 3
+    before, tall = ota_fused.LAUNCHES, ota_fused.LAUNCHES_TALL
+    a = ota.stream_fold_block(acc, g, h, valid, backend="cuda")
+    assert (ota_fused.LAUNCHES - before, ota_fused.LAUNCHES_TALL - tall) \
+        == (1, 1)
+    b = ota.stream_fold_block(acc, g, h, valid, backend="torch")
+    torch.cuda.synchronize()
+    for k in g:
+        assert torch.equal(a[k], b[k])
