@@ -25,7 +25,13 @@ Phases, in order; any failure raises and exits non-zero:
               ``ota_backend="auto"``: every round must launch K1 once; then
               Algorithm 1; then a small run where the kernel path and the
               plain chain must agree;
-5. fig12    — the Fig. 1-2 (N, M) table, K=250, 5 Monte-Carlo runs;
+5. fig12    — the Fig. 1-2 (N, M) table through the port's sweep engine
+              (``mode="vmap"``, K=250, alpha 1e-3, RAYLEIGH, debias, 20
+              runs): each (N, M) one partition of 20 lanes, one K1
+              lane-form launch a round; avg_grad_sq and the last-20-round
+              reward with their standard errors beside the JAX package's
+              20-run means (``perf/fig12_reference.json``), each avg_grad_sq
+              within 4 combined standard errors, both trends;
 6. times    — K1's device time at (10, 165), (33, 165), (65, 165), (10^4,
               165), (10^5, 165) and (8, 2^21), f32 (and bf16 at 10^4 and
               2^21): agg with and without noise for the rule's body and the
@@ -104,7 +110,22 @@ Phases, in order; any failure raises and exits non-zero:
               channel uses per round, ms per round;
 22. zoo     — each registered family through Algorithm 2 with K1 at its
               default policy (K=20), then G(PO)MDP on a Garnet MDP against
-              ``exact_J``'s autograd gradient (5 standard errors).
+              ``exact_J``'s autograd gradient (5 standard errors);
+23. lanes   — a grid varying alpha, noise sigma, the Rayleigh scale, a
+              TruncatedInversion parameter, a windy wind, a Bernoulli rate
+              with staleness (4, 0.8), and the exact uplink (K=10, 4 runs):
+              every lane of the lane-batched run bitwise ``fedpg.run`` on the
+              card (history and theta_K), one K1 launch a round per
+              partition, ``sweep(mode="vmap")`` the same histories;
+24. batching — the main cell as R = 1, 5, 20, 100 lanes: ms per batched
+              round against R x phase 4's ms per round, busy share and
+              launches per round; K1's lane launch at (20, 10, 165) and
+              (100, 10, 165) against R one-lane launches, the plain version,
+              ``torch.baddbmm`` and the byte bound;
+25. telemetry — the main cell with telemetry on and off (bitwise equal
+              histories, finite probes, the overhead per round), a sweep
+              with telemetry, and its span trace in
+              ``chiprun_out/sweep_trace.json``.
 
 It prints the card line, then one ``{"kernels": [...]}`` line (K1 as its two
 bodies, ``ota_fused_wide`` and ``ota_fused_tall``), and as its last
@@ -184,6 +205,14 @@ LARGE_N = (10 ** 2, 10 ** 3, 10 ** 4, 10 ** 5)
 LARGE_BLOCKS = 32              # benchmarks/fig_large_n.py's agent_blocks
 PC_RUNS = 3
 FIG12_SETTINGS = [(1, 10), (5, 10), (10, 10), (10, 1), (10, 5)]  # (N, M)
+FIG12_ROUNDS, FIG12_ALPHA, FIG12_RUNS = 250, 1e-3, 20
+FIG12_TAIL = 20                # SweepResult.final_reward's last 20 rounds
+FIG12_Z = 4.0                  # combined standard errors allowed
+LANE_ROUNDS, LANE_RUNS = 10, 4
+BATCH_RUNS = (1, 5, 20, 100)
+BATCH_ROUNDS = 20
+BATCH_K1_LANES = (20, 100)
+TEL_ROUNDS = 50
 MAIN_ROUNDS = 100
 SERVICE_STREAM_ROUNDS = 25     # streamed service runs: K cut from 100
 SERVICE_LARGE_N = 10 ** 4      # benchmarks/fig_participation.py
@@ -673,31 +702,404 @@ def phase_main(torch):
     return results["alg2"]["launches"], results
 
 
+def fig12_scenarios(n_rounds, alpha):
+    """``benchmarks/fig12_rayleigh.py``'s scenarios, from the port's copy of
+    the RAYLEIGH preset: the five (N, M) settings, debias on."""
+    from repro_torch.configs.ota_pg_particle import RAYLEIGH
+    from repro_torch.core.channel import make_channel
+    from repro_torch.core.sweep import Scenario
+
+    ch = make_channel(RAYLEIGH.channel, **dict(RAYLEIGH.channel_kwargs))
+    return [Scenario(channel=ch, noise_sigma=RAYLEIGH.noise_sigma,
+                     alpha=alpha, n_agents=n, batch_m=m,
+                     horizon=RAYLEIGH.horizon, gamma=RAYLEIGH.gamma,
+                     n_rounds=n_rounds, debias=True, tag=f"N{n}_M{m}")
+            for n, m in FIG12_SETTINGS]
+
+
+def mean_se(x):
+    """Mean and standard error over runs, in double."""
+    import numpy as np
+
+    x = np.asarray(x, np.float64)
+    return float(x.mean()), float(x.std(ddof=1) / np.sqrt(x.size))
+
+
 def phase_fig12(torch):
-    from repro_torch.core import fedpg
+    """The North star's table through the port's sweep engine (``"vmap"``:
+    each (N, M) a partition of 20 lanes, one K1 lane-form launch a round),
+    held to the JAX package's 20-run means in ``perf/fig12_reference.json``
+    (``perf/fig12_reference.py``)."""
+    import math
+
+    from repro_torch.core import sweep
     from repro_torch.rl.env import LandmarkNav
     from repro_torch.rl.policy import MLPPolicy
 
-    t0 = phase("5. Fig. 1-2 table (K=250, 5 Monte-Carlo runs)")
-    env, pol = LandmarkNav(), MLPPolicy()
+    t0 = phase(f"5. Fig. 1-2 table through the port's sweep (vmap, "
+               f"K={FIG12_ROUNDS}, {FIG12_RUNS} runs)")
+    ref = json.loads((ROOT / "perf" / "fig12_reference.json").read_text())
+    want = {(r["n_agents"], r["batch_m"]): r for r in ref["rows"]}
+    check(ref["setting"]["runs"] == FIG12_RUNS
+          and ref["setting"]["n_rounds"] == FIG12_ROUNDS,
+          "perf/fig12_reference.json holds another setting")
+    scens = fig12_scenarios(FIG12_ROUNDS, FIG12_ALPHA)
+    check(len(sweep.partition_scenarios(scens)) == len(FIG12_SETTINGS),
+          "each (N, M) must be its own partition")
+    # warm-up (first calls of the lane path), outside the timed partitions
+    sweep.sweep(LandmarkNav(), MLPPolicy(),
+                [dataclasses.replace(scens[0], n_rounds=2)], 0, FIG12_RUNS,
+                device="cuda")
     g, table = {}, []
-    for n, m in FIG12_SETTINGS:
-        cfg, ota = alg_config(n, m, 250)
-        hist = fedpg.monte_carlo(env, pol, cfg, 0, 5, ota=ota, device="cuda")
-        check(all(bool(torch.isfinite(x).all()) for x in hist),
-              f"fig12 N={n} M={m} not finite")
-        g[(n, m)] = fedpg.avg_grad_sq(hist).mean().item()
-        reward = hist.rewards[:, -10:].mean().item()
-        table.append({"N": n, "M": m, "avg_grad_sq": g[(n, m)],
-                      "final_reward": reward})
-        log(f"N={n:2d} M={m:2d}: avg_grad_sq={g[(n, m)]:.4f} "
-            f"final_reward={reward:.4f}")
+    for s in scens:
+        n, m = s.n_agents, s.batch_m
+        reset_counts()
+        res = sweep.sweep(LandmarkNav(), MLPPolicy(), [s], 0, FIG12_RUNS,
+                          mode="vmap", device="cuda")
+        launches, bodies = read_counts()["ota_fused"], k1_body_counts()
+        body = [b for b, c in bodies.items() if c]
+        check(launches == FIG12_ROUNDS and len(body) == 1,
+              f"N={n} M={m}: {launches} K1 launches ({bodies}); expected one "
+              f"lane-form launch a round, {FIG12_ROUNDS}, of one body")
+        hist = res.history
+        check(all(bool((x == x).all()) and abs(x).max() < float("inf")
+                  for x in hist), f"fig12 N={n} M={m} not finite")
+        per_run_g = hist.grad_sq[0].mean(axis=1)
+        per_run_r = hist.rewards[0][:, -FIG12_TAIL:].mean(axis=1)
+        gm, gse = mean_se(per_run_g)
+        rm, rse = mean_se(per_run_r)
+        w = want[(n, m)]
+        z_g = (gm - w["avg_grad_sq"]) / math.hypot(gse, w["avg_grad_sq_se"])
+        z_r = (rm - w["final_reward"]) / math.hypot(rse, w["final_reward_se"])
+        ms = res.partitions[0].wall_time_us / 1e3 / FIG12_ROUNDS
+        g[(n, m)] = gm
+        row = {"N": n, "M": m, "avg_grad_sq": res.avg_grad_sq(0),
+               "avg_grad_sq_se": gse, "final_reward": res.final_reward(0),
+               "final_reward_se": rse, "ref_avg_grad_sq": w["avg_grad_sq"],
+               "ref_avg_grad_sq_se": w["avg_grad_sq_se"],
+               "ref_final_reward": w["final_reward"],
+               "ref_final_reward_se": w["final_reward_se"],
+               "z_avg_grad_sq": z_g, "z_final_reward": z_r,
+               "k1_launches": launches, "k1_body": body[0],
+               "lanes_per_launch": FIG12_RUNS,
+               "ms_per_batched_round": ms,
+               "seconds": res.partitions[0].wall_time_us / 1e6}
+        table.append(row)
+        log(f"N={n:2d} M={m:2d}: avg_grad_sq {row['avg_grad_sq']:.2f} +- "
+            f"{gse:.2f} (reference {w['avg_grad_sq']:.2f} +- "
+            f"{w['avg_grad_sq_se']:.2f}, z {z_g:+.2f}) | final reward "
+            f"{row['final_reward']:.3f} +- {rse:.3f} (reference "
+            f"{w['final_reward']:.3f} +- {w['final_reward_se']:.3f}, z "
+            f"{z_r:+.2f}) | K1 {launches} launches of the {body[0]} body, "
+            f"{FIG12_RUNS} lanes each | {ms:.3f} ms per batched round, "
+            f"{row['seconds']:.1f} s")
+        check(abs(z_g) < FIG12_Z,
+              f"N={n} M={m}: avg_grad_sq {gm} is {z_g:+.2f} combined "
+              f"standard errors from the reference's {w['avg_grad_sq']}")
     flags = {"decreases_in_N": g[(1, 10)] > g[(5, 10)] > g[(10, 10)],
-             "decreases_in_M": g[(10, 1)] > g[(10, 10)]}
-    log(f"g[(1,10)] > g[(5,10)] > g[(10,10)]: {flags['decreases_in_N']}; "
-        f"g[(10,1)] > g[(10,10)]: {flags['decreases_in_M']}")
-    RECORD["fig12"] = {"table": table, "flags": flags}
+             "decreases_in_M": g[(10, 1)] > g[(10, 5)] > g[(10, 10)]}
+    log(f"g(1,10) > g(5,10) > g(10,10): {flags['decreases_in_N']}; "
+        f"g(10,1) > g(10,5) > g(10,10): {flags['decreases_in_M']}")
+    check(all(flags.values()), f"a Fig. 1-2 trend failed: {flags}")
+    RECORD["fig12"] = {"table": table, "flags": flags,
+                       "reference": {"jax_version": ref["jax_version"],
+                                     "platform": ref["platform"]}}
     done("fig12", t0)
+    return table
+
+
+def history_bitwise(torch, a, b_hist, i):
+    """``a`` (one run's History, tensors) against lane ``i`` of ``b_hist``."""
+    return all(torch.equal(x, y[i]) for x, y in zip(a, b_hist))
+
+
+def phase_lanes(torch):
+    """A grid that varies alpha, noise sigma and the Rayleigh scale (one
+    BatchedChannel partition), a TruncatedInversion parameter, a windy
+    LandmarkNav wind, a Bernoulli rate with staleness (4, 0.8), and the
+    exact uplink: every (scenario, run) lane of the lane-batched run is
+    bitwise ``fedpg.run`` on the card, history and theta_K; one K1 launch a
+    round per over-the-air partition; ``sweep(mode="vmap")`` gives the same
+    histories."""
+    import numpy as np
+
+    from repro_torch.core import fedpg, lanes, sweep
+    from repro_torch.core.channel import RayleighChannel
+    from repro_torch.core.power_control import TruncatedInversion
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.envs import WindyLandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+    from repro_torch.service.participation import ParticipationConfig
+    from repro_torch.service.staleness import StalenessConfig
+
+    t0 = phase(f"23. lanes bitwise fedpg.run on the card (N=10 M=10 T=20, "
+               f"K={LANE_ROUNDS}, {LANE_RUNS} runs)")
+    size = dict(n_agents=10, batch_m=10, horizon=20, n_rounds=LANE_ROUNDS)
+    ray = RayleighChannel
+    scens = (sweep.grid(channel=[ray(1.0), ray(2.0)],
+                        noise_sigma=[1e-3, 1e-2], alpha=[1e-3, 2e-3],
+                        debias=True, **size)
+             + sweep.grid(channel=ray(), noise_sigma=1e-3, debias=True,
+                          power_control=[TruncatedInversion(p_max=5.0),
+                                         TruncatedInversion(p_max=10.0)],
+                          **size)
+             + sweep.grid(channel=ray(), noise_sigma=1e-3, debias=True,
+                          env=[WindyLandmarkNav(wind=0.05),
+                               WindyLandmarkNav(wind=0.1)], **size)
+             + sweep.grid(channel=ray(), noise_sigma=1e-3, debias=True,
+                          participation=[ParticipationConfig(rate=0.5),
+                                         ParticipationConfig(rate=0.8)],
+                          staleness=StalenessConfig(4, 0.8), **size)
+             + sweep.grid(channel=None, alpha=[1e-3, 2e-3], **size))
+    env0, pol0 = LandmarkNav(), MLPPolicy()
+    parts = sweep.partition_scenarios(scens)
+    check(len(parts) == 5, f"{len(parts)} partitions, expected 5")
+    seeds = fedpg.run_seeds(0, LANE_RUNS)
+    lane_hist, rows = {}, []
+    for part in parts:
+        env, pol = sweep.resolve_env_policy(part.proto, env0, pol0)
+        specs = [sweep._lane_spec(s, r, sweep.resolve_env_policy(
+            s, env0, pol0)[0]) for s in part.scenarios for r in seeds]
+        cfg = part.proto.fedpg_config()
+        reset_counts()
+        theta, hist = lanes.run_lanes(env, pol, cfg, specs, device="cuda")
+        launches = read_counts()["ota_fused"]
+        expect = 0 if part.proto.channel is None else LANE_ROUNDS
+        check(launches == expect,
+              f"partition {part.key[:3]}: {launches} K1 launches, expected "
+              f"{expect} (one a round)")
+        for i, spec in enumerate(specs):
+            c = dataclasses.replace(cfg, alpha=spec.alpha)
+            t1, h1 = fedpg.run(spec.env or env, pol, c, spec.seed,
+                               ota=spec.ota, participation=spec.participation,
+                               staleness=spec.staleness, device="cuda")
+            check(history_bitwise(torch, h1, hist, i)
+                  and all(torch.equal(t1[k], theta[k][i]) for k in t1),
+                  f"lane {i} of partition {part.indices} is not bitwise its "
+                  f"fedpg.run")
+        for j, idx in enumerate(part.indices):
+            lane_hist[idx] = [x[j * LANE_RUNS:(j + 1) * LANE_RUNS].cpu()
+                              .numpy() for x in hist]
+        packed = sorted(sweep._pack_partition(part))
+        rows.append({"scenarios": len(part.indices), "lanes": len(specs),
+                     "packed": packed, "k1_launches": launches})
+        log(f"partition of {len(part.indices)} scenarios x {LANE_RUNS} runs "
+            f"= {len(specs)} lanes, packed {packed}: every lane bitwise its "
+            f"fedpg.run (history and theta_K); K1 launches {launches}")
+    res = sweep.sweep(env0, pol0, scens, 0, LANE_RUNS, device="cuda")
+    check(res.n_partitions == 5, "sweep partitions")
+    for idx in range(len(scens)):
+        check(all(np.array_equal(x[idx], y)
+                  for x, y in zip(res.history, lane_hist[idx])),
+              f"sweep(vmap) scenario {idx} differs from its lanes")
+    log(f"sweep(mode='vmap') over the {len(scens)} scenarios: the same "
+        f"histories, bitwise")
+    RECORD["lanes"] = rows
+    done("lanes", t0)
+
+
+def lane_k1_inputs(torch, lanes, n_agents, n_params, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f32 = dict(device="cuda", dtype=torch.float32, generator=gen)
+    g = torch.randn(lanes, n_agents, n_params, **f32)
+    h = torch.rand(lanes, n_agents, **f32) + 0.1
+    p = torch.randn(lanes, n_params, **f32)
+    sig = torch.full((lanes,), 1e-3, device="cuda")
+    sc = torch.full((lanes,), 1.0 / (n_agents * RAYLEIGH_MH), device="cuda")
+    al = torch.full((lanes,), 1e-3, device="cuda")
+    seeds = torch.arange(lanes, device="cuda", dtype=torch.int64) * 7 + 3
+    return g, h, p, sig, sc, al, seeds
+
+
+def phase_batching(torch, one_run_ms):
+    """The main cell (N=10 M=10 T=20 d=165) as R = 1, 5, 20, 100 lanes of
+    one batched run: ms per batched round against R x phase 4's ms per
+    round, with the device's busy share and launches per round (profiler);
+    then K1's lane launch at (20, 10, 165) and (100, 10, 165) against R
+    one-lane launches, the plain version, one PyTorch call
+    (``torch.baddbmm``: the lanes' gain matvec plus the noise) and the
+    byte bound."""
+    from repro_torch.core import fedpg, lanes
+    from repro_torch.kernels import ota_fused, ref
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+
+    t0 = phase("24. what batching buys: the main cell as R lanes")
+    env, pol = LandmarkNav(), MLPPolicy()
+    cfg, ota = alg_config(10, 10, BATCH_ROUNDS)
+    rows = []
+    for runs in BATCH_RUNS:
+        specs = [lanes.LaneSpec(s, cfg.alpha, ota)
+                 for s in fedpg.run_seeds(0, runs)]
+        lanes.run_lanes(env, pol, dataclasses.replace(cfg, n_rounds=2),
+                        specs, device="cuda")
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        reset_counts()
+        s.record()
+        lanes.run_lanes(env, pol, cfg, specs, device="cuda")
+        e.record()
+        torch.cuda.synchronize()
+        ms = s.elapsed_time(e) / BATCH_ROUNDS
+        k1 = read_counts()["ota_fused"]
+        check(k1 == BATCH_ROUNDS, f"R={runs}: {k1} K1 launches")
+        prof = profile_rounds(torch, lambda: lanes.run_lanes(
+            env, pol, dataclasses.replace(cfg, n_rounds=3), specs,
+            device="cuda"), 3, ms)
+        row = {"runs": runs, "ms_per_batched_round": ms,
+               "runs_x_one_run_ms": runs * one_run_ms,
+               "speedup": runs * one_run_ms / ms,
+               "ms_per_run_round": ms / runs,
+               "busy_share": prof["busy_share"],
+               "device_launches_per_round":
+                   prof["device_launches_per_round"],
+               "device_busy_us_per_round": prof["device_busy_us_per_round"],
+               "k1_us_per_round": prof["k1_us_per_round"]}
+        rows.append(row)
+        log(f"R={runs:3d}: {ms:.3f} ms per batched round against R x "
+            f"{one_run_ms:.3f} = {runs * one_run_ms:.3f} ms "
+            f"({row['speedup']:.2f}x; {ms / runs:.3f} ms per run-round); "
+            f"device busy {prof['busy_share']:.2%}, "
+            f"{prof['device_launches_per_round']:.0f} launches a round")
+    lane_rows = []
+    for n_lanes in BATCH_K1_LANES:
+        g, h, p, sig, sc, al, seeds = lane_k1_inputs(torch, n_lanes, 10, 165,
+                                                     n_lanes)
+        one = [dict(sigma=1e-3, scale=1.0 / (10 * RAYLEIGH_MH), alpha=1e-3,
+                    seed=seeds[i].clone()) for i in range(n_lanes)]
+        gl = [g[i].clone() for i in range(n_lanes)]
+        hl = [h[i].clone() for i in range(n_lanes)]
+        pl = [p[i].clone() for i in range(n_lanes)]
+        noise = torch.stack([ref.counter_noise(int(x), 165, "cuda")
+                             for x in seeds])
+        sn = (sig[:, None] * noise).unsqueeze(1)
+
+        def lane_call():
+            return ota_fused.fused_aggregate_sgd_lanes(
+                g, h, p, alpha=al, sigma=sig, scale=sc, seed=seeds)
+
+        def one_lane_calls():
+            for i in range(n_lanes):
+                ota_fused.fused_aggregate_sgd(gl[i], hl[i], pl[i], **one[i])
+
+        def plain():
+            nz = torch.stack([ref.counter_noise(s, 165, "cuda")
+                              for s in seeds])
+            return ref.ota_fused_sgd_lanes_ref(
+                g, h, p, nz, alpha=[1e-3] * n_lanes, sigma=[1e-3] * n_lanes,
+                scale=sc.tolist())
+
+        lane_ms = device_ms(torch, lane_call)
+        loop_ms = device_ms(torch, one_lane_calls,
+                            sleep_cycles=2_000_000 * n_lanes // 4)
+        plain_ms = device_ms(torch, plain, iters=10, warmup=2,
+                             sleep_cycles=100_000_000)
+        lib_ms = device_ms(torch, lambda: torch.baddbmm(
+            sn, h.unsqueeze(1), g))
+        want = plain()
+        got = lane_call()
+        err = (got - want).abs().max().item()
+        check(err <= 1e-6 * want.abs().max().item(),
+              f"K1 lanes ({n_lanes}, 10, 165) vs its plain version: {err}")
+        per_lane_bytes = 10 * 165 * 4 + 10 * 4 + 2 * 165 * 4
+        flops = n_lanes * (2 * 10 * 165 + 19 * 165)
+        t_bytes = n_lanes * per_lane_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        row = {"lanes": n_lanes, "A": 10, "P": 165, "mode": "sgd",
+               "body": ota_fused.k1_body(10, 165, torch.float32, n_lanes,
+                                         g.data_ptr()),
+               "ms": lane_ms, "one_lane_launches_ms": loop_ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library_call": "torch.baddbmm(sigma*noise, h, G)",
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "max_abs_err": err}
+        lane_rows.append(row)
+        log(f"K1 lanes ({n_lanes}, 10, 165) sgd, {row['body']} body: "
+            f"{lane_ms * 1e3:.2f} us against {n_lanes} one-lane launches "
+            f"{loop_ms * 1e3:.2f} us; plain {plain_ms:.3f} ms; "
+            f"torch.baddbmm {lib_ms * 1e3:.2f} us; {row['bound_by']} bound "
+            f"{row['bound_ms'] * 1e3:.4f} us; max |err| {err:.2e}")
+    RECORD["batching"] = {"rounds": rows, "k1_lanes": lane_rows}
+    done("batching", t0)
+    return rows, lane_rows
+
+
+def phase_telemetry(torch):
+    """The main cell with ``TelemetryConfig()`` on and off: the histories
+    and theta bitwise equal, the probes finite, the overhead per round and
+    ``summarize``'s fields; then a sweep with telemetry (the Fig. 1-2
+    scenarios at K=20, 4 runs) against the same sweep without it, and its
+    span trace written to ``chiprun_out/sweep_trace.json``."""
+    import numpy as np
+
+    from repro_torch.core import fedpg, sweep
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+    from repro_torch.telemetry import TelemetryConfig, summarize, trace
+
+    t0 = phase(f"25. telemetry on and off (main cell, K={TEL_ROUNDS})")
+    env, pol = LandmarkNav(), MLPPolicy()
+    cfg, ota = alg_config(10, 10, TEL_ROUNDS)
+    fedpg.run(env, pol, dataclasses.replace(cfg, n_rounds=3), 7, ota=ota,
+              telemetry=TelemetryConfig(), device="cuda")
+    runs = {}
+    for name, tel in (("off", None), ("on", TelemetryConfig()),
+                      ("off2", None), ("on2", TelemetryConfig())):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        theta, hist = fedpg.run(env, pol, cfg, 4, ota=ota, telemetry=tel,
+                                device="cuda")
+        e.record()
+        torch.cuda.synchronize()
+        runs[name] = (theta, hist, s.elapsed_time(e) / cfg.n_rounds)
+    (t_off, h_off, _), (t_on, h_on, _) = runs["off"], runs["on"]
+    check(all(torch.equal(x, y) for x, y in zip(h_off, h_on))
+          and all(torch.equal(t_off[k], t_on[k]) for k in t_off),
+          "telemetry on changed the history or theta")
+    tel = h_on.telemetry
+    check(h_off.telemetry is None and tel is not None, "telemetry fields")
+    for name in ("snr", "grad_norm_pre", "grad_norm_post", "moment_drift",
+                 "dispersion"):
+        x = getattr(tel, name)
+        check(x.shape == (cfg.n_rounds,) and bool(torch.isfinite(x).all()),
+              f"probe {name} not finite")
+    ms_off = statistics.mean([runs["off"][2], runs["off2"][2]])
+    ms_on = statistics.mean([runs["on"][2], runs["on2"][2]])
+    summary = summarize(tel)
+    log(f"histories and theta bitwise equal with telemetry on and off; "
+        f"ms/round off {ms_off:.3f}, on {ms_on:.3f} (overhead "
+        f"{ms_on - ms_off:+.3f} ms, {ms_on / ms_off - 1:+.1%})")
+    log("summarize: " + ", ".join(f"{k}={v:.6g}" for k, v in summary.items()))
+    scens = fig12_scenarios(20, FIG12_ALPHA)
+    plain = sweep.sweep(env, pol, scens, 0, 4, device="cuda")
+    trace.reset()
+    with trace.span("fig12 sweep with telemetry", device="cuda"):
+        res = sweep.sweep(env, pol, scens, 0, 4, device="cuda",
+                          telemetry=TelemetryConfig())
+    check(all(np.array_equal(x, y) for x, y in zip(plain.history,
+                                                   res.history)),
+          "sweep telemetry changed a history")
+    sweep_summary = [res.telemetry_summary(i) for i in range(len(scens))]
+    check(all(v is not None and v == v for row in sweep_summary
+              for v in row.values()), "sweep probes not finite")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    doc = trace.export(str(out / "sweep_trace.json"))
+    spans = [ev["name"] for ev in doc["traceEvents"] if ev["ph"] == "X"]
+    check(spans.count("partition") == len(scens), f"spans {spans}")
+    log(f"sweep with telemetry ({len(scens)} partitions x 4 runs, K=20): "
+        f"histories bitwise the sweep without it; trace of {len(spans)} "
+        f"spans in chiprun_out/sweep_trace.json; per-scenario snr "
+        + ", ".join(f"{r['snr']:.3g}" for r in sweep_summary))
+    RECORD["telemetry"] = {"ms_off": ms_off, "ms_on": ms_on,
+                           "summary": summary,
+                           "sweep_summary": sweep_summary,
+                           "partition_us": [p.wall_time_us
+                                            for p in res.partitions]}
+    done("telemetry", t0)
 
 
 def k1_turns(torch, fn, bodies, **kw):
@@ -2294,7 +2696,7 @@ def main():
     phase_build()
     k1_err = phase_k1(torch)
     launches, main_res = phase_main(torch)
-    phase_fig12(torch)
+    fig12_rows = phase_fig12(torch)
     rows = phase_times(torch)
     phase_profile(torch, main_res["alg2"]["ms_per_round"])
     k3_err = phase_k3(torch)
@@ -2313,6 +2715,10 @@ def main():
     large_rows, k1_large = phase_service_large(torch)
     phase_et(torch)
     zoo_rows = phase_zoo(torch)
+    phase_lanes(torch)
+    _, lane_rows = phase_batching(
+        torch, main_res["alg2"]["ms_per_round"])
+    phase_telemetry(torch)
     RECORD["seconds"] = time.perf_counter() - t_all
 
     # K1's two bodies.  The wide body runs the main path (Algorithm 2 at
@@ -2333,7 +2739,9 @@ def main():
             large_rows[0]["stacked"]["k1_per_round"],
         "service streamed in 64s, staleness (10^4, 165)":
             large_rows[1]["streamed"]["k1_per_round"],
-        "zoo, each family": zoo_rows[0]["k1_launches"] / ZOO_ROUNDS}
+        "zoo, each family": zoo_rows[0]["k1_launches"] / ZOO_ROUNDS,
+        f"sweep lanes, {FIG12_RUNS} runs ({FIG12_RUNS}, 10, 165)":
+            fig12_rows[2]["k1_launches"] / FIG12_ROUNDS}
     kernels = {"kernels": [{
         "name": "ota_fused_wide", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ota_fused.cu",
@@ -2346,6 +2754,7 @@ def main():
         "library_ms": main_row["library_ms"],
         "shape": [main_row["A"], main_row["P"]], "mode": "sgd",
         "timings": rows, "sweep": RECORD["k1_sweep"],
+        "lane_timings": lane_rows,
         "launches_per_round_by_path": per_path}, {
         "name": "ota_fused_tall", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ota_fused.cu",

@@ -6,8 +6,10 @@ package imports ``torch`` and numpy only — never ``jax`` and nothing of
 ``repro``.
 
 Subpackages: ``core`` (channel, power control, OTA uplink with agent
-streaming, G(PO)MDP, fedpg loops, theory), ``rl`` (LandmarkNav, MLPPolicy,
-batched sampler), ``optim`` (sgd, momentum, adam, adamw, schedules),
+streaming, G(PO)MDP, fedpg loops, the lane-batched run and the
+scenario-sweep engine, theory, the event-triggered baseline), ``rl``
+(LandmarkNav, the zoo, the policies, batched sampler), ``service`` (the
+round service), ``telemetry`` (round probes, span tracer), ``optim`` (sgd, momentum, adam, adamw, schedules),
 ``kernels`` (the hand-written CUDA kernels — K1 fused uplink, K2 server-side
 update, K3 flash attention, K4 SSD scan — their plain PyTorch versions, the
 nvcc build and ``ops`` dispatch), ``models`` (the dense

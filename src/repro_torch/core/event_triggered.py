@@ -14,7 +14,7 @@ server's uplink is the exact mean (``ota.aggregate(used, None)``): no
 kernel, as in the JAX package.
 
 The two squared norms are per-agent sums over the flattened estimate by a
-fixed pairwise tree (``gpomdp.tree_sum_rows``), so a trigger never depends
+fixed pairwise tree (``utils.tree.fixed_sum``), so a trigger never depends
 on how many agents share a call.  ``agent_blocks`` rolls the fleet out in
 blocks from the stacked draws (``fedpg``'s up-front draws) and stacks the
 estimates again: the stale copies are O(N x d) by design.  ``run_jit`` and
@@ -36,7 +36,8 @@ from repro_torch.service import participation as svc_part
 from repro_torch.service.participation import ParticipationConfig
 from repro_torch.utils.device import DeviceLike, make_generator, resolve_device
 from repro_torch.utils.tree import (
-    Params, flatten_agent_stack, theta_device, tree_global_norm_sq, tree_keys,
+    Params, fixed_sum, flatten_agent_stack, theta_device, tree_global_norm_sq,
+    tree_keys,
 )
 
 
@@ -64,7 +65,7 @@ class ETState(NamedTuple):
 def _row_norms_sq(tree: Params) -> torch.Tensor:
     """(N,) squared norms, each a fixed-order sum over its agent's row."""
     flat, _, _ = flatten_agent_stack(tree)
-    return gpomdp.tree_sum_rows((flat * flat).unsqueeze(-1))[:, 0]
+    return fixed_sum(flat * flat, 1)
 
 
 def make_round_fn(env, policy, cfg: FedPGConfig, et: ETConfig, *,

@@ -45,8 +45,22 @@ before any cross-agent sum, and the update is renormalised by the round's
 contribution weight W (:func:`repro_torch.service.participation.
 participation_factor`).  A config that can never drop an agent normalises
 away and the round is the plain one, bit for bit.  A ``HeterogeneousEnv``
-runs each agent on its own lane of the per-agent stacks.  Not ported here:
-the agent-mesh forms (sweep/distribute slice) and telemetry.
+runs each agent on its own lane of the per-agent stacks.
+
+``telemetry`` (a :class:`repro_torch.telemetry.TelemetryConfig`) makes each
+round also emit its :class:`~repro_torch.telemetry.RoundTelemetry` probes,
+returned as ``History.telemetry``; the probes only read the round's values,
+so the history is the same, bit for bit, with telemetry on or off.
+
+The stacked rounds, plain and service, live in ``core/lanes.py``, in the
+flat layout with a leading lane axis: :func:`run` is one lane of them, and
+:func:`monte_carlo` runs its repetitions as the lanes of one lane-batched
+run (one round per step for all runs, one K1 lane-form launch per round on
+the card, every lane bitwise :func:`run` with its seed).  The streamed
+rounds (``agent_blocks``) are here, and :func:`monte_carlo` runs their
+repetitions one after another.  Every metric reduces in a fixed order
+(``utils.tree.fixed_sum``), the same for a run alone and as a lane.  Not
+ported here: the agent-mesh forms (distribute slice).
 """
 from __future__ import annotations
 
@@ -59,18 +73,19 @@ import torch
 from repro_torch.core import gpomdp, ota, power_control
 from repro_torch.core.ota import OTAConfig, sample_seed
 from repro_torch.rl.envs.heterogeneous import block_env, check_agent_count
-from repro_torch.rl.sampler import (
-    discounted_return, empirical_reward, rollout_batch,
-)
+from repro_torch.rl.sampler import discounted_return, rollout_batch
 from repro_torch.service import participation as svc_part
 from repro_torch.service import staleness as svc_stale
 from repro_torch.service.participation import (
     ParticipationConfig, ServiceState,
 )
 from repro_torch.service.staleness import StalenessConfig
+from repro_torch.telemetry import probes as _probes
+from repro_torch.telemetry.probes import RoundTelemetry, TelemetryConfig
 from repro_torch.utils.device import DeviceLike, make_generator, resolve_device
 from repro_torch.utils.tree import (
-    Params, theta_device, tree_global_norm_sq, tree_keys,
+    Params, fixed_mean, fixed_sum, flat_norm_sq, flatten_agent_stack,
+    leaf_sizes, theta_device, tree_global_norm_sq, tree_keys,
 )
 
 
@@ -85,13 +100,29 @@ class FedPGConfig:
     estimator: str = "gpomdp"    # or "reinforce"
 
 
-class History(NamedTuple):
-    """Per-round training metrics, each (K,) (or (runs, K) from
-    :func:`monte_carlo`)."""
-
+class _Metrics(NamedTuple):
     rewards: torch.Tensor
     grad_sq: torch.Tensor
     gain_mean: torch.Tensor
+
+
+class History(_Metrics):
+    """Per-round training metrics, each (K,) (or (runs, K) from
+    :func:`monte_carlo`), and ``telemetry``: the round probes
+    (:class:`RoundTelemetry` of the same shapes) when the run had an active
+    ``TelemetryConfig``, else None.  ``telemetry`` is an attribute, not a
+    field, so a History iterates (and compares) as its three metrics."""
+
+    def __new__(cls, rewards, grad_sq, gain_mean,
+                telemetry: Optional[RoundTelemetry] = None):
+        self = super().__new__(cls, rewards, grad_sq, gain_mean)
+        self.telemetry = telemetry
+        return self
+
+    def lane(self, i) -> "History":
+        """Lane (run, or scenario) ``i`` of a batched History."""
+        return History(*(x[i] for x in self),
+                       telemetry=_probes.index(self.telemetry, i))
 
 
 class RoundDraws(NamedTuple):
@@ -114,7 +145,8 @@ def make_round_fn(env, policy, cfg: FedPGConfig, ota_cfg: Optional[OTAConfig],
                   *, ota_backend: str = "auto",
                   agent_blocks: Optional[int] = None,
                   participation: Optional[ParticipationConfig] = None,
-                  staleness: Optional[StalenessConfig] = None) -> RoundFn:
+                  staleness: Optional[StalenessConfig] = None,
+                  telemetry: Optional[TelemetryConfig] = None) -> RoundFn:
     """One communication round:
     ``round_fn(theta, generator, draws=None) -> (theta', (reward, grad_sq,
     gain_mean))``.  ``ota_backend`` picks the uplink ("torch" | "cuda" |
@@ -123,7 +155,10 @@ def make_round_fn(env, policy, cfg: FedPGConfig, ota_cfg: Optional[OTAConfig],
     the history is bitwise the same for every block size, with the stacked
     round's draws (see :func:`_make_streamed_round_fn`).  An active
     ``participation`` config makes it a service round over a
-    :class:`ServiceState` (module docstring)."""
+    :class:`ServiceState` (module docstring).  An active ``telemetry``
+    appends the round's :class:`RoundTelemetry` to the metrics.  The
+    stacked round is one lane of ``core/lanes.py``
+    (:func:`lanes.stacked_round_fn`)."""
     if cfg.estimator not in gpomdp.ESTIMATORS:
         raise ValueError(f"unknown estimator {cfg.estimator!r}")
     if ota_cfg is not None:
@@ -131,48 +166,27 @@ def make_round_fn(env, policy, cfg: FedPGConfig, ota_cfg: Optional[OTAConfig],
     check_agent_count(env, cfg.n_agents)
     part = svc_part.normalize(participation, cfg.n_agents)
     stale_cfg = svc_stale.normalize(staleness, part)
+    telem = _probes.active(telemetry, part)
     if agent_blocks is not None:
         if part is not None:
             return _make_streamed_service_round_fn(
                 env, policy, cfg, ota_cfg, agent_blocks, ota_backend, part,
-                stale_cfg)
+                stale_cfg, telem)
         return _make_streamed_round_fn(env, policy, cfg, ota_cfg,
-                                       agent_blocks, ota_backend)
-    if part is not None:
-        return _make_service_round_fn(env, policy, cfg, ota_cfg, ota_backend,
-                                      part, stale_cfg)
+                                       agent_blocks, ota_backend, telem)
+    from repro_torch.core import lanes
 
-    def round_fn(theta: Params, generator: Optional[torch.Generator],
-                 draws: Optional[RoundDraws] = None):
-        d = draws or RoundDraws()
-        trajs = _rollout(env, policy, theta, generator, cfg, d)
-        grads = gpomdp.per_agent_gradients(policy, theta, trajs, cfg.gamma,
-                                           cfg.estimator)
-
-        # --- uplink + server update -----------------------------------
-        mean_grad = ota.aggregate(grads, None)[0]  # also the grad_sq metric
-        if ota_cfg is None:
-            gain_mean = torch.ones((), device=theta_device(theta))
-            theta_next = {k: theta[k] - cfg.alpha * mean_grad[k]
-                          for k in tree_keys(theta)}
-        else:
-            theta_next, h = ota.aggregate_apply(
-                grads, ota_cfg, theta, alpha=cfg.alpha, generator=generator,
-                backend=ota_backend, gains=d.gains, seed=d.seed)
-            gain_mean = torch.mean(h)
-
-        reward = empirical_reward(trajs, cfg.gamma)
-        grad_sq = tree_global_norm_sq(mean_grad)
-        return theta_next, (reward, grad_sq, gain_mean)
-
-    return round_fn
+    return lanes.stacked_round_fn(env, policy, cfg, ota_cfg, ota_backend,
+                                  part, stale_cfg, telem)
 
 
-def _rollout(env, policy, theta, generator, cfg: FedPGConfig, d: RoundDraws):
-    """The whole fleet's rollouts, drawn step by step or injected."""
-    return rollout_batch(env, policy, theta, generator, cfg.horizon,
-                         (cfg.n_agents, cfg.batch_m), s0=d.s0,
-                         actions=d.actions, env_noise=d.env)
+def _update_norm(theta: Params, theta_next: Params, alpha) -> torch.Tensor:
+    """``||theta - theta'|| / alpha``, the applied update's norm; alpha a
+    device scalar, so the division is the one a lane makes."""
+    diff = {k: theta[k] - theta_next[k] for k in tree_keys(theta)}
+    a = torch.full((), alpha, dtype=torch.float32,
+                   device=theta_device(theta))
+    return torch.sqrt(tree_global_norm_sq(diff)) / a
 
 
 class _Predrawn(NamedTuple):
@@ -214,7 +228,9 @@ def block_rollout(env, policy, theta, cfg: FedPGConfig, pre: _Predrawn,
 
 def _make_streamed_round_fn(env, policy, cfg: FedPGConfig,
                             ota_cfg: Optional[OTAConfig], agent_blocks: int,
-                            ota_backend: str = "auto") -> RoundFn:
+                            ota_backend: str = "auto",
+                            telem: Optional[TelemetryConfig] = None
+                            ) -> RoundFn:
     """The round evaluated block by block over the agent axis.
 
     The round's draws are made up front, in the stacked round's order (see
@@ -229,6 +245,7 @@ def _make_streamed_round_fn(env, policy, cfg: FedPGConfig,
     n = cfg.n_agents
     n_blocks, block, _ = ota.blocked_layout(n, agent_blocks)
     spec = ota.AggregateSpec(exact=ota_cfg is None, backend=ota_backend)
+    want_norms = telem is not None and (telem.grad_norms or telem.dispersion)
 
     def round_fn(theta: Params, generator: Optional[torch.Generator],
                  draws: Optional[RoundDraws] = None):
@@ -242,7 +259,7 @@ def _make_streamed_round_fn(env, policy, cfg: FedPGConfig,
             wire = ota._wire_dtype(ota_cfg) if be == "cuda" else None
         gsum = ota.stream_zeros(theta, be)
         v = gsum
-        returns = []
+        returns, norms = [], []
         for b in range(n_blocks):
             lo, hi = b * block, min((b + 1) * block, n)
             trajs = block_rollout(env, policy, theta, cfg, pre, d, lo, hi)
@@ -253,8 +270,10 @@ def _make_streamed_round_fn(env, policy, cfg: FedPGConfig,
                 v = ota.stream_fold_block(v, grads, h[lo:hi], wire_dtype=wire,
                                           backend=be)
             returns.append(discounted_return(trajs.losses, cfg.gamma))
+            if want_norms:
+                norms.append(_agent_norms_sq(grads))
 
-        reward = -torch.mean(torch.cat(returns))
+        reward = -fixed_mean(torch.cat(returns), 2)
         mean_grad = {k: (gsum[k] / n).to(theta[k].dtype)
                      for k in tree_keys(theta)}
         grad_sq = tree_global_norm_sq(mean_grad)
@@ -265,10 +284,27 @@ def _make_streamed_round_fn(env, policy, cfg: FedPGConfig,
         else:
             theta_next = ota.stream_finalize_apply(
                 ota_cfg, seed, v, theta, cfg.alpha, n, backend=be)
-            gain_mean = torch.mean(h)
-        return theta_next, (reward, grad_sq, gain_mean)
+            gain_mean = fixed_mean(h, 1)
+        if telem is None:
+            return theta_next, (reward, grad_sq, gain_mean)
+        update_norm = (torch.sqrt(grad_sq) if ota_cfg is None
+                       else _update_norm(theta, theta_next, cfg.alpha))
+        probes = _probes.streamed_round_probes(
+            telem, v=None if ota_cfg is None else v,
+            norms_sq=torch.cat(norms) if want_norms else None,
+            ota_cfg=ota_cfg, n_agents=n, param_dim=sum(leaf_sizes(theta)),
+            gain_mean=gain_mean, update_norm=update_norm)
+        return theta_next, (reward, grad_sq, gain_mean, probes)
 
     return round_fn
+
+
+def _agent_norms_sq(grads: Params) -> torch.Tensor:
+    """(N,) squared norms of the agents' estimates (the stacked probes'
+    per-agent values, bit for bit)."""
+    flat, _, _ = flatten_agent_stack(grads)
+    return flat_norm_sq(flat, [int(grads[k][0].numel())
+                               for k in tree_keys(grads)])
 
 
 # ---------------------------------------------------------------------------
@@ -277,115 +313,74 @@ def _make_streamed_round_fn(env, policy, cfg: FedPGConfig,
 
 class _RoundWeights(NamedTuple):
     """A service round's mask and normaliser scalars, computed from the
-    ``(N,)`` mask and age vectors before any agent work, so every round
-    form (stacked, streamed at any block size) computes them alike."""
+    mask and age vectors before any agent work, so every round form (the
+    stacked lanes, streamed at any block size) computes them alike."""
 
-    mask: torch.Tensor          # (N,) bool
+    mask: torch.Tensor          # (..., N) bool
     count_p: torch.Tensor       # participating count, float32
-    rw: Optional[torch.Tensor]  # (N,) replay weights (staleness)
+    rw: Optional[torch.Tensor]  # (..., N) replay weights (staleness)
     w_norm: torch.Tensor        # the normaliser W (realised or expected)
     inv_w: torch.Tensor         # 1 / W, 0 at W == 0
 
 
-def _round_weights(part: ParticipationConfig,
-                   stale_cfg: Optional[StalenessConfig], state: ServiceState,
-                   n: int, dev, d: RoundDraws) -> _RoundWeights:
+def _round_mask(part: ParticipationConfig, seed, round_idx: int, n: int,
+                dev, d: RoundDraws, *, rate=None,
+                deadline=None) -> torch.Tensor:
+    """The round's participation mask, faults included, or the injected
+    one (``svc_part.round_mask``; ``(L, 1)`` seeds give ``(L, N)``)."""
     if d.mask is not None:
-        mask = d.mask.to(device=dev, dtype=torch.bool)
-    else:
-        mask = svc_part.round_mask(part, state.seed, state.round_idx,
-                                   torch.arange(n, device=dev), n)
-    count_p = torch.sum(mask.float())
+        return d.mask.to(device=dev, dtype=torch.bool)
+    return svc_part.round_mask(part, seed, round_idx,
+                               torch.arange(n, device=dev), n, rate=rate,
+                               deadline=deadline)
+
+
+def _round_weights(part: ParticipationConfig,
+                   stale_cfg: Optional[StalenessConfig], mask: torch.Tensor,
+                   age: Optional[torch.Tensor], expected: torch.Tensor,
+                   decay=None) -> _RoundWeights:
+    """``expected``: the closed-form W as a float32 device value (no
+    host-to-device copy a round), used under expected debias."""
+    count_p = torch.sum(mask.float(), dim=-1)
     rw = None
     w_real = count_p
     if stale_cfg is not None:
-        rw = svc_stale.replay_weights(stale_cfg, mask, state.stale.age)
-        w_real = count_p + torch.sum(rw)
-    if part.debias == "realized":
-        w_norm = w_real
-    else:
-        w_norm = torch.full((), svc_part.expected_count(part, n),
-                            dtype=torch.float32, device=dev)   # no H2D copy
+        rw = svc_stale.replay_weights(stale_cfg, mask, age, decay)
+        w_real = count_p + fixed_sum(rw, -1)
+    w_norm = w_real if part.debias == "realized" else expected
     return _RoundWeights(mask, count_p, rw, w_norm, svc_part.safe_inv(w_norm))
 
 
 def _service_reward(returns: torch.Tensor, rw: _RoundWeights,
                     batch_m: int) -> torch.Tensor:
     """Minus the participants' mean discounted loss."""
-    kept = torch.where(rw.mask[:, None], returns, torch.zeros_like(returns))
-    return -torch.sum(kept) * svc_part.safe_inv(rw.count_p) / batch_m
+    kept = torch.where(rw.mask[..., None], returns, torch.zeros_like(returns))
+    return -fixed_sum(kept.reshape(kept.shape[:-2] + (-1,)), -1) \
+        * svc_part.safe_inv(rw.count_p) / batch_m
 
 
 def _service_gain_mean(hm: torch.Tensor, rw: _RoundWeights) -> torch.Tensor:
-    return torch.sum(hm) * svc_part.safe_inv(rw.count_p)
+    return fixed_sum(hm, -1) * svc_part.safe_inv(rw.count_p)
 
 
-def _make_service_round_fn(env, policy, cfg: FedPGConfig,
-                           ota_cfg: Optional[OTAConfig], ota_backend: str,
-                           part: ParticipationConfig,
-                           stale_cfg: Optional[StalenessConfig]) -> RoundFn:
-    """The stacked service round (JAX ``fedpg.py:235-322``): the uplink is
-    one ``ota.aggregate`` over the masked stack with the masked gains (one
-    K1 launch on the card), scaled by ``N / W``; replays are added after
-    it, scaled by ``1 / W``."""
-    n = cfg.n_agents
-
-    def service_round(state: ServiceState,
-                      generator: Optional[torch.Generator],
-                      draws: Optional[RoundDraws] = None):
-        d = draws or RoundDraws()
-        theta = state.theta
-        dev = theta_device(theta)
-        rw = _round_weights(part, stale_cfg, state, n, dev, d)
-        trajs = _rollout(env, policy, theta, generator, cfg, d)
-        grads = gpomdp.per_agent_gradients(policy, theta, trajs, cfg.gamma,
-                                           cfg.estimator)
-        gm = svc_part.mask_agent_axis(grads, rw.mask)
-
-        ssum = stale_next = None
-        if stale_cfg is not None:
-            ssum = svc_stale.replay_sum_stacked(state.stale, rw.rw)
-            stale_next = svc_stale.advance(stale_cfg, state.stale, rw.mask,
-                                           grads)
-        gsum = {k: torch.sum(gm[k], dim=0) for k in tree_keys(gm)}
-        if ssum is not None:
-            gsum = {k: gsum[k] + ssum[k] for k in tree_keys(gsum)}
-        mean_grad = {k: gsum[k] * rw.inv_w for k in tree_keys(gsum)}
-
-        if ota_cfg is None:
-            gain_mean = torch.ones((), device=dev)
-            update = mean_grad
-        else:
-            h, seed = ota._round_draws(ota_cfg, generator, n, dev, d.gains,
-                                       d.seed)
-            hm = torch.where(rw.mask, h, torch.zeros_like(h))
-            u_fresh = ota.aggregate(gm, ota_cfg, gains=hm, seed=seed,
-                                    backend=ota_backend)[0]
-            pf = svc_part.participation_factor(n, rw.w_norm)
-            update = {k: u_fresh[k] * pf for k in tree_keys(u_fresh)}
-            if ssum is not None:
-                update = {k: update[k] + ssum[k] * rw.inv_w
-                          for k in tree_keys(update)}
-            gain_mean = _service_gain_mean(hm, rw)
-        theta_next = {k: theta[k] - cfg.alpha * update[k]
-                      for k in tree_keys(theta)}
-
-        reward = _service_reward(discounted_return(trajs.losses, cfg.gamma),
-                                 rw, cfg.batch_m)
-        grad_sq = tree_global_norm_sq(mean_grad)
-        state_next = state._replace(theta=theta_next,
-                                    round_idx=state.round_idx + 1,
-                                    stale=stale_next)
-        return state_next, (reward, grad_sq, gain_mean)
-
-    return service_round
+def _service_probes(telem: TelemetryConfig, probes: RoundTelemetry,
+                    stale_cfg: Optional[StalenessConfig], rw: _RoundWeights,
+                    age: Optional[torch.Tensor], n: int, rate_expected,
+                    decay=None) -> RoundTelemetry:
+    stale_age = None
+    if stale_cfg is not None:
+        stale_age = svc_stale.stats(stale_cfg, rw.mask, age, decay)[2]
+    return _probes.participation_probes(
+        telem, probes, rate_realized=rw.count_p / n,
+        rate_expected=rate_expected, staleness_mean=stale_age)
 
 
 def _make_streamed_service_round_fn(env, policy, cfg: FedPGConfig,
                                     ota_cfg: Optional[OTAConfig],
                                     agent_blocks: int, ota_backend: str,
                                     part: ParticipationConfig,
-                                    stale_cfg: Optional[StalenessConfig]
+                                    stale_cfg: Optional[StalenessConfig],
+                                    telem: Optional[TelemetryConfig] = None
                                     ) -> RoundFn:
     """The streamed service round (JAX ``fedpg.py:446-590``).  The mask,
     the replay weights and W come before the block loop; each block folds
@@ -397,6 +392,7 @@ def _make_streamed_service_round_fn(env, policy, cfg: FedPGConfig,
     n = cfg.n_agents
     n_blocks, block, _ = ota.blocked_layout(n, agent_blocks)
     spec = ota.AggregateSpec(exact=ota_cfg is None, backend=ota_backend)
+    want_norms = telem is not None and (telem.grad_norms or telem.dispersion)
 
     def service_round(state: ServiceState,
                       generator: Optional[torch.Generator],
@@ -405,7 +401,12 @@ def _make_streamed_service_round_fn(env, policy, cfg: FedPGConfig,
         theta = state.theta
         dev = theta_device(theta)
         be = ota._fold_backend(spec, dev)
-        rw = _round_weights(part, stale_cfg, state, n, dev, d)
+        expected = torch.full((), svc_part.expected_count(part, n),
+                              dtype=torch.float32, device=dev)  # no H2D copy
+        rw = _round_weights(
+            part, stale_cfg, _round_mask(part, state.seed, state.round_idx,
+                                         n, dev, d),
+            None if stale_cfg is None else state.stale.age, expected)
         pmask = rw.mask.float()
         pre = predraw(env, policy, generator, cfg, dev, d)
         if ota_cfg is not None:
@@ -415,7 +416,7 @@ def _make_streamed_service_round_fn(env, policy, cfg: FedPGConfig,
             wire = ota._wire_dtype(ota_cfg) if be == "cuda" else None
         gsum = ota.stream_zeros(theta, be)
         ssum = v = gsum
-        returns, new_rows = [], []
+        returns, new_rows, norms = [], [], []
         for b in range(n_blocks):
             lo, hi = b * block, min((b + 1) * block, n)
             trajs = block_rollout(env, policy, theta, cfg, pre, d, lo, hi)
@@ -435,6 +436,8 @@ def _make_streamed_service_round_fn(env, policy, cfg: FedPGConfig,
                 v = ota.stream_fold_block(v, grads, hm[lo:hi],
                                           wire_dtype=wire, backend=be)
             returns.append(discounted_return(trajs.losses, cfg.gamma))
+            if want_norms:
+                norms.append(_agent_norms_sq(grads))
 
         if stale_cfg is not None:
             gsum = {k: gsum[k] + ssum[k] for k in tree_keys(gsum)}
@@ -464,7 +467,22 @@ def _make_streamed_service_round_fn(env, policy, cfg: FedPGConfig,
         state_next = state._replace(theta=theta_next,
                                     round_idx=state.round_idx + 1,
                                     stale=stale_next)
-        return state_next, (reward, grad_sq, gain_mean)
+        if telem is None:
+            return state_next, (reward, grad_sq, gain_mean)
+        norms_sq = None
+        if want_norms:
+            norms_sq = torch.where(rw.mask, torch.cat(norms),
+                                   torch.zeros((), device=dev))
+        probes = _probes.streamed_round_probes(
+            telem, v=None if ota_cfg is None else v, norms_sq=norms_sq,
+            ota_cfg=ota_cfg, n_agents=n, param_dim=sum(leaf_sizes(theta)),
+            gain_mean=gain_mean,
+            update_norm=torch.sqrt(tree_global_norm_sq(update)))
+        probes = _service_probes(
+            telem, probes, stale_cfg, rw,
+            None if stale_cfg is None else state.stale.age, n,
+            svc_part.expected_count(part, n) / n)
+        return state_next, (reward, grad_sq, gain_mean, probes)
 
     return service_round
 
@@ -479,24 +497,35 @@ def run(env, policy, cfg: FedPGConfig, seed: int = 0, *,
         ota_backend: str = "auto", agent_blocks: Optional[int] = None,
         participation: Optional[ParticipationConfig] = None,
         staleness: Optional[StalenessConfig] = None,
+        telemetry: Optional[TelemetryConfig] = None,
         device: DeviceLike = None) -> Tuple[Params, History]:
     """Run K rounds from ``torch.Generator(device).manual_seed(seed)``;
     returns ``(theta_K, History)``.  ``ota=None`` is Algorithm 1, an
     ``OTAConfig`` Algorithm 2.  ``agent_blocks`` streams the agent axis (see
     :func:`make_round_fn`).  ``participation`` / ``staleness`` run service
     rounds (a config that normalises away runs the plain rounds, bit for
-    bit).  ``device=None`` means ``cuda`` and raises when no GPU is
-    present."""
+    bit).  ``telemetry`` fills ``History.telemetry`` with ``(K,)`` probes.
+    ``device=None`` means ``cuda`` and raises when no GPU is present.  The
+    stacked rounds run as one lane of ``core/lanes.py``."""
+    part = svc_part.normalize(participation, cfg.n_agents)
+    stale_cfg = svc_stale.normalize(staleness, part)
+    if agent_blocks is None:
+        from repro_torch.core import lanes
+
+        theta, hist = lanes.run_lanes(
+            env, policy, cfg, [lanes.LaneSpec(seed, cfg.alpha, ota, None,
+                                              part, stale_cfg)],
+            theta0=theta0, telemetry=telemetry, ota_backend=ota_backend,
+            device=device)
+        return {k: v[0] for k, v in theta.items()}, hist.lane(0)
     dev = resolve_device(device)
     env = env_on(env, dev)
     gen = make_generator(seed, dev)
     theta = policy.init(gen, dev) if theta0 is None else {
         k: v.to(dev) for k, v in theta0.items()}
-    part = svc_part.normalize(participation, cfg.n_agents)
-    stale_cfg = svc_stale.normalize(staleness, part)
     round_fn = make_round_fn(env, policy, cfg, ota, ota_backend=ota_backend,
                              agent_blocks=agent_blocks, participation=part,
-                             staleness=stale_cfg)
+                             staleness=stale_cfg, telemetry=telemetry)
     # a service run draws its mask-stream seed once, after theta_0
     carry = theta if part is None else svc_part.init_state(
         theta, sample_seed(gen, dev), cfg.n_agents, stale_cfg)
@@ -505,9 +534,12 @@ def run(env, policy, cfg: FedPGConfig, seed: int = 0, *,
         carry, m = round_fn(carry, gen)
         metrics.append(m)
     theta = carry if part is None else carry.theta
-    rewards, grad_sq, gain_mean = (torch.stack(x) for x in zip(*metrics))
+    rewards, grad_sq, gain_mean = (torch.stack(x)
+                                   for x in list(zip(*metrics))[:3])
+    probes = (_probes.stack([m[3] for m in metrics], 0)
+              if len(metrics[0]) == 4 else None)
     return theta, History(rewards=rewards, grad_sq=grad_sq,
-                          gain_mean=gain_mean)
+                          gain_mean=gain_mean, telemetry=probes)
 
 
 def avg_grad_sq(history: History) -> torch.Tensor:
@@ -527,11 +559,30 @@ def monte_carlo(env, policy, cfg: FedPGConfig, seed: int, n_runs: int, *,
                 agent_blocks: Optional[int] = None,
                 participation: Optional[ParticipationConfig] = None,
                 staleness: Optional[StalenessConfig] = None,
+                telemetry: Optional[TelemetryConfig] = None,
                 device: DeviceLike = None) -> History:
     """``n_runs`` independent repetitions (the paper uses 20), one generator
-    each; the History fields gain a leading (n_runs,) axis."""
-    hists = [run(env, policy, cfg, s, ota=ota, ota_backend=ota_backend,
-                 agent_blocks=agent_blocks, participation=participation,
-                 staleness=staleness, device=device)[1]
-             for s in run_seeds(seed, n_runs)]
-    return History(*(torch.stack(x) for x in zip(*hists)))
+    each (seeds :func:`run_seeds`); the History fields gain a leading
+    (n_runs,) axis.  The stacked rounds, plain and service, run as the
+    lanes of one lane-batched run (``core/lanes.py``), each lane bitwise
+    :func:`run` with its seed; the streamed rounds (``agent_blocks``) run
+    one repetition after another."""
+    seeds = run_seeds(seed, n_runs)
+    if agent_blocks is not None:
+        hists = [run(env, policy, cfg, s, ota=ota, ota_backend=ota_backend,
+                     agent_blocks=agent_blocks, participation=participation,
+                     staleness=staleness, telemetry=telemetry,
+                     device=device)[1] for s in seeds]
+        tel = None
+        if hists[0].telemetry is not None:
+            tel = _probes.stack([h.telemetry for h in hists], 0)
+        return History(*(torch.stack(x) for x in zip(*hists)), telemetry=tel)
+    from repro_torch.core import lanes
+
+    part = svc_part.normalize(participation, cfg.n_agents)
+    stale_cfg = svc_stale.normalize(staleness, part)
+    specs = [lanes.LaneSpec(seed=s, alpha=cfg.alpha, ota=ota,
+                            participation=part, staleness=stale_cfg)
+             for s in seeds]
+    return lanes.run_lanes(env, policy, cfg, specs, telemetry=telemetry,
+                           ota_backend=ota_backend, device=device)[1]

@@ -8,31 +8,29 @@ of log-policy gradients over the M x (T+1) steps of an agent's batch:
     REINFORCE:  (1/M) sum_m sum_t  R_m     grad log pi(a_t | s_t).
 
 The JAX package takes ``jax.grad`` of the surrogate loss.  Here each step's
-``grad log pi`` comes from ``torch.func.grad`` (vmapped over the steps), is
-scaled by its weight ``w / M``, and the steps are summed by a fixed
-pairwise tree of elementwise adds.  The reason is batch invariance: an
-agent's estimate must be the same bits whatever block of agents it is
-computed with, or the agent-streamed round would depend on
-``agent_blocks``.  On the card cuBLAS
+``grad log pi`` comes in closed form from the policy (``grad_log_prob``,
+elementwise ops in a fixed order, ``rl/policy.py``) for the whole batch at
+once, is scaled by its weight ``w / M``, and the steps are summed by a
+fixed pairwise tree of elementwise adds (``utils.tree.fixed_sum``).  The
+reason is batch invariance: an agent's estimate must be the same bits
+whatever else is computed with it — a block of agents (``agent_blocks``)
+or the other lanes of a lane-batched Monte-Carlo run.  On the card cuBLAS
 picks its algorithm by the shape of the call, so a sum over steps inside a
-batched matrix product changes its last bits with the number of agents, and
-so does a per-step product: measured on an H100, the back-propagation
-through the output layer (a (rows, 5) x (5, 16) product) gave other bits for
-210, 630 and 840 rows than for 2100.  So the per-step gradients are taken
-over fixed chunks of ``ROW_CHUNK`` steps (the last one padded with copies
-of the first step) — every call has the same shape — and summed over steps
-by elementwise adds in an order set by the step count alone; neither
-depends on the batch.
+batched matrix product changes its last bits with the number of agents,
+and so does a per-step product: measured on an H100, the
+back-propagation through the output layer (a (rows, 5) x (5, 16) product)
+gave other bits for 210, 630 and 840 rows than for 2100.  No op here has
+a shape-dependent order.  ``grad_log_prob`` is part of the policy
+interface (``rl/policy.py``).
 """
 from __future__ import annotations
 
 import math
 
 import torch
-from torch.func import grad, vmap
 
 from repro_torch.rl.sampler import Trajectory
-from repro_torch.utils.tree import Params, flatten_agent_stack
+from repro_torch.utils.tree import Params, fixed_sum
 
 
 def discounted_to_go(losses: torch.Tensor, gamma: float) -> torch.Tensor:
@@ -63,43 +61,20 @@ def reinforce_weights(losses: torch.Tensor, gamma: float) -> torch.Tensor:
 
 ESTIMATORS = {"gpomdp": gpomdp_weights, "reinforce": reinforce_weights}
 
-ROW_CHUNK = 4096   # rows per call: one call at the paper's N*M*(T+1) = 2100
 
-
-def log_prob_grads(policy, params: Params, obs: torch.Tensor,
+def log_prob_grads(policy, params, obs: torch.Tensor,
                    actions: torch.Tensor) -> torch.Tensor:
-    """(rows, P) float32: ``grad log pi(a | s)`` of each row, flattened in
-    sorted-key order, computed over fixed-shape chunks of ``ROW_CHUNK`` rows
-    so a row's bits do not depend on how many rows share the call."""
-    grad_fn = vmap(grad(policy.log_prob), in_dims=(None, 0, 0))
-    parts = []
-    for lo in range(0, obs.shape[0], ROW_CHUNK):
-        o, a = obs[lo:lo + ROW_CHUNK], actions[lo:lo + ROW_CHUNK]
-        real = o.shape[0]
-        if real < ROW_CHUNK:
-            pad = ROW_CHUNK - real
-            o = torch.cat([o, o[:1].expand((pad,) + o.shape[1:])])
-            a = torch.cat([a, a[:1].expand((pad,) + a.shape[1:])])
-        flat, _, _ = flatten_agent_stack(grad_fn(params, o, a))
-        parts.append(flat[:real])
-    return torch.cat(parts) if len(parts) > 1 else parts[0]
+    """``(rows, P)``: each row's ``grad log pi(a | s)``, flat in sorted-key
+    order (the policy's closed form)."""
+    return policy.grad_log_prob(params, obs, actions)
 
 
-def tree_sum_rows(x: torch.Tensor) -> torch.Tensor:
-    """(n, R, P) -> (n, P): the sum over R as a pairwise tree whose shape
-    depends on R alone (row i meets row i + R//2, an odd last row is carried
-    up), in elementwise adds, so no reduction kernel chooses its order."""
-    while x.shape[1] > 1:
-        half = x.shape[1] // 2
-        y = x[:, :half] + x[:, half:2 * half]
-        x = torch.cat([y, x[:, 2 * half:]], dim=1) if x.shape[1] % 2 else y
-    return x[:, 0]
-
-
-def _estimate(policy, params: Params, traj: Trajectory, gamma: float,
-              estimator: str) -> Params:
-    """The estimate over ``(*lead, M, T+1)`` trajectories: a dict of
-    ``(*lead, ...)`` leaves, one estimate per leading index."""
+def estimate_flat(policy, params: Params, traj: Trajectory, gamma: float,
+                  estimator: str) -> torch.Tensor:
+    """The estimate over ``(*lead, M, T+1)`` trajectories as ``(*lead, P)``
+    flat vectors, one per leading index.  The leaves of ``params`` may
+    carry leading lane dims that broadcast over ``lead`` (a lane-batched
+    run passes ``(L, 1, 1, ...)`` leaves over ``(L, N)``)."""
     try:
         weights_fn = ESTIMATORS[estimator]
     except KeyError as e:
@@ -107,15 +82,25 @@ def _estimate(policy, params: Params, traj: Trajectory, gamma: float,
     lead, (m, steps) = traj.losses.shape[:-2], traj.losses.shape[-2:]
     n = math.prod(lead)
     w = (weights_fn(traj.losses, gamma).detach() / m).reshape(n, m * steps, 1)
-    obs = traj.obs.reshape((n * m * steps,) + traj.obs.shape[len(lead) + 2:])
-    acts = traj.actions.reshape((n * m * steps,)
+    rows_shape = tuple(lead) + (m * steps,)
+    obs = traj.obs.reshape(rows_shape + traj.obs.shape[len(lead) + 2:])
+    acts = traj.actions.reshape(rows_shape
                                 + traj.actions.shape[len(lead) + 2:])
-    flat = log_prob_grads(policy, params, obs, acts)     # (rows, P)
-    acc = tree_sum_rows(flat.reshape(n, m * steps, -1) * w)
+    g = policy.grad_log_prob(params, obs, acts)
+    acc = fixed_sum(g.reshape(n, m * steps, -1) * w, 1)
+    return acc.reshape(tuple(lead) + (acc.shape[-1],))
+
+
+def _estimate(policy, params: Params, traj: Trajectory, gamma: float,
+              estimator: str) -> Params:
+    """The estimate over ``(*lead, M, T+1)`` trajectories: a dict of
+    ``(*lead, ...)`` leaves, one estimate per leading index."""
+    acc = estimate_flat(policy, params, traj, gamma, estimator)
+    lead = acc.shape[:-1]
     out, off = {}, 0
     for k in sorted(params):
         size = params[k].numel()
-        out[k] = acc[:, off:off + size].reshape(
+        out[k] = acc[..., off:off + size].reshape(
             tuple(lead) + tuple(params[k].shape)).to(params[k].dtype)
         off += size
     return out

@@ -31,8 +31,8 @@ backend one K1 launch folds a whole block: K1's ``agg`` mode folds its rows
 from zero in order, so the stack ``[acc; g_block]`` with gains ``[1;
 h_block]``, sigma 0 and scale 1 gives ``acc + h_0 g_0 + ...`` with the
 roundings of the per-agent fold (``0 + 1 * acc`` is ``acc`` exactly).  The
-tail is K1's unit-gain server pass.  The axis forms come with the sweep
-slice.
+tail is K1's unit-gain server pass.  The agent-mesh forms come with the
+distribute slice.
 """
 from __future__ import annotations
 
@@ -46,7 +46,8 @@ from repro_torch.core.channel import Channel
 from repro_torch.core.power_control import PowerPolicy, effective_moments
 from repro_torch.kernels import ota_fused, ref
 from repro_torch.utils.tree import (
-    Params, flatten_agent_stack, flatten_params, theta_device, tree_keys,
+    Params, fixed_sum, flat_norm_sq, flatten_agent_stack, flatten_params,
+    theta_device, tree_keys,
 )
 
 Seed = Union[int, torch.Tensor]
@@ -140,6 +141,25 @@ def sample_gains(cfg: OTAConfig, generator: torch.Generator, n_agents: int,
     if cfg.power_control is not None:
         c = c * cfg.power_control.apply(c)
     return c
+
+
+def flat_signal_power_sq(flat: torch.Tensor, gains: torch.Tensor,
+                         sizes) -> torch.Tensor:
+    """``||sum_i h_i g_i||^2`` of flat ``(..., N, P)`` stacks with ``(...,
+    N)`` gains (leaf slices of ``sizes``): the agent sum and each leaf's
+    squares in the fixed order of ``fixed_sum``, so a lane of a batched run
+    gets a run's bits."""
+    v = fixed_sum(gains.float().unsqueeze(-1) * flat, -2)
+    return flat_norm_sq(v, sizes)
+
+
+def signal_power_sq(grads_stacked: Params,
+                    gains: torch.Tensor) -> torch.Tensor:
+    """``||sum_i h_i g_i||^2``, the received signal power of one uplink;
+    the telemetry SNR probe divides it by ``d * sigma^2``."""
+    flat, _, _ = flatten_agent_stack(grads_stacked)
+    sizes = [int(grads_stacked[k][0].numel()) for k in tree_keys(grads_stacked)]
+    return flat_signal_power_sq(flat, gains, sizes)
 
 
 def effective_gain_mean(cfg: Optional[OTAConfig],
@@ -238,8 +258,11 @@ def _aggregate_stacked_torch(cfg: OTAConfig, h: torch.Tensor, seed: Seed,
 
 
 def _exact_mean(grads: Params) -> Params:
-    """Algorithm 1: the exact mean of the per-agent gradients."""
-    return {k: torch.mean(grads[k], dim=0) for k in tree_keys(grads)}
+    """Algorithm 1: the exact mean of the per-agent gradients, the agent sum
+    in the fixed order of ``fixed_sum`` (a lane of a batched run sums its
+    agents in the same order)."""
+    n = grads[tree_keys(grads)[0]].shape[0]
+    return {k: fixed_sum(grads[k], 0) / n for k in tree_keys(grads)}
 
 
 def _wire_dtype(cfg: OTAConfig) -> Optional[torch.dtype]:

@@ -18,20 +18,44 @@ so they equal its values; anything else falls back to :func:`estimate_moments`
 Monte Carlo.  That fallback draws on the CPU from
 ``torch.Generator().manual_seed(0)``: a configuration-time constant, the same
 on every machine and device, but not the JAX package's ``jax.random.key(0)``
-draw (torch cannot replay threefry).  The batched-lane packing of the sweep
-engine (``_pack_controlled``/``_sample_controlled``) comes with
-``BatchedChannel``.
+draw (torch cannot replay threefry).
+
+Lanes: ``ControlledChannel`` is registered with the channel registry under
+``controlled`` with its sweep hooks, ``_pack_controlled`` (base parameters
+under ``base.``, policy parameters under ``pc.``) and ``_sample_controlled``
+(the base's lane draw, then the policy rebuilt from the lanes' parameters).
+A policy's float fields may hold ``(L, 1)`` tensors, one value per lane:
+``apply`` forms ``target / c`` as ``reciprocal(c) * target``, which is what
+PyTorch computes for a Python-float numerator, so a lane's power is
+bitwise the concrete policy's.
 """
 from __future__ import annotations
 
 import functools
 import math
+import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.core.channel import Channel, RayleighChannel
+from repro_torch.core import channel as _channel
+from repro_torch.core.channel import BatchedChannel, Channel, RayleighChannel
+
+_POLICY_REGISTRY: Dict[str, type] = {}
+
+
+def register_policy(cls: type) -> type:
+    """Class decorator: make a policy rebuildable from lane parameters."""
+    _POLICY_REGISTRY[cls.__name__] = cls
+    return cls
+
+
+def _inv(c: torch.Tensor) -> torch.Tensor:
+    """``1 / max(c, 1e-12)`` as PyTorch forms a Python-float numerator's
+    division (``reciprocal``, then the multiply by the numerator)."""
+    return torch.reciprocal(torch.clamp(c, min=1e-12))
 
 
 @dataclass(frozen=True)
@@ -60,6 +84,7 @@ class PowerPolicy:
         return None
 
 
+@register_policy
 @dataclass(frozen=True)
 class UnitPower(PowerPolicy):
     """p == 1: the paper's default (h = c)."""
@@ -110,6 +135,7 @@ def _rayleigh_inversion_moments(scale: float, target: float, p_max: float,
     return m, max(m2 - m * m, 0.0)
 
 
+@register_policy
 @dataclass(frozen=True)
 class TruncatedInversion(PowerPolicy):
     """p = min(target/c, p_max), with outage (p = 0) below c_min: agents
@@ -120,8 +146,7 @@ class TruncatedInversion(PowerPolicy):
     c_min: float = 0.05
 
     def apply(self, c):
-        p = torch.clamp(self.target / torch.clamp(c, min=1e-12),
-                        max=self.p_max)
+        p = torch.clamp(_inv(c) * self.target, max=self.p_max)
         return torch.where(c >= self.c_min, p, torch.zeros_like(p))
 
     def closed_form_moments(self, base, n_agents=None):
@@ -132,6 +157,7 @@ class TruncatedInversion(PowerPolicy):
         return None
 
 
+@register_policy
 @dataclass(frozen=True)
 class FullInversion(PowerPolicy):
     """p = min(target/c, p_max): inversion with a power cap, no outage."""
@@ -140,8 +166,7 @@ class FullInversion(PowerPolicy):
     p_max: float = 10.0
 
     def apply(self, c):
-        return torch.clamp(self.target / torch.clamp(c, min=1e-12),
-                           max=self.p_max)
+        return torch.clamp(_inv(c) * self.target, max=self.p_max)
 
     def closed_form_moments(self, base, n_agents=None):
         if type(base) is RayleighChannel:
@@ -150,6 +175,7 @@ class FullInversion(PowerPolicy):
         return None
 
 
+@register_policy
 @dataclass(frozen=True)
 class ConstantReceived(PowerPolicy):
     """Phase-aware exact inversion, p = target/c, so h = target a.s.:
@@ -158,13 +184,14 @@ class ConstantReceived(PowerPolicy):
     target: float = 1.0
 
     def apply(self, c):
-        return self.target / torch.clamp(c, min=1e-12)
+        return _inv(c) * self.target
 
     def closed_form_moments(self, base, n_agents=None):
         # exact for any base with no atom at 0 (all continuous models here)
         return float(self.target), 0.0
 
 
+@register_policy
 @dataclass(frozen=True)
 class HeterogeneousBudget(PowerPolicy):
     """Per-agent constant budgets: agent i transmits at b_i, linearly spaced
@@ -225,6 +252,12 @@ class ControlledChannel(Channel):
                 "ControlledChannel needs a base channel; construct it with "
                 "make_controlled_channel(base, policy, ...)")
 
+    def kind_tag(self) -> str:
+        base_kind = _channel.channel_kind(self.base)
+        if ":" in base_kind:
+            raise ValueError("nested ControlledChannel is not supported")
+        return f"controlled:{base_kind}:{type(self.policy).__name__}"
+
     def sample(self, generator, shape, device) -> torch.Tensor:
         shape = tuple(shape)
         if (self.policy.per_agent and self._n_agents is not None
@@ -244,6 +277,40 @@ class ControlledChannel(Channel):
     @property
     def var(self) -> float:
         return self._var
+
+
+def _pack_controlled(channels) -> Dict[str, np.ndarray]:
+    """Lane packer: the base's parameters under ``base.``, the policy's
+    under ``pc.`` (the caller adds the ``_mean``/``_var`` columns)."""
+    _, base_params = _channel.batched_channel_arrays(
+        [ch.base for ch in channels])
+    params = {f"base.{k}": v for k, v in base_params.items()}
+    for f in dataclasses.fields(channels[0].policy):
+        params[f"pc.{f.name}"] = np.array(
+            [float(getattr(ch.policy, f.name)) for ch in channels],
+            np.float64)
+    return params
+
+
+def _sample_controlled(kind, params, generators, shape, device):
+    """Lane sampler: the base's lane draw, times the power of the policy
+    rebuilt from the lanes' parameters (``(L, 1, ...)`` tensors, or shared
+    Python floats) — ``ControlledChannel.sample``'s ops."""
+    _, base_kind, policy_name = kind.split(":")
+    nd = len(tuple(shape))
+    base = {k[len("base."):]: v for k, v in params.items()
+            if k.startswith("base.")}
+    cls = _POLICY_REGISTRY[policy_name]
+    pc = {k[len("pc."):]: _channel.lane_param(v, nd)
+          for k, v in params.items() if k.startswith("pc.")}
+    if cls.per_agent and any(isinstance(v, torch.Tensor)
+                             for v in pc.values()):
+        raise NotImplementedError(
+            f"{policy_name} parameters that vary across lanes are not "
+            f"batched (a per-lane linspace); see ROADMAP.md")
+    c = BatchedChannel(kind=base_kind, params=base).sample(generators, shape,
+                                                           device)
+    return c * cls(**pc).apply(c)
 
 
 def estimate_moments(base: Channel, policy: PowerPolicy,
@@ -321,3 +388,7 @@ def check_agent_count(channel: Channel, n_agents: int) -> None:
             f"{channel._n_agents} but the run uses {n_agents} agents; "
             f"rebuild it with make_controlled_channel(..., "
             f"n_agents={n_agents})")
+
+
+_channel.register_channel("controlled", ControlledChannel,
+                          packer=_pack_controlled, sampler=_sample_controlled)

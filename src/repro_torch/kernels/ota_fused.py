@@ -49,8 +49,10 @@ leading axis on the one-lane functions, because a lane takes its sigma,
 scale, alpha and seed as per-lane device arrays where the one-lane round
 passes host scalars by value (no host-to-device copy a round), and because
 the JAX one-lane function refuses a 3-D stack.  Each lane is bitwise a
-one-lane launch of the same body.  No caller on a path uses lanes yet:
-``fedpg.monte_carlo``'s lane axis comes with the sweep slice.
+one-lane launch of the same body.  The lane-batched run
+(``core/lanes.py``, behind ``fedpg.monte_carlo`` and ``sweep(mode=
+"vmap")``) launches it once a round, with the lanes' sigma, scale, step
+size and seed as device arrays made once per run.
 
 ``LAUNCHES_WIDE`` and ``LAUNCHES_TALL`` count each body's kernel launches
 (one per call that reaches the card), so a run can show that its rounds

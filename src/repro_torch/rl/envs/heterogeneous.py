@@ -8,6 +8,11 @@ stacks; in the port the agent axis is the leading batch dimension, so
 the prototype as ``(hi - lo, 1, ...)`` tensors that broadcast over an
 ``(agents, M)`` batch.  The env itself behaves as ``lanes()`` (the whole
 fleet); the agent-streamed round takes ``lanes(lo, hi)`` per block.
+
+Several same-shape fleets batch as sweep lanes: ``_pack_hetero`` stacks
+each fleet's per-agent fields as ``pa.<field>`` of shape ``(L, N, ...)``,
+and ``_build_hetero`` puts them on the base as ``(L, N, 1, ...)`` fields
+(``(N, 1, ...)`` for one lane, :meth:`HeterogeneousEnv.lanes`).
 """
 from __future__ import annotations
 
@@ -15,11 +20,12 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.rl.envs.registry import (
     default_policy as _default_policy, env_kind, is_float_field,
-    register_env,
+    register_env, robust_eq,
 )
 
 
@@ -118,4 +124,50 @@ def block_env(env: Any, lo: int, hi: int) -> Any:
     return env.lanes(lo, hi) if isinstance(env, HeterogeneousEnv) else env
 
 
-register_env("hetero", HeterogeneousEnv)
+def _pack_hetero(envs: Sequence[HeterogeneousEnv]) -> Dict[str, np.ndarray]:
+    """Lane packer: each fleet's per-agent stacks as ``pa.<field>`` of
+    shape ``(L, N, ...)``.  The fleets must stack the same fields and agree
+    on every other base field."""
+    keys = {tuple(sorted(e.params)) for e in envs}
+    if len(keys) != 1:
+        raise ValueError(
+            f"cannot batch HeterogeneousEnv fleets stacking different "
+            f"fields {sorted(keys)}; stack the same per-agent fields in "
+            "every fleet (constant members are fine)")
+    base = envs[0].base
+    stacked = dict.fromkeys(envs[0].params)
+
+    def neutral(e: HeterogeneousEnv) -> Any:
+        # stacked fields never reach a round from the base: pin them to
+        # fleet 0's values so only the shared fields compare
+        return dataclasses.replace(
+            e.base, **{k: getattr(base, k) for k in stacked})
+
+    if not all(robust_eq(neutral(e), base) for e in envs[1:]):
+        raise ValueError(
+            "cannot batch HeterogeneousEnv fleets whose bases differ in a "
+            "non-stacked field in one partition; for tensor-valued bases "
+            "reuse one base instance across fleets")
+    return {f"pa.{k}": np.stack([e.params[k].detach().cpu().double().numpy()
+                                 for e in envs])
+            for k in envs[0].params}
+
+
+def _build_hetero(kind: str, proto: HeterogeneousEnv,
+                  params: Dict[str, Any], lanes: bool):
+    del kind
+    base = proto.base
+
+    def field(v: torch.Tensor) -> torch.Tensor:
+        head = 2 if lanes else 1            # (L, N) or (N,)
+        return v.reshape(tuple(v.shape[:head]) + (1,)
+                         + tuple(v.shape[head:]))
+
+    if hasattr(base, "to"):
+        base = base.to(next(iter(params.values())).device)
+    return dataclasses.replace(base, **{k[len("pa."):]: field(v)
+                                        for k, v in params.items()})
+
+
+register_env("hetero", HeterogeneousEnv, packer=_pack_hetero,
+             builder=_build_hetero)

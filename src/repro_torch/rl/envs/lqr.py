@@ -19,6 +19,7 @@ import torch
 from repro_torch.rl.env import _col, normal_noise
 from repro_torch.rl.envs.registry import register_env
 from repro_torch.rl.policy import GaussianPolicy
+from repro_torch.utils.tree import fixed_matmul, fixed_sum
 
 
 @dataclass(frozen=True)
@@ -64,12 +65,11 @@ class LQRTask:
 
     def step(self, state: torch.Tensor, action: torch.Tensor,
              noise: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        drive = torch.matmul(self.A(state.device),
-                             state.unsqueeze(-1)).squeeze(-1)
+        drive = fixed_matmul(state, self.A(state.device).transpose(-1, -2))
         nxt = (drive + _col(self.gain) * action
                + _col(self.process_sigma) * noise)
-        loss = (self.q_cost * torch.sum(state * state, dim=-1)
-                + self.r_cost * torch.sum(action * action, dim=-1))
+        loss = (self.q_cost * fixed_sum(state * state, -1)
+                + self.r_cost * fixed_sum(action * action, -1))
         return nxt, loss
 
     def default_policy(self) -> GaussianPolicy:

@@ -6,14 +6,19 @@ a sparse kernel that is fully known, so ``TabularMDP.exact_J`` and its
 autograd gradient anchor the estimators at any size.  The draws come from
 an explicit ``torch.Generator`` (the JAX package's threefry stream cannot be
 replayed; tests carry the JAX tables across with ``interop.env_from_jax``).
-``TabularMDP``'s sweep-lane packer waits for the sweep slice.
+``TabularMDP`` registers its lane hooks here: the packer stacks the P / l /
+rho tables, the builder gives them the round's broadcast shape.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Any, Dict, Sequence
+
+import numpy as np
 import torch
 
 from repro_torch.rl.env import TabularMDP, uniform_noise
-from repro_torch.rl.envs.registry import register_env
+from repro_torch.rl.envs.registry import lane_field, register_env
 
 
 def _dirichlet1(generator, shape, device) -> torch.Tensor:
@@ -46,4 +51,22 @@ def garnet(generator: torch.Generator, n_states: int = 8,
                       rho=rho, gamma=gamma, horizon=horizon)
 
 
-register_env("tabular", TabularMDP)
+def _pack_tabular(envs: Sequence[TabularMDP]) -> Dict[str, np.ndarray]:
+    """Stack the P / l / rho tables (one (S, A) shape, by the kind tag);
+    ``gamma`` and ``horizon`` are run metadata, not lane parameters."""
+    return {name: np.stack([getattr(e, name).detach().cpu().double().numpy()
+                            for e in envs])
+            for name in ("P", "l", "rho")}
+
+
+def _build_tabular(kind: str, proto: TabularMDP, params: Dict[str, Any],
+                   lanes: bool):
+    del kind
+    return dataclasses.replace(
+        proto, P=lane_field(params["P"], lanes, 3),
+        l=lane_field(params["l"], lanes, 2),
+        rho=lane_field(params["rho"], lanes, 1))
+
+
+register_env("tabular", TabularMDP, packer=_pack_tabular,
+             builder=_build_tabular)

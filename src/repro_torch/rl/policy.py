@@ -13,6 +13,20 @@ order and a test can inject the JAX package's draws.  The discrete
 policies take ``(*batch, n_actions)`` uniforms and sample by Gumbel-max;
 ``GaussianPolicy`` takes ``(*batch, act_dim)`` standard normals and
 returns float actions.
+
+Products and sums over features use ``utils.tree.fixed_matmul`` /
+``fixed_sum`` (elementwise ops in a fixed order), so an action or a
+log-probability has the same bits whatever batch it is computed in, and
+whether the parameters are shared or one set per lane: ``params`` leaves
+may carry leading lane dims that broadcast against ``obs``'s batch (a
+lane-batched run passes ``(L, 1, 1, ...)`` leaves over ``(L, N, M)``).
+
+Every policy provides ``grad_log_prob(params, obs, action)``: each row's
+``grad_theta log pi(a | s)`` in closed form, flat in sorted-key order
+(``(..., P)``), the per-step terms of G(PO)MDP (``core/gpomdp.py``).  It
+uses the same fixed-order ops, so an agent's estimate does not depend on
+what else is computed with it, and equals autograd's gradient of
+:meth:`log_prob` up to rounding.
 """
 from __future__ import annotations
 
@@ -22,7 +36,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.utils.tree import Params
+from repro_torch.utils.tree import Params, fixed_matmul, fixed_sum
 
 
 def _uniforms(generator, batch, n: int, device) -> torch.Tensor:
@@ -35,6 +49,22 @@ def _gumbel_argmax(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     tiny = torch.finfo(logits.dtype).tiny
     gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
     return torch.argmax(logits + gumbel, dim=-1)
+
+
+def _dlogits(logits: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
+    """``d log softmax(logits)[a] / d logits = onehot(a) - softmax``; the
+    softmax's sum in the fixed order of ``fixed_sum`` (a max is exact in
+    any order)."""
+    e = torch.exp(logits - torch.amax(logits, dim=-1, keepdim=True))
+    p = e / fixed_sum(e, -1).unsqueeze(-1)
+    return torch.nn.functional.one_hot(action, logits.shape[-1]).to(
+        p.dtype) - p
+
+
+def _outer(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Row-wise outer products, flat: ``(..., I), (..., J) -> (..., I*J)``
+    (row-major, the layout of an ``(I, J)`` leaf)."""
+    return (x.unsqueeze(-1) * y.unsqueeze(-2)).flatten(-2)
 
 
 def _log_prob_of(logits: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
@@ -66,12 +96,23 @@ class MLPPolicy:
         }
 
     def logits(self, params: Params, obs: torch.Tensor) -> torch.Tensor:
-        h = torch.relu(obs @ params["w1"] + params["b1"])
-        return h @ params["w2"] + params["b2"]
+        h = torch.relu(fixed_matmul(obs, params["w1"]) + params["b1"])
+        return fixed_matmul(h, params["w2"]) + params["b2"]
 
     def log_prob(self, params: Params, obs: torch.Tensor,
                  action: torch.Tensor) -> torch.Tensor:
         return _log_prob_of(self.logits(params, obs), action)
+
+    def grad_log_prob(self, params: Params, obs: torch.Tensor,
+                      action: torch.Tensor) -> torch.Tensor:
+        """``(..., P)``: the flat ``(b1, b2, w1, w2)`` gradient of each
+        row's log-probability (back-propagation written out)."""
+        pre = fixed_matmul(obs, params["w1"]) + params["b1"]
+        h = torch.relu(pre)
+        dl = _dlogits(fixed_matmul(h, params["w2"]) + params["b2"], action)
+        dh = fixed_matmul(dl, params["w2"].transpose(-1, -2))
+        dpre = torch.where(pre > 0, dh, torch.zeros_like(dh))
+        return torch.cat([dpre, dl, _outer(obs, dpre), _outer(h, dl)], -1)
 
     def sample_noise(self, generator: torch.Generator, batch, device
                      ) -> torch.Tensor:
@@ -102,11 +143,16 @@ class TabularSoftmaxPolicy:
             device=device, dtype=torch.float32)}
 
     def logits(self, params: Params, obs: torch.Tensor) -> torch.Tensor:
-        return obs @ params["theta"]
+        return fixed_matmul(obs, params["theta"])
 
     def log_prob(self, params: Params, obs: torch.Tensor,
                  action: torch.Tensor) -> torch.Tensor:
         return _log_prob_of(self.logits(params, obs), action)
+
+    def grad_log_prob(self, params: Params, obs: torch.Tensor,
+                      action: torch.Tensor) -> torch.Tensor:
+        """``(..., S*A)``: the flat ``theta`` gradient of each row."""
+        return _outer(obs, _dlogits(self.logits(params, obs), action))
 
     def sample_noise(self, generator, batch, device) -> torch.Tensor:
         return _uniforms(generator, batch, self.n_actions, device)
@@ -142,14 +188,24 @@ class GaussianPolicy:
                 "log_std": torch.zeros(self.act_dim, **f32)}
 
     def mean(self, params: Params, obs: torch.Tensor) -> torch.Tensor:
-        return obs @ params["w"] + params["b"]
+        return fixed_matmul(obs, params["w"]) + params["b"]
 
     def log_prob(self, params: Params, obs: torch.Tensor,
                  action: torch.Tensor) -> torch.Tensor:
         mu, log_std = self.mean(params, obs), params["log_std"]
         z = (action - mu) * torch.exp(-log_std)
-        return (-0.5 * torch.sum(z * z, dim=-1) - torch.sum(log_std)
+        return (-0.5 * fixed_sum(z * z, -1) - fixed_sum(log_std, -1)
                 - 0.5 * self.act_dim * math.log(2.0 * math.pi))
+
+    def grad_log_prob(self, params: Params, obs: torch.Tensor,
+                      action: torch.Tensor) -> torch.Tensor:
+        """``(..., P)``: the flat ``(b, log_std, w)`` gradient of each row:
+        ``d/dmu = z e^{-s}``, ``d/ds = z^2 - 1`` with ``z = (a - mu)
+        e^{-s}``."""
+        inv = torch.exp(-params["log_std"])
+        z = (action - self.mean(params, obs)) * inv
+        dmu = z * inv
+        return torch.cat([dmu, z * z - 1.0, _outer(obs, dmu)], -1)
 
     def sample_noise(self, generator, batch, device) -> torch.Tensor:
         """The ``(*batch, act_dim)`` standard normals :meth:`sample` takes."""

@@ -11,6 +11,14 @@ may be injected: ``s0`` and ``actions`` replay the JAX package's own draws
 ``env_noise`` hand the steps draws made up front (the agent-streamed round
 draws the whole fleet's in the stacked order and gives each block its
 slice).
+
+The policies compute in a fixed order (``rl/policy.py``), so a
+trajectory's actions do not depend on how many trajectories share the
+step.  ``params`` may hold one run's parameters, or a lane-batched run's
+with leading ``(L, 1, ...)`` dims over an ``(L, ...)`` batch.
+
+The per-round metrics reduce in a fixed order (``utils.tree.fixed_sum``),
+the same for a run alone and as one lane of many.
 """
 from __future__ import annotations
 
@@ -18,7 +26,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.utils.tree import theta_device
+from repro_torch.utils.tree import fixed_mean, theta_device
 
 
 class Trajectory(NamedTuple):
@@ -74,7 +82,11 @@ def discounted_return(losses: torch.Tensor, gamma: float) -> torch.Tensor:
     return torch.sum(losses * gamma ** t, dim=-1)
 
 
-def empirical_reward(traj: Trajectory, gamma: float) -> torch.Tensor:
+def empirical_reward(traj: Trajectory, gamma: float,
+                     n_batch_dims: Optional[int] = None) -> torch.Tensor:
     """The paper's 'empirical cumulative reward': minus the discounted loss,
-    averaged over every batch dim."""
-    return -torch.mean(discounted_return(traj.losses, gamma))
+    averaged over the last ``n_batch_dims`` batch dims (all of them by
+    default; a lane-batched run keeps its lane axis)."""
+    ret = discounted_return(traj.losses, gamma)
+    return -fixed_mean(ret, ret.ndim if n_batch_dims is None
+                       else n_batch_dims)

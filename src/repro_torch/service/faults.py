@@ -136,16 +136,18 @@ class FaultConfig:
         return p
 
     def up_mask(self, seed: stream.Seed, round_idx: int,
-                agent_ids: torch.Tensor) -> torch.Tensor:
+                agent_ids: torch.Tensor, *, deadline=None) -> torch.Tensor:
         """(len(agent_ids),) bool availability this round: made the
         deadline AND not in a crash outage.  Delays are fresh each round;
-        the crash schedule is fixed for the run."""
+        the crash schedule is fixed for the run.  ``deadline`` (a lane
+        tensor) overrides the config's."""
         up = torch.ones(agent_ids.shape, dtype=torch.bool,
                         device=agent_ids.device)
         if self.stragglers is not None:
             u = stream.agent_uniform(seed, round_idx, agent_ids,
                                      stream.SALT_DELAY)
-            up = up & (self.stragglers.delays(u) <= self.deadline)
+            up = up & (self.stragglers.delays(u)
+                       <= (self.deadline if deadline is None else deadline))
         if self.crashes is not None:
             up = up & self.crashes.up_mask(seed, round_idx, agent_ids)
         return up

@@ -105,13 +105,18 @@ def init_state(theta: Params, seed: torch.Tensor, n_agents: int,
 
 
 def round_mask(p: ParticipationConfig, seed: stream.Seed, round_idx: int,
-               agent_ids: torch.Tensor, n_agents: int) -> torch.Tensor:
+               agent_ids: torch.Tensor, n_agents: int, *,
+               rate=None, deadline=None) -> torch.Tensor:
     """(len(agent_ids),) bool participation mask for one round.
     ``agent_ids`` are absolute agent indices: a block passes its slice of
-    ``arange(N)`` and gets exactly those rows of the fleet's mask."""
+    ``arange(N)`` and gets exactly those rows of the fleet's mask.  A
+    lane-batched run passes ``(L, 1)`` seeds and, where they vary, ``(L,
+    1)`` tensors as ``rate`` and the fault ``deadline`` (else the config's
+    own); the mask is then ``(L, len(agent_ids))``."""
     if p.kind == "bernoulli":
         mask = stream.agent_uniform(seed, round_idx, agent_ids,
-                                    stream.SALT_BERNOULLI) < p.rate
+                                    stream.SALT_BERNOULLI) \
+            < (p.rate if rate is None else rate)
     elif p.kind == "subset":
         w = min(int(p.subset), n_agents)
         offset = (int(round_idx) * w) % n_agents   # rotates by w a round
@@ -120,7 +125,8 @@ def round_mask(p: ParticipationConfig, seed: stream.Seed, round_idx: int,
         mask = torch.ones(agent_ids.shape, dtype=torch.bool,
                           device=agent_ids.device)
     if p.faults is not None and p.faults.active:
-        mask = mask & p.faults.up_mask(seed, round_idx, agent_ids)
+        mask = mask & p.faults.up_mask(seed, round_idx, agent_ids,
+                                       deadline=deadline)
     return mask
 
 

@@ -23,11 +23,10 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.service.participation import safe_inv
-from repro_torch.utils.tree import Params
+from repro_torch.utils.tree import Params, fixed_sum
 
 __all__ = ["AGE_NEVER", "StaleState", "StalenessConfig", "advance",
-           "init_state", "normalize", "replay_sum_stacked",
-           "replay_weights", "stats"]
+           "init_state", "normalize", "replay_weights", "stats"]
 
 AGE_NEVER = 2 ** 30   # "never contributed", and the age cap (int32-safe)
 
@@ -72,13 +71,16 @@ def init_state(scfg: StalenessConfig, theta: Params,
 
 
 def replay_weights(scfg: StalenessConfig, mask: torch.Tensor,
-                   age: torch.Tensor) -> torch.Tensor:
+                   age: torch.Tensor, decay=None) -> torch.Tensor:
     """(N,) float32 replay weights: zero for participants, copies older
     than ``max_age`` and rows never contributed, else
-    ``decay ** (age - 1)``."""
+    ``decay ** (age - 1)``.  ``decay`` (an ``(L, 1)`` lane tensor, with
+    ``(L, N)`` mask and ages) overrides the config's."""
     replay = ~mask & (age >= 1) & (age <= scfg.max_age)
     a = torch.clamp(age, 1, scfg.max_age).float()
-    w = torch.pow(torch.full_like(a, scfg.decay), a - 1.0)
+    base = (torch.full_like(a, scfg.decay) if decay is None
+            else decay.float().expand_as(a))
+    w = torch.pow(base, a - 1.0)
     return torch.where(replay, w, torch.zeros_like(w))
 
 
@@ -98,21 +100,15 @@ def next_age(age: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
                        torch.clamp(age + 1, max=AGE_NEVER))
 
 
-def replay_sum_stacked(state: StaleState, weights: torch.Tensor) -> Params:
-    """``sum_i w_i S_i`` over the buffer (the stacked round's batched sum)."""
-    return {k: torch.sum(weights.reshape((-1,) + (1,) * (s.ndim - 1))
-                         .to(s.dtype) * s, dim=0)
-            for k, s in state.grads.items()}
-
-
 def stats(scfg: StalenessConfig, mask: torch.Tensor,
-          age: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
-                                      torch.Tensor]:
+          age: torch.Tensor, decay=None) -> Tuple[torch.Tensor, torch.Tensor,
+                                                  torch.Tensor]:
     """(total replay weight, replayed count, mean replayed age), from the
-    ``(N,)`` vectors alone."""
-    w = replay_weights(scfg, mask, age)
+    ``(..., N)`` vectors alone (integer-valued counts and ages sum exactly
+    in any order)."""
+    w = replay_weights(scfg, mask, age, decay)
     replayed = w > 0
-    cnt = torch.sum(replayed.float())
-    mean_age = torch.sum(torch.where(replayed, age, 0).float()) \
+    cnt = torch.sum(replayed.float(), dim=-1)
+    mean_age = torch.sum(torch.where(replayed, age, 0).float(), dim=-1) \
         * safe_inv(cnt)
-    return torch.sum(w), cnt, mean_age
+    return fixed_sum(w, -1), cnt, mean_age

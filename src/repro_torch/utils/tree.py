@@ -26,11 +26,66 @@ def theta_device(tree: Params) -> torch.device:
     return tree[tree_keys(tree)[0]].device
 
 
+def fixed_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The sum over ``dim`` as a pairwise tree of elementwise adds whose
+    shape depends on the length alone (element i meets element i + n//2;
+    an odd last element is carried up a level).  No reduction kernel picks
+    the order, so a slice's bits do not depend on how many slices share
+    the call: a run's metrics are the same alone and as one lane of many
+    (on the card a reduction kernel's order follows the whole shape)."""
+    dim = dim % x.ndim
+    if x.shape[dim] == 0:
+        return torch.zeros(x.shape[:dim] + x.shape[dim + 1:], dtype=x.dtype,
+                           device=x.device)
+    while x.shape[dim] > 1:
+        n = x.shape[dim]
+        half = n // 2
+        y = x.narrow(dim, 0, half) + x.narrow(dim, half, half)
+        x = torch.cat([y, x.narrow(dim, 2 * half, 1)], dim) if n % 2 else y
+    return x.squeeze(dim)
+
+
+def fixed_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for ``x`` ``(..., K)`` and ``w`` ``(..., K, N)`` (batch
+    dims broadcast): the K products of each output summed by
+    :func:`fixed_sum`, elementwise ops only, so an output's bits do not
+    depend on the batch shape or on whether ``w`` is shared or one per
+    lane (a matrix-product kernel picks its order by the call's shape)."""
+    return fixed_sum(x.unsqueeze(-1) * w, -2)
+
+
+def fixed_mean(x: torch.Tensor, n_dims: int) -> torch.Tensor:
+    """The mean over the last ``n_dims`` axes: :func:`fixed_sum` over them
+    flattened, divided by their element count."""
+    lead = x.shape[:x.ndim - n_dims]
+    count = math.prod(x.shape[x.ndim - n_dims:])
+    return fixed_sum(x.reshape(lead + (count,)), -1) / count
+
+
+def leaf_sizes(tree: Params) -> List[int]:
+    """Element counts of the leaves, in key order (the flat layout)."""
+    return [tree[k].numel() for k in tree_keys(tree)]
+
+
+def flat_norm_sq(flat: torch.Tensor, sizes: List[int]) -> torch.Tensor:
+    """Squared norm of ``(..., P)`` flat parameter vectors: each leaf's
+    slice summed by :func:`fixed_sum`, then the leaves added in key order
+    (:func:`tree_global_norm_sq` on the flat layout, lane by lane)."""
+    sq = torch.square(flat.float())
+    total, off = None, 0
+    for size in sizes:
+        s = fixed_sum(sq[..., off:off + size], -1)
+        total = s if total is None else total + s
+        off += size
+    return total
+
+
 def tree_global_norm_sq(tree: Params) -> torch.Tensor:
-    """sum of squared leaves in float32, leaf by leaf in key order."""
+    """sum of squared leaves in float32, leaf by leaf in key order, each
+    leaf's squares summed by :func:`fixed_sum`."""
     total = None
     for k in tree_keys(tree):
-        s = torch.sum(torch.square(tree[k].float()))
+        s = fixed_sum(torch.square(tree[k].float()).reshape(-1), -1)
         total = s if total is None else total + s
     return total
 

@@ -18,8 +18,12 @@ its plain version (agg) and the wide body (every mode), f32 and bf16; its
 lanes bitwise one-lane launches; what it cannot take raises.  K1's device
 rescale factor (the round service's N / W): bitwise its plain version (sgd
 rtol 1e-6); the service's mask stream: the same bits on the card as on the
-CPU; the streamed service round bitwise across block sizes.  Needs a CUDA
-device and skips without one.  This file imports no JAX, so it also runs on a
+CPU; the streamed service round bitwise across block sizes.  The
+lane-batched run (``core/lanes.py``) and ``sweep(mode="vmap")``: every
+lane bitwise ``fedpg.run`` of its settings and seed on the card (plain,
+varying channel / noise / step size, power control, env parameters, the
+round service with staleness, the exact uplink, telemetry), one K1 launch
+per batched round.  Needs a CUDA device and skips without one.  This file imports no JAX, so it also runs on a
 GPU machine without the JAX package:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -755,3 +759,94 @@ def test_k1_stream_fold_of_ten_thousand_agents_in_one_block(cuda):
     torch.cuda.synchronize()
     for k in g:
         assert torch.equal(a[k], b[k])
+
+
+def _lane_cases():
+    from repro_torch.core import lanes
+    from repro_torch.core.channel import RayleighChannel
+    from repro_torch.core.ota import OTAConfig
+    from repro_torch.core.power_control import TruncatedInversion
+    from repro_torch.rl.envs import WindyLandmarkNav
+    from repro_torch.service import participation, staleness
+    from repro_torch.service.participation import ParticipationConfig
+    from repro_torch.service.staleness import StalenessConfig
+
+    def o(scale=1.0, sigma=1e-3, pc=None):
+        return OTAConfig(RayleighChannel(scale), noise_sigma=sigma,
+                         debias=True, power_control=pc)
+
+    def svc(rate):
+        p = participation.normalize(ParticipationConfig(rate=rate), 10)
+        return dict(participation=p, staleness=staleness.normalize(
+            StalenessConfig(4, 0.8), p))
+
+    w = [WindyLandmarkNav(wind=x) for x in (0.05, 0.1)]
+    return {
+        "plain20": [lanes.LaneSpec(s, 1e-3, o()) for s in range(20)],
+        "channel_noise_alpha": [lanes.LaneSpec(1, 1e-3, o(1.0, 1e-3)),
+                                lanes.LaneSpec(2, 2e-3, o(2.0, 1e-2))],
+        "power_control": [
+            lanes.LaneSpec(s, 1e-3, o(pc=TruncatedInversion(p_max=p)))
+            for s, p in ((1, 5.0), (2, 10.0))],
+        "env": [lanes.LaneSpec(s, 1e-3, o(), env=e)
+                for s, e in zip((1, 2), w)],
+        "service_stale": [lanes.LaneSpec(s, 1e-3, o(), **svc(r))
+                          for s, r in ((1, 0.5), (2, 0.8))],
+        "exact": [lanes.LaneSpec(s, a) for s, a in ((1, 1e-3), (2, 2e-3))],
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["plain20", "channel_noise_alpha",
+                                  "power_control", "env", "service_stale",
+                                  "exact"])
+@pytest.mark.parametrize("telemetry", [False, True])
+def test_lanes_are_bitwise_their_runs_on_the_card(cuda, case, telemetry):
+    from repro_torch.core import fedpg, lanes
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.envs import default_policy
+    from repro_torch.telemetry import TelemetryConfig
+
+    specs = _lane_cases()[case]
+    env = specs[0].env or LandmarkNav()
+    pol = default_policy(env)
+    tel = TelemetryConfig() if telemetry else None
+    cfg = fedpg.FedPGConfig(n_agents=10, batch_m=10, horizon=20, n_rounds=5)
+    before = ota_fused.LAUNCHES
+    theta, hist = lanes.run_lanes(LandmarkNav(), pol, cfg, specs,
+                                  telemetry=tel)
+    per_round = 0 if specs[0].ota is None else 1
+    assert ota_fused.LAUNCHES - before == per_round * cfg.n_rounds
+    for i, spec in enumerate(specs):
+        c = fedpg.FedPGConfig(**{**cfg.__dict__, "alpha": spec.alpha})
+        t1, h1 = fedpg.run(spec.env or LandmarkNav(), pol, c, spec.seed,
+                           ota=spec.ota, participation=spec.participation,
+                           staleness=spec.staleness, telemetry=tel)
+        for x, y in zip(h1, hist):
+            assert torch.equal(x, y[i]), (case, i)
+        for k in t1:
+            assert torch.equal(t1[k], theta[k][i]), (case, i, k)
+        if telemetry:
+            for x, y in zip(h1.telemetry, hist.telemetry):
+                if x is not None:
+                    assert torch.equal(torch.nan_to_num(x, 7.0),
+                                       torch.nan_to_num(y[i], 7.0))
+
+
+@pytest.mark.cuda
+def test_sweep_vmap_is_bitwise_map_on_the_card(cuda):
+    from repro_torch.core import sweep
+    from repro_torch.core.channel import RayleighChannel
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+
+    sc = sweep.grid(channel=[RayleighChannel(1.0), RayleighChannel(2.0)],
+                    noise_sigma=[1e-3, 1e-2], alpha=[1e-3, 2e-3],
+                    n_agents=10, batch_m=10, horizon=20, n_rounds=5,
+                    debias=True)
+    before = ota_fused.LAUNCHES
+    vmap = sweep.sweep(LandmarkNav(), MLPPolicy(), sc, 0, 3)
+    assert vmap.n_partitions == 1 and ota_fused.LAUNCHES - before == 5
+    mapped = sweep.sweep(LandmarkNav(), MLPPolicy(), sc, 0, 3, mode="map")
+    for x, y in zip(vmap.history, mapped.history):
+        np.testing.assert_array_equal(x, y)
