@@ -125,7 +125,34 @@ Phases, in order; any failure raises and exits non-zero:
 25. telemetry — the main cell with telemetry on and off (bitwise equal
               histories, finite probes, the overhead per round), a sweep
               with telemetry, and its span trace in
-              ``chiprun_out/sweep_trace.json``.
+              ``chiprun_out/sweep_trace.json``;
+26. driver  — ``service.driver.RoundService`` at the paper's width
+              (Bernoulli 0.5, staleness (4, 0.8), 32 rounds in commits of
+              4, a checkpoint each under ``chiprun_out/``): a twin resumed
+              after commit 2 by a fresh service ends bitwise the straight
+              run (state, later records, per-round history); commits of 1
+              bitwise commits of 4; one K1 launch a round; ms per round of
+              a bare driver (no telemetry, checkpoint or hook) against the
+              same rounds through ``fedpg.run`` (phase 19's stacked
+              service round), in turns; then N = 10^4 M=1 T=3 (8 rounds,
+              resume after commit 1, the tall body).  The
+              run ledger ``chiprun_out/ledger.jsonl`` (platform, phase 5's
+              sweeps, the service commits) is rendered to
+              ``chiprun_out/REPORT.md``;
+27. train   — llama3.2-3b at full width, bf16, OTA (Rayleigh, -60 dB,
+              debias, bf16 wire), 4 agents, B=8 S=256, 4 steps: one wide K1
+              launch a step at (1, d), finite metrics, ms a step, peak
+              memory; 2 exact steps launch no K1; K1 at (1, d) bitwise its
+              plain version on the windows [0, 2^20), [2^31, 2^31 + 2^20)
+              and [d - 2^20, d), bf16 wire and f32, timed (median of 10)
+              beside its byte bound and ``torch.mv``;
+28. resume  — ``launch.train``'s loop at ``examples/ota_llm_training.py``'s
+              width: 6 straight steps against 3, a checkpoint, a fresh
+              restore and 3 more, bitwise under deterministic algorithms
+              in a child process that alone gets
+              ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (whether two straight
+              runs in this process are bitwise without them is reported);
+              then 100 steps, the last 10 losses below the first 10.
 
 It prints the card line, then one ``{"kernels": [...]}`` line (K1 as its two
 bodies, ``ota_fused_wide`` and ``ota_fused_tall``), and as its last
@@ -136,6 +163,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -756,6 +784,7 @@ def phase_fig12(torch):
         reset_counts()
         res = sweep.sweep(LandmarkNav(), MLPPolicy(), [s], 0, FIG12_RUNS,
                           mode="vmap", device="cuda")
+        FIG12_RESULTS.append(res)
         launches, bodies = read_counts()["ota_fused"], k1_body_counts()
         body = [b for b, c in bodies.items() if c]
         check(launches == FIG12_ROUNDS and len(body) == 1,
@@ -2682,6 +2711,488 @@ def phase_zoo(torch):
     return rows
 
 
+
+# ---------------------------------------------------------------------------
+# phases 26-28: the round-service driver, the trainer at full width, resume
+# ---------------------------------------------------------------------------
+
+DRIVER_ROUNDS, DRIVER_RPC = 32, 4
+DRIVER_LARGE_ROUNDS, DRIVER_LARGE_RPC = 8, 2
+DRIVER_TURNS = 5
+TRAIN_STEPS, TRAIN_EXACT_STEPS = 4, 2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_AGENTS = 8, 256, 4
+K1_WINDOW = 2 ** 20
+K1_ROW_TIMES = 10
+RESUME_STEPS, LOSS_STEPS = 6, 100
+EXAMPLE_BATCH, EXAMPLE_SEQ = 16, 256
+FIG12_RESULTS = []             # phase 5's SweepResults, for the run ledger
+SERVICE_FLOATS = ("reward", "grad_sq", "gain_mean", "participation_rate",
+                  "participation_drift", "staleness_mean", "staleness_hist")
+
+
+def fresh_dir(name, keep=False):
+    """An empty directory for checkpoints: under ``chiprun_out/`` when
+    ``keep`` (small ones, brought back), else under the gitignored
+    ``build/chip_smoke/`` (``drop_scratch`` removes it)."""
+    import shutil
+
+    path = ROOT / ("chiprun_out" if keep else "build/chip_smoke") / name
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return path
+
+
+def drop_scratch():
+    import shutil
+
+    shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)
+
+
+def recorded_rounds(torch, svc):
+    """Wrap ``svc``'s round so every round's (reward, grad_sq, gain_mean)
+    is kept: a service's per-round history, whatever its commit size."""
+    rows, fn = [], svc._round_fn
+
+    def round_fn(*args):
+        state, m = fn(*args)
+        rows.append(torch.stack(m[:3]))
+        return state, m
+
+    svc._round_fn = round_fn
+    return rows
+
+
+def service_state_bits(svc):
+    st = svc.state
+    parts = [("theta", st.theta), ("stale", st.stale.grads)]
+    out = {f"{name}/{k}": v.cpu().numpy().tobytes()
+           for name, tree in parts for k, v in tree.items()}
+    out["age"] = st.stale.age.cpu().numpy().tobytes()
+    out["seed"] = st.seed.cpu().numpy().tobytes()
+    return st.round_idx, out
+
+
+def driver_cell(torch, make, rounds, rpc, what):
+    """A straight service against an interrupted twin (two commits ... one
+    commit, a checkpoint, a FRESH service that resumes) and, at the paper's
+    width, commits of 1: state, later records and per-round histories
+    bitwise.  Returns the straight run's ms per round, K1 launches by body
+    and records."""
+    keep = what == "paper"
+    ck_a = fresh_dir(f"ckpt_{what}_a", keep)
+    ck_b = fresh_dir(f"ckpt_{what}_b", keep)
+    ref = make(rpc, rounds, ck_a)
+    hist = recorded_rounds(torch, ref)
+    torch.cuda.synchronize()
+    reset_counts()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    recs = ref.run()
+    e.record()
+    torch.cuda.synchronize()
+    launches, bodies = read_counts()["ota_fused"], k1_body_counts()
+    ms = s.elapsed_time(e) / rounds
+    check(launches == rounds, f"{what}: {launches} K1 launches in {rounds} "
+          f"stacked rounds, expected one a round")
+    cut = 2 if rounds // rpc > 2 else 1
+    a = make(rpc, rounds, ck_b)
+    for _ in range(cut):
+        a.commit()
+    b = make(rpc, rounds, ck_b)
+    check(b.resume() and b.state.round_idx == cut * rpc,
+          f"{what}: resume did not find commit {cut}")
+    tail = recorded_rounds(torch, b)
+    later = b.run()
+    check(service_state_bits(b) == service_state_bits(ref),
+          f"{what}: the resumed service's state is not bitwise the straight "
+          f"run's")
+    check([{k: r[k] for k in SERVICE_FLOATS} for r in later]
+          == [{k: r[k] for k in SERVICE_FLOATS} for r in recs[cut:]],
+          f"{what}: later commit records differ after the resume")
+    check(torch.equal(torch.stack(tail), torch.stack(hist[cut * rpc:])),
+          f"{what}: per-round history differs after the resume")
+    return ms, launches, bodies, recs, hist, service_state_bits(ref)
+
+
+def driver_turns(torch, make, env, pol, cfg, ota, part, stale):
+    """The same service rounds through a bare ``RoundService`` (no
+    telemetry, checkpoint or recording hook; ``make``) and through
+    ``fedpg.run`` (phase 19's stacked service round), timed with CUDA
+    events in turns, ``DRIVER_TURNS`` each: ms per round."""
+    from repro_torch.core import fedpg
+
+    got = {"driver": [], "fedpg": []}
+    for _ in range(DRIVER_TURNS):
+        svc = make(DRIVER_RPC, cfg.n_rounds)
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        svc.run()
+        e.record()
+        torch.cuda.synchronize()
+        got["driver"].append(s.elapsed_time(e) / cfg.n_rounds)
+        got["fedpg"].append(service_timed(torch, fedpg, env, pol, cfg, ota,
+                                          7, part, stale)[2])
+    med = {k: statistics.median(v) for k, v in got.items()}
+    return {"driver_ms": med["driver"], "fedpg_ms": med["fedpg"],
+            "ratio": med["driver"] / med["fedpg"],
+            "driver_all": [round(x, 3) for x in got["driver"]],
+            "fedpg_all": [round(x, 3) for x in got["fedpg"]]}
+
+
+def phase_driver(torch, service_rows):
+    from repro_torch.core.fedpg import FedPGConfig
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+    from repro_torch.service import (
+        ParticipationConfig, RoundService, ServiceConfig, StalenessConfig,
+    )
+    from repro_torch.telemetry import (
+        Ledger, TelemetryConfig, read_ledger, report, using_ledger,
+    )
+
+    t0 = phase(f"26. the round-service driver (N=10 M=10 T=20, Bernoulli "
+               f"0.5, staleness (4, 0.8), {DRIVER_ROUNDS} rounds in commits "
+               f"of {DRIVER_RPC}; then N=10^4 M=1 T=3)")
+    env, pol = LandmarkNav(), MLPPolicy()
+    cfg, ota = alg_config(10, 10, 1)
+    part = ParticipationConfig(rate=0.5)
+    stale = StalenessConfig(max_age=4, decay=0.8)
+
+    def make_for(c, telemetry=TelemetryConfig()):
+        def make(rpc, rounds, ckpt=""):
+            return RoundService(
+                env, pol, c, 7, participation=part, staleness=stale,
+                ota=ota, telemetry=telemetry,
+                service=ServiceConfig(rounds_per_commit=rpc,
+                                      max_rounds=rounds,
+                                      checkpoint_dir=str(ckpt)),
+                device="cuda")
+        return make
+
+    make = make_for(cfg)
+    make(1, 2).run()           # warm-up, outside the timed run
+    out = ROOT / "chiprun_out"
+    ledger_path = out / "ledger.jsonl"
+    with Ledger(str(ledger_path)) as led, using_ledger(led):
+        led.log_platform()
+        for res in FIG12_RESULTS:
+            led.log_sweep(res, label="fig12")
+        ms, launches, bodies, recs, hist, bits = driver_cell(
+            torch, make, DRIVER_ROUNDS, DRIVER_RPC, "paper")
+    check(bodies["wide"] == DRIVER_ROUNDS, f"paper width: {bodies}")
+    one = make(1, DRIVER_ROUNDS)
+    hist_one = recorded_rounds(torch, one)
+    one.run()
+    check(service_state_bits(one) == bits
+          and torch.equal(torch.stack(hist_one), torch.stack(hist)),
+          f"rounds_per_commit 1 and {DRIVER_RPC}: states or per-round "
+          f"histories differ")
+    ref_row = service_rows[1]
+    check(ref_row["config"] == "bernoulli 0.5 realized"
+          and ref_row["staleness"], "phase 19's row order changed")
+    p19 = ref_row["stacked"]["ms_per_round"]
+    turns = driver_turns(torch, make_for(cfg, telemetry=None), env, pol,
+                         dataclasses.replace(cfg, n_rounds=DRIVER_ROUNDS),
+                         ota, part, stale)
+    text = report.render(read_ledger(str(ledger_path)),
+                         title="chip_smoke run ledger")
+    check("## Round service" in text and "### Scenarios" in text,
+          "REPORT.md lacks the round-service or the sweep section")
+    (out / "REPORT.md").write_text(text)
+    log(f"paper width: {ms:.3f} ms per round through the driver with "
+        f"telemetry, a checkpoint a commit and the recording hook "
+        f"({DRIVER_ROUNDS} rounds, {len(recs)} commits; phase 19's stacked "
+        f"service round {p19:.3f} ms); bare driver against fedpg.run in "
+        f"{DRIVER_TURNS} turns: medians {turns['driver_ms']:.3f} / "
+        f"{turns['fedpg_ms']:.3f} ms per round ({turns['ratio']:.3f}x; "
+        f"driver {turns['driver_all']}, fedpg.run {turns['fedpg_all']}); "
+        f"K1 {launches} launches ({bodies}); resume "
+        f"after commit 2 bitwise (state, {len(recs) - 2} records, "
+        f"{DRIVER_ROUNDS - 2 * DRIVER_RPC} rounds); commits of 1 and "
+        f"{DRIVER_RPC} bitwise; ledger {ledger_path.name} -> REPORT.md")
+    large_cfg = FedPGConfig(n_agents=SERVICE_LARGE_N, batch_m=1, horizon=3,
+                            gamma=cfg.gamma, alpha=cfg.alpha, n_rounds=1)
+    make_large = make_for(large_cfg)
+    make_large(1, 1).run()    # warm-up
+    ms_l, launches_l, bodies_l, recs_l, _, _ = driver_cell(
+        torch, make_large, DRIVER_LARGE_ROUNDS, DRIVER_LARGE_RPC, "large")
+    check(bodies_l["tall"] == DRIVER_LARGE_ROUNDS,
+          f"N=10^4: {bodies_l}, expected the tall body every round")
+    log(f"N=10^4: {ms_l:.3f} ms per round through the driver "
+        f"({DRIVER_LARGE_ROUNDS} rounds in commits of {DRIVER_LARGE_RPC}); "
+        f"K1 {launches_l} launches ({bodies_l}); resume after commit 1 "
+        f"bitwise; realised rate {recs_l[0]['participation_rate']:.4f}")
+    RECORD["driver"] = {
+        "paper": {"ms_per_round": ms, "phase19_stacked_ms_per_round": p19,
+                  "bare_driver_vs_fedpg_run": turns,
+                  "k1_launches": launches, "k1_per_round": 1,
+                  "records": recs},
+        "large": {"ms_per_round": ms_l, "k1_launches": launches_l,
+                  "k1_tall_launches": bodies_l["tall"], "k1_per_round": 1,
+                  "records": recs_l}}
+    drop_scratch()
+    done("driver", t0)
+    return RECORD["driver"]
+
+
+def train_config(aggregator, steps, **kw):
+    from repro_torch.train import trainer
+
+    return trainer.TrainConfig(
+        aggregator=aggregator, channel="rayleigh", noise_db=-60.0,
+        debias=True, n_agents=TRAIN_AGENTS, total_steps=steps, **kw)
+
+
+def phase_train(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import ota_fused, ref
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import trainer
+    from repro_torch.utils.tree import flatten_paths
+
+    cfg = get_config("llama3.2-3b")
+    t0 = phase(f"27. train llama3.2-3b at full width ({cfg.n_layers} layers, "
+               f"d_model {cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}), OTA "
+               f"through K1, B={TRAIN_BATCH} S={TRAIN_SEQ}, "
+               f"{TRAIN_AGENTS} agents")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = model_lib.build(cfg)
+    tcfg = train_config("ota", TRAIN_STEPS, lr=1e-4, warmup=2,
+                        wire_dtype="bfloat16")
+    state = trainer.init_state(model, tcfg, device="cuda")
+    d = sum(v.numel() for v in flatten_paths(state.params).values())
+    log(f"d = {d} parameters ({d / 2 ** 31:.3f} x 2^31); wire bf16")
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH), "cuda")
+    step = trainer.make_train_step(model, tcfg)
+    batches = [data.batch(i) for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    reset_counts()
+    times, metrics = [], []
+    for i in range(TRAIN_STEPS):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        state, m = step(state, batches[i])
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+        metrics.append({k: v.item() for k, v in m.items()})
+    launches, bodies = read_counts()["ota_fused"], k1_body_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches == bodies["wide"] == TRAIN_STEPS,
+          f"train: {launches} K1 launches ({bodies}), expected one wide "
+          f"launch a step")
+    for m in metrics:
+        check(all(math_isfinite(v) for v in m.values()),
+              f"train: metrics not finite: {m}")
+    ms_step = statistics.median(times[1:])
+    log(f"{TRAIN_STEPS} steps: ms per step {[round(t, 1) for t in times]} "
+        f"(median after the first {ms_step:.1f}); loss "
+        f"{[round(m['loss'], 4) for m in metrics]}; grad norm "
+        f"{[round(m['grad_norm'], 3) for m in metrics]}; peak "
+        f"{peak_gb:.2f} GB allocated; K1 {launches} launches ({bodies})")
+    # where a step's time goes: the profiler over one more OTA step
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    kernels, busy_us, (state, _) = device_kernels(
+        torch, lambda: step(state, batches[0]))
+    e.record()
+    torch.cuda.synchronize()
+    wall_us = s.elapsed_time(e) * 1e3
+    top = [{"kernel": k.key[:80], "us": dev_us(k), "calls": k.count,
+            "share": dev_us(k) / busy_us} for k in kernels[:8]]
+    k1_us = sum(dev_us(k) for k in kernels if "ota_fused" in k.key)
+    log(f"profiled step: device busy {busy_us / 1e3:.1f} ms of "
+        f"{wall_us / 1e3:.1f} ms ({busy_us / wall_us:.1%}); K1 "
+        f"{k1_us / 1e3:.2f} ms ({k1_us / busy_us:.1%} of busy); top kernels:")
+    for t in top:
+        log(f"  {t['us'] / 1e3:8.2f} ms {t['share']:6.1%} x{t['calls']:<5d} "
+            f"{t['kernel']}")
+    # two exact steps: Algorithm 1 makes no K1 launch
+    exact = trainer.make_train_step(model, train_config(
+        "exact", TRAIN_STEPS, lr=1e-4, warmup=2))
+    reset_counts()
+    for i in range(TRAIN_EXACT_STEPS):
+        state, m = exact(state, batches[i])
+        check(math_isfinite(m["loss"].item()), "exact step: loss not finite")
+    torch.cuda.synchronize()
+    check(read_counts()["ota_fused"] == 0, "exact steps launched K1")
+    del state, step, exact, batches
+    torch.cuda.empty_cache()
+
+    # K1 at (1, d): windows against the plain version, bitwise in agg
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    row = torch.randn(1, d, device="cuda", generator=gen)
+    ones = torch.ones(1, device="cuda")
+    kw = dict(sigma=float(ref.f32(1e-3) / TRAIN_AGENTS),
+              scale=1.0 / RAYLEIGH_MH, seed=123457, with_noise=True)
+    windows = [(0, K1_WINDOW), (2 ** 31, 2 ** 31 + K1_WINDOW),
+               (d - K1_WINDOW, d)]
+    rows = {}
+    for wire, g in (("bf16", row.to(torch.bfloat16)), ("f32", row)):
+        wdt = torch.bfloat16 if wire == "bf16" else None
+        check(ota_fused.k1_body(1, d, g.dtype, data_ptr=g.data_ptr())
+              == "wide", "the rule must give (1, d) to the wide body")
+        out = ota_fused.fused_aggregate(g, ones, wire_dtype=wdt, **kw)
+        err = 0.0
+        for lo, hi in windows:
+            want = ref.ota_fused_ref(
+                g[:, lo:hi], ones,
+                ref.counter_noise(kw["seed"], hi - lo, "cuda", start=lo),
+                sigma=kw["sigma"], scale=kw["scale"])
+            check(torch.equal(out[lo:hi], want),
+                  f"K1 (1, d) {wire}: window [{lo}, {hi}) not bitwise its "
+                  f"plain version")
+            err = max(err, (out[lo:hi] - want).abs().max().item())
+        del out
+        ms = device_ms(torch, lambda: ota_fused.fused_aggregate(
+            g, ones, wire_dtype=wdt, **kw), iters=K1_ROW_TIMES, warmup=1,
+            sleep_cycles=0)
+        bound, by = k1_bound(1, d, 2 if wire == "bf16" else 4, "agg")
+        # torch.mv's cuBLAS call takes sizes below 2^31 only: at this d
+        # there is no one library call for the matvec
+        lib = None
+        if d < 2 ** 31:
+            vec = ones.to(g.dtype)
+            lib = device_ms(torch, lambda: torch.mv(g.t(), vec),
+                            iters=K1_ROW_TIMES, warmup=1, sleep_cycles=0)
+        lo, hi = windows[1]
+        plain = device_ms(torch, lambda: ref.ota_fused_ref(
+            g[:, lo:hi], ones, ref.counter_noise(kw["seed"], hi - lo,
+                                                 "cuda", start=lo),
+            sigma=kw["sigma"], scale=kw["scale"]), iters=K1_ROW_TIMES,
+            warmup=1, sleep_cycles=0)
+        rows[wire] = {"A": 1, "P": d, "wire": wire, "ms": ms,
+                      "bound_ms": bound, "bound_by": by, "library_ms": lib,
+                      "plain_ms_window": plain, "window": K1_WINDOW,
+                      "max_abs_err": err}
+        lib_text = ("torch.mv refuses n >= 2^31" if lib is None
+                    else f"torch.mv {lib:.3f} ms")
+        log(f"K1 agg (1, {d}) {wire} wire: {ms:.3f} ms (median of "
+            f"{K1_ROW_TIMES}); byte bound {bound:.3f} ms ({by}, "
+            f"{bound / ms:.1%} of it); {lib_text}; plain version on a 2^20 "
+            f"window {plain:.3f} ms; 3 windows bitwise")
+        del g
+    del row
+    torch.cuda.empty_cache()
+    RECORD["train"] = {"d": d, "steps": metrics, "ms_per_step": times,
+                       "ms_per_step_median": ms_step, "peak_gb": peak_gb,
+                       "profile": {"busy_us": busy_us, "wall_us": wall_us,
+                                   "k1_us": k1_us, "top": top},
+                       "k1_launches": launches, "k1_per_step": 1,
+                       "k1_row": rows}
+    done("train", t0)
+    return RECORD["train"]
+
+
+def math_isfinite(x):
+    return x == x and abs(x) != float("inf")
+
+
+def state_equal(torch, a, b):
+    from repro_torch.utils.tree import flatten_paths
+
+    trees = ((a.params, b.params), (a.opt_state.mu, b.opt_state.mu),
+             (a.opt_state.nu, b.opt_state.nu))
+    same = all(torch.equal(x[k], y[k]) for ta, tb in trees
+               for x, y in [(flatten_paths(ta), flatten_paths(tb))]
+               for k in x)
+    return (same and torch.equal(a.opt_state.step, b.opt_state.step)
+            and int(a.step) == int(b.step))
+
+
+RESUME_CHILD = "--train-resume-child"
+
+
+def resume_setup():
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import train as launch
+
+    shape = InputShape("example", EXAMPLE_SEQ, EXAMPLE_BATCH, "train")
+    tcfg = train_config("ota", LOSS_STEPS, microbatch=2, lr=1e-3, warmup=20)
+    return launch, launch.example_config(), tcfg, shape
+
+
+def phase_resume(torch):
+    """Two straight runs here, without deterministic algorithms; the
+    resume and the 100 steps in a child process (``resume_child``) that
+    alone gets the deterministic cuBLAS workspace, so no other phase runs
+    under it."""
+    t0 = phase(f"28. train resume at examples/ota_llm_training.py's width "
+               f"({RESUME_STEPS} steps straight against {RESUME_STEPS // 2} + "
+               f"a checkpoint + {RESUME_STEPS // 2}), then {LOSS_STEPS} steps")
+    launch, cfg, tcfg, shape = resume_setup()
+    runs = [launch.train(cfg, tcfg, shape, steps=RESUME_STEPS,
+                         device="cuda", verbose=False)[0] for _ in range(2)]
+    plain_equal = state_equal(torch, *runs)
+    del runs
+    torch.cuda.empty_cache()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    try:
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), RESUME_CHILD],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    finally:
+        drop_scratch()
+    check(proc.returncode == 0, f"train resume (child process) failed, "
+          f"rc {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+          f"{proc.stderr[-4000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"resume bitwise under deterministic algorithms (child process); "
+        f"two straight runs without them bitwise equal: {plain_equal}; "
+        f"{LOSS_STEPS} steps: loss {res['loss_first10']:.4f} (first 10) -> "
+        f"{res['loss_last10']:.4f} (last 10), {res['ms_per_step_host']:.1f} "
+        f"ms a step (host clock, spans)")
+    RECORD["train_resume"] = dict(
+        res, straight_runs_bitwise_without_determinism=plain_equal)
+    done("train resume", t0)
+    return RECORD["train_resume"]
+
+
+def resume_child():
+    """Phase 28's deterministic part, run as its own process: prints one
+    JSON line, exits 1 on a failed check."""
+    import torch
+
+    launch, cfg, tcfg, shape = resume_setup()
+    kw = dict(device="cuda", verbose=False)
+    torch.use_deterministic_algorithms(True)
+    reset_counts()
+    straight, _ = launch.train(
+        cfg, tcfg, shape, steps=RESUME_STEPS,
+        ckpt_dir=str(fresh_dir("ckpt_train_a")), log_every=1, **kw)
+    check(read_counts()["ota_fused"] == RESUME_STEPS,
+          "train resume: one K1 launch a step")
+    ck = fresh_dir("ckpt_train_b")
+    launch.train(cfg, tcfg, shape, steps=RESUME_STEPS // 2,
+                 ckpt_dir=str(ck), **kw)
+    resumed, _ = launch.train(cfg, tcfg, shape, steps=RESUME_STEPS,
+                              ckpt_dir=str(ck), **kw)
+    check(state_equal(torch, straight, resumed),
+          "train resume: params, mu, nu or step not bitwise the straight "
+          "run's")
+    _, long_hist = launch.train(cfg, tcfg, shape, steps=LOSS_STEPS,
+                                log_every=1, **kw)
+    losses = [h["loss"] for h in long_hist]
+    first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    check(last < first, f"{LOSS_STEPS} steps: mean loss of the last 10 "
+          f"{last} not below the first 10's {first}")
+    print(json.dumps({
+        "resume_bitwise_deterministic": True,
+        "loss_first10": first, "loss_last10": last,
+        "ms_per_step_host": 1e3 * long_hist[-1]["wall_s"] / LOSS_STEPS,
+        "history": long_hist}))
+    return 0
+
+
 def main():
     import torch
 
@@ -2719,6 +3230,9 @@ def main():
     _, lane_rows = phase_batching(
         torch, main_res["alg2"]["ms_per_round"])
     phase_telemetry(torch)
+    driver = phase_driver(torch, service_rows)
+    train = phase_train(torch)
+    phase_resume(torch)
     RECORD["seconds"] = time.perf_counter() - t_all
 
     # K1's two bodies.  The wide body runs the main path (Algorithm 2 at
@@ -2741,7 +3255,11 @@ def main():
             large_rows[1]["streamed"]["k1_per_round"],
         "zoo, each family": zoo_rows[0]["k1_launches"] / ZOO_ROUNDS,
         f"sweep lanes, {FIG12_RUNS} runs ({FIG12_RUNS}, 10, 165)":
-            fig12_rows[2]["k1_launches"] / FIG12_ROUNDS}
+            fig12_rows[2]["k1_launches"] / FIG12_ROUNDS,
+        "round-service driver (10, 165)":
+            driver["paper"]["k1_launches"] / DRIVER_ROUNDS,
+        "OTA train step, llama3.2-3b (1, d)":
+            train["k1_launches"] / TRAIN_STEPS}
     kernels = {"kernels": [{
         "name": "ota_fused_wide", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ota_fused.cu",
@@ -2755,13 +3273,19 @@ def main():
         "shape": [main_row["A"], main_row["P"]], "mode": "sgd",
         "timings": rows, "sweep": RECORD["k1_sweep"],
         "lane_timings": lane_rows,
-        "launches_per_round_by_path": per_path}, {
+        "launches_per_round_by_path": per_path,
+        "train_row": dict(train["k1_row"]["bf16"],
+                          launches=train["k1_launches"],
+                          launches_from=f"{TRAIN_STEPS} OTA train steps, "
+                                        f"llama3.2-3b (phase 27)"),
+        "train_row_f32": train["k1_row"]["f32"]}, {
         "name": "ota_fused_tall", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ota_fused.cu",
         "replaces": "src/repro/kernels/ota_fused.py:85",
         "parity": "ok",
         "launches": sum(r["stacked"]["k1_tall_launches"] for r in large_rows),
         "launches_from": "stacked service rounds at N = 10^4 (phase 20)",
+        "driver_launches": driver["large"]["k1_tall_launches"],
         "max_abs_err": k1_err["tall"],
         "ms": big_row["agg_ms"]["tall"], "plain_ms": big_row["plain_agg_ms"],
         "bound_ms": big_row["bound_ms"], "bound_by": big_row["bound_by"],
@@ -2817,4 +3341,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(resume_child() if sys.argv[1:] == [RESUME_CHILD] else main())

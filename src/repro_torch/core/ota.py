@@ -33,6 +33,11 @@ h_block]``, sigma 0 and scale 1 gives ``acc + h_0 g_0 + ...`` with the
 roundings of the per-agent fold (``0 + 1 * acc`` is ``acc`` exactly).  The
 tail is K1's unit-gain server pass.  The agent-mesh forms come with the
 distribute slice.
+
+The LLM trainer's form (the channel-weighted loss, JAX's Form 3) is
+:func:`example_weights` and :func:`add_awgn`: the gains enter the loss
+before autograd, and the server tail is one K1 launch over the flattened
+gradient as a ``(1, d)`` unit-gain row.
 """
 from __future__ import annotations
 
@@ -47,7 +52,7 @@ from repro_torch.core.power_control import PowerPolicy, effective_moments
 from repro_torch.kernels import ota_fused, ref
 from repro_torch.utils.tree import (
     Params, fixed_sum, flat_norm_sq, flatten_agent_stack, flatten_params,
-    theta_device, tree_keys,
+    flatten_paths, replace_paths, theta_device, tree_keys,
 )
 
 Seed = Union[int, torch.Tensor]
@@ -557,3 +562,65 @@ def aggregate_apply(grads: Params, cfg: Optional[OTAConfig], params: Params,
         return _aggregate_apply_streamed_cuda(cfg, h, s, grads, params, alpha,
                                               agent_blocks), h
     return _aggregate_apply_cuda(cfg, h, s, grads, params, alpha), h
+
+
+# ---------------------------------------------------------------------------
+# Form 3: the channel-weighted loss (the distortion folded into autograd),
+# the LLM trainer's uplink.
+# ---------------------------------------------------------------------------
+
+def example_weights(gains: torch.Tensor, global_batch: int, *,
+                    dtype=torch.float32) -> torch.Tensor:
+    """Expand per-agent gains ``(N,)`` to per-example weights
+    ``(global_batch,)``: agent i owns the contiguous slice ``[i*B/N,
+    (i+1)*B/N)``.  With the loss ``(1/B) sum_e w_e l_e`` and ``w_e =
+    h_{agent(e)}``, autograd gives ``(1/N) sum_i h_i grad J_i = v_k / N``
+    before the noise."""
+    n_agents = gains.shape[0]
+    if global_batch % n_agents != 0:
+        raise ValueError(f"global_batch={global_batch} not divisible by "
+                         f"n_agents={n_agents}")
+    return torch.repeat_interleave(gains.to(dtype), global_batch // n_agents)
+
+
+def add_awgn(cfg: OTAConfig, seed: Seed, grad, n_agents: int, *,
+             backend: str = "auto"):
+    """The server tail of the channel-weighted loss: ``grad`` (a nested dict
+    equal to ``(1/N) sum_i h_i g_i``) plus ``n_k / N``, times the debias
+    normaliser (``N * update_scale`` when set, else ``1 / m_h`` under
+    ``debias``).  Counterpart of ``_add_awgn_pallas``: the gradient,
+    flattened in the JAX package's leaf order, is one unit-gain ``(1, d)``
+    row through K1's ``agg`` mode with ``sigma / N`` (rounded in float32 as
+    JAX rounds it) and the wire dtype.  On the ``"cuda"`` backend that is
+    one K1 launch; ``"torch"`` (and ``"auto"`` for CPU tensors) is K1's
+    plain version.  The noise is K1's counter stream keyed on ``seed``;
+    there is no other stream.  Returns the same tree, each leaf in its
+    dtype."""
+    flat = flatten_paths(grad)
+    dev = next(iter(flat.values())).device
+    be = AggregateSpec(backend=backend).resolved_backend(dev)
+    wire = _wire_dtype(cfg)
+    row = torch.cat([g.reshape(-1).to(wire or torch.float32)
+                     for g in flat.values()]).reshape(1, -1)
+    if cfg.update_scale is not None:
+        scale = n_agents * cfg.update_scale
+    elif cfg.debias:
+        scale = 1.0 / cfg.norm_const_for(n_agents)
+    else:
+        scale = 1.0
+    sigma = float(ref.f32(cfg.noise_sigma) / n_agents)
+    noisy = cfg.noise_sigma > 0.0
+    ones = torch.ones(1, dtype=torch.float32, device=dev)
+    if be == "cuda":
+        u = ota_fused.fused_aggregate(row, ones, sigma=sigma, scale=scale,
+                                      seed=seed, with_noise=noisy,
+                                      wire_dtype=wire)
+    else:
+        noise = ref.counter_noise(seed, row.shape[1], dev) if noisy else None
+        u = ref.ota_fused_ref(row, ones, noise, sigma=sigma, scale=scale)
+    del row
+    out, off = {}, 0
+    for k, g in flat.items():
+        out[k] = u[off:off + g.numel()].reshape(g.shape).to(g.dtype)
+        off += g.numel()
+    return replace_paths(grad, out)

@@ -20,6 +20,8 @@ stays ``(obs_dim, hidden)`` and ``wq`` stays ``(d, h, dh)``, not
 * :func:`cache_from_jax` / :func:`cache_to_numpy`: the model caches
   (``transformer.Cache`` with ``KVCache`` / ``SSMState`` fields), matched by
   field name, so the JAX package's named tuples convert without importing it.
+* :func:`train_state_from_jax`: the trainer's state (params, AdamW moments,
+  steps), so both packages' train steps start from the same values.
 """
 from __future__ import annotations
 
@@ -150,3 +152,29 @@ def cache_to_numpy(cache: Any) -> Dict[str, Any]:
                              else np.asarray(v))
                          for k, v in value._asdict().items()}
     return out
+
+
+def train_state_from_jax(state: Any, device: DeviceLike = None):
+    """The JAX package's ``TrainState`` (params, an AdamW ``OptState`` with
+    ``step``/``mu``/``nu``, ``step``; leaves jax or numpy arrays) -> the
+    port's ``train.trainer.TrainState``: the params nested as they are, the
+    moments flat by parameter path (``utils.tree.flatten_paths``), the
+    optimizer step on ``device`` and the train step on the host."""
+    from repro_torch.optim.optimizers import OptState
+    from repro_torch.train.trainer import TrainState
+    from repro_torch.utils.tree import flatten_paths
+
+    dev = resolve_device(device)
+    opt = state.opt_state
+
+    def moments(tree):
+        return None if tree is None else flatten_paths(
+            params_from_jax(tree, dev))
+
+    return TrainState(
+        params=params_from_jax(state.params, dev),
+        opt_state=OptState(
+            step=torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32,
+                              device=dev),
+            mu=moments(opt.mu), nu=moments(opt.nu)),
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32))

@@ -77,6 +77,7 @@ TALL_MAX_PARAMS = 1984        # csrc/ota_fused.cu kTallMaxParams
 TALL_MIN_AGENTS = 48          # the rule: the crossover in A at P = 165
 TALL_RULE_MAX_PARAMS = 512    # the rule: the widest P it gives the tall body
 MAX_LANES = 65535             # grid y
+TALL_INDEX_LIMIT = 2 ** 31    # the tall body narrows P to int (ota_fused.cu)
 
 _MODES = {"agg": 0, "sgd": 1, "adam": 2}
 _WIRE_DTYPES = (torch.float32, torch.bfloat16)
@@ -127,7 +128,11 @@ def k1_body(n_agents: int, n_params: int, wire_dtype=torch.float32,
     pointer is not 16-byte aligned (a sliced view) goes wide, and with
     several lanes so does one whose lanes do not each start a multiple of
     16 bytes after the last (A * P * wire bytes), as the rule cannot see
-    whether the lanes share one stack."""
+    whether the lanes share one stack.  A row of 2^31 elements or more
+    (an LLM's flat gradient) is wide as every P past
+    ``TALL_RULE_MAX_PARAMS`` is: the wide body's index is 64-bit, and
+    :func:`check_body` refuses such a row to the tall body, whose index is
+    an ``int``."""
     if n_params > TALL_RULE_MAX_PARAMS \
             or n_agents < max(TALL_MIN_AGENTS, n_params / 4):
         return "wide"
@@ -151,6 +156,9 @@ def check_body(body: str, n_agents: int, n_params: int, wire_dtype, *,
     if body == "wide":
         return
     elem = _elem(wire_dtype)
+    if n_params >= TALL_INDEX_LIMIT:
+        raise ValueError(f"K1's tall body indexes the row with an int: P = "
+                         f"{n_params} >= 2^31 is refused, not narrowed")
     if n_params > TALL_MAX_PARAMS:
         raise ValueError(f"K1's tall body takes P <= {TALL_MAX_PARAMS}, got "
                          f"(A, P) = ({n_agents}, {n_params})")

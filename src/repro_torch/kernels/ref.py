@@ -78,15 +78,22 @@ def _seed_salt(seed: Seed, device):
     return (int(seed) & MASK32) * GOLDEN & MASK32
 
 
-def counter_bits(seed: Seed, n: int,
-                 device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def counter_bits(seed: Seed, n: int, device=None, *,
+                 start: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """The two 24-bit uniform streams ``(u1 >> 8, u2 >> 8)`` for the absolute
-    flat indices ``0..n-1`` (int64 tensors)."""
-    if n >= 2 ** 32:
-        raise ValueError(f"counter PRNG indexes < 2^32 elements, got {n}")
+    flat indices ``start..start+n-1`` (int64 tensors).  ``start`` is a
+    64-bit Python int, so a window past 2^31 of a long row is keyed on its
+    absolute index, as ``_counter_noise(seed, start, shape)`` is in the JAX
+    package; the counter itself is a uint32, so the window must end at or
+    below 2^32."""
+    start = int(start)
+    if start < 0 or start + n > 2 ** 32:
+        raise ValueError(f"counter PRNG indexes < 2^32 elements, got the "
+                         f"window [{start}, {start + n})")
     if device is None and isinstance(seed, torch.Tensor):
         device = seed.device
-    counter = torch.arange(n, dtype=torch.int64, device=device)
+    counter = torch.arange(start, start + n, dtype=torch.int64,
+                           device=device)
     base = _mix(counter, _seed_salt(seed, device))
     return _mix(base, SALT_U1) >> 8, _mix(base, SALT_U2) >> 8
 
@@ -99,10 +106,11 @@ def uniforms(b1: torch.Tensor,
     return f1, f2
 
 
-def counter_noise(seed: Seed, n: int, device=None) -> torch.Tensor:
-    """(n,) standard normals: counter PRNG on the absolute index, then
-    Box-Muller, ``sqrt(-2 log f1) * cos(float32(2 pi) * f2)``."""
-    f1, f2 = uniforms(*counter_bits(seed, n, device))
+def counter_noise(seed: Seed, n: int, device=None, *,
+                  start: int = 0) -> torch.Tensor:
+    """(n,) standard normals: counter PRNG on the absolute index ``start +
+    i``, then Box-Muller, ``sqrt(-2 log f1) * cos(float32(2 pi) * f2)``."""
+    f1, f2 = uniforms(*counter_bits(seed, n, device, start=start))
     return torch.sqrt(-2.0 * torch.log(f1)) * torch.cos(TWO_PI_F32 * f2)
 
 

@@ -4,14 +4,16 @@ Counterpart of ``repro/models/layers.py``: RMSNorm (float32 inside, cast
 back), token embedding and (tied) unembedding, rotary embeddings on halves
 (not interleaved), and the SwiGLU MLP with silu in float32.  Weights keep the
 JAX package's layouts (``gate`` is ``(d_model, d_ff)``), so a product is
-``x @ w``.  The LM losses come with the trainer.
+``x @ w``.  The LM losses (``lm_loss``, ``chunked_lm_loss``) are the
+trainer's.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.param import decl
@@ -80,3 +82,54 @@ def mlp(params, x: torch.Tensor, eps: float) -> torch.Tensor:
     u = h @ params["up"].to(x.dtype)
     act = F.silu(g.float()).to(x.dtype) * u
     return act @ params["down"].to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Cross-entropy LM loss
+# --------------------------------------------------------------------------
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-position ``logsumexp - gold`` in float32.  ``gather``'s backward
+    is deterministic on CUDA under ``torch.use_deterministic_algorithms``
+    (``nll_loss``'s is not)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return logz - gold
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+            weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy; ``weights`` optionally reweights each
+    sequence (the OTA channel-weighted-loss hook: weight = h of the
+    sequence's agent)."""
+    per_seq = torch.mean(_nll(logits, labels), dim=-1)        # (batch,)
+    if weights is not None:
+        per_seq = per_seq * weights
+    return torch.mean(per_seq)
+
+
+def chunked_lm_loss(embed_params, hidden: torch.Tensor, labels: torch.Tensor,
+                    tie: bool, weights: Optional[torch.Tensor] = None,
+                    chunk: int = 1024) -> torch.Tensor:
+    """CE without holding the ``(B, S, vocab)`` float32 logits: the sequence
+    in chunks, each recomputed in the backward
+    (``torch.utils.checkpoint``, where JAX uses ``jax.checkpoint``), so
+    both passes hold one ``(B, chunk, vocab)`` block.  A sequence that
+    ``chunk`` does not divide takes :func:`lm_loss` whole, as in JAX."""
+    b, s, _ = hidden.shape
+    if s % chunk != 0:
+        return lm_loss(unembed(embed_params, hidden, tie), labels, weights)
+
+    def body(h, lab):
+        return torch.sum(_nll(unembed(embed_params, h, tie), lab), dim=-1)
+
+    nll_sum = torch.zeros(b, dtype=torch.float32, device=hidden.device)
+    for c in range(s // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        nll_sum = nll_sum + checkpoint(body, hidden[:, sl], labels[:, sl],
+                                       use_reentrant=False)
+    per_seq = nll_sum / s
+    if weights is not None:
+        per_seq = per_seq * weights
+    return torch.mean(per_seq)

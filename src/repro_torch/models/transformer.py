@@ -5,6 +5,7 @@ far.  Each provides plain functions over a parameter tree built from one
 plan (``plan(cfg)``):
 
     forward(params, cfg, tokens)          -> (logits, aux)
+    loss(params, cfg, batch, weights)     -> next-token CE + aux
     prefill(params, cfg, tokens)          -> (last-position logits, cache)
     decode(params, cfg, cache, token)     -> (logits, cache')
 
@@ -29,7 +30,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
-    embed, embed_plan, mlp, mlp_plan, rmsnorm, rmsnorm_plan, unembed,
+    chunked_lm_loss, embed, embed_plan, mlp, mlp_plan, rmsnorm, rmsnorm_plan,
+    unembed,
 )
 from repro_torch.models.param import stack_plan
 from repro_torch.utils.device import resolve_device
@@ -75,8 +77,10 @@ def plan(cfg: ModelConfig) -> Dict:
 
 
 def layer(stacked, i: int):
-    """Layer ``i``'s parameters: index the leading axis of every leaf."""
-    if isinstance(stacked, torch.Tensor):
+    """Layer ``i``'s parameters: index the leading axis of every leaf (a
+    tensor, or a list of per-layer tensors, as the trainer's autograd
+    leaves are)."""
+    if isinstance(stacked, (torch.Tensor, list)):
         return stacked[i]
     return {k: layer(v, i) for k, v in stacked.items()}
 
@@ -101,6 +105,20 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     if return_hidden:
         return x, aux
     return unembed(params["embed"], x, cfg.tie_embeddings), aux
+
+
+def loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+         weights: Optional[torch.Tensor] = None, *,
+         loss_chunk: int = 1024) -> torch.Tensor:
+    """Next-token CE (+ aux); ``weights``: per-sequence OTA gains.  The
+    forward is the materialised one (``blockwise=False``: ``attend``, not
+    K3), as the JAX package's training forward; the CE is evaluated in
+    recomputed sequence chunks (:func:`chunked_lm_loss`)."""
+    hidden, aux = forward(params, cfg, batch["tokens"], batch.get("memory"),
+                          blockwise=False, return_hidden=True)
+    ce = chunked_lm_loss(params["embed"], hidden, batch["labels"],
+                         cfg.tie_embeddings, weights, chunk=loss_chunk)
+    return ce + aux
 
 
 class Cache(NamedTuple):

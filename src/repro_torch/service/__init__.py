@@ -1,17 +1,22 @@
 """The round service: partial, stale and faulty agent participation.
 
-Counterpart of ``repro/service`` without the host-side driver
-(``RoundService``, ``ServiceConfig``), which needs the telemetry ledger,
-the trace and checkpointing and comes with them.  The pieces thread
-through ``fedpg.run(participation=..., staleness=...)`` and
-``event_triggered.run(participation=...)``:
+Counterpart of ``repro/service``.  The pieces thread through
+``fedpg.run(participation=..., staleness=...)`` and
+``event_triggered.run(participation=...)``, and the driver runs them as a
+long-running service:
 
 * ``service.participation``: per-round masks (Bernoulli, round-robin
   subset) on the counter-hash stream of ``service.stream``, and the
   realised / expected debias normalisers;
 * ``service.staleness``: the bounded stale-gradient replay buffer;
-* ``service.faults``: stragglers with a round deadline, crash schedules.
+* ``service.faults``: stragglers with a round deadline, crash schedules;
+* ``service.driver``: :class:`RoundService` and :class:`ServiceConfig`,
+  commit segments with one ledger event each, round deadlines, and
+  checkpoint/resume bitwise equal to an uninterrupted run.
 """
+from repro_torch.service.driver import (  # noqa: F401
+    RoundService, ServiceConfig,
+)
 from repro_torch.service.faults import (  # noqa: F401
     CrashSchedule, FaultConfig, StragglerModel,
 )
@@ -23,6 +28,7 @@ from repro_torch.service.staleness import (  # noqa: F401
 )
 
 __all__ = [
-    "CrashSchedule", "FaultConfig", "ParticipationConfig", "ServiceState",
-    "StalenessConfig", "StaleState", "StragglerModel",
+    "CrashSchedule", "FaultConfig", "ParticipationConfig", "RoundService",
+    "ServiceConfig", "ServiceState", "StalenessConfig", "StaleState",
+    "StragglerModel",
 ]

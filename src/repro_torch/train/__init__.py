@@ -1,1 +1,1 @@
-"""Serving (the trainer comes with a later slice)."""
+"""Serving (``train.server``) and training (``train.trainer``)."""

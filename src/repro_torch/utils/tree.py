@@ -138,3 +138,47 @@ def flatten_params(params: Params) -> Tuple[torch.Tensor,
     unflatten = _unflattener(keys, [params[k].shape for k in keys],
                              [params[k].dtype for k in keys])
     return flat, unflatten
+
+
+# ---------------------------------------------------------------------------
+# Nested trees (a model's parameters: dicts of dicts of tensors)
+# ---------------------------------------------------------------------------
+
+def flatten_paths(tree, prefix: str = "") -> Params:
+    """A nested dict of tensors -> a flat dict keyed by ``/``-joined key
+    paths, in ``jax.tree.flatten``'s leaf order (keys sorted at every
+    level), so a flat vector built from it lines up with the JAX package's
+    (``ota._flatten_params``)."""
+    out: Params = {}
+    for k in sorted(tree):
+        v = tree[k]
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(flatten_paths(v, path + "/"))
+        else:
+            out[path] = v
+    return out
+
+
+def replace_paths(tree, values: Params, prefix: str = ""):
+    """``tree``'s structure with each leaf replaced by ``values[path]``
+    (its :func:`flatten_paths` key): the inverse of that function."""
+    return {k: (replace_paths(v, values, f"{prefix}{k}/")
+                if isinstance(v, dict) else values[f"{prefix}{k}"])
+            for k, v in tree.items()}
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of nested dicts of the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tree_scale(tree, c):
+    return tree_map(lambda x: x * c, tree)

@@ -30,9 +30,15 @@ GPU machine without the JAX package:
 
 (``--noconftest``: ``tests/conftest.py`` sets up JAX.)
 """
+import os
+
 import numpy as np
 import pytest
-import torch
+
+# deterministic cuBLAS for the training resume below; set before CUDA
+# initialises
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+import torch  # noqa: E402
 
 from repro_torch.kernels import (
     flash_attention, ota_channel, ota_fused, ref, ssd_scan,
@@ -850,3 +856,150 @@ def test_sweep_vmap_is_bitwise_map_on_the_card(cuda):
     mapped = sweep.sweep(LandmarkNav(), MLPPolicy(), sc, 0, 3, mode="map")
     for x, y in zip(vmap.history, mapped.history):
         np.testing.assert_array_equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# the round-service driver, the trainer's uplink, the trainer
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", [None, torch.bfloat16])
+def test_k1_unit_row_windows_bitwise(cuda, wire):
+    """K1 over one unit-gain row (the trainer's ``(1, d)``), held to its
+    plain version on windows keyed on the absolute index (``start=``)."""
+    n = 3 * 2 ** 20 + 5
+    row = torch.randn(1, n, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(1))
+    if wire is not None:
+        row = row.to(wire)
+    ones = torch.ones(1, device=cuda)
+    kw = dict(sigma=2.5e-4, scale=0.8)
+    out = ota_fused.fused_aggregate(row, ones, wire_dtype=wire, seed=77,
+                                    **kw)
+    for lo in (0, 2 ** 20 + 3, n - 4096):
+        hi = min(lo + 4096, n)
+        want = ref.ota_fused_ref(
+            row[:, lo:hi], ones,
+            ref.counter_noise(77, hi - lo, cuda, start=lo), **kw)
+        assert torch.equal(out[lo:hi], want), lo
+
+
+@pytest.mark.cuda
+def test_add_awgn_is_one_k1_launch(cuda):
+    from repro_torch.core import ota
+    from repro_torch.core.channel import RayleighChannel
+
+    cfg = ota.OTAConfig(RayleighChannel(), noise_sigma=1e-2, debias=True,
+                        wire_dtype="bfloat16")
+    g = torch.Generator(cuda).manual_seed(2)
+    tree = {"b": {"w": torch.randn(33, 7, device=cuda, generator=g)},
+            "a": torch.randn(100, device=cuda, generator=g).bfloat16()}
+    before = ota_fused.LAUNCHES
+    got = ota.add_awgn(cfg, 5, tree, 4)
+    assert ota_fused.LAUNCHES - before == 1
+    want = ota.add_awgn(cfg, 5, tree, 4, backend="torch")
+    assert ota_fused.LAUNCHES - before == 1
+    assert got["a"].dtype == torch.bfloat16
+    assert torch.equal(got["a"], want["a"])
+    assert torch.equal(got["b"]["w"], want["b"]["w"])
+
+
+def _driver(seed, rpc, ckpt=""):
+    from repro_torch.core.channel import RayleighChannel
+    from repro_torch.core.fedpg import FedPGConfig
+    from repro_torch.core.ota import OTAConfig
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+    from repro_torch.service import (
+        ParticipationConfig, RoundService, ServiceConfig, StalenessConfig,
+    )
+
+    cfg = FedPGConfig(n_agents=10, batch_m=4, horizon=8, n_rounds=1)
+    return RoundService(
+        LandmarkNav(), MLPPolicy(), cfg, seed,
+        participation=ParticipationConfig(rate=0.5),
+        staleness=StalenessConfig(4, 0.8),
+        ota=OTAConfig(RayleighChannel(), noise_sigma=1e-3, debias=True),
+        service=ServiceConfig(rounds_per_commit=rpc, max_rounds=8,
+                              checkpoint_dir=str(ckpt)))
+
+
+def _svc_bits(svc):
+    st = svc.state
+    trees = list(st.theta.values()) + list(st.stale.grads.values())
+    return st.round_idx, [t.cpu().numpy().tobytes()
+                          for t in trees + [st.stale.age, st.seed]]
+
+
+@pytest.mark.cuda
+def test_driver_resume_and_commit_size_bitwise_on_the_card(cuda, tmp_path):
+    before = ota_fused.LAUNCHES
+    ref_svc = _driver(3, 2)
+    ref_svc.run()
+    assert ota_fused.LAUNCHES - before == 8          # one a stacked round
+    a = _driver(3, 2, tmp_path)
+    a.commit(), a.commit()
+    b = _driver(3, 2, tmp_path)
+    assert b.resume() and b.state.round_idx == 4
+    b.run()
+    assert _svc_bits(b) == _svc_bits(ref_svc)
+    one = _driver(3, 1)
+    one.run()
+    assert _svc_bits(one) == _svc_bits(ref_svc)
+
+
+def _train_setup():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.train import trainer
+
+    cfg = get_smoke_config("llama3.2-3b")
+    tcfg = trainer.TrainConfig(aggregator="ota", n_agents=4, microbatch=2,
+                               total_steps=6, lr=1e-3, warmup=2,
+                               wire_dtype="bfloat16")
+    return cfg, tcfg, InputShape("t", 32, 8, "train")
+
+
+@pytest.mark.cuda
+def test_train_step_one_k1_launch_and_donation(cuda):
+    from repro_torch.data import make_batch
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import trainer
+    from repro_torch.utils.tree import flatten_paths
+
+    cfg, tcfg, shape = _train_setup()
+    m = model_lib.build(cfg)
+    batch = make_batch(cfg, shape, 0)
+    state = trainer.init_state(m, tcfg)
+    old = flatten_paths(state.params)
+    before = ota_fused.LAUNCHES
+    new, metrics = trainer.make_train_step(m, tcfg)(state, batch)
+    assert ota_fused.LAUNCHES - before == 1
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    # the step wrote into the state it took
+    got = flatten_paths(new.params)
+    assert all(got[k] is v for k, v in old.items())
+    assert all(new.opt_state.mu[k] is v
+               for k, v in state.opt_state.mu.items())
+
+
+@pytest.mark.cuda
+def test_train_resume_bitwise_on_the_card(cuda, tmp_path):
+    from repro_torch.launch import train as launch
+    from repro_torch.utils.tree import flatten_paths
+
+    cfg, tcfg, shape = _train_setup()
+    torch.use_deterministic_algorithms(True)
+    try:
+        straight, _ = launch.train(cfg, tcfg, shape, steps=4, verbose=False)
+        launch.train(cfg, tcfg, shape, steps=2, ckpt_dir=str(tmp_path),
+                     verbose=False)
+        resumed, _ = launch.train(cfg, tcfg, shape, steps=4,
+                                  ckpt_dir=str(tmp_path), verbose=False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for ta, tb in ((straight.params, resumed.params),
+                   (straight.opt_state.mu, resumed.opt_state.mu),
+                   (straight.opt_state.nu, resumed.opt_state.nu)):
+        a, b = flatten_paths(ta), flatten_paths(tb)
+        assert all(torch.equal(a[k], b[k]) for k in a)

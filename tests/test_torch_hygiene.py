@@ -53,7 +53,11 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.rl.envs, repro_torch.core.event_triggered, "
             "repro_torch.core.sweep, repro_torch.core.lanes, "
             "repro_torch.telemetry, "
-            "repro_torch.telemetry.probes, repro_torch.telemetry.trace; "
+            "repro_torch.telemetry.probes, repro_torch.telemetry.trace, "
+            "repro_torch.checkpoint, repro_torch.service.driver, "
+            "repro_torch.telemetry.ledger, repro_torch.telemetry.report, "
+            "repro_torch.data.pipeline, repro_torch.train.trainer, "
+            "repro_torch.launch.train, repro_torch.utils.platform; "
             "assert 'jax' not in sys.modules, 'jax'; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'repro'")
@@ -125,7 +129,38 @@ def test_cuda_backend_on_cpu_tensor_raises():
                             backend="cuda", generator=torch.Generator())
 
 
-@pytest.mark.parametrize("sub", ["service", "rl/envs"])
+def test_slice8_entry_points_raise_without_cuda():
+    """The round-service driver, the trainer, the data pipeline and the
+    launcher's loop run on the card unless given ``device="cpu"``."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import fedpg
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import train as launch
+    from repro_torch.models import model as model_lib
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+    from repro_torch.service import ParticipationConfig, RoundService
+    from repro_torch.train import trainer
+
+    cfg = fedpg.FedPGConfig(n_agents=2, batch_m=1, horizon=2, n_rounds=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RoundService(LandmarkNav(), MLPPolicy(), cfg, 0,
+                     participation=ParticipationConfig(rate=0.5))
+    llama = get_smoke_config("llama3.2-3b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trainer.init_state(model_lib.build(llama), trainer.TrainConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SyntheticLM(DataConfig(vocab=64, seq_len=4, global_batch=2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch.train(llama, trainer.TrainConfig(),
+                     InputShape("t", 4, 2, "train"), steps=1)
+
+
+@pytest.mark.parametrize("sub", ["service", "rl/envs", "checkpoint", "data",
+                                 "launch", "train"])
 def test_new_subpackages_are_covered(sub):
     """The import check above walks every file of the port, the round
     service and the environment zoo included."""
