@@ -152,7 +152,22 @@ Phases, in order; any failure raises and exits non-zero:
               in a child process that alone gets
               ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (whether two straight
               runs in this process are bitwise without them is reported);
-              then 100 steps, the last 10 losses below the first 10.
+              then 100 steps, the last 10 losses below the first 10;
+29. streamed lanes — the main cell in blocks of 4 as R = 1, 5, 20 lanes of
+              one batched run (K=20): ms per batched round against R x the
+              one-run streamed round, in turns; 2 n_blocks + 1 K1 launches
+              a round for every R; lanes 0 and R-1 bitwise ``fedpg.run
+              (agent_blocks=4)``; Bernoulli 0.5 with staleness (4, 0.8) at
+              R = 5 (every lane bitwise, 3 n_blocks + 1); N = 10^4 M=1 T=3
+              in blocks of 1000 as 4 lanes against the stacked lanes (peak
+              memory, streamed below stacked); K1's lane fold alone at (20,
+              5, 165) and (4, 1001, 165) beside its byte bound, the plain
+              version and ``torch.baddbmm``;
+30. sweep modes — a streamed partition (3 scenarios) and a
+              ``HeterogeneousBudget`` partition (p_max 1.5, 3.0), 4 runs,
+              K=10: ``"vmap"`` bitwise ``"map"`` (K1 launches counted),
+              ``"sharded"`` bitwise ``"vmap"`` on the default one-device
+              mesh and on ``[cuda:0] x 2`` (one pad lane masked).
 
 It prints the card line, then one ``{"kernels": [...]}`` line (K1 as its two
 bodies, ``ota_fused_wide`` and ``ota_fused_tall``), and as its last
@@ -249,6 +264,15 @@ LARGE_SERVICE_BLOCKS = 64      # benchmarks/fig_participation.py
 ET_ROUNDS = 200                # benchmarks/et_baseline.py
 ZOO_ROUNDS = 20
 ZOO_GRAD_AGENTS, ZOO_GRAD_M = 100, 100
+STREAMED_LANE_BLOCKS = 4
+STREAMED_LANE_RUNS = (1, 5, 20)
+STREAMED_LANE_ROUNDS = 20
+STREAMED_LANE_TURNS = 2
+STREAMED_SERVICE_RUNS = 5
+LARGE_LANE_N, LARGE_LANE_RUNS = 10 ** 4, 4   # benchmarks/fig_large_n.py
+LARGE_LANE_BLOCKS = 1000
+LANE_FOLD_SHAPES = [(20, 5, 165), (4, 1001, 165)]   # (lanes, 1 + b, P)
+SHARDED_RUNS, SHARDED_ROUNDS = 4, 10
 RECORD = {}
 
 
@@ -3193,6 +3217,288 @@ def resume_child():
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phases 29-30: streamed lanes, per-agent budgets as lanes, mode="sharded"
+# ---------------------------------------------------------------------------
+
+def streamed_specs(lanes, cfg, ota, runs, **kw):
+    from repro_torch.core import fedpg
+
+    return [lanes.LaneSpec(s, cfg.alpha, ota, **kw)
+            for s in fedpg.run_seeds(0, runs)]
+
+
+def lane_fold_row(torch, n_lanes, n_rows, n_params):
+    """K1's lane fold alone, as a streamed round launches it: the ``(L, 1 +
+    b, P)`` stack ``[acc; g_block]`` with gains ``[1; h_block]``, sigma 0,
+    scale 1, no noise; bitwise its plain version; device time beside the
+    byte bound, the plain version and ``torch.baddbmm`` (acc + h G)."""
+    from repro_torch.kernels import ota_fused, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(n_lanes * n_rows)
+    f32 = dict(device="cuda", dtype=torch.float32, generator=gen)
+    g = torch.randn(n_lanes, n_rows, n_params, **f32)
+    h = torch.rand(n_lanes, n_rows, **f32) + 0.1
+    h[:, 0] = 1.0
+
+    def call():
+        return ota_fused.fused_aggregate_lanes(g, h, sigma=0.0, scale=1.0,
+                                               with_noise=False)
+
+    def plain():
+        return ref.ota_fused_lanes_ref(g, h, None, sigma=[0.0] * n_lanes,
+                                       scale=[1.0] * n_lanes)
+
+    acc, hb, gb = g[:, :1], h[:, None, 1:], g[:, 1:]
+    err = (call() - plain()).abs().max().item()
+    check(err == 0.0, f"K1 lane fold {(n_lanes, n_rows, n_params)} is not "
+                      f"bitwise its plain version: {err}")
+    ms = device_ms(torch, call)
+    plain_ms = device_ms(torch, plain, iters=10, warmup=2,
+                         sleep_cycles=50_000_000)
+    lib_ms = device_ms(torch, lambda: torch.baddbmm(acc, hb, gb))
+    nbytes = n_lanes * (n_rows * n_params * 4 + n_rows * 4 + n_params * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * n_lanes * n_rows * n_params / FP32_FLOPS_PER_S * 1e3
+    row = {"lanes": n_lanes, "A": n_rows, "P": n_params, "mode": "agg",
+           "body": ota_fused.k1_body(n_rows, n_params, torch.float32,
+                                     n_lanes, g.data_ptr()),
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library_call": "torch.baddbmm(acc, h, G)",
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "max_abs_err": err}
+    log(f"K1 lane fold {(n_lanes, n_rows, n_params)}, {row['body']} body: "
+        f"{ms * 1e3:.2f} us; plain {plain_ms:.3f} ms; torch.baddbmm "
+        f"{lib_ms * 1e3:.2f} us; {row['bound_by']} bound "
+        f"{row['bound_ms'] * 1e3:.4f} us; bitwise")
+    return row
+
+
+def phase_streamed_lanes(torch):
+    """The main cell (N=10 M=10 T=20 d=165) streamed in blocks of 4 as R =
+    1, 5, 20 lanes of one batched run, K=20: ms per batched round against R
+    x the one-run streamed round, in turns; 2 n_blocks + 1 K1 launches a
+    batched round for every R; lanes 0 and R-1 bitwise ``fedpg.run
+    (agent_blocks=4)``; the same under Bernoulli 0.5 with staleness (4,
+    0.8) at R = 5 (3 n_blocks + 1); ``fig_large_n.py``'s N = 10^4 (M=1 T=3)
+    in blocks of 1000 as 4 lanes against the stacked lanes (peak memory);
+    K1's lane fold alone at (20, 5, 165) and (4, 1001, 165)."""
+    from repro_torch.core import fedpg, lanes, ota as ota_lib
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+    from repro_torch.service.participation import ParticipationConfig
+    from repro_torch.service.staleness import StalenessConfig
+
+    t0 = phase(f"29. streamed lanes: the main cell in blocks of "
+               f"{STREAMED_LANE_BLOCKS} as R = {STREAMED_LANE_RUNS} lanes "
+               f"(K={STREAMED_LANE_ROUNDS})")
+    env, pol = LandmarkNav(), MLPPolicy()
+    cfg, ota = alg_config(10, 10, STREAMED_LANE_ROUNDS)
+    blocks = STREAMED_LANE_BLOCKS
+    n_blocks = ota_lib.blocked_layout(cfg.n_agents, blocks)[0]
+    lanes.run_lanes(env, pol, dataclasses.replace(cfg, n_rounds=2),
+                    streamed_specs(lanes, cfg, ota, 2), agent_blocks=blocks,
+                    device="cuda")
+    torch.cuda.synchronize()
+
+    def batched(runs, k1):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        reset_counts()
+        s.record()
+        out = lanes.run_lanes(env, pol, cfg, streamed_specs(
+            lanes, cfg, ota, runs), agent_blocks=blocks, device="cuda")
+        e.record()
+        torch.cuda.synchronize()
+        k1.append(read_counts()["ota_fused"])
+        return out, s.elapsed_time(e) / cfg.n_rounds
+
+    one_ms, lane_ms, k1, outs = [], {r: [] for r in STREAMED_LANE_RUNS}, {
+        r: [] for r in STREAMED_LANE_RUNS}, {}
+    for _ in range(STREAMED_LANE_TURNS):
+        one_ms.append(timed_run(torch, fedpg, env, pol, cfg, ota, 0,
+                                agent_blocks=blocks)[2])
+        for runs in STREAMED_LANE_RUNS:
+            outs[runs], ms = batched(runs, k1[runs])
+            lane_ms[runs].append(ms)
+    one = statistics.median(one_ms)
+    rows = []
+    for runs in STREAMED_LANE_RUNS:
+        expect = (2 * n_blocks + 1) * cfg.n_rounds
+        check(all(x == expect for x in k1[runs]),
+              f"R={runs}: K1 launches {k1[runs]}, expected {expect} "
+              f"(2 x {n_blocks} blocks + 1 a round)")
+        theta, hist = outs[runs]
+        seeds = fedpg.run_seeds(0, runs)
+        for i in sorted({0, runs - 1}):
+            t1, h1 = fedpg.run(env, pol, cfg, seeds[i], ota=ota,
+                               agent_blocks=blocks, device="cuda")
+            check(history_bitwise(torch, h1, hist, i)
+                  and all(torch.equal(t1[k], theta[k][i]) for k in t1),
+                  f"R={runs}: lane {i} is not bitwise its fedpg.run")
+        ms = statistics.median(lane_ms[runs])
+        prof = profile_rounds(torch, lambda: lanes.run_lanes(
+            env, pol, dataclasses.replace(cfg, n_rounds=3), streamed_specs(
+                lanes, cfg, ota, runs), agent_blocks=blocks, device="cuda"),
+            3, ms)
+        row = {"runs": runs, "ms_per_batched_round": ms,
+               "runs_x_one_run_ms": runs * one, "speedup": runs * one / ms,
+               "turns_ms": lane_ms[runs],
+               "k1_per_round": k1[runs][0] / cfg.n_rounds,
+               "busy_share": prof["busy_share"],
+               "device_launches_per_round":
+                   prof["device_launches_per_round"],
+               "k1_us_per_round": prof["k1_us_per_round"]}
+        rows.append(row)
+        log(f"R={runs:3d}: {ms:.3f} ms per batched streamed round against R "
+            f"x {one:.3f} = {runs * one:.3f} ms ({row['speedup']:.2f}x); "
+            f"{row['k1_per_round']:.0f} K1 launches a round; device busy "
+            f"{prof['busy_share']:.2%}, "
+            f"{prof['device_launches_per_round']:.0f} launches a round, K1 "
+            f"{prof['k1_us_per_round']:.1f} us; lanes 0 and {runs - 1} "
+            f"bitwise fedpg.run")
+    # the service round streamed, as lanes
+    part, stale = ParticipationConfig(rate=0.5), StalenessConfig(4, 0.8)
+    runs = STREAMED_SERVICE_RUNS
+    specs = streamed_specs(lanes, cfg, ota, runs, participation=part,
+                           staleness=stale)
+    reset_counts()
+    theta, hist = lanes.run_lanes(env, pol, cfg, specs, agent_blocks=blocks,
+                                  device="cuda")
+    svc_k1 = read_counts()["ota_fused"]
+    expect = (3 * n_blocks + 1) * cfg.n_rounds
+    check(svc_k1 == expect, f"service R={runs}: {svc_k1} K1 launches, "
+                            f"expected {expect} (3 folds a block + 1)")
+    for i, spec in enumerate(specs):
+        t1, h1 = fedpg.run(env, pol, cfg, spec.seed, ota=ota,
+                           agent_blocks=blocks, participation=part,
+                           staleness=stale, device="cuda")
+        check(history_bitwise(torch, h1, hist, i)
+              and all(torch.equal(t1[k], theta[k][i]) for k in t1),
+              f"service lane {i} is not bitwise its fedpg.run")
+    log(f"service (Bernoulli 0.5, staleness (4, 0.8)) R={runs}: every lane "
+        f"bitwise its fedpg.run; {svc_k1 / cfg.n_rounds:.0f} K1 launches a "
+        f"round")
+    # fig_large_n.py's N = 10^4 as 4 lanes: streamed against stacked
+    big = dataclasses.replace(alg_config(LARGE_LANE_N, 1, 1)[0], horizon=3)
+    big_specs = streamed_specs(lanes, big, ota, LARGE_LANE_RUNS)
+    large = {}
+    for form, b in (("streamed", LARGE_LANE_BLOCKS), ("stacked", None)):
+        lanes.run_lanes(env, pol, big, big_specs, agent_blocks=b,
+                        device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        reset_counts()
+        s.record()
+        theta, hist = lanes.run_lanes(env, pol, big, big_specs,
+                                      agent_blocks=b, device="cuda")
+        e.record()
+        torch.cuda.synchronize()
+        launches = read_counts()["ota_fused"]
+        expect = 1 if b is None else (
+            2 * ota_lib.blocked_layout(LARGE_LANE_N, b)[0] + 1)
+        check(launches == expect, f"N={LARGE_LANE_N} {form}: {launches} K1 "
+                                  f"launches, expected {expect}")
+        check(all(bool(torch.isfinite(x).all()) for x in hist),
+              f"N={LARGE_LANE_N} {form}: not finite")
+        large[form] = {"ms_per_round": s.elapsed_time(e),
+                       "peak_mb": (torch.cuda.max_memory_allocated()
+                                   - resident) / 1e6,
+                       "k1_launches": launches}
+    check(large["streamed"]["peak_mb"] < large["stacked"]["peak_mb"],
+          f"N={LARGE_LANE_N} x {LARGE_LANE_RUNS} lanes: streamed peak "
+          f"{large['streamed']['peak_mb']:.1f} MB not below stacked "
+          f"{large['stacked']['peak_mb']:.1f} MB")
+    log(f"N={LARGE_LANE_N} M=1 T=3 as {LARGE_LANE_RUNS} lanes: streamed in "
+        f"{LARGE_LANE_BLOCKS}s {large['streamed']['ms_per_round']:.1f} ms, "
+        f"peak {large['streamed']['peak_mb']:.1f} MB, "
+        f"{large['streamed']['k1_launches']} K1 launches | stacked "
+        f"{large['stacked']['ms_per_round']:.1f} ms, peak "
+        f"{large['stacked']['peak_mb']:.1f} MB")
+    folds = [lane_fold_row(torch, *shape) for shape in LANE_FOLD_SHAPES]
+    RECORD["streamed_lanes"] = {
+        "blocks": blocks, "n_blocks": n_blocks, "one_run_turns_ms": one_ms,
+        "one_run_ms": one, "rounds": rows,
+        "service": {"runs": runs, "k1_per_round": svc_k1 / cfg.n_rounds},
+        "large": large, "lane_folds": folds}
+    done("streamed lanes", t0)
+    return rows, folds
+
+
+def phase_sharded(torch):
+    """A two-partition grid of the main cell, 4 runs, K=10: a streamed
+    partition (blocks of 4, alpha 1e-3/2e-3/3e-3) and a stacked
+    ``HeterogeneousBudget`` partition (p_max 1.5 and 3.0): ``mode="vmap"``
+    bitwise ``"map"``, one launch a stacked round and 2 n_blocks + 1 a
+    streamed one; ``mode="sharded"`` bitwise ``"vmap"`` on the default
+    one-device mesh and on ``make_sweep_mesh(devices=[cuda:0] * 2)``, where
+    the three streamed lanes split 2 + 2 with one pad lane masked."""
+    import numpy as np
+
+    from repro_torch.core import distribute, ota as ota_lib, sweep
+    from repro_torch.core.channel import RayleighChannel
+    from repro_torch.core.power_control import HeterogeneousBudget
+    from repro_torch.launch.mesh import make_sweep_mesh
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+    from repro_torch.telemetry import trace
+
+    t0 = phase(f"30. sweep modes: a streamed and a per-agent budget "
+               f"partition, {SHARDED_RUNS} runs, K={SHARDED_ROUNDS}")
+    cfg, ota = alg_config(10, 10, SHARDED_ROUNDS)
+    size = dict(n_agents=10, batch_m=10, horizon=cfg.horizon,
+                gamma=cfg.gamma, n_rounds=SHARDED_ROUNDS, debias=True,
+                channel=RayleighChannel(), noise_sigma=ota.noise_sigma)
+    scens = (sweep.grid(alpha=[1e-3, 2e-3, 3e-3],
+                        agent_blocks=STREAMED_LANE_BLOCKS, **size)
+             + sweep.grid(alpha=1e-3, power_control=[
+                 HeterogeneousBudget(p_max=1.5),
+                 HeterogeneousBudget(p_max=3.0)], **size))
+    env, pol = LandmarkNav(), MLPPolicy()
+    n_blocks = ota_lib.blocked_layout(10, STREAMED_LANE_BLOCKS)[0]
+    res, k1s = {}, {}
+    for name, kw in (("map", dict(mode="map", device="cuda")),
+                     ("vmap", dict(device="cuda")),
+                     ("sharded", dict(mode="sharded")),
+                     ("sharded_x2", dict(mode="sharded", mesh=make_sweep_mesh(
+                         devices=[torch.device("cuda", 0)] * 2)))):
+        trace.reset()
+        reset_counts()
+        res[name] = sweep.sweep(env, pol, scens, 0, SHARDED_RUNS, **kw)
+        k1s[name] = k1 = read_counts()["ota_fused"]
+        spans = [sp.name for sp in trace.spans()]
+        log(f"mode={name:10s}: {res[name].n_partitions} partitions on "
+            f"{res[name].n_devices} device(s), K1 launches {k1}, spans "
+            f"{sorted(set(spans))}, partition ms "
+            + ", ".join(f"{p.wall_time_us / 1e3:.1f}"
+                        for p in res[name].partitions))
+    check(res["vmap"].n_partitions == 2, "two partitions expected")
+    expect = (2 * n_blocks + 1 + 1) * SHARDED_ROUNDS
+    check(k1s["vmap"] == expect,
+          f"vmap: {k1s['vmap']} K1 launches, expected {expect}")
+    cells = distribute.plan_placement(make_sweep_mesh(
+        devices=[torch.device("cuda", 0)] * 2), 3, SHARDED_RUNS)
+    check(cells.n_pad == 1, "the repeated-device mesh pads one lane")
+    for a, b in (("map", "vmap"), ("vmap", "sharded"),
+                 ("vmap", "sharded_x2")):
+        check(all(np.array_equal(x, y)
+                  for x, y in zip(res[a].history, res[b].history)),
+              f"mode={b} is not bitwise mode={a}")
+    log("vmap bitwise map; sharded bitwise vmap on the one-device mesh and "
+        "on [cuda:0] x 2 (three streamed lanes padded to four, the pad lane "
+        "masked)")
+    RECORD["sharded"] = {name: {"k1": k1s[name], "n_devices": r.n_devices,
+                                "partition_ms": [p.wall_time_us / 1e3
+                                                 for p in r.partitions]}
+                         for name, r in res.items()}
+    done("sharded", t0)
+    return k1s["vmap"]
+
+
 def main():
     import torch
 
@@ -3233,6 +3539,8 @@ def main():
     driver = phase_driver(torch, service_rows)
     train = phase_train(torch)
     phase_resume(torch)
+    stream_rows, fold_rows = phase_streamed_lanes(torch)
+    sharded_k1 = phase_sharded(torch)
     RECORD["seconds"] = time.perf_counter() - t_all
 
     # K1's two bodies.  The wide body runs the main path (Algorithm 2 at
@@ -3259,7 +3567,11 @@ def main():
         "round-service driver (10, 165)":
             driver["paper"]["k1_launches"] / DRIVER_ROUNDS,
         "OTA train step, llama3.2-3b (1, d)":
-            train["k1_launches"] / TRAIN_STEPS}
+            train["k1_launches"] / TRAIN_STEPS,
+        f"streamed lanes in {STREAMED_LANE_BLOCKS}s, R = "
+        f"{STREAMED_LANE_RUNS[-1]} (10, 165)": stream_rows[-1]["k1_per_round"],
+        f"sweep vmap, streamed + budget partitions, {SHARDED_ROUNDS} rounds":
+            sharded_k1 / SHARDED_ROUNDS}
     kernels = {"kernels": [{
         "name": "ota_fused_wide", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ota_fused.cu",
@@ -3273,6 +3585,7 @@ def main():
         "shape": [main_row["A"], main_row["P"]], "mode": "sgd",
         "timings": rows, "sweep": RECORD["k1_sweep"],
         "lane_timings": lane_rows,
+        "stream_fold_lane_timings": fold_rows,
         "launches_per_round_by_path": per_path,
         "train_row": dict(train["k1_row"]["bf16"],
                           launches=train["k1_launches"],

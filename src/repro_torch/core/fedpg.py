@@ -26,16 +26,16 @@ replay the JAX package's draws.  A service run draws one more value before
 its first round, the seed of its counter-hash mask stream
 (``service.stream``); the masks themselves cost the generator nothing.
 
-``agent_blocks`` streams the agent axis (:func:`_make_streamed_round_fn`):
-rollouts, gradients and the cross-agent sums run one block of agents at a
-time, so the gradients held at once are O(agent_blocks x d).  The JAX
-package keeps O(N) key material and re-derives each agent's draws; a
-``torch.Generator`` is sequential, so the streamed round makes exactly the
-stacked round's generator calls up front — the initial states, every
-step's policy and environment noise, the gains, the kernel seed — and
-slices them per block.  That costs O(N*M*(obs + (T+1)*noise)) floats per
-round (9.6 MB at N = 10^5, M = 1, T = 3 for the MLP policy) and buys the
-stacked round's exact draws for every block size.
+``agent_blocks`` streams the agent axis: rollouts, gradients and the
+cross-agent sums run one block of agents at a time, so the gradients held at
+once are O(agent_blocks x d).  The JAX package keeps O(N) key material and
+re-derives each agent's draws; a ``torch.Generator`` is sequential, so the
+streamed round makes exactly the stacked round's generator calls up front —
+the initial states, every step's policy and environment noise, the gains,
+the kernel seed — and slices them per block.  That costs
+O(N*M*(obs + (T+1)*noise)) floats per round (9.6 MB at N = 10^5, M = 1,
+T = 3 for the MLP policy) and buys the stacked round's exact draws for
+every block size.
 
 ``participation`` / ``staleness`` (``repro_torch.service``) make the rounds
 service rounds, ``(ServiceState, generator, draws) -> (ServiceState',
@@ -52,15 +52,14 @@ round also emit its :class:`~repro_torch.telemetry.RoundTelemetry` probes,
 returned as ``History.telemetry``; the probes only read the round's values,
 so the history is the same, bit for bit, with telemetry on or off.
 
-The stacked rounds, plain and service, live in ``core/lanes.py``, in the
-flat layout with a leading lane axis: :func:`run` is one lane of them, and
-:func:`monte_carlo` runs its repetitions as the lanes of one lane-batched
-run (one round per step for all runs, one K1 lane-form launch per round on
-the card, every lane bitwise :func:`run` with its seed).  The streamed
-rounds (``agent_blocks``) are here, and :func:`monte_carlo` runs their
-repetitions one after another.  Every metric reduces in a fixed order
-(``utils.tree.fixed_sum``), the same for a run alone and as a lane.  Not
-ported here: the agent-mesh forms (distribute slice).
+Every round, stacked and streamed, plain and service, lives in
+``core/lanes.py``, in the flat layout with a leading lane axis: :func:`run`
+is one lane of it, and :func:`monte_carlo` runs its repetitions as the lanes
+of one lane-batched run (one round per step for all runs, every lane bitwise
+:func:`run` with its seed; on the card one K1 lane-form launch a stacked
+round, ``2 n_blocks + 1`` a streamed one).  Every metric reduces in a fixed
+order (``utils.tree.fixed_sum``), the same for a run alone and as a lane.
+Not ported here: the agent-mesh forms (the next slice).
 """
 from __future__ import annotations
 
@@ -71,9 +70,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import gpomdp, ota, power_control
-from repro_torch.core.ota import OTAConfig, sample_seed
+from repro_torch.core.ota import OTAConfig
 from repro_torch.rl.envs.heterogeneous import block_env, check_agent_count
-from repro_torch.rl.sampler import discounted_return, rollout_batch
+from repro_torch.rl.sampler import rollout_batch
 from repro_torch.service import participation as svc_part
 from repro_torch.service import staleness as svc_stale
 from repro_torch.service.participation import (
@@ -82,11 +81,8 @@ from repro_torch.service.participation import (
 from repro_torch.service.staleness import StalenessConfig
 from repro_torch.telemetry import probes as _probes
 from repro_torch.telemetry.probes import RoundTelemetry, TelemetryConfig
-from repro_torch.utils.device import DeviceLike, make_generator, resolve_device
-from repro_torch.utils.tree import (
-    Params, fixed_mean, fixed_sum, flat_norm_sq, flatten_agent_stack,
-    leaf_sizes, theta_device, tree_global_norm_sq, tree_keys,
-)
+from repro_torch.utils.device import DeviceLike
+from repro_torch.utils.tree import Params, fixed_sum
 
 
 @dataclass(frozen=True)
@@ -153,12 +149,11 @@ def make_round_fn(env, policy, cfg: FedPGConfig, ota_cfg: Optional[OTAConfig],
     "auto", see :class:`repro_torch.core.ota.AggregateSpec`).
     ``agent_blocks`` streams the agent axis in blocks of that many agents:
     the history is bitwise the same for every block size, with the stacked
-    round's draws (see :func:`_make_streamed_round_fn`).  An active
-    ``participation`` config makes it a service round over a
-    :class:`ServiceState` (module docstring).  An active ``telemetry``
-    appends the round's :class:`RoundTelemetry` to the metrics.  The
-    stacked round is one lane of ``core/lanes.py``
-    (:func:`lanes.stacked_round_fn`)."""
+    round's draws (module docstring).  An active ``participation`` config
+    makes it a service round over a :class:`ServiceState` (module
+    docstring).  An active ``telemetry`` appends the round's
+    :class:`RoundTelemetry` to the metrics.  The round is one lane of
+    ``core/lanes.py`` (:func:`lanes.lane_round_fn`)."""
     if cfg.estimator not in gpomdp.ESTIMATORS:
         raise ValueError(f"unknown estimator {cfg.estimator!r}")
     if ota_cfg is not None:
@@ -168,25 +163,11 @@ def make_round_fn(env, policy, cfg: FedPGConfig, ota_cfg: Optional[OTAConfig],
     stale_cfg = svc_stale.normalize(staleness, part)
     telem = _probes.active(telemetry, part)
     if agent_blocks is not None:
-        if part is not None:
-            return _make_streamed_service_round_fn(
-                env, policy, cfg, ota_cfg, agent_blocks, ota_backend, part,
-                stale_cfg, telem)
-        return _make_streamed_round_fn(env, policy, cfg, ota_cfg,
-                                       agent_blocks, ota_backend, telem)
+        ota.blocked_layout(cfg.n_agents, agent_blocks)   # validates it
     from repro_torch.core import lanes
 
-    return lanes.stacked_round_fn(env, policy, cfg, ota_cfg, ota_backend,
-                                  part, stale_cfg, telem)
-
-
-def _update_norm(theta: Params, theta_next: Params, alpha) -> torch.Tensor:
-    """``||theta - theta'|| / alpha``, the applied update's norm; alpha a
-    device scalar, so the division is the one a lane makes."""
-    diff = {k: theta[k] - theta_next[k] for k in tree_keys(theta)}
-    a = torch.full((), alpha, dtype=torch.float32,
-                   device=theta_device(theta))
-    return torch.sqrt(tree_global_norm_sq(diff)) / a
+    return lanes.lane_round_fn(env, policy, cfg, ota_cfg, ota_backend, part,
+                               stale_cfg, telem, agent_blocks)
 
 
 class _Predrawn(NamedTuple):
@@ -224,87 +205,6 @@ def block_rollout(env, policy, theta, cfg: FedPGConfig, pre: _Predrawn,
         policy_noise=(None if pre.policy_noise is None
                       else pre.policy_noise[:, lo:hi]),
         env_noise=None if pre.env_noise is None else pre.env_noise[:, lo:hi])
-
-
-def _make_streamed_round_fn(env, policy, cfg: FedPGConfig,
-                            ota_cfg: Optional[OTAConfig], agent_blocks: int,
-                            ota_backend: str = "auto",
-                            telem: Optional[TelemetryConfig] = None
-                            ) -> RoundFn:
-    """The round evaluated block by block over the agent axis.
-
-    The round's draws are made up front, in the stacked round's order (see
-    the module docstring), or taken from :class:`RoundDraws` (full-N
-    tensors, sliced per block).  Each block rolls out its agents, forms
-    their G(PO)MDP estimates and folds them into the exact-mean and channel
-    accumulators (strict sequential folds, :func:`ota.stream_fold_block`);
-    only the per-agent returns, O(N) scalars, outlive the block.  The last
-    block may be short: folding fewer rows equals folding masked phantom
-    rows, since adding +0.0 changes no bit.  On the kernel path each block
-    is two K1 launches and the server tail one more."""
-    n = cfg.n_agents
-    n_blocks, block, _ = ota.blocked_layout(n, agent_blocks)
-    spec = ota.AggregateSpec(exact=ota_cfg is None, backend=ota_backend)
-    want_norms = telem is not None and (telem.grad_norms or telem.dispersion)
-
-    def round_fn(theta: Params, generator: Optional[torch.Generator],
-                 draws: Optional[RoundDraws] = None):
-        d = draws or RoundDraws()
-        dev = theta_device(theta)
-        be = ota._fold_backend(spec, dev)
-        pre = predraw(env, policy, generator, cfg, dev, d)
-        if ota_cfg is not None:
-            h, seed = ota._round_draws(ota_cfg, generator, n, dev, d.gains,
-                                       d.seed)
-            wire = ota._wire_dtype(ota_cfg) if be == "cuda" else None
-        gsum = ota.stream_zeros(theta, be)
-        v = gsum
-        returns, norms = [], []
-        for b in range(n_blocks):
-            lo, hi = b * block, min((b + 1) * block, n)
-            trajs = block_rollout(env, policy, theta, cfg, pre, d, lo, hi)
-            grads = gpomdp.per_agent_gradients(policy, theta, trajs,
-                                               cfg.gamma, cfg.estimator)
-            gsum = ota.stream_fold_block(gsum, grads, backend=be)
-            if ota_cfg is not None:
-                v = ota.stream_fold_block(v, grads, h[lo:hi], wire_dtype=wire,
-                                          backend=be)
-            returns.append(discounted_return(trajs.losses, cfg.gamma))
-            if want_norms:
-                norms.append(_agent_norms_sq(grads))
-
-        reward = -fixed_mean(torch.cat(returns), 2)
-        mean_grad = {k: (gsum[k] / n).to(theta[k].dtype)
-                     for k in tree_keys(theta)}
-        grad_sq = tree_global_norm_sq(mean_grad)
-        if ota_cfg is None:
-            gain_mean = torch.ones((), device=dev)
-            theta_next = {k: theta[k] - cfg.alpha * mean_grad[k]
-                          for k in tree_keys(theta)}
-        else:
-            theta_next = ota.stream_finalize_apply(
-                ota_cfg, seed, v, theta, cfg.alpha, n, backend=be)
-            gain_mean = fixed_mean(h, 1)
-        if telem is None:
-            return theta_next, (reward, grad_sq, gain_mean)
-        update_norm = (torch.sqrt(grad_sq) if ota_cfg is None
-                       else _update_norm(theta, theta_next, cfg.alpha))
-        probes = _probes.streamed_round_probes(
-            telem, v=None if ota_cfg is None else v,
-            norms_sq=torch.cat(norms) if want_norms else None,
-            ota_cfg=ota_cfg, n_agents=n, param_dim=sum(leaf_sizes(theta)),
-            gain_mean=gain_mean, update_norm=update_norm)
-        return theta_next, (reward, grad_sq, gain_mean, probes)
-
-    return round_fn
-
-
-def _agent_norms_sq(grads: Params) -> torch.Tensor:
-    """(N,) squared norms of the agents' estimates (the stacked probes'
-    per-agent values, bit for bit)."""
-    flat, _, _ = flatten_agent_stack(grads)
-    return flat_norm_sq(flat, [int(grads[k][0].numel())
-                               for k in tree_keys(grads)])
 
 
 # ---------------------------------------------------------------------------
@@ -375,118 +275,6 @@ def _service_probes(telem: TelemetryConfig, probes: RoundTelemetry,
         rate_expected=rate_expected, staleness_mean=stale_age)
 
 
-def _make_streamed_service_round_fn(env, policy, cfg: FedPGConfig,
-                                    ota_cfg: Optional[OTAConfig],
-                                    agent_blocks: int, ota_backend: str,
-                                    part: ParticipationConfig,
-                                    stale_cfg: Optional[StalenessConfig],
-                                    telem: Optional[TelemetryConfig] = None
-                                    ) -> RoundFn:
-    """The streamed service round (JAX ``fedpg.py:446-590``).  The mask,
-    the replay weights and W come before the block loop; each block folds
-    its masked estimates (gains: the mask), its stale rows (gains: the
-    replay weights) and its channel signal (gains: the masked h) in three
-    strict sequential folds, each its own K1 launch on the card; the server
-    tail is K1's server pass with ``n_eff=W``, whose ``N / W`` reaches the
-    kernel as a device factor (no host synchronisation)."""
-    n = cfg.n_agents
-    n_blocks, block, _ = ota.blocked_layout(n, agent_blocks)
-    spec = ota.AggregateSpec(exact=ota_cfg is None, backend=ota_backend)
-    want_norms = telem is not None and (telem.grad_norms or telem.dispersion)
-
-    def service_round(state: ServiceState,
-                      generator: Optional[torch.Generator],
-                      draws: Optional[RoundDraws] = None):
-        d = draws or RoundDraws()
-        theta = state.theta
-        dev = theta_device(theta)
-        be = ota._fold_backend(spec, dev)
-        expected = torch.full((), svc_part.expected_count(part, n),
-                              dtype=torch.float32, device=dev)  # no H2D copy
-        rw = _round_weights(
-            part, stale_cfg, _round_mask(part, state.seed, state.round_idx,
-                                         n, dev, d),
-            None if stale_cfg is None else state.stale.age, expected)
-        pmask = rw.mask.float()
-        pre = predraw(env, policy, generator, cfg, dev, d)
-        if ota_cfg is not None:
-            h, seed = ota._round_draws(ota_cfg, generator, n, dev, d.gains,
-                                       d.seed)
-            hm = torch.where(rw.mask, h, torch.zeros_like(h))
-            wire = ota._wire_dtype(ota_cfg) if be == "cuda" else None
-        gsum = ota.stream_zeros(theta, be)
-        ssum = v = gsum
-        returns, new_rows, norms = [], [], []
-        for b in range(n_blocks):
-            lo, hi = b * block, min((b + 1) * block, n)
-            trajs = block_rollout(env, policy, theta, cfg, pre, d, lo, hi)
-            grads = gpomdp.per_agent_gradients(policy, theta, trajs,
-                                               cfg.gamma, cfg.estimator)
-            gsum = ota.stream_fold_block(gsum, grads, pmask[lo:hi],
-                                         backend=be)
-            if stale_cfg is not None:
-                old = {k: x[lo:hi] for k, x in state.stale.grads.items()}
-                ssum = ota.stream_fold_block(ssum, old, rw.rw[lo:hi],
-                                             backend=be)
-                keep = rw.mask[lo:hi]
-                new_rows.append({k: torch.where(
-                    keep.reshape((-1,) + (1,) * (g.ndim - 1)), g, old[k])
-                    for k, g in grads.items()})
-            if ota_cfg is not None:
-                v = ota.stream_fold_block(v, grads, hm[lo:hi],
-                                          wire_dtype=wire, backend=be)
-            returns.append(discounted_return(trajs.losses, cfg.gamma))
-            if want_norms:
-                norms.append(_agent_norms_sq(grads))
-
-        if stale_cfg is not None:
-            gsum = {k: gsum[k] + ssum[k] for k in tree_keys(gsum)}
-        mean_grad = {k: (gsum[k] * rw.inv_w).to(theta[k].dtype)
-                     for k in tree_keys(theta)}
-        grad_sq = tree_global_norm_sq(mean_grad)
-        if ota_cfg is None:
-            gain_mean = torch.ones((), device=dev)
-            update = mean_grad
-        else:
-            update = ota.stream_finalize(ota_cfg, seed, v, n, backend=be,
-                                         n_eff=rw.w_norm)
-            if stale_cfg is not None:
-                update = {k: update[k] + ssum[k] * rw.inv_w
-                          for k in tree_keys(update)}
-            gain_mean = _service_gain_mean(hm, rw)
-        theta_next = {k: theta[k] - cfg.alpha * update[k].to(theta[k].dtype)
-                      for k in tree_keys(theta)}
-        reward = _service_reward(torch.cat(returns), rw, cfg.batch_m)
-
-        stale_next = None
-        if stale_cfg is not None:
-            stale_next = svc_stale.StaleState(
-                grads={k: torch.cat([r[k] for r in new_rows])
-                       for k in tree_keys(theta)},
-                age=svc_stale.next_age(state.stale.age, rw.mask))
-        state_next = state._replace(theta=theta_next,
-                                    round_idx=state.round_idx + 1,
-                                    stale=stale_next)
-        if telem is None:
-            return state_next, (reward, grad_sq, gain_mean)
-        norms_sq = None
-        if want_norms:
-            norms_sq = torch.where(rw.mask, torch.cat(norms),
-                                   torch.zeros((), device=dev))
-        probes = _probes.streamed_round_probes(
-            telem, v=None if ota_cfg is None else v, norms_sq=norms_sq,
-            ota_cfg=ota_cfg, n_agents=n, param_dim=sum(leaf_sizes(theta)),
-            gain_mean=gain_mean,
-            update_norm=torch.sqrt(tree_global_norm_sq(update)))
-        probes = _service_probes(
-            telem, probes, stale_cfg, rw,
-            None if stale_cfg is None else state.stale.age, n,
-            svc_part.expected_count(part, n) / n)
-        return state_next, (reward, grad_sq, gain_mean, probes)
-
-    return service_round
-
-
 def env_on(env, dev):
     """Tabular tables and per-agent stacks follow the run to its device."""
     return env.to(dev) if hasattr(env, "to") else env
@@ -506,40 +294,17 @@ def run(env, policy, cfg: FedPGConfig, seed: int = 0, *,
     rounds (a config that normalises away runs the plain rounds, bit for
     bit).  ``telemetry`` fills ``History.telemetry`` with ``(K,)`` probes.
     ``device=None`` means ``cuda`` and raises when no GPU is present.  The
-    stacked rounds run as one lane of ``core/lanes.py``."""
+    run is one lane of ``core/lanes.py``."""
+    from repro_torch.core import lanes
+
     part = svc_part.normalize(participation, cfg.n_agents)
     stale_cfg = svc_stale.normalize(staleness, part)
-    if agent_blocks is None:
-        from repro_torch.core import lanes
-
-        theta, hist = lanes.run_lanes(
-            env, policy, cfg, [lanes.LaneSpec(seed, cfg.alpha, ota, None,
-                                              part, stale_cfg)],
-            theta0=theta0, telemetry=telemetry, ota_backend=ota_backend,
-            device=device)
-        return {k: v[0] for k, v in theta.items()}, hist.lane(0)
-    dev = resolve_device(device)
-    env = env_on(env, dev)
-    gen = make_generator(seed, dev)
-    theta = policy.init(gen, dev) if theta0 is None else {
-        k: v.to(dev) for k, v in theta0.items()}
-    round_fn = make_round_fn(env, policy, cfg, ota, ota_backend=ota_backend,
-                             agent_blocks=agent_blocks, participation=part,
-                             staleness=stale_cfg, telemetry=telemetry)
-    # a service run draws its mask-stream seed once, after theta_0
-    carry = theta if part is None else svc_part.init_state(
-        theta, sample_seed(gen, dev), cfg.n_agents, stale_cfg)
-    metrics = []
-    for _ in range(cfg.n_rounds):
-        carry, m = round_fn(carry, gen)
-        metrics.append(m)
-    theta = carry if part is None else carry.theta
-    rewards, grad_sq, gain_mean = (torch.stack(x)
-                                   for x in list(zip(*metrics))[:3])
-    probes = (_probes.stack([m[3] for m in metrics], 0)
-              if len(metrics[0]) == 4 else None)
-    return theta, History(rewards=rewards, grad_sq=grad_sq,
-                          gain_mean=gain_mean, telemetry=probes)
+    theta, hist = lanes.run_lanes(
+        env, policy, cfg, [lanes.LaneSpec(seed, cfg.alpha, ota, None, part,
+                                          stale_cfg)],
+        theta0=theta0, telemetry=telemetry, ota_backend=ota_backend,
+        agent_blocks=agent_blocks, device=device)
+    return {k: v[0] for k, v in theta.items()}, hist.lane(0)
 
 
 def avg_grad_sq(history: History) -> torch.Tensor:
@@ -563,26 +328,16 @@ def monte_carlo(env, policy, cfg: FedPGConfig, seed: int, n_runs: int, *,
                 device: DeviceLike = None) -> History:
     """``n_runs`` independent repetitions (the paper uses 20), one generator
     each (seeds :func:`run_seeds`); the History fields gain a leading
-    (n_runs,) axis.  The stacked rounds, plain and service, run as the
-    lanes of one lane-batched run (``core/lanes.py``), each lane bitwise
-    :func:`run` with its seed; the streamed rounds (``agent_blocks``) run
-    one repetition after another."""
-    seeds = run_seeds(seed, n_runs)
-    if agent_blocks is not None:
-        hists = [run(env, policy, cfg, s, ota=ota, ota_backend=ota_backend,
-                     agent_blocks=agent_blocks, participation=participation,
-                     staleness=staleness, telemetry=telemetry,
-                     device=device)[1] for s in seeds]
-        tel = None
-        if hists[0].telemetry is not None:
-            tel = _probes.stack([h.telemetry for h in hists], 0)
-        return History(*(torch.stack(x) for x in zip(*hists)), telemetry=tel)
+    (n_runs,) axis.  The repetitions run as the lanes of one lane-batched
+    run (``core/lanes.py``), stacked or streamed (``agent_blocks``), each
+    lane bitwise :func:`run` with its seed."""
     from repro_torch.core import lanes
 
     part = svc_part.normalize(participation, cfg.n_agents)
     stale_cfg = svc_stale.normalize(staleness, part)
     specs = [lanes.LaneSpec(seed=s, alpha=cfg.alpha, ota=ota,
                             participation=part, staleness=stale_cfg)
-             for s in seeds]
+             for s in run_seeds(seed, n_runs)]
     return lanes.run_lanes(env, policy, cfg, specs, telemetry=telemetry,
-                           ota_backend=ota_backend, device=device)[1]
+                           ota_backend=ota_backend, agent_blocks=agent_blocks,
+                           device=device)[1]

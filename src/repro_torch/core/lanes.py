@@ -20,6 +20,21 @@ once:
   or ``fused_aggregate_lanes`` in a service round) with the per-lane sigma,
   scale, step size, seed and service factor as device arrays made once per
   run; the exact uplink (Algorithm 1) takes its SGD step in torch;
+* with ``agent_blocks`` the round goes block by block over the agent axis
+  (:func:`_streamed_round`, :func:`_streamed_service_round`): each lane's
+  draws are made up front in its run's order (the rollouts' draws for all
+  N agents, then the gains and the kernel seed) and sliced per block; the
+  lanes' rollouts and estimates for a block are one computation over
+  ``(L, block)``; each of the block's folds (the exact-mean numerator and
+  the channel signal; in a service round the masked estimates, the stale
+  rows and the channel signal) is ONE launch of K1's lane form over the
+  ``(L, 1 + block, d)`` stack ``[acc; g_block]`` with gains ``[1;
+  h_block]``, sigma 0 and scale 1 (``ota.stream_fold_block``'s kernel path
+  with a lane axis), and the server tail one more launch with the per-lane
+  sigma, scale, seed, step size and service factor ``N / W`` as device
+  arrays.  K1 launches a batched streamed round: ``2 n_blocks + 1`` (plain),
+  ``2-3 n_blocks + 1`` (service), whatever L.  A lane holds O(block x d)
+  gradients at once, plus its O(N x d) stale buffer under staleness;
 * the metrics and probes reduce in the fixed order of
   ``utils.tree.fixed_sum``, lane by lane.
 
@@ -37,11 +52,10 @@ On the CPU (``ota_backend="torch"``, what ``"auto"`` means there) the uplink
 is the plain chain of :func:`ota.aggregate_apply`, lane by lane; K1's lane
 form is the card's path.
 
-These are the port's only stacked rounds: :func:`fedpg.run` runs its
-stacked rounds as one lane, and :func:`fedpg.make_round_fn`'s stacked
-round is :func:`stacked_round_fn`, one lane over a run's dict parameters
-that also takes injected :class:`RoundDraws`.  The agent-streamed rounds
-(``agent_blocks``) are not batched (``ROADMAP.md``).
+These are the port's only rounds, stacked and streamed:
+:func:`fedpg.run` runs as one lane, and :func:`fedpg.make_round_fn`'s
+round is :func:`lane_round_fn`, one lane over a run's dict parameters that
+also takes injected :class:`RoundDraws`.
 """
 from __future__ import annotations
 
@@ -61,7 +75,7 @@ from repro_torch.core.fedpg import (
     _service_gain_mean, _service_probes, _service_reward, env_on, predraw,
 )
 from repro_torch.core.ota import OTAConfig, sample_seed
-from repro_torch.core.power_control import check_agent_count
+from repro_torch.core.power_control import LaneBudgets, check_agent_count
 from repro_torch.kernels import ota_fused
 from repro_torch.rl.envs.heterogeneous import (
     HeterogeneousEnv, check_agent_count as check_env_agent_count,
@@ -215,28 +229,38 @@ def _lane_value(packed: Dict[str, Any], name: str, shared, dev):
 
 class _Lanes:
     """The run-constant per-lane state of a lane-batched run; ``shapes``
-    the parameters' (key, shape) pairs in key order."""
+    the parameters' (key, shape) pairs in key order; ``agent_blocks``
+    streams the agent axis (``blocks``: the ``(lo, hi)`` agent ranges,
+    None for the stacked round)."""
 
     def __init__(self, env, policy, cfg: FedPGConfig,
                  specs: Sequence[LaneSpec], dev: torch.device,
-                 ota_backend: str, shapes: List[Tuple[str, torch.Size]]):
+                 ota_backend: str, shapes: List[Tuple[str, torch.Size]],
+                 agent_blocks: Optional[int] = None):
         self.cfg, self.policy, self.dev = cfg, policy, dev
         self.specs = list(specs)
         self.n_lanes = len(specs)
         self.shapes = shapes
         self.sizes = [shape.numel() for _, shape in shapes]
         n = cfg.n_agents
+        self.blocks = None
+        if agent_blocks is not None:
+            n_blocks, block, _ = ota.blocked_layout(n, agent_blocks)
+            self.blocks = [(b * block, min((b + 1) * block, n))
+                           for b in range(n_blocks)]
         proto = specs[0]
         packed = pack_lanes(specs, n)
         self.packed = packed
         # --- env: one batched env, and each lane's own view for its draws
         base_env = env_on(proto.env if proto.env is not None else env, dev)
+        self.base_env, self.env_arrays = base_env, None
         if "env" in packed:
-            kind = env_kind(proto.env)
+            self.env_kind = env_kind(proto.env)
             arrays = {k: torch.as_tensor(v, device=dev)
                       for k, v in packed["env"].items()}
-            self.env = build_lane_env(kind, base_env, arrays)
-            self.env_views = [build_lane_env(kind, base_env,
+            self.env_arrays = arrays
+            self.env = build_lane_env(self.env_kind, base_env, arrays)
+            self.env_views = [build_lane_env(self.env_kind, base_env,
                                              {k: v[i] for k, v in
                                               arrays.items()}, lanes=False)
                               for i in range(self.n_lanes)]
@@ -253,6 +277,8 @@ class _Lanes:
         self.ota = proto.ota
         self.otas = [s.ota for s in specs]
         self.noisy = self.ota is not None and self.ota.noise_sigma > 0.0
+        self.fold_backend = ota._fold_backend(ota.AggregateSpec(
+            exact=self.ota is None, backend=ota_backend), dev)
         if self.ota is not None:
             spec = ota.AggregateSpec(exact=False, backend=ota_backend)
             self.backend = spec.resolved_backend(dev)
@@ -270,12 +296,12 @@ class _Lanes:
             pc = self.ota.power_control
             if pc is not None and "power_control" in packed:
                 if pc.per_agent:
-                    raise NotImplementedError(
-                        f"{type(pc).__name__} parameters that vary across "
-                        f"lanes are not batched; see ROADMAP.md")
-                pc = type(pc)(**{k: torch.as_tensor(v, device=dev)
-                                 .reshape(-1, 1)
-                                 for k, v in packed["power_control"].items()})
+                    pc = LaneBudgets.of([o.power_control for o in self.otas],
+                                        n, dev)
+                else:
+                    pc = type(pc)(**{
+                        k: torch.as_tensor(v, device=dev).reshape(-1, 1)
+                        for k, v in packed["power_control"].items()})
             self.power = pc
             self.sigma_t = _dev_f32([o.noise_sigma for o in self.otas], dev)
             self.scale_t = _dev_f32(
@@ -302,6 +328,18 @@ class _Lanes:
             rates = [e / n for e in expected]
             self.rate_expected = (_dev_f32(rates, dev) if values_vary(rates)
                                   else rates[0])
+
+    def block_env(self, lo: int, hi: int):
+        """The batched env of agents ``[lo, hi)``: a fleet's per-agent
+        stacks sliced (``HeterogeneousEnv``), else the batched env."""
+        if not isinstance(self.base_env, HeterogeneousEnv) \
+                or (lo, hi) == (0, self.cfg.n_agents):
+            return self.env
+        if self.env_arrays is None:
+            return self.base_env.lanes(lo, hi)
+        return build_lane_env(self.env_kind, self.base_env,
+                              {k: v[:, lo:hi]
+                               for k, v in self.env_arrays.items()})
 
     def gains(self, gens) -> torch.Tensor:
         """``(L, N)`` effective gains, lane l from ``gens[l]``."""
@@ -333,31 +371,51 @@ class _Lanes:
         return self._drift_ref
 
 
-def _rollout_and_grads(lanes: _Lanes, theta: torch.Tensor, gens,
-                       d: RoundDraws):
-    """Each lane's rollouts from its draws (made in a run's order, or the
-    one lane's injected ``d``) over per-lane parameters, and the
-    ``(L, N, P)`` G(PO)MDP estimates."""
-    cfg = lanes.cfg
-    pre = [predraw(view, lanes.policy, g, cfg, lanes.dev, d)
+class _LaneDraws(NamedTuple):
+    """Every lane's rollout draws of one round, for all N agents: ``s0``
+    ``(L, N, M, obs)``, the policy's and the env's step noise ``(T+1, L,
+    N, M, ...)`` (None when injected or drawless), and the one lane's
+    injected actions ``(1, N, M, T+1[, act])``."""
+
+    s0: torch.Tensor
+    policy_noise: Optional[torch.Tensor]
+    env_noise: Optional[torch.Tensor]
+    actions: Optional[torch.Tensor]
+
+
+def _draw_rollouts(lanes: _Lanes, gens, d: RoundDraws) -> _LaneDraws:
+    """Each lane's rollout draws for all N agents, made in a run's order
+    (or the one lane's injected ``d``)."""
+    pre = [predraw(view, lanes.policy, g, lanes.cfg, lanes.dev, d)
            for view, g in zip(lanes.env_views, gens)]
     pol = None if pre[0].policy_noise is None else torch.stack(
         [p.policy_noise for p in pre], dim=1)
     envn = None if pre[0].env_noise is None else torch.stack(
         [p.env_noise for p in pre], dim=1)
+    return _LaneDraws(torch.stack([p.s0 for p in pre]), pol, envn,
+                      None if d.actions is None else d.actions.unsqueeze(0))
+
+
+def _rollout_and_grads(lanes: _Lanes, theta: torch.Tensor, dr: _LaneDraws,
+                       lo: int, hi: int):
+    """Agents ``[lo, hi)``'s rollouts in every lane from the round's draws,
+    over per-lane parameters, and their ``(L, hi - lo, P)`` G(PO)MDP
+    estimates."""
+    cfg = lanes.cfg
     # each lane's parameters as (L, 1, 1, ...) leaves over the (L, N, M)
     # batch: views of the flat (L, P) rows
     params = {k: v.reshape((v.shape[0], 1, 1) + tuple(v.shape[1:]))
               for k, v in _unflatten_stack(theta, lanes.shapes).items()}
     trajs = rollout_batch(
-        lanes.env, lanes.policy, params, None, cfg.horizon,
-        (lanes.n_lanes, cfg.n_agents, cfg.batch_m),
-        s0=torch.stack([p.s0 for p in pre]),
-        actions=None if d.actions is None else d.actions.unsqueeze(0),
-        policy_noise=pol, env_noise=envn)
+        lanes.block_env(lo, hi), lanes.policy, params, None, cfg.horizon,
+        (lanes.n_lanes, hi - lo, cfg.batch_m), s0=dr.s0[:, lo:hi],
+        actions=None if dr.actions is None else dr.actions[:, lo:hi],
+        policy_noise=(None if dr.policy_noise is None
+                      else dr.policy_noise[:, :, lo:hi]),
+        env_noise=None if dr.env_noise is None else dr.env_noise[:, :, lo:hi])
     grads = gpomdp.estimate_flat(lanes.policy, params, trajs, cfg.gamma,
                                  cfg.estimator)
-    return trajs, grads                                        # (L, N, P)
+    return trajs, grads                                        # (L, b, P)
 
 
 def _uplink_draws(lanes: _Lanes, gens, d: RoundDraws):
@@ -415,7 +473,8 @@ def _plain_round(lanes: _Lanes, theta: torch.Tensor, gens,
     (reward, grad_sq, gain_mean), probes)``, each with a leading lane
     axis."""
     cfg, n, sizes = lanes.cfg, lanes.cfg.n_agents, lanes.sizes
-    trajs, grads = _rollout_and_grads(lanes, theta, gens, d)
+    trajs, grads = _rollout_and_grads(lanes, theta,
+                                      _draw_rollouts(lanes, gens, d), 0, n)
     mean = fixed_sum(grads, 1) / n                              # (L, P)
     if lanes.ota is None:
         theta_next = theta - lane_param(lanes.alpha, 1) * mean
@@ -461,7 +520,8 @@ def _service_round(lanes: _Lanes, theta: torch.Tensor, gens,
     rw = _round_weights(part, lanes.stale, mask, age, lanes.expected_t,
                        lanes.decay)
 
-    trajs, grads = _rollout_and_grads(lanes, theta, gens, d)
+    trajs, grads = _rollout_and_grads(lanes, theta,
+                                      _draw_rollouts(lanes, gens, d), 0, n)
     keep = mask.unsqueeze(-1)
     gm = torch.where(keep, grads, torch.zeros_like(grads))
     ssum = stale_next = None
@@ -503,16 +563,198 @@ def _service_round(lanes: _Lanes, theta: torch.Tensor, gens,
     return theta_next, (reward, grad_sq, gain_mean), probes, stale_next
 
 
+def _fold(lanes: _Lanes, acc: torch.Tensor, g: torch.Tensor,
+          h: Optional[torch.Tensor] = None,
+          wire: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Fold a block into each lane's running sum, strictly sequentially:
+    ``acc + h_0 g_0 + h_1 g_1 + ...`` over ``(L, P)`` sums, ``(L, b, P)``
+    rows and ``(L, b)`` gains (``h=None``: the plain rows).  On the card
+    ONE launch of K1's lane form over ``[acc; g]`` with gains ``[1; h]``,
+    sigma 0 and scale 1, the rows cast through ``wire`` first; on the CPU
+    the per-row fold of ``ota.stream_fold_block``'s plain chain."""
+    if lanes.fold_backend == "cuda":
+        if wire is not None:
+            g = g.to(wire).float()
+        ones = torch.ones((g.shape[0], 1), device=g.device)
+        gains = torch.cat([ones, torch.ones(g.shape[:2], device=g.device)
+                           if h is None else h.float()], 1)
+        return ota_fused.fused_aggregate_lanes(
+            torch.cat([acc.unsqueeze(1), g], 1), gains, sigma=0.0, scale=1.0,
+            with_noise=False)
+    for i in range(g.shape[1]):
+        row = g[:, i]
+        acc = acc + (row if h is None else h[:, i:i + 1] * row)
+    return acc
+
+
+def _tail(lanes: _Lanes, v: torch.Tensor, seeds: torch.Tensor,
+          theta: Optional[torch.Tensor] = None,
+          w_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The streamed server tail over each lane's superposition ``v``: the
+    AWGN and the normalisation, retargeted at the service weight
+    ``w_norm`` (``ota._participation_rescale``) when given, and the SGD
+    step when ``theta`` is.  ONE launch of K1's lane form on the card
+    (``ota.stream_finalize[_apply]`` with a lane axis), the plain chain
+    lane by lane on the CPU."""
+    n = lanes.cfg.n_agents
+    if lanes.backend == "cuda":
+        ones = torch.ones((v.shape[0], 1), device=v.device)
+        kw = dict(sigma=lanes.sigma_t, scale=lanes.scale_t, seed=seeds,
+                  with_noise=lanes.noisy,
+                  rescale=None if w_norm is None
+                  else ota._participation_rescale(n, w_norm).contiguous())
+        if theta is None:
+            return ota_fused.fused_aggregate_lanes(v.unsqueeze(1), ones, **kw)
+        return ota_fused.fused_aggregate_sgd_lanes(
+            v.unsqueeze(1), ones, theta, alpha=lanes.alpha_t, **kw)
+    out = []
+    for i, o in enumerate(lanes.otas):
+        u = ota._server_epilogue(
+            o, seeds[i], _unflatten_stack(v[i:i + 1], lanes.shapes), n, n,
+            None if w_norm is None else w_norm[i])
+        uf, _ = flatten_params(u)
+        out.append(uf if theta is None
+                   else theta[i] - lanes.specs[i].alpha * uf)
+    return torch.stack(out)
+
+
+def _streamed_round(lanes: _Lanes, theta: torch.Tensor, gens,
+                    telem: Optional[TelemetryConfig], d: RoundDraws):
+    """:func:`_plain_round` block by block over the agent axis (module
+    docstring): the exact-mean numerator and the channel signal are strict
+    sequential folds, so the history is bitwise the same for every block
+    size; only the per-agent returns, O(N) scalars, outlive a block."""
+    cfg, n, sizes = lanes.cfg, lanes.cfg.n_agents, lanes.sizes
+    dr = _draw_rollouts(lanes, gens, d)
+    h = None
+    if lanes.ota is not None:
+        h, seeds = _uplink_draws(lanes, gens, d)
+    want_norms = telem is not None and (telem.grad_norms or telem.dispersion)
+    gsum = v = torch.zeros_like(theta)
+    returns, norms = [], []
+    for lo, hi in lanes.blocks:
+        trajs, grads = _rollout_and_grads(lanes, theta, dr, lo, hi)
+        gsum = _fold(lanes, gsum, grads)
+        if h is not None:
+            v = _fold(lanes, v, grads, h[:, lo:hi], lanes.wire)
+        returns.append(discounted_return(trajs.losses, cfg.gamma))
+        if want_norms:
+            norms.append(flat_norm_sq(grads, sizes))
+    reward = -fixed_mean(torch.cat(returns, 1), 2)
+    mean = gsum / n
+    grad_sq = flat_norm_sq(mean, sizes)
+    if h is None:
+        theta_next = theta - lane_param(lanes.alpha, 1) * mean
+        gain_mean = torch.ones(lanes.n_lanes, device=lanes.dev)
+    else:
+        theta_next = _tail(lanes, v, seeds, theta)
+        gain_mean = fixed_mean(h, 1)
+    probes = None
+    if telem is not None:
+        update_norm = torch.sqrt(grad_sq) if h is None else torch.sqrt(
+            flat_norm_sq(theta - theta_next, sizes)) / lanes.alpha_t
+        probes = _probes.flat_streamed_round_probes(
+            telem, v=None if h is None else v, sizes=sizes,
+            norms_sq=torch.cat(norms, 1) if want_norms else None,
+            noise_pow=lanes.noise_power(), drift_ref=lanes.drift_ref(),
+            gain_mean=gain_mean, update_norm=update_norm)
+    return theta_next, (reward, grad_sq, gain_mean), probes
+
+
+def _streamed_service_round(lanes: _Lanes, theta: torch.Tensor, gens,
+                            telem: Optional[TelemetryConfig], svc_seed,
+                            k: int, stale: Optional[_StaleLanes],
+                            d: RoundDraws):
+    """:func:`_service_round` block by block over the agent axis.  The
+    mask, the replay weights and W come before the block loop; each block
+    folds its masked estimates (gains: the mask), its stale rows (gains:
+    the replay weights) and its channel signal (gains: the masked h); the
+    server tail retargets the normaliser at W on the device."""
+    cfg, n, dev, sizes = lanes.cfg, lanes.cfg.n_agents, lanes.dev, lanes.sizes
+    part = lanes.part
+    mask = _round_mask(part, svc_seed, k, n, dev, d, rate=lanes.rate,
+                      deadline=lanes.deadline).expand(lanes.n_lanes, n)
+    age = None if stale is None else stale.age
+    rw = _round_weights(part, lanes.stale, mask, age, lanes.expected_t,
+                       lanes.decay)
+    pmask = rw.mask.float()
+    dr = _draw_rollouts(lanes, gens, d)
+    hm = None
+    if lanes.ota is not None:
+        h, seeds = _uplink_draws(lanes, gens, d)
+        hm = torch.where(mask, h, torch.zeros_like(h))
+    want_norms = telem is not None and (telem.grad_norms or telem.dispersion)
+    gsum = ssum = v = torch.zeros_like(theta)
+    returns, new_rows, norms = [], [], []
+    for lo, hi in lanes.blocks:
+        trajs, grads = _rollout_and_grads(lanes, theta, dr, lo, hi)
+        gsum = _fold(lanes, gsum, grads, pmask[:, lo:hi])
+        if stale is not None:
+            old = stale.grads[:, lo:hi]
+            ssum = _fold(lanes, ssum, old, rw.rw[:, lo:hi])
+            new_rows.append(torch.where(mask[:, lo:hi, None], grads, old))
+        if hm is not None:
+            v = _fold(lanes, v, grads, hm[:, lo:hi], lanes.wire)
+        returns.append(discounted_return(trajs.losses, cfg.gamma))
+        if want_norms:
+            norms.append(flat_norm_sq(grads, sizes))
+    inv_w = rw.inv_w.unsqueeze(-1)
+    if stale is not None:
+        gsum = gsum + ssum
+    mean = gsum * inv_w
+    grad_sq = flat_norm_sq(mean, sizes)
+    if hm is None:
+        gain_mean = torch.ones(lanes.n_lanes, device=dev)
+        update = mean
+    else:
+        update = _tail(lanes, v, seeds, w_norm=rw.w_norm)
+        if stale is not None:
+            update = update + ssum * inv_w
+        gain_mean = _service_gain_mean(hm, rw)
+    theta_next = theta - lane_param(lanes.alpha, 1) * update
+    reward = _service_reward(torch.cat(returns, 1), rw, cfg.batch_m)
+    stale_next = None if stale is None else _StaleLanes(
+        grads=torch.cat(new_rows, 1), age=svc_stale.next_age(age, mask))
+    probes = None
+    if telem is not None:
+        norms_sq = None
+        if want_norms:
+            norms_sq = torch.where(mask, torch.cat(norms, 1),
+                                   torch.zeros((), device=dev))
+        probes = _probes.flat_streamed_round_probes(
+            telem, v=None if hm is None else v, sizes=sizes,
+            norms_sq=norms_sq, noise_pow=lanes.noise_power(),
+            drift_ref=lanes.drift_ref(), gain_mean=gain_mean,
+            update_norm=torch.sqrt(flat_norm_sq(update, sizes)))
+        probes = _service_probes(telem, probes, lanes.stale, rw, age, n,
+                                lanes.rate_expected, lanes.decay)
+    return theta_next, (reward, grad_sq, gain_mean), probes, stale_next
+
+
+def _round(lanes: _Lanes, theta: torch.Tensor, gens,
+           telem: Optional[TelemetryConfig], svc_seed, k: int,
+           stale: Optional[_StaleLanes], d: RoundDraws):
+    """One round of every lane, of the form ``lanes`` was built for:
+    ``(theta', metrics, probes, stale')``."""
+    if lanes.part is None:
+        fn = _plain_round if lanes.blocks is None else _streamed_round
+        return fn(lanes, theta, gens, telem, d) + (None,)
+    fn = _service_round if lanes.blocks is None else _streamed_service_round
+    return fn(lanes, theta, gens, telem, svc_seed, k, stale, d)
+
+
 def run_lanes(env, policy, cfg: FedPGConfig, specs: Sequence[LaneSpec], *,
               theta0: Optional[Params] = None,
               telemetry: Optional[TelemetryConfig] = None,
-              ota_backend: str = "auto", device: DeviceLike = None
-              ) -> Tuple[Params, History]:
+              ota_backend: str = "auto",
+              agent_blocks: Optional[int] = None,
+              device: DeviceLike = None) -> Tuple[Params, History]:
     """Run the lanes ``specs`` (module docstring); returns ``(theta_K,
     History)`` with a leading lane axis on every leaf and field.  ``env``
     is the env of lanes whose spec names none; ``theta0``, when given, is
-    every lane's start (no draw).  Each spec's participation and staleness
-    must be normalised (``service.*.normalize``)."""
+    every lane's start (no draw); ``agent_blocks`` streams the agent axis
+    in blocks of that many agents.  Each spec's participation and
+    staleness must be normalised (``service.*.normalize``)."""
     if not specs:
         raise ValueError("no lanes")
     if cfg.estimator not in gpomdp.ESTIMATORS:
@@ -529,7 +771,8 @@ def run_lanes(env, policy, cfg: FedPGConfig, specs: Sequence[LaneSpec], *,
         thetas = [{k: v.to(dev) for k, v in theta0.items()}] * len(specs)
     theta = torch.stack([flatten_params(t)[0] for t in thetas])  # (L, P)
     lanes = _Lanes(env, policy, cfg, specs, dev, ota_backend,
-                   [(k, thetas[0][k].shape) for k in sorted(thetas[0])])
+                   [(k, thetas[0][k].shape) for k in sorted(thetas[0])],
+                   agent_blocks)
     svc_seed = stale = None
     if lanes.part is not None:   # after theta_0, as a service run draws it
         svc_seed = torch.stack([sample_seed(g, dev) for g in gens]) \
@@ -543,11 +786,8 @@ def run_lanes(env, policy, cfg: FedPGConfig, specs: Sequence[LaneSpec], *,
     d = RoundDraws()
     metrics, tele = [], []
     for k in range(cfg.n_rounds):
-        if lanes.part is None:
-            theta, m, pr = _plain_round(lanes, theta, gens, telem, d)
-        else:
-            theta, m, pr, stale = _service_round(
-                lanes, theta, gens, telem, svc_seed, k, stale, d)
+        theta, m, pr, stale = _round(lanes, theta, gens, telem, svc_seed, k,
+                                     stale, d)
         metrics.append(m)
         tele.append(pr)
     rewards, grad_sq, gain_mean = (torch.stack(x, dim=1)
@@ -558,14 +798,15 @@ def run_lanes(env, policy, cfg: FedPGConfig, specs: Sequence[LaneSpec], *,
                             gain_mean=gain_mean, telemetry=probes)
 
 
-def stacked_round_fn(env, policy, cfg: FedPGConfig,
-                     ota_cfg: Optional[OTAConfig], ota_backend: str,
-                     part: Optional[ParticipationConfig],
-                     stale_cfg: Optional[StalenessConfig],
-                     telem: Optional[TelemetryConfig]):
-    """:func:`fedpg.make_round_fn`'s stacked round, plain or service: this
-    module's round at one lane, over a run's dict parameters (a
-    :class:`ServiceState` in a service round), drawing from the run's
+def lane_round_fn(env, policy, cfg: FedPGConfig,
+                  ota_cfg: Optional[OTAConfig], ota_backend: str,
+                  part: Optional[ParticipationConfig],
+                  stale_cfg: Optional[StalenessConfig],
+                  telem: Optional[TelemetryConfig],
+                  agent_blocks: Optional[int] = None):
+    """:func:`fedpg.make_round_fn`'s round, stacked or streamed, plain or
+    service: this module's round at one lane, over a run's dict parameters
+    (a :class:`ServiceState` in a service round), drawing from the run's
     generator or taking :class:`RoundDraws`.  ``part`` and ``stale_cfg``
     normalised, ``telem`` active or None."""
     spec = LaneSpec(0, cfg.alpha, ota_cfg, None, part, stale_cfg)
@@ -580,27 +821,25 @@ def stacked_round_fn(env, policy, cfg: FedPGConfig,
         key = (theta.device, tuple(shapes))
         if key not in built:
             built[key] = _Lanes(env, policy, cfg, [spec], theta.device,
-                                ota_backend, shapes)
+                                ota_backend, shapes, agent_blocks)
         lanes = built[key]
-        if part is None:
-            theta_next, metrics, probes = _plain_round(
-                lanes, theta[None], [generator], telem, d)
-            carry_next = {k: v[0] for k, v in
-                          _unflatten_stack(theta_next, shapes).items()}
-        else:
-            stale = None
+        stale = seed = None
+        if part is not None:
             if stale_cfg is not None:
                 flat, _, _ = flatten_agent_stack(carry.stale.grads)
                 stale = _StaleLanes(flat[None], carry.stale.age[None])
             seed = carry.seed.reshape(1, 1) if isinstance(
                 carry.seed, torch.Tensor) else carry.seed
-            theta_next, metrics, probes, stale = _service_round(
-                lanes, theta[None], [generator], telem, seed,
-                carry.round_idx, stale, d)
+        theta_next, metrics, probes, stale = _round(
+            lanes, theta[None], [generator], telem, seed,
+            0 if part is None else carry.round_idx, stale, d)
+        theta_next = {k: v[0] for k, v in
+                      _unflatten_stack(theta_next, shapes).items()}
+        if part is None:
+            carry_next = theta_next
+        else:
             carry_next = carry._replace(
-                theta={k: v[0] for k, v in
-                       _unflatten_stack(theta_next, shapes).items()},
-                round_idx=carry.round_idx + 1,
+                theta=theta_next, round_idx=carry.round_idx + 1,
                 stale=None if stale is None else svc_stale.StaleState(
                     grads=_unflatten_stack(stale.grads[0], shapes),
                     age=stale.age[0]))

@@ -31,8 +31,9 @@ backend one K1 launch folds a whole block: K1's ``agg`` mode folds its rows
 from zero in order, so the stack ``[acc; g_block]`` with gains ``[1;
 h_block]``, sigma 0 and scale 1 gives ``acc + h_0 g_0 + ...`` with the
 roundings of the per-agent fold (``0 + 1 * acc`` is ``acc`` exactly).  The
-tail is K1's unit-gain server pass.  The agent-mesh forms come with the
-distribute slice.
+tail is K1's unit-gain server pass.  The lane-batched run folds many runs'
+blocks in one launch of K1's lane form (``core/lanes.py``).  The agent-mesh
+forms come with the next slice.
 
 The LLM trainer's form (the channel-weighted loss, JAX's Form 3) is
 :func:`example_weights` and :func:`add_awgn`: the gains enter the loss

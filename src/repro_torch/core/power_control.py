@@ -27,7 +27,14 @@ under ``base.``, policy parameters under ``pc.``) and ``_sample_controlled``
 A policy's float fields may hold ``(L, 1)`` tensors, one value per lane:
 ``apply`` forms ``target / c`` as ``reciprocal(c) * target``, which is what
 PyTorch computes for a Python-float numerator, so a lane's power is
-bitwise the concrete policy's.
+bitwise the concrete policy's.  ``HeterogeneousBudget`` lanes whose
+``p_min``/``p_max`` vary are :class:`LaneBudgets`: each lane's ``(N,)``
+budgets built as its run builds them (a ``linspace`` from the lane's own
+Python floats, on the run's device) and stacked to ``(L, N)`` once per run,
+never per round; a float32 ``linspace`` of lane tensors could round
+otherwise.  A streamed round draws the gains for all N agents and slices
+them per block, so a block's budgets are this row at its absolute agent
+indices.
 """
 from __future__ import annotations
 
@@ -204,13 +211,17 @@ class HeterogeneousBudget(PowerPolicy):
 
     per_agent = True
 
+    def budgets(self, n_agents: int, device) -> torch.Tensor:
+        """The ``(n_agents,)`` float32 budgets on ``device``."""
+        return torch.linspace(self.p_min, self.p_max, n_agents,
+                              dtype=torch.float32, device=device)
+
     def apply(self, c):
         if c.ndim == 0:
             raise ValueError(
                 "HeterogeneousBudget.apply needs a trailing agent axis; "
                 "single-agent paths must use apply_indexed")
-        b = torch.linspace(self.p_min, self.p_max, c.shape[-1],
-                           dtype=torch.float32, device=c.device).to(c.dtype)
+        b = self.budgets(c.shape[-1], c.device).to(c.dtype)
         return torch.broadcast_to(b, c.shape)
 
     def apply_indexed(self, c, idx, n_agents):
@@ -231,6 +242,26 @@ class HeterogeneousBudget(PowerPolicy):
         m = mean_b * m_c
         m2 = (var_b + mean_b * mean_b) * (v_c + m_c * m_c)
         return m, max(m2 - m * m, 0.0)
+
+
+@dataclass(frozen=True)
+class LaneBudgets(PowerPolicy):
+    """``HeterogeneousBudget`` over L lanes whose parameters vary: ``table``
+    holds each lane's budgets as an ``(L, N)`` float32 tensor (module
+    docstring); ``apply`` broadcasts it over ``(L, N)`` gains."""
+
+    table: torch.Tensor = None  # type: ignore[assignment]
+
+    per_agent = True
+
+    @staticmethod
+    def of(policies, n_agents: int, device) -> "LaneBudgets":
+        """Each lane's ``budgets(n_agents, device)``, stacked once."""
+        return LaneBudgets(torch.stack([p.budgets(n_agents, device)
+                                        for p in policies]))
+
+    def apply(self, c):
+        return torch.broadcast_to(self.table.to(c.dtype), c.shape)
 
 
 @dataclass(frozen=True)
@@ -295,7 +326,9 @@ def _pack_controlled(channels) -> Dict[str, np.ndarray]:
 def _sample_controlled(kind, params, generators, shape, device):
     """Lane sampler: the base's lane draw, times the power of the policy
     rebuilt from the lanes' parameters (``(L, 1, ...)`` tensors, or shared
-    Python floats) — ``ControlledChannel.sample``'s ops."""
+    Python floats) — ``ControlledChannel.sample``'s ops.  A per-agent
+    policy packed per lane applies its lanes' budgets
+    (:func:`_lane_budgets`)."""
     _, base_kind, policy_name = kind.split(":")
     nd = len(tuple(shape))
     base = {k[len("base."):]: v for k, v in params.items()
@@ -303,14 +336,31 @@ def _sample_controlled(kind, params, generators, shape, device):
     cls = _POLICY_REGISTRY[policy_name]
     pc = {k[len("pc."):]: _channel.lane_param(v, nd)
           for k, v in params.items() if k.startswith("pc.")}
-    if cls.per_agent and any(isinstance(v, torch.Tensor)
-                             for v in pc.values()):
-        raise NotImplementedError(
-            f"{policy_name} parameters that vary across lanes are not "
-            f"batched (a per-lane linspace); see ROADMAP.md")
     c = BatchedChannel(kind=base_kind, params=base).sample(generators, shape,
                                                            device)
+    if cls.per_agent and any(isinstance(v, torch.Tensor)
+                             for v in pc.values()):
+        return c * _lane_budgets(cls, params, len(generators), c.shape[-1],
+                                 device).apply(c)
     return c * cls(**pc).apply(c)
+
+
+def _lane_budgets(cls, params, n_lanes: int, n_agents: int,
+                  device) -> LaneBudgets:
+    """The ``(L, N)`` budgets of a per-agent policy packed per lane: on the
+    first draw each lane's policy is rebuilt from its Python parameters
+    (one read of the ``(L,)`` columns) and :meth:`LaneBudgets.of` stacks
+    their budgets; ``params`` keeps the table for every later draw of the
+    run, so no round builds it or waits for the host."""
+    key = f"_budgets.{n_agents}"
+    if key not in params:
+        cols = {k[len("pc."):]: (v.tolist() if isinstance(v, torch.Tensor)
+                                 else [v] * n_lanes)
+                for k, v in params.items() if k.startswith("pc.")}
+        params[key] = LaneBudgets.of(
+            [cls(**{k: float(v[i]) for k, v in cols.items()})
+             for i in range(n_lanes)], n_agents, device)
+    return params[key]
 
 
 def estimate_moments(base: Channel, policy: PowerPolicy,

@@ -26,16 +26,21 @@ Modes (``MODES``):
 
 * ``"vmap"`` (default): each partition's scenarios x runs as one
   lane-batched run: one round per step for all of them, one K1 lane-form
-  launch per round on the card.  A streamed partition (``agent_blocks``)
-  raises ``NotImplementedError``: its lane form is queued in
-  ``ROADMAP.md``.
-* ``"map"``: every (scenario, run) through ``fedpg.run``, one after another
-  (any partition, streamed ones included).
-* ``"sharded"`` raises ``NotImplementedError``: the device-mesh form comes
-  with ``core/distribute.py`` (``ROADMAP.md``).
+  launch per stacked round on the card (``2 n_blocks + 1`` per streamed
+  round, ``agent_blocks``: the streamed rounds of ``core/lanes.py``).
+* ``"map"``: every (scenario, run) through ``fedpg.run``, one after another.
+* ``"sharded"``: the ``"vmap"`` lanes laid across a device mesh
+  (``mesh=``, from ``launch.mesh.make_sweep_mesh``; default every visible
+  CUDA device on the lane axis, or ``device`` alone when given) by
+  ``core/distribute.py``: each mesh cell runs its scenarios x seeds as one
+  lane-batched run on its device, partitions dispatch with no host
+  synchronisation and their results are gathered after the loop.  Bitwise
+  ``"vmap"``.
 
 Partitions run inside ``telemetry.trace`` spans (``partition``), which
-synchronise the card, so ``Partition.wall_time_us`` covers the device work.
+synchronise the card, so ``Partition.wall_time_us`` covers the device work;
+a sharded partition records ``dispatch`` and ``materialize`` spans, and its
+wall time runs from its dispatch to its results being ready.
 ``telemetry`` fills ``SweepResult.history.telemetry`` with ``(S, runs, K)``
 probes; telemetry off leaves every history bit unchanged.
 
@@ -58,13 +63,14 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import fedpg, lanes
+from repro_torch.core import distribute, fedpg, lanes
 from repro_torch.core.channel import Channel, channel_kind
 from repro_torch.core.fedpg import FedPGConfig, History
 from repro_torch.core.ota import OTAConfig
 from repro_torch.core.power_control import (
     PowerPolicy, check_agent_count, effective_moments,
 )
+from repro_torch.launch.mesh import Mesh, make_sweep_mesh
 from repro_torch.rl.envs import env_kind, robust_eq, values_vary
 from repro_torch.rl.envs import check_agent_count as check_env_agent_count
 from repro_torch.rl.envs import default_policy as env_default_policy
@@ -315,36 +321,37 @@ def _pack_partition(part: Partition) -> Dict[str, Any]:
     return lanes.pack_lanes(specs, part.proto.n_agents)
 
 
+def _lane_scenarios(part: Partition) -> Tuple[List[Scenario], bool]:
+    """The scenarios a partition's lanes run, and whether it is the
+    replicate path: scenarios that pack to nothing run the prototype's
+    lanes alone, and every scenario takes its history."""
+    replicate = not _pack_partition(part)
+    return (part.scenarios[:1] if replicate else part.scenarios), replicate
+
+
 def _make_lane(env, policy, part: Partition,
                telemetry: Optional[TelemetryConfig] = None, *,
-               ota_backend: str = "auto", device: DeviceLike = None):
-    """``lane(seeds) -> History`` of ``(S, runs, K)`` leaves: the
-    partition's scenarios times ``seeds`` as one lane-batched run (a
-    partition whose scenarios pack to nothing runs its prototype's lanes
-    and repeats them)."""
+               ota_backend: str = "auto"):
+    """``lane(scenarios, seeds, device) -> History`` of ``(S, runs, K)``
+    leaves: the partition's ``scenarios`` times ``seeds`` as one
+    lane-batched run on ``device`` (streamed in the partition's
+    ``agent_blocks``)."""
     proto = part.proto
-    if proto.agent_blocks is not None:
-        raise NotImplementedError(
-            "sweep(mode='vmap') does not batch a streamed partition "
-            "(agent_blocks); its lane form is queued in ROADMAP.md — run it "
-            "with mode='map'")
     lane_env, lane_policy = resolve_env_policy(proto, env, policy)
     cfg = proto.fedpg_config()
-    replicate = not _pack_partition(part)
-    scens = part.scenarios[:1] if replicate else part.scenarios
 
-    def lane(seeds: Sequence[int]) -> History:
+    def lane(scens: Sequence[Scenario], seeds: Sequence[int],
+             device) -> History:
         specs = [_lane_spec(s, r, resolve_env_policy(s, env, policy)[0])
                  for s in scens for r in seeds]
         _, hist = lanes.run_lanes(lane_env, lane_policy, cfg, specs,
                                   telemetry=telemetry,
-                                  ota_backend=ota_backend, device=device)
-        n_s, n_r = len(scens), len(seeds)
+                                  ota_backend=ota_backend,
+                                  agent_blocks=proto.agent_blocks,
+                                  device=device)
 
         def shape(x):
-            x = x.reshape((n_s, n_r) + tuple(x.shape[1:]))
-            return x.expand((len(part.scenarios),) + tuple(x.shape[1:])) \
-                if replicate else x
+            return x.reshape((len(scens), len(seeds)) + tuple(x.shape[1:]))
 
         tel = None if hist.telemetry is None else RoundTelemetry(
             *(None if x is None else shape(x) for x in hist.telemetry))
@@ -353,19 +360,35 @@ def _make_lane(env, policy, part: Partition,
     return lane
 
 
+def _part_telemetry(part: Partition, telemetry: Optional[TelemetryConfig]):
+    return _probes.active(telemetry, svc_part.normalize(
+        part.proto.participation, part.proto.n_agents))
+
+
 def lane_program(env, policy, part: Partition, mc_runs: int = 2,
                  telemetry: Optional[TelemetryConfig] = None, *,
                  seed: int = 0, device: DeviceLike = None):
     """The partition's batched run, exposed for inspection: ``(packed, fn,
     seeds)`` with ``fn(seeds)`` what ``sweep(mode="vmap")`` runs for this
-    partition and ``packed`` the lane axes it batches (only the ones that
-    vary)."""
-    packed = _pack_partition(part)
-    fn = _make_lane(env, policy, part,
-                    _probes.active(telemetry, svc_part.normalize(
-                        part.proto.participation, part.proto.n_agents)),
-                    device=device)
-    return packed, fn, fedpg.run_seeds(seed, mc_runs)
+    partition (a History of ``(S, runs, K)`` leaves) and ``packed`` the
+    lane axes it batches (only the ones that vary)."""
+    lane = _make_lane(env, policy, part, _part_telemetry(part, telemetry))
+    scens, replicate = _lane_scenarios(part)
+    dev = resolve_device(device)
+
+    def fn(seeds: Sequence[int]) -> History:
+        h = lane(scens, seeds, dev)
+        if not replicate:
+            return h
+
+        def expand(x):
+            return x.expand((len(part.scenarios),) + tuple(x.shape[1:]))
+
+        tel = None if h.telemetry is None else RoundTelemetry(
+            *(None if x is None else expand(x) for x in h.telemetry))
+        return History(*(expand(x) for x in h), telemetry=tel)
+
+    return _pack_partition(part), fn, fedpg.run_seeds(seed, mc_runs)
 
 
 # ---------------------------------------------------------------------------
@@ -378,7 +401,9 @@ class SweepResult:
 
     ``history`` fields are numpy arrays of shape ``(n_scenarios, mc_runs,
     n_rounds)`` in the original scenario order (a 1-D object array of
-    ``(mc_runs, K_i)`` arrays when the grid varies ``n_rounds``)."""
+    ``(mc_runs, K_i)`` arrays when the grid varies ``n_rounds``).
+    ``mode`` and ``n_devices`` record how the partitions ran (``n_devices``
+    is the mesh's size under ``"sharded"``, else 1)."""
 
     scenarios: List[Scenario]
     history: History
@@ -392,7 +417,9 @@ class SweepResult:
         return len(self.partitions)
 
     def scenario_time_us(self, i: int) -> float:
-        """Per-(scenario, run) share of the owning partition's wall time."""
+        """Per-(scenario, run) share of the owning partition's wall time
+        (under ``"sharded"`` from dispatch to ready, which for a later
+        partition includes waiting on earlier ones)."""
         for part in self.partitions:
             if i in part.indices:
                 return part.wall_time_us / (len(part.indices)
@@ -492,7 +519,7 @@ def _to_numpy(h: History) -> History:
 # ---------------------------------------------------------------------------
 
 def sweep(env, policy, scenarios: Sequence[Scenario], seed: int,
-          mc_runs: int, *, mode: str = "vmap",
+          mc_runs: int, *, mode: str = "vmap", mesh: Optional[Mesh] = None,
           telemetry: Optional[TelemetryConfig] = None,
           ota_backend: str = "auto",
           device: DeviceLike = None) -> SweepResult:
@@ -501,45 +528,65 @@ def sweep(env, policy, scenarios: Sequence[Scenario], seed: int,
     ``fedpg.run_seeds(seed, mc_runs)``, those of ``fedpg.monte_carlo(...,
     seed, mc_runs)``.  ``env``/``policy`` are the defaults of scenarios
     that carry none.  ``device=None`` means ``cuda`` and raises without a
-    GPU."""
+    GPU; ``mode="sharded"`` runs on ``mesh`` (``device`` alone when it is
+    given instead, every visible CUDA device when neither is)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    if mode == "sharded":
-        raise NotImplementedError(
-            "sweep(mode='sharded') needs core/distribute.py, which is not "
-            "ported yet (ROADMAP.md); use mode='vmap' or 'map'")
+    sharded = mode == "sharded"
+    if mesh is not None and not sharded:
+        raise ValueError("mesh= is only meaningful with mode='sharded'")
+    if mesh is not None and device is not None:
+        raise ValueError("pass mesh= or device=, not both")
     scenarios = list(scenarios)
     if not scenarios:
         raise ValueError("empty scenario list")
-    dev = resolve_device(device)
     seeds = fedpg.run_seeds(seed, mc_runs)
     parts = partition_scenarios(scenarios)
-    if mode == "vmap":
-        streamed = [p for p in parts if p.proto.agent_blocks is not None]
-        if streamed:
-            raise NotImplementedError(
-                f"sweep(mode='vmap') does not batch streamed partitions "
-                f"(agent_blocks={streamed[0].proto.agent_blocks}); their "
-                f"lane form is queued in ROADMAP.md — run them with "
-                f"mode='map'")
+    n_devices, dev = 1, None
+    if sharded:
+        if mesh is None:
+            mesh = (distribute.default_sweep_mesh() if device is None else
+                    make_sweep_mesh(devices=[resolve_device(device)]))
+        n_devices = mesh.size
+    else:
+        dev = resolve_device(device)
     out: List[Optional[History]] = [None] * len(scenarios)
+
+    def collect(part: Partition, stacked: History, replicate: bool) -> None:
+        for j, idx in enumerate(part.indices):
+            out[idx] = stacked.lane(0 if replicate else j)
+
+    pending = []
     for part in parts:
-        with rtrace.span("partition", mode=mode, scenarios=len(part.indices),
-                         device=dev) as sp:
-            if mode == "vmap":
-                tel = _probes.active(telemetry, svc_part.normalize(
-                    part.proto.participation, part.proto.n_agents))
-                lane = _make_lane(env, policy, part, tel,
-                                  ota_backend=ota_backend, device=dev)
-                stacked = _to_numpy(lane(seeds))
-                per = [stacked.lane(j) for j in range(len(part.indices))]
-            else:
+        if mode == "map":
+            with rtrace.span("partition", mode=mode,
+                             scenarios=len(part.indices), device=dev) as sp:
                 per = [_map_scenario(env, policy, s, seeds, telemetry,
                                      ota_backend, dev)
                        for s in part.scenarios]
+            part.wall_time_us = sp.duration_us
+            for j, idx in enumerate(part.indices):
+                out[idx] = per[j]
+            continue
+        lane = _make_lane(env, policy, part, _part_telemetry(part, telemetry),
+                          ota_backend=ota_backend)
+        scens, replicate = _lane_scenarios(part)
+        if sharded:   # launched now, gathered after the loop
+            t0 = rtrace.now_us()
+            outs, placement = distribute.dispatch_partition(
+                lane, scens, seeds, mesh, replicate=replicate)
+            pending.append((part, t0, outs, placement, replicate))
+            continue
+        with rtrace.span("partition", mode=mode, scenarios=len(part.indices),
+                         device=dev) as sp:
+            stacked = _to_numpy(lane(scens, seeds, dev))
         part.wall_time_us = sp.duration_us
-        for j, idx in enumerate(part.indices):
-            out[idx] = per[j]
+        collect(part, stacked, replicate)
+    for part, t0, outs, placement, replicate in pending:
+        with rtrace.span("materialize", scenarios=len(part.indices)):
+            stacked = _to_numpy(distribute.gather(outs, placement))
+        part.wall_time_us = rtrace.now_us() - t0
+        collect(part, stacked, replicate)
 
     def stack_field(f: int):
         return _stack_histories([h[f] for h in out])
@@ -554,7 +601,8 @@ def sweep(env, policy, scenarios: Sequence[Scenario], seed: int,
     history = History(stack_field(0), stack_field(1), stack_field(2),
                       telemetry=tel)
     return SweepResult(scenarios=scenarios, history=history,
-                       partitions=parts, mc_runs=mc_runs, mode=mode)
+                       partitions=parts, mc_runs=mc_runs, mode=mode,
+                       n_devices=n_devices)
 
 
 def _map_scenario(env, policy, s: Scenario, seeds: Sequence[int],

@@ -55,6 +55,7 @@
 
 namespace {
 
+constexpr int kMaxDevices = 64;   // devices one process may launch on
 constexpr int kBQ = 64;             // queries per block
 constexpr int kBK = 64;             // keys per tile
 constexpr int kDMax = 128;          // largest head dim
@@ -299,13 +300,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
 
 template <typename T>
 int launch(const Args& a, int batch, int n_heads, cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
+  // the attribute is set on the current device's copy of the kernel
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (!configured[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kSmemBytes));
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
+    configured[dev] = true;
   }
   const dim3 grid((a.sq + kBQ - 1) / kBQ, n_heads, batch);
   flash_fwd_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(a);

@@ -71,6 +71,7 @@
 
 namespace {
 
+constexpr int kMaxDevices = 64;   // devices one process may launch on
 constexpr int kBM = 128;                    // queries per block
 constexpr int kBN = 128;                    // keys per tile
 constexpr int kBox = 64;                    // head-dim columns per TMA box (128 B)
@@ -590,13 +591,17 @@ bool make_map(CUtensorMap* map, const void* ptr, int dh, int seq, int heads, int
 template <int kD>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, const Args& a,
            int batch, int n_heads, cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
+  // the attribute is set on the current device's copy of the kernel
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (!configured[dev]) {
     const cudaError_t err =
         cudaFuncSetAttribute(flash_fwd_wgmma_kernel<kD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<kD>::kBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
+    configured[dev] = true;
   }
   const dim3 grid(n_heads, batch, a.n_qtiles);
   flash_fwd_wgmma_kernel<kD><<<grid, kThreads, Smem<kD>::kBytes, stream>>>(tq, tk, tv, a);

@@ -87,6 +87,8 @@
 
 namespace {
 
+constexpr int kMaxDevices = 64;   // devices one process may launch on
+
 using ota_counter::counter_bits;
 using ota_counter::counter_normal;
 
@@ -422,12 +424,16 @@ bool tall_plan(int n_agents, unsigned long long n_params, int elem, Tall* t) {
 
 template <typename T, int MODE, bool NOISE, int NC>
 int launch_tall(const Tall& t, int n_lanes, cudaStream_t st, const Args& a) {
-  static bool configured = false;
-  if (!configured) {
+  // the attribute is set on the current device's copy of the kernel
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (!configured[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         ota_fused_tall<T, MODE, NOISE, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
+    configured[dev] = true;
   }
   const size_t smem = kBarBytes + static_cast<size_t>(kTallStages) * t.stage_bytes;
   ota_fused_tall<T, MODE, NOISE, NC><<<dim3(1, n_lanes), t.cols + 32, smem, st>>>(a, t);

@@ -47,6 +47,7 @@
 
 namespace {
 
+constexpr int kMaxDevices = 64;   // devices one process may launch on
 constexpr int kQMax = 128;          // largest chunk
 constexpr int kNMax = 128;          // largest state size
 constexpr int kPMax = 64;           // largest head dim
@@ -256,13 +257,17 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_kernel(const Args a) {
 
 template <typename T>
 int launch(const Args& a, int batch, cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
+  // the attribute is set on the current device's copy of the kernel
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (!configured[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kSmemBytes));
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
+    configured[dev] = true;
   }
   ssd_scan_kernel<T><<<dim3(a.n_heads, batch), kThreads, kSmemBytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());

@@ -73,6 +73,7 @@
 
 namespace {
 
+constexpr int kMaxDevices = 64;   // devices one process may launch on
 constexpr int kQMax = 128;        // largest chunk
 constexpr int kNMax = 128;        // largest state size
 constexpr int kPS = 16;           // state columns per block
@@ -487,13 +488,17 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_tc_kernel(const Args a) 
 
 template <int kNp, int kQp>
 int launch(const Args& a, int batch, cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
+  // the attribute is set on the current device's copy of the kernel
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (!configured[dev]) {
     const cudaError_t err =
         cudaFuncSetAttribute(ssd_scan_tc_kernel<kNp, kQp>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
+    configured[dev] = true;
   }
   const dim3 grid((a.headdim + kPS - 1) / kPS, a.n_heads, batch);
   ssd_scan_tc_kernel<kNp, kQp><<<grid, kThreads, kSmemBytes, stream>>>(a);

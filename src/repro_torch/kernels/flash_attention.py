@@ -125,11 +125,12 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lead = [] if tc else [int(q.dtype == torch.bfloat16)]
     strides = [s for x in (q, k, v, out) for s in
                (_tma_strides(x) if tc else x.stride()[:3])]
-    rc = getattr(_lib(name), f"{name}_launch")(
-        *lead, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        qp.data_ptr(), kp.data_ptr(), *strides, b, h, hkv, sq, sk, dh,
-        int(causal), window or 0, 1.0 / dh ** 0.5,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # the launch goes to the current device
+        rc = getattr(_lib(name), f"{name}_launch")(
+            *lead, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            qp.data_ptr(), kp.data_ptr(), *strides, b, h, hkv, sq, sk, dh,
+            int(causal), window or 0, 1.0 / dh ** 0.5,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     if tc:

@@ -59,11 +59,13 @@ def ota_channel_apply(v: torch.Tensor, *, sigma: float, n_agents: int,
     out = torch.empty_like(src)
     if src.numel() == 0:
         return out
-    rc = _lib().ota_channel_launch(
-        int(v.dtype == torch.bfloat16), int(sigma > 0.0), src.data_ptr(),
-        out.data_ptr(), src.numel(), float(sigma),
-        ref.ota_channel_scale(n_agents, m_h, debias), int(seed) & ref.MASK32,
-        _THREADS, torch.cuda.current_stream(v.device).cuda_stream)
+    with torch.cuda.device(v.device):   # the launch goes to the current one
+        rc = _lib().ota_channel_launch(
+            int(v.dtype == torch.bfloat16), int(sigma > 0.0), src.data_ptr(),
+            out.data_ptr(), src.numel(), float(sigma),
+            ref.ota_channel_scale(n_agents, m_h, debias),
+            int(seed) & ref.MASK32, _THREADS,
+            torch.cuda.current_stream(v.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ota_channel kernel launch failed: cudaError {rc}")
     LAUNCHES += 1

@@ -274,15 +274,17 @@ def _launch(mode: str, grads: torch.Tensor, gains: torch.Tensor,
         seed_ptr, seed_val = ptrs["seed"], 0
     else:
         seed_ptr, seed_val = _seed_args(seed, dev)
-    rc = _lib().ota_fused_launch(
-        BODIES.index(body), _MODES[mode], int(grads.dtype == torch.bfloat16),
-        int(with_noise), grads.data_ptr(), gains.data_ptr(), n_lanes,
-        n_agents, n_params, g_lane, h_lane, state_lane,
-        *state_ptrs, *out_ptrs,
-        *(float(x) for x in (sigma, scale, alpha, b1, b2, c1, c2, eps)),
-        ptrs.get("sigma"), ptrs.get("scale"), ptrs.get("alpha"),
-        seed_ptr, seed_val, None if rescale is None else rescale.data_ptr(),
-        threads, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # the launch goes to the current device
+        rc = _lib().ota_fused_launch(
+            BODIES.index(body), _MODES[mode],
+            int(grads.dtype == torch.bfloat16), int(with_noise),
+            grads.data_ptr(), gains.data_ptr(), n_lanes, n_agents, n_params,
+            g_lane, h_lane, state_lane, *state_ptrs, *out_ptrs,
+            *(float(x) for x in (sigma, scale, alpha, b1, b2, c1, c2, eps)),
+            ptrs.get("sigma"), ptrs.get("scale"), ptrs.get("alpha"),
+            seed_ptr, seed_val,
+            None if rescale is None else rescale.data_ptr(), threads,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ota_fused kernel launch failed ({body} body): "
                            f"cudaError {rc}")
@@ -566,9 +568,10 @@ def counter_bits(seed: Seed, n: int, device,
     b1, b2 = (torch.empty(n, dtype=torch.int32, device=device)
               for _ in range(2))
     seed_ptr, seed_val = _seed_args(seed, device)
-    rc = _lib().ota_counter_bits_launch(
-        n, seed_ptr, seed_val, b1.data_ptr(), b2.data_ptr(), threads,
-        torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        rc = _lib().ota_counter_bits_launch(
+            n, seed_ptr, seed_val, b1.data_ptr(), b2.data_ptr(), threads,
+            torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ota_counter_bits launch failed: cudaError {rc}")
     return b1.long(), b2.long()

@@ -101,10 +101,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     tc = takes_tensor_cores(x, B, C)
     name = "ssd_scan_tc" if tc else "ssd_scan"
     lead = [] if tc else [int(x.dtype == torch.bfloat16)]
-    rc = getattr(_lib(name), f"{name}_launch")(
-        *lead, x.data_ptr(), dt32.data_ptr(), a32.data_ptr(), B.data_ptr(),
-        C.data_ptr(), y.data_ptr(), b, s, h, p, g, n, q,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # the launch goes to the current device
+        rc = getattr(_lib(name), f"{name}_launch")(
+            *lead, x.data_ptr(), dt32.data_ptr(), a32.data_ptr(),
+            B.data_ptr(), C.data_ptr(), y.data_ptr(), b, s, h, p, g, n, q,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     if tc:

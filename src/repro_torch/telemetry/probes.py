@@ -24,11 +24,13 @@ gains, the update) and write nothing the round reads, so a run with
 telemetry has the same history, bit for bit, as the run without it.  Every
 sum runs in the fixed order of ``utils.tree.fixed_sum`` over flat
 ``(..., N, P)`` stacks, so a lane of a lane-batched run (a leading lane
-axis) gets the probes of the same run alone, bitwise.  Every division that
-can take a per-lane value divides by a device tensor, in both forms.
+axis) gets the probes of the same run alone, bitwise; the streamed round's
+probes (:func:`flat_streamed_round_probes`) take the lane axis too.  Every
+division that can take a per-lane value divides by a device tensor, in
+both forms.
 
 Not ported here: the agent-mesh forms (``sharded_*``), which wait for the
-distribute slice.
+agent-mesh slice.
 """
 from __future__ import annotations
 
@@ -45,8 +47,9 @@ from repro_torch.utils.tree import (
 )
 
 __all__ = ["RoundTelemetry", "TelemetryConfig", "active", "flat_round_probes",
-           "index", "noise_power", "participation_probes",
-           "stacked_round_probes", "streamed_round_probes", "summarize"]
+           "flat_streamed_round_probes", "index", "noise_power",
+           "participation_probes", "stacked_round_probes",
+           "streamed_round_probes", "summarize"]
 
 Value = Union[float, torch.Tensor]
 
@@ -175,23 +178,42 @@ def streamed_round_probes(config: TelemetryConfig, *, v: Optional[Params],
                           n_agents: int, param_dim: int,
                           gain_mean: torch.Tensor,
                           update_norm: torch.Tensor) -> RoundTelemetry:
-    """Probes of the agent-streamed round from its accumulators: ``v`` the
-    channel superposition (None for the exact uplink), ``norms_sq`` the
-    ``(N,)`` per-agent squared norms (None when both norm probes are off).
-    The norm statistics equal the stacked round's bitwise (the same
-    per-agent values, the same reductions); the SNR's signal power folds
-    the agents sequentially, so it agrees to summation order."""
+    """Probes of one agent-streamed round from its accumulators: ``v`` the
+    channel superposition as a dict (None for the exact uplink),
+    ``norms_sq`` the ``(N,)`` per-agent squared norms (None when both norm
+    probes are off); :func:`flat_streamed_round_probes` on the flat
+    layout."""
+    noisy = ota_cfg is not None and ota_cfg.noise_sigma > 0.0
+    flat = None if v is None else flatten_params(v)[0]
+    return flat_streamed_round_probes(
+        config, v=flat, sizes=None if v is None else leaf_sizes(v),
+        norms_sq=norms_sq,
+        noise_pow=(noise_power(param_dim, ota_cfg.noise_sigma,
+                               gain_mean.device) if noisy else None),
+        drift_ref=_drift_reference(ota_cfg, n_agents), gain_mean=gain_mean,
+        update_norm=update_norm)
+
+
+def flat_streamed_round_probes(config: TelemetryConfig, *,
+                               v: Optional[torch.Tensor],
+                               sizes: Optional[List[int]],
+                               norms_sq: Optional[torch.Tensor],
+                               noise_pow: Optional[torch.Tensor],
+                               drift_ref: Value, gain_mean: torch.Tensor,
+                               update_norm: torch.Tensor) -> RoundTelemetry:
+    """Probes of the agent-streamed round from its accumulators, with any
+    leading lane axis: ``v`` the flat ``(..., P)`` channel superposition
+    (leaf slices of ``sizes``; None for the exact uplink), ``norms_sq``
+    the ``(..., N)`` per-agent squared norms (None when both norm probes
+    are off), ``noise_pow`` ``d sigma^2`` (None for a noiseless or exact
+    uplink).  The norm statistics equal the stacked round's bitwise (the
+    same per-agent values, the same reductions); the SNR's signal power
+    folds the agents sequentially, so it agrees to summation order."""
     nan = _const(math.nan, gain_mean)
     snr = grad_pre = grad_post = drift = disp = nan
-    noisy = ota_cfg is not None and ota_cfg.noise_sigma > 0.0
     if config.snr:
-        if not noisy:
-            snr = _const(math.inf, gain_mean)
-        else:
-            flat, _ = flatten_params(v)
-            sig = flat_norm_sq(flat, leaf_sizes(v))
-            snr = sig / noise_power(param_dim, ota_cfg.noise_sigma,
-                                    flat.device)
+        snr = (_const(math.inf, gain_mean) if noise_pow is None
+               else flat_norm_sq(v, sizes) / noise_pow)
     if config.grad_norms or config.dispersion:
         norms = torch.sqrt(norms_sq)
         mean = fixed_mean(norms, 1)
@@ -201,7 +223,7 @@ def streamed_round_probes(config: TelemetryConfig, *, v: Optional[Params],
         if config.dispersion:
             disp = torch.amax(norms, dim=-1) / mean
     if config.moment_drift:
-        drift = (gain_mean - _drift_reference(ota_cfg, n_agents)).float()
+        drift = (gain_mean - drift_ref).float()
     return RoundTelemetry(snr=snr, grad_norm_pre=grad_pre,
                           grad_norm_post=grad_post, moment_drift=drift,
                           dispersion=disp)

@@ -22,6 +22,13 @@ so its duration covers the device work queued inside it (the ``device``
 argument is not exported as an attribute).  ``timed_call``'s ``block``
 does the same for each timed call.
 
+The sweep records its work as spans: ``partition`` (modes ``"vmap"`` and
+``"map"``, around a partition's run), and in mode ``"sharded"``
+``dispatch`` (the host's launch of a partition on the mesh) and
+``materialize`` (waiting for its results and copying them to the host).  A
+sharded partition's wall time runs from its dispatch to its results being
+ready, which no one span covers: it reads the tracer's clock, ``now_us()``.
+
 ``torch_profile(path)`` wraps a block in ``torch.profiler`` (host and CUDA
 activities) and, given a path, writes the profiler's own Chrome trace
 beside the host spans.
@@ -37,8 +44,8 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
 __all__ = [
-    "Span", "Timing", "Tracer", "export", "get_tracer", "reset", "span",
-    "spans", "sync_device", "timed_call", "to_chrome_trace",
+    "Span", "Timing", "Tracer", "export", "get_tracer", "now_us", "reset",
+    "span", "spans", "sync_device", "timed_call", "to_chrome_trace",
     "torch_profile",
 ]
 
@@ -186,6 +193,12 @@ def span(name: str, *, device: Any = None, **attrs: Any):
 
 def reset() -> None:
     _TRACER.reset()
+
+
+def now_us() -> float:
+    """The global tracer's clock in microseconds, for an interval that no
+    one span can cover (a sharded partition's dispatch to ready)."""
+    return _TRACER._now_us()
 
 
 def spans() -> List[Span]:

@@ -1003,3 +1003,119 @@ def test_train_resume_bitwise_on_the_card(cuda, tmp_path):
                    (straight.opt_state.nu, resumed.opt_state.nu)):
         a, b = flatten_paths(ta), flatten_paths(tb)
         assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+# ---------------------------------------------------------------------------
+# streamed lanes, per-agent budgets as lanes, sweep(mode="sharded")
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("service", [False, True])
+def test_streamed_lanes_are_bitwise_their_runs_on_the_card(cuda, service):
+    """Four lanes streamed in blocks of 3 (a short tail block): 2 K1 lane
+    launches a block + 1 (3 a block under staleness), every lane bitwise
+    ``fedpg.run(agent_blocks=3)``."""
+    from repro_torch.core import fedpg, lanes
+    from repro_torch.core.channel import RayleighChannel
+    from repro_torch.core.ota import OTAConfig
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+    from repro_torch.service import ParticipationConfig, StalenessConfig
+
+    cfg = fedpg.FedPGConfig(n_agents=7, batch_m=4, horizon=9, n_rounds=3,
+                            alpha=1e-2)
+    kw = dict(participation=ParticipationConfig(rate=0.5),
+              staleness=StalenessConfig(3, 0.8)) if service else {}
+    specs = [lanes.LaneSpec(s, cfg.alpha, OTAConfig(
+        RayleighChannel(), noise_sigma=sig, debias=True), **kw)
+        for s in (1, 2) for sig in (1e-3, 1e-2)]
+    before = ota_fused.LAUNCHES
+    theta, hist = lanes.run_lanes(LandmarkNav(), MLPPolicy(), cfg, specs,
+                                  agent_blocks=3)
+    folds = 3 if service else 2
+    assert ota_fused.LAUNCHES - before == (folds * 3 + 1) * cfg.n_rounds
+    for i, spec in enumerate(specs):
+        t1, h1 = fedpg.run(LandmarkNav(), MLPPolicy(), cfg, spec.seed,
+                           ota=spec.ota, agent_blocks=3, **kw)
+        for x, y in zip(h1, hist):
+            assert torch.equal(x, y[i]), i
+        for k in t1:
+            assert torch.equal(t1[k], theta[k][i]), (i, k)
+
+
+@pytest.mark.cuda
+def test_sweep_sharded_is_vmap_on_the_card(cuda):
+    """A streamed partition of three scenarios and a per-agent budget
+    partition: ``"sharded"`` on ``[cuda] x 2`` (one pad lane) and on the
+    default mesh bitwise ``"vmap"``."""
+    from repro_torch.core import sweep
+    from repro_torch.core.channel import RayleighChannel
+    from repro_torch.core.power_control import HeterogeneousBudget
+    from repro_torch.launch.mesh import make_sweep_mesh
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+
+    size = dict(channel=RayleighChannel(), noise_sigma=1e-3, debias=True,
+                n_agents=7, batch_m=4, horizon=9, n_rounds=3)
+    sc = (sweep.grid(alpha=[1e-3, 2e-3, 3e-3], agent_blocks=3, **size)
+          + sweep.grid(power_control=[HeterogeneousBudget(p_max=1.5),
+                                      HeterogeneousBudget(p_max=3.0)],
+                       **size))
+    vmap = sweep.sweep(LandmarkNav(), MLPPolicy(), sc, 0, 2)
+    for mesh in (None, make_sweep_mesh(devices=[torch.device(cuda)] * 2)):
+        sharded = sweep.sweep(LandmarkNav(), MLPPolicy(), sc, 0, 2,
+                              mode="sharded", mesh=mesh)
+        for x, y in zip(vmap.history, sharded.history):
+            np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.cuda
+def test_sharded_cells_launch_k1_on_their_own_card(cuda, monkeypatch):
+    """A sharded sweep over every visible card (one card listed twice where
+    there is only one), the caller's current card being cuda:0: every K1
+    launch runs with its operands' card current, every card of the mesh
+    launches, and the result is bitwise ``"vmap"``.  Without the device
+    guard a cell on another card would launch on cuda:0."""
+    from repro_torch.core import sweep
+    from repro_torch.core.channel import RayleighChannel
+    from repro_torch.launch.mesh import make_sweep_mesh
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+
+    n = torch.cuda.device_count()
+    devices = ([torch.device("cuda", i) for i in range(n)] if n > 1
+               else [torch.device("cuda", 0)] * 2)
+    real_launch, real_lib = ota_fused._launch, ota_fused._lib
+    want, seen = [], []
+
+    def launch(mode, grads, *args, **kw):
+        want.append(grads.device.index)
+        return real_launch(mode, grads, *args, **kw)
+
+    class Lib:
+        def __getattr__(self, name):
+            fn = getattr(real_lib(), name)
+            if name != "ota_fused_launch":
+                return fn
+
+            def call(*args):
+                seen.append(torch.cuda.current_device())
+                return fn(*args)
+            return call
+
+    monkeypatch.setattr(ota_fused, "_launch", launch)
+    monkeypatch.setattr(ota_fused, "_lib", Lib)
+    size = dict(channel=RayleighChannel(), noise_sigma=1e-3, debias=True,
+                n_agents=7, batch_m=4, horizon=9, n_rounds=3)
+    alphas = [1e-3 * (i + 1) for i in range(len(devices) + 1)]  # a pad lane
+    sc = (sweep.grid(alpha=alphas, agent_blocks=3, **size)
+          + sweep.grid(alpha=alphas, **size))
+    torch.cuda.set_device(0)
+    vmap = sweep.sweep(LandmarkNav(), MLPPolicy(), sc, 0, 2)
+    sharded = sweep.sweep(LandmarkNav(), MLPPolicy(), sc, 0, 2,
+                          mode="sharded", mesh=make_sweep_mesh(devices=devices))
+    assert sharded.n_devices == len(devices)
+    for x, y in zip(vmap.history, sharded.history):
+        np.testing.assert_array_equal(x, y)
+    assert seen == want
+    assert set(want) == {d.index for d in devices}

@@ -52,6 +52,7 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.service, repro_torch.service.stream, "
             "repro_torch.rl.envs, repro_torch.core.event_triggered, "
             "repro_torch.core.sweep, repro_torch.core.lanes, "
+            "repro_torch.core.distribute, repro_torch.launch.mesh, "
             "repro_torch.telemetry, "
             "repro_torch.telemetry.probes, repro_torch.telemetry.trace, "
             "repro_torch.checkpoint, repro_torch.service.driver, "

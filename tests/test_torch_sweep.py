@@ -17,8 +17,9 @@ the same generator; every lane of the lane-batched run and of
 ``sweep(mode="vmap")`` is ``fedpg.run`` of its scenario and seed (plain,
 power control, env parameters, service with staleness, exact uplink; LQR
 too, so no JAX exception is needed here); ``monte_carlo`` is the per-run
-loop.  ``"vmap"`` refuses a streamed partition and ``"sharded"`` refuses
-outright, both naming ROADMAP.md.
+loop.  A streamed partition runs alike under ``"map"``, ``"vmap"`` and
+``"sharded"`` (``tests/test_torch_sweep_streamed.py`` holds the rest of
+those modes).
 """
 import math
 
@@ -444,19 +445,23 @@ def test_replicated_partition_and_lane_program():
 
 
 def test_vmap_refuses_streamed_partitions_and_sharded_refuses():
+    """Named for the refusals it once checked: a streamed partition now
+    batches under ``"vmap"`` and ``"sharded"`` runs, both bitwise the
+    ``"map"`` run of ``fedpg.run(agent_blocks=2)``; a bad mode still
+    raises."""
     sc = sweep.grid(channel=channel.RayleighChannel(), agent_blocks=2,
                     **SMALL)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sweep.sweep(LandmarkNav(), MLPPolicy(), sc, 0, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sweep.sweep(LandmarkNav(), MLPPolicy(), sc, 0, 1, mode="sharded",
-                    device="cpu")
     res = sweep.sweep(LandmarkNav(), MLPPolicy(), sc, 0, 1, mode="map",
                       device="cpu")
     h = fedpg.run(LandmarkNav(), MLPPolicy(), sc[0].fedpg_config(),
                   fedpg.run_seeds(0, 1)[0], ota=sc[0].ota_config(),
                   agent_blocks=2, device="cpu")[1]
     np.testing.assert_array_equal(h.grad_sq.numpy(), res.history.grad_sq[0, 0])
+    for mode in ("vmap", "sharded"):
+        other = sweep.sweep(LandmarkNav(), MLPPolicy(), sc, 0, 1, mode=mode,
+                            device="cpu")
+        for x, y in zip(res.history, other.history):
+            np.testing.assert_array_equal(x, y)
     with pytest.raises(ValueError, match="mode"):
         sweep.sweep(LandmarkNav(), MLPPolicy(), sc, 0, 1, mode="pmap",
                     device="cpu")
