@@ -167,7 +167,24 @@ Phases, in order; any failure raises and exits non-zero:
               ``HeterogeneousBudget`` partition (p_max 1.5, 3.0), 4 runs,
               K=10: ``"vmap"`` bitwise ``"map"`` (K1 launches counted),
               ``"sharded"`` bitwise ``"vmap"`` on the default one-device
-              mesh and on ``[cuda:0] x 2`` (one pad lane masked).
+              mesh and on ``[cuda:0] x 2`` (one pad lane masked);
+31. agent mesh — ``launch.mesh.run_local`` (nccl, one process a rank) at
+              world size 1 and, with several cards, over all of them: the
+              main cell (K=20) stacked, streamed in 4s and Bernoulli 0.5
+              streamed in 4s, in turns with the run off the mesh (bitwise
+              it at one rank), K1 launches (2 stacked, 2 a rank's block +
+              1 streamed) and collectives (1 ``all_reduce`` + 1
+              ``all_gather``) a round, every rank bitwise the same with the
+              same draws (checksums gathered by the phase); N = 10,001
+              (M=1 T=3, blocks of 32, K=3): ms a round, peak MB per rank;
+              at one rank the psum train step of llama3.2-3b (B=8 S=256,
+              3 steps, 2 K1 launches at (1, d) a step) in turns with the
+              plain step: ms and peak memory.
+
+``python3 chip_smoke.py --agent-mesh-across-cards`` runs phases 1, 2 and
+31's mesh over every visible card alone, then the card test of the mesh
+over every card (a machine with several cards), and writes
+``chiprun_out/agent_mesh_cards.json``.
 
 It prints the card line, then one ``{"kernels": [...]}`` line (K1 as its two
 bodies, ``ota_fused_wide`` and ``ota_fused_tall``), and as its last
@@ -3499,6 +3516,333 @@ def phase_sharded(torch):
     return k1s["vmap"]
 
 
+MESH_ROUNDS, MESH_BLOCKS, MESH_TURNS, MESH_SEED = 20, 4, 2, 7
+MESH_DRAW_ROUNDS = 3
+MESH_LARGE_N, MESH_LARGE_ROUNDS, MESH_LARGE_BLOCKS = 10_001, 3, 32
+PSUM_STEPS = 3
+
+
+def mesh_forms(world):
+    """Phase 31's forms of the main cell on ``world`` ranks: (name,
+    ``fedpg.run`` kwargs).  The stacked form needs ranks that divide N=10
+    (the JAX guard), so four ranks run only the streamed forms."""
+    from repro_torch.service.participation import ParticipationConfig
+
+    forms = [("stacked", {})] if 10 % world == 0 else []
+    return forms + [("streamed", {"agent_blocks": MESH_BLOCKS}),
+                    ("service", {"agent_blocks": MESH_BLOCKS,
+                                 "participation": ParticipationConfig(
+                                     kind="bernoulli", rate=0.5)})]
+
+
+def mesh_k1_per_round(blocks):
+    """K1 launches a round on a rank: the stacked mesh round's fold and
+    tail; a streamed one two folds a block of its own, and the tail."""
+    return 2 if blocks is None else 2 * len(blocks) + 1
+
+
+def draw_checksums(torch, mesh, run):
+    """Run ``run()`` with the round's draw functions wrapped, and return a
+    float64 checksum of everything each round drew (initial states, policy
+    and env noise, gains, kernel seeds, service masks)."""
+    from unittest import mock
+
+    from repro_torch.core import lanes
+
+    sums = []
+
+    def record(fn):
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            parts = out if isinstance(out, tuple) else (out,)
+            sums.extend(x.double().sum() for x in parts
+                        if isinstance(x, torch.Tensor))
+            return out
+        return wrapped
+
+    with mock.patch.object(lanes, "_draw_rollouts",
+                           record(lanes._draw_rollouts)), \
+            mock.patch.object(lanes, "_uplink_draws",
+                              record(lanes._uplink_draws)), \
+            mock.patch.object(lanes, "_round_mask", record(lanes._round_mask)):
+        run()
+    return torch.stack(sums)
+
+
+def mesh_rank(mesh, with_train):
+    """Phase 31 on one rank of the agent mesh (``launch.mesh.run_local``):
+    the main cell's forms in turns with their runs off the mesh, their K1
+    launches and collectives, the draws' checksums gathered over the group,
+    the N = 10,001 cell, and (``with_train``) the psum train step."""
+    import torch
+
+    from repro_torch.core import fedpg, lanes
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    env, pol = LandmarkNav(), MLPPolicy()
+    cfg, ota = alg_config(10, 10, MESH_ROUNDS)
+    out = {"rank": mesh.rank, "size": mesh.size, "device": str(dev),
+           "forms": {}}
+
+    def run(c, on_mesh, **kw):
+        return fedpg.run(env, pol, c, MESH_SEED, ota=ota, device=dev,
+                         agent_mesh=mesh if on_mesh else None, **kw)
+
+    for name, kw in mesh_forms(mesh.size):
+        _, span, blocks = lanes.rank_layout(cfg.n_agents,
+                                            kw.get("agent_blocks"), mesh)
+        short = dataclasses.replace(cfg, n_rounds=2)
+        run(short, True, **kw)
+        run(short, False, **kw)                              # warm-up
+        row = {"ms": {"mesh": [], "plain": []}}
+        for _ in range(MESH_TURNS):
+            for which in ("mesh", "plain"):
+                reset_counts()
+                mesh_lib.ALL_REDUCES = mesh_lib.ALL_GATHERS = 0
+                torch.cuda.synchronize(dev)
+                t = time.perf_counter()
+                res = run(cfg, which == "mesh", **kw)
+                torch.cuda.synchronize(dev)
+                row["ms"][which].append(
+                    (time.perf_counter() - t) * 1e3 / MESH_ROUNDS)
+                row[which] = res
+                row[f"k1_{which}"] = read_counts()["ota_fused"]
+                row[f"collectives_{which}"] = (mesh_lib.ALL_REDUCES,
+                                               mesh_lib.ALL_GATHERS)
+        row["k1_expect"] = mesh_k1_per_round(blocks) * MESH_ROUNDS
+        row["local_agents"] = span
+        short = dataclasses.replace(cfg, n_rounds=MESH_DRAW_ROUNDS)
+        sums = draw_checksums(torch, mesh, lambda: run(short, True, **kw))
+        row["draws"] = mesh.all_gather(sums.unsqueeze(0), 0)
+        out["forms"][name] = row
+
+    # fig_large_n.py's sharded cell: N = 10,001 (a short last rank)
+    big = dataclasses.replace(alg_config(MESH_LARGE_N, 1, MESH_LARGE_ROUNDS)[0],
+                              horizon=3)
+    row = {"mesh": {"ms": []}, "plain": {"ms": []}}
+    for _ in range(MESH_TURNS):
+        for which in ("mesh", "plain"):
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            resident = torch.cuda.memory_allocated(dev)
+            reset_counts()
+            t = time.perf_counter()
+            res = run(big, which == "mesh", agent_blocks=MESH_LARGE_BLOCKS)
+            torch.cuda.synchronize(dev)
+            row[which]["ms"].append(
+                (time.perf_counter() - t) * 1e3 / MESH_LARGE_ROUNDS)
+            row[which].update(
+                peak_mb=(torch.cuda.max_memory_allocated(dev) - resident)
+                / 1e6, k1=read_counts()["ota_fused"], result=res)
+    _, row["span"], blocks = lanes.rank_layout(big.n_agents,
+                                               MESH_LARGE_BLOCKS, mesh)
+    row["k1_expect"] = mesh_k1_per_round(blocks) * MESH_LARGE_ROUNDS
+    out["large"] = row
+    if with_train:
+        out["train"] = psum_train(torch, mesh)
+    return out
+
+
+def psum_train(torch, mesh):
+    """llama3.2-3b at full width, bf16, OTA with the bf16 wire: PSUM_STEPS
+    psum steps on this one-rank mesh in turns with the plain OTA step over
+    one agent, on the same state: ms a step, peak memory, K1 launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import trainer
+
+    cfg = get_config("llama3.2-3b")
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = model_lib.build(cfg)
+    tcfg = trainer.TrainConfig(aggregator="ota", channel="rayleigh",
+                               noise_db=-60.0, debias=True, n_agents=1,
+                               total_steps=2 * PSUM_STEPS, lr=1e-4, warmup=2,
+                               wire_dtype="bfloat16")
+    state = trainer.init_state(model, tcfg, device=dev)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH), dev)
+    steps = {"psum": trainer.make_psum_train_step(model, tcfg, mesh),
+             "plain": trainer.make_train_step(model, tcfg)}
+    rows = {"psum": [], "plain": []}
+    for i in range(PSUM_STEPS):
+        for name in ("psum", "plain"):
+            batch = data.batch(i)
+            torch.cuda.synchronize(dev)
+            reset_counts()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            state, m = steps[name](state, batch)
+            e.record()
+            torch.cuda.synchronize(dev)
+            rows[name].append({"ms": s.elapsed_time(e),
+                               "k1": read_counts()["ota_fused"],
+                               "bodies": k1_body_counts(),
+                               "metrics": {k: v.item() for k, v in m.items()}})
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    d = sum(v.numel() for v in state.opt_state.mu.values())
+    del state, steps
+    torch.cuda.empty_cache()
+    return {"rows": rows, "peak_gb": peak, "d": d}
+
+
+def phase_agent_mesh(torch):
+    """Phase 31: the agent mesh through ``launch.mesh.run_local`` (nccl) at
+    world size 1, and over every visible card when there are several: the
+    main cell (N=10 M=10 T=20, Rayleigh, -60 dB, debias, K=20) stacked,
+    streamed in 4s and under Bernoulli 0.5 streamed in 4s, each in turns
+    with its run off the mesh (bitwise it at world size 1); K1 launches and
+    collectives a round asserted; every rank bitwise the same theta,
+    history and draws; ``fig_large_n.py``'s N = 10,001 cell (M=1 T=3,
+    blocks of 32, K=3): ms a round and peak MB per rank; and at world size
+    1 the psum train step of llama3.2-3b at full width (B=8 S=256, 3
+    steps, 2 K1 launches at (1, d) a step)."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    t0 = phase("31. agent mesh: the main cell, N = 10,001 and the psum "
+               "train step over torch.distributed ranks (nccl)")
+    torch.cuda.empty_cache()
+    worlds = [1] + ([torch.cuda.device_count()]
+                    if torch.cuda.device_count() > 1 else [])
+    rec = {}
+    for w in worlds:
+        t_w = time.perf_counter()
+        ranks = mesh_lib.run_local(mesh_rank, w, w == 1, device="cuda",
+                                   timeout=900)
+        rec[w] = check_mesh_world(torch, w, ranks)
+        rec[w]["seconds"] = time.perf_counter() - t_w
+        log(f"world size {w}: {rec[w]['seconds']:.1f} s")
+    RECORD["agent_mesh"] = {str(w): {k: v for k, v in r.items()
+                                     if k != "ranks"} for w, r in rec.items()}
+    done("agent mesh", t0)
+    return rec[1]
+
+
+def check_mesh_world(torch, w, ranks):
+    """Phase 31's checks on one world size's rank results, and its log."""
+    out = {"forms": {}}
+    r0 = ranks[0]
+    check([r["rank"] for r in ranks] == list(range(w))
+          and all(r["device"] == f"cuda:{r['rank']}" for r in ranks),
+          f"world {w}: ranks {[(r['rank'], r['device']) for r in ranks]}")
+    for name, _ in mesh_forms(w):
+        row0 = r0["forms"][name]
+        for r in ranks:
+            row = r["forms"][name]
+            check(row["k1_mesh"] == row["k1_expect"],
+                  f"world {w} {name} rank {r['rank']}: {row['k1_mesh']} K1 "
+                  f"launches on the mesh, expected {row['k1_expect']}")
+            check(row["collectives_mesh"] == (MESH_ROUNDS, MESH_ROUNDS),
+                  f"world {w} {name} rank {r['rank']}: collectives "
+                  f"{row['collectives_mesh']}, expected one all_reduce and "
+                  f"one all_gather a round")
+            check(row["collectives_plain"] == (0, 0),
+                  f"{name}: the run off the mesh issued collectives")
+            check(theta_hist_equal(torch, row["mesh"], row0["mesh"]),
+                  f"world {w} {name}: rank {r['rank']} is not bitwise rank 0")
+            draws = row["draws"]
+            check(bool((draws == draws[0:1]).all()),
+                  f"world {w} {name}: the ranks drew different draws")
+        plain = row0["plain"]
+        check(torch.equal(row0["mesh"][1].gain_mean, plain[1].gain_mean),
+              f"world {w} {name}: gain_mean is not the run's off the mesh")
+        if w == 1:
+            check(theta_hist_equal(torch, row0["mesh"], plain),
+                  f"{name}: the one-rank mesh run is not bitwise the run "
+                  f"off the mesh")
+        dev_max = max_rel_dev(torch, row0["mesh"], plain)
+        ms_mesh = statistics.median(row0["ms"]["mesh"])
+        ms_plain = statistics.median(row0["ms"]["plain"])
+        out["forms"][name] = {
+            "ms_per_round_mesh": row0["ms"]["mesh"],
+            "ms_per_round_plain": row0["ms"]["plain"],
+            "k1_per_round_mesh": [r["forms"][name]["k1_mesh"] / MESH_ROUNDS
+                                  for r in ranks],
+            "k1_per_round_plain": row0["k1_plain"] / MESH_ROUNDS,
+            "local_agents": [r["forms"][name]["local_agents"] for r in ranks],
+            "max_rel_dev_from_plain": dev_max}
+        log(f"world {w} {name:8s}: mesh {ms_mesh:.3f} ms a round against "
+            f"{ms_plain:.3f} off the mesh, in turns ({row0['ms']}); K1 "
+            f"{out['forms'][name]['k1_per_round_mesh']} a round per rank "
+            f"(off the mesh {row0['k1_plain'] / MESH_ROUNDS:g}); one "
+            f"all_reduce + one all_gather a round; ranks bitwise, draws "
+            f"equal; max relative deviation from the run off the mesh "
+            f"{dev_max:.3g}" + (" (bitwise)" if w == 1 else ""))
+    large = []
+    for r in ranks:
+        row = r["large"]
+        hist = row["mesh"]["result"][1]
+        check(all(bool(torch.isfinite(x).all()) for x in hist),
+              f"world {w} N={MESH_LARGE_N}: not finite")
+        check(theta_hist_equal(torch, row["mesh"]["result"],
+                               r0["large"]["mesh"]["result"]),
+              f"world {w} N={MESH_LARGE_N}: rank {r['rank']} differs")
+        check(row["mesh"]["k1"] == row["k1_expect"],
+              f"world {w} N={MESH_LARGE_N} rank {r['rank']}: "
+              f"{row['mesh']['k1']} K1 launches, expected {row['k1_expect']}")
+        large.append({"rank": r["rank"], "span": row["span"],
+                      **{k: {kk: vv for kk, vv in v.items() if kk != "result"}
+                         for k, v in row.items() if k in ("mesh", "plain")}})
+        log(f"world {w} N={MESH_LARGE_N} rank {r['rank']} agents "
+            f"{row['span']}: mesh {fmt_ms(row['mesh']['ms'])} ms a round, "
+            f"peak {row['mesh']['peak_mb']:.1f} MB, K1 {row['mesh']['k1']} | "
+            f"off the mesh {fmt_ms(row['plain']['ms'])} ms, "
+            f"{row['plain']['peak_mb']:.1f} MB (in turns)")
+    if w == 1:
+        check(theta_hist_equal(torch, r0["large"]["mesh"]["result"],
+                               r0["large"]["plain"]["result"]),
+              f"N={MESH_LARGE_N}: the one-rank mesh run is not bitwise")
+    out["large"] = large
+    if "train" in r0:
+        tr = r0["train"]
+        for row in tr["rows"]["psum"]:
+            check(row["k1"] == 2 and row["bodies"]["wide"] == 2,
+                  f"psum step: {row['k1']} K1 launches ({row['bodies']}), "
+                  f"expected 2 wide launches at (1, d)")
+        for name in ("psum", "plain"):
+            for row in tr["rows"][name]:
+                check(all(math_isfinite(v) for v in row["metrics"].values()),
+                      f"{name} step: metrics not finite: {row['metrics']}")
+        ms = {k: [row["ms"] for row in v] for k, v in tr["rows"].items()}
+        out["train"] = {"d": tr["d"], "peak_gb": tr["peak_gb"], "ms": ms,
+                        "k1_per_step": tr["rows"]["psum"][-1]["k1"],
+                        "loss": {k: [row["metrics"]["loss"] for row in v]
+                                 for k, v in tr["rows"].items()}}
+        log(f"psum train step, llama3.2-3b (d = {tr['d']}), B={TRAIN_BATCH} "
+            f"S={TRAIN_SEQ}, one rank: ms {[round(x, 1) for x in ms['psum']]}"
+            f" against the plain step's {[round(x, 1) for x in ms['plain']]}"
+            f" in turns; 2 K1 launches at (1, d) a step; peak "
+            f"{tr['peak_gb']:.2f} GB; loss "
+            f"{[round(x, 4) for x in out['train']['loss']['psum']]}")
+    return out
+
+
+def fmt_ms(xs):
+    return "/".join(f"{x:.1f}" for x in xs)
+
+
+def theta_hist_equal(torch, a, b):
+    (ta, ha), (tb, hb) = a, b
+    return all(torch.equal(ta[k], tb[k]) for k in ta) and all(
+        torch.equal(x, y) for x, y in zip(ha, hb))
+
+
+def max_rel_dev(torch, a, b):
+    """The largest relative difference of theta_K and the history fields."""
+    (ta, ha), (tb, hb) = a, b
+    pairs = [(ta[k], tb[k]) for k in ta] + list(zip(ha, hb))
+    return max(float(((x.double() - y.double()).abs()
+                      / y.double().abs().clamp(min=1e-6)).max())
+               for x, y in pairs)
+
+
 def main():
     import torch
 
@@ -3541,6 +3885,7 @@ def main():
     phase_resume(torch)
     stream_rows, fold_rows = phase_streamed_lanes(torch)
     sharded_k1 = phase_sharded(torch)
+    mesh = phase_agent_mesh(torch)
     RECORD["seconds"] = time.perf_counter() - t_all
 
     # K1's two bodies.  The wide body runs the main path (Algorithm 2 at
@@ -3571,7 +3916,15 @@ def main():
         f"streamed lanes in {STREAMED_LANE_BLOCKS}s, R = "
         f"{STREAMED_LANE_RUNS[-1]} (10, 165)": stream_rows[-1]["k1_per_round"],
         f"sweep vmap, streamed + budget partitions, {SHARDED_ROUNDS} rounds":
-            sharded_k1 / SHARDED_ROUNDS}
+            sharded_k1 / SHARDED_ROUNDS,
+        "agent mesh, one rank, stacked (10, 165): fold + tail":
+            mesh["forms"]["stacked"]["k1_per_round_mesh"][0],
+        f"agent mesh, one rank, streamed in {MESH_BLOCKS}s (10, 165)":
+            mesh["forms"]["streamed"]["k1_per_round_mesh"][0],
+        f"agent mesh, one rank, service streamed in {MESH_BLOCKS}s":
+            mesh["forms"]["service"]["k1_per_round_mesh"][0],
+        "psum train step, llama3.2-3b, one rank (1, d)":
+            mesh["train"]["k1_per_step"]}
     kernels = {"kernels": [{
         "name": "ota_fused_wide", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ota_fused.cu",
@@ -3653,5 +4006,37 @@ def main():
     return 0
 
 
+MESH_ACROSS_CARDS = "--agent-mesh-across-cards"
+
+
+def mesh_across_cards():
+    """Phase 31's mesh over every visible card alone (no psum step), then
+    the card test of the mesh over every card: the one path that needs
+    several cards, for a machine with two or more."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    smi = phase_card(torch)
+    phase_build()
+    w = torch.cuda.device_count()
+    check(w > 1, f"{MESH_ACROSS_CARDS} needs two or more cards, found {w}")
+    t0 = phase(f"31. agent mesh over {w} cards")
+    rec = check_mesh_world(torch, w, mesh_lib.run_local(
+        mesh_rank, w, False, device="cuda", timeout=600))
+    done("agent mesh", t0)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "agent_mesh_cards.json").write_text(json.dumps(
+        {"card": smi, "world": w, **rec}, indent=1, default=str))
+    return subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
+         str(ROOT / "tests" / "test_torch_cuda.py"), "-k",
+         "agent_mesh_over_every_card"], timeout=600).returncode
+
+
 if __name__ == "__main__":
-    sys.exit(resume_child() if sys.argv[1:] == [RESUME_CHILD] else main())
+    if sys.argv[1:] == [RESUME_CHILD]:
+        sys.exit(resume_child())
+    sys.exit(mesh_across_cards() if sys.argv[1:] == [MESH_ACROSS_CARDS]
+             else main())

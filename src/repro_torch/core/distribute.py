@@ -37,8 +37,12 @@ only the one-device mesh and a mesh that lists one device more than once;
 ``tests/test_torch_cuda.py::test_sharded_cells_launch_k1_on_their_own_card``
 runs the mesh over every visible card, so only a host with two or more
 checks the placement across cards.
-The agent-mesh forms (``agent_mesh_for``, ``fedpg.run(agent_mesh=)``) come
-with the next slice (``ROADMAP.md``).
+
+The agent axis inside a round is the other axis to split: build an agent
+mesh with :func:`agent_mesh_for` on every rank of a ``torch.distributed``
+group and pass it to ``fedpg.run(..., agent_mesh=...)``: each rank rolls
+out its slice of the fleet and folds it through K1, one ``all_reduce`` a
+round sums the folds (``core/lanes.py``).
 """
 from __future__ import annotations
 
@@ -50,7 +54,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.fedpg import History
-from repro_torch.launch.mesh import Mesh, make_sweep_mesh
+from repro_torch.launch.mesh import (
+    AgentMesh, Mesh, make_agent_mesh, make_sweep_mesh,
+)
 from repro_torch.telemetry import trace as rtrace
 from repro_torch.telemetry.probes import RoundTelemetry
 
@@ -58,7 +64,8 @@ LANE_AXIS = "lane"
 MC_AXIS = "mc"
 
 __all__ = [
-    "LANE_AXIS", "MC_AXIS", "Cell", "Placement", "default_sweep_mesh",
+    "LANE_AXIS", "MC_AXIS", "Cell", "Placement", "agent_mesh_for",
+    "agent_mesh_size", "default_sweep_mesh",
     "dispatch_partition", "gather", "pad_lanes", "place_partition",
     "plan_placement",
 ]
@@ -67,6 +74,29 @@ __all__ = [
 def default_sweep_mesh() -> Mesh:
     """Every visible CUDA device on the lane axis (``("lane", "mc")``)."""
     return make_sweep_mesh()
+
+
+def agent_mesh_size(n_agents: int, world: int) -> int:
+    """The largest rank count up to ``world`` that divides ``n_agents``
+    (JAX's ``agent_mesh_for`` rule over ``world`` devices)."""
+    n = world
+    while n_agents % n:
+        n -= 1
+    return n
+
+
+def agent_mesh_for(n_agents: int) -> Optional[AgentMesh]:
+    """An agent mesh over the largest group of the first ranks whose size
+    divides ``n_agents``, the mesh ``fedpg.run(..., agent_mesh=...)`` wants
+    (counterpart of ``repro.core.distribute.agent_mesh_for``).  Every rank
+    of the initialised default group must call it; the ranks outside that
+    group get None and take no part in the run."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("agent_mesh_for needs an initialised "
+                           "torch.distributed group")
+    return make_agent_mesh(agent_mesh_size(n_agents, dist.get_world_size()))
 
 
 @dataclass(frozen=True)

@@ -59,7 +59,22 @@ of one lane-batched run (one round per step for all runs, every lane bitwise
 :func:`run` with its seed; on the card one K1 lane-form launch a stacked
 round, ``2 n_blocks + 1`` a streamed one).  Every metric reduces in a fixed
 order (``utils.tree.fixed_sum``), the same for a run alone and as a lane.
-Not ported here: the agent-mesh forms (the next slice).
+
+``agent_mesh`` (``launch.mesh.AgentMesh``, from ``distribute.
+agent_mesh_for``) splits the fleet across the ranks of a
+``torch.distributed`` group, the port's form of JAX's ``shard_map`` round:
+every rank seeds the run's generator alike and makes every draw of the
+round (so a mesh run's draws are the run's off the mesh: the initial
+states, the noise, the gains, the kernel seed, the service mask), rolls out
+and folds only its own agents through K1, and one ``all_reduce`` of the
+packed ``(L, 2P)`` float32 sums and one ``all_gather`` of the per-agent
+returns (and squared norms) a round join the ranks; every rank then runs
+the same K1 server tail and ends with the same theta and history.  Reward,
+``gain_mean``, the participation rate and the norm probes reduce over the
+gathered fleet in the run's fixed order and are bitwise the run's off the
+mesh; ``grad_sq``, the update, theta and the SNR carry the cross-rank
+association.  Staleness does not compose with a mesh, participation needs
+``agent_blocks``, and so does an N the ranks do not divide (JAX's guards).
 """
 from __future__ import annotations
 
@@ -71,6 +86,7 @@ import torch
 
 from repro_torch.core import gpomdp, ota, power_control
 from repro_torch.core.ota import OTAConfig
+from repro_torch.launch.mesh import AgentMesh
 from repro_torch.rl.envs.heterogeneous import block_env, check_agent_count
 from repro_torch.rl.sampler import rollout_batch
 from repro_torch.service import participation as svc_part
@@ -142,7 +158,8 @@ def make_round_fn(env, policy, cfg: FedPGConfig, ota_cfg: Optional[OTAConfig],
                   agent_blocks: Optional[int] = None,
                   participation: Optional[ParticipationConfig] = None,
                   staleness: Optional[StalenessConfig] = None,
-                  telemetry: Optional[TelemetryConfig] = None) -> RoundFn:
+                  telemetry: Optional[TelemetryConfig] = None,
+                  agent_mesh: Optional[AgentMesh] = None) -> RoundFn:
     """One communication round:
     ``round_fn(theta, generator, draws=None) -> (theta', (reward, grad_sq,
     gain_mean))``.  ``ota_backend`` picks the uplink ("torch" | "cuda" |
@@ -152,8 +169,10 @@ def make_round_fn(env, policy, cfg: FedPGConfig, ota_cfg: Optional[OTAConfig],
     round's draws (module docstring).  An active ``participation`` config
     makes it a service round over a :class:`ServiceState` (module
     docstring).  An active ``telemetry`` appends the round's
-    :class:`RoundTelemetry` to the metrics.  The round is one lane of
-    ``core/lanes.py`` (:func:`lanes.lane_round_fn`)."""
+    :class:`RoundTelemetry` to the metrics.  ``agent_mesh`` runs the round
+    on this rank's slice of the fleet (module docstring; injected draws are
+    the whole fleet's).  The round is one lane of ``core/lanes.py``
+    (:func:`lanes.lane_round_fn`)."""
     if cfg.estimator not in gpomdp.ESTIMATORS:
         raise ValueError(f"unknown estimator {cfg.estimator!r}")
     if ota_cfg is not None:
@@ -167,7 +186,7 @@ def make_round_fn(env, policy, cfg: FedPGConfig, ota_cfg: Optional[OTAConfig],
     from repro_torch.core import lanes
 
     return lanes.lane_round_fn(env, policy, cfg, ota_cfg, ota_backend, part,
-                               stale_cfg, telem, agent_blocks)
+                               stale_cfg, telem, agent_blocks, agent_mesh)
 
 
 class _Predrawn(NamedTuple):
@@ -286,6 +305,7 @@ def run(env, policy, cfg: FedPGConfig, seed: int = 0, *,
         participation: Optional[ParticipationConfig] = None,
         staleness: Optional[StalenessConfig] = None,
         telemetry: Optional[TelemetryConfig] = None,
+        agent_mesh: Optional[AgentMesh] = None,
         device: DeviceLike = None) -> Tuple[Params, History]:
     """Run K rounds from ``torch.Generator(device).manual_seed(seed)``;
     returns ``(theta_K, History)``.  ``ota=None`` is Algorithm 1, an
@@ -293,8 +313,10 @@ def run(env, policy, cfg: FedPGConfig, seed: int = 0, *,
     :func:`make_round_fn`).  ``participation`` / ``staleness`` run service
     rounds (a config that normalises away runs the plain rounds, bit for
     bit).  ``telemetry`` fills ``History.telemetry`` with ``(K,)`` probes.
-    ``device=None`` means ``cuda`` and raises when no GPU is present.  The
-    run is one lane of ``core/lanes.py``."""
+    ``device=None`` means ``cuda`` and raises when no GPU is present.
+    ``agent_mesh`` splits the fleet across the mesh's ranks (module
+    docstring): call it on every rank; the run is on the rank's device.
+    The run is one lane of ``core/lanes.py``."""
     from repro_torch.core import lanes
 
     part = svc_part.normalize(participation, cfg.n_agents)
@@ -303,7 +325,7 @@ def run(env, policy, cfg: FedPGConfig, seed: int = 0, *,
         env, policy, cfg, [lanes.LaneSpec(seed, cfg.alpha, ota, None, part,
                                           stale_cfg)],
         theta0=theta0, telemetry=telemetry, ota_backend=ota_backend,
-        agent_blocks=agent_blocks, device=device)
+        agent_blocks=agent_blocks, agent_mesh=agent_mesh, device=device)
     return {k: v[0] for k, v in theta.items()}, hist.lane(0)
 
 
@@ -325,12 +347,14 @@ def monte_carlo(env, policy, cfg: FedPGConfig, seed: int, n_runs: int, *,
                 participation: Optional[ParticipationConfig] = None,
                 staleness: Optional[StalenessConfig] = None,
                 telemetry: Optional[TelemetryConfig] = None,
+                agent_mesh: Optional[AgentMesh] = None,
                 device: DeviceLike = None) -> History:
     """``n_runs`` independent repetitions (the paper uses 20), one generator
     each (seeds :func:`run_seeds`); the History fields gain a leading
     (n_runs,) axis.  The repetitions run as the lanes of one lane-batched
     run (``core/lanes.py``), stacked or streamed (``agent_blocks``), each
-    lane bitwise :func:`run` with its seed."""
+    lane bitwise :func:`run` with its seed.  With ``agent_mesh`` the runs
+    times this rank's agents run as one lane-batched round."""
     from repro_torch.core import lanes
 
     part = svc_part.normalize(participation, cfg.n_agents)
@@ -340,4 +364,4 @@ def monte_carlo(env, policy, cfg: FedPGConfig, seed: int, n_runs: int, *,
              for s in run_seeds(seed, n_runs)]
     return lanes.run_lanes(env, policy, cfg, specs, telemetry=telemetry,
                            ota_backend=ota_backend, agent_blocks=agent_blocks,
-                           device=device)[1]
+                           agent_mesh=agent_mesh, device=device)[1]

@@ -56,6 +56,18 @@ These are the port's only rounds, stacked and streamed:
 :func:`fedpg.run` runs as one lane, and :func:`fedpg.make_round_fn`'s
 round is :func:`lane_round_fn`, one lane over a run's dict parameters that
 also takes injected :class:`RoundDraws`.
+
+On an agent mesh (``agent_mesh=``, ``launch.mesh.AgentMesh``) each rank
+runs the same lanes over its own slice of the fleet (:func:`rank_layout`):
+every rank makes every draw of the round, as the run off the mesh makes
+them, and rolls out only its agents; its blocks fold through K1 as above
+(the stacked round is one block: ``fixed_sum`` for the exact numerator,
+one K1 fold from zero for the channel signal); ONE ``all_reduce`` sums the
+packed ``(k, L, P)`` partial sums and ONE ``all_gather`` brings the
+per-agent returns and squared norms of the whole fleet to every rank
+(:func:`_mesh_sums`, :func:`_fleet_scalars`); then every rank runs the
+same K1 server tail.  K1 launches a round on a rank: 2 stacked, ``2
+n_blocks + 1`` streamed (its own blocks), whatever L.
 """
 from __future__ import annotations
 
@@ -77,6 +89,7 @@ from repro_torch.core.fedpg import (
 from repro_torch.core.ota import OTAConfig, sample_seed
 from repro_torch.core.power_control import LaneBudgets, check_agent_count
 from repro_torch.kernels import ota_fused
+from repro_torch.launch.mesh import AgentMesh
 from repro_torch.rl.envs.heterogeneous import (
     HeterogeneousEnv, check_agent_count as check_env_agent_count,
 )
@@ -216,6 +229,67 @@ def _check_structure(specs: Sequence[LaneSpec], n_agents: int) -> None:
         check_env_agent_count(s.env, n_agents)
 
 
+def check_agent_mesh(mesh: Optional[AgentMesh], n_agents: int,
+                     agent_blocks: Optional[int],
+                     part: Optional[ParticipationConfig],
+                     stale: Optional[StalenessConfig]) -> None:
+    """The agent mesh's guards, with JAX's meaning
+    (``_make_agent_sharded_round_fn``): no staleness replay; participation
+    only with ``agent_blocks``; a fleet the ranks do not divide only with
+    ``agent_blocks`` (each rank then stops at N)."""
+    if mesh is None:
+        return
+    if stale is not None:
+        raise ValueError(
+            "staleness replay does not compose with agent_mesh: the stale "
+            "buffer is per-agent carried state and a mesh round carries only "
+            "the replicated theta (use agent_blocks without a mesh, or "
+            "staleness=None)")
+    if part is not None and agent_blocks is None:
+        raise ValueError(
+            "participation under agent_mesh needs agent_blocks: the service "
+            "round runs on the mesh in its streamed form (any block size "
+            "works, e.g. agent_blocks=n_local)")
+    if n_agents % mesh.size and agent_blocks is None:
+        raise ValueError(
+            f"n_agents={n_agents} does not divide across the "
+            f"{mesh.axis_name!r} mesh of {mesh.size} ranks; pass "
+            f"agent_blocks to run with a short last rank instead")
+
+
+def rank_layout(n_agents: int, agent_blocks: Optional[int],
+                mesh: Optional[AgentMesh] = None):
+    """``(n_local, (lo, hi), blocks)``: the agents ``[lo, hi)`` this rank
+    rolls out and their ``(lo, hi)`` blocks (None for the stacked round).
+    Off a mesh that is every agent; on one, rank r's slice of ``n_local =
+    ceil(N / ranks)`` agents, cut at N: the phantom rows JAX pads the last
+    rank with would fold exact zeros, so none is rolled out.  The block
+    size is ``ota.blocked_layout``'s for ``n_local`` agents."""
+    n_local, lo, hi = n_agents, 0, n_agents
+    if mesh is not None:
+        n_local = -(-n_agents // mesh.size)
+        lo = min(mesh.rank * n_local, n_agents)
+        hi = min(lo + n_local, n_agents)
+    blocks = None
+    if agent_blocks is not None:
+        _, block, _ = ota.blocked_layout(n_local, agent_blocks)
+        blocks = [(b, min(b + block, hi)) for b in range(lo, hi, block)]
+    return n_local, (lo, hi), blocks
+
+
+def mesh_device(mesh: AgentMesh, device: DeviceLike) -> torch.device:
+    """The device of a run on ``mesh``: the rank's own; a ``device`` that
+    names another raises."""
+    if device is not None:
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev != mesh.device:
+            raise ValueError(f"device={device!r} but this rank of the agent "
+                             f"mesh runs on {mesh.device}")
+    return mesh.device
+
+
 def _dev_f32(vals, dev) -> torch.Tensor:
     return torch.as_tensor(_f32(vals), device=dev)
 
@@ -236,19 +310,20 @@ class _Lanes:
     def __init__(self, env, policy, cfg: FedPGConfig,
                  specs: Sequence[LaneSpec], dev: torch.device,
                  ota_backend: str, shapes: List[Tuple[str, torch.Size]],
-                 agent_blocks: Optional[int] = None):
+                 agent_blocks: Optional[int] = None,
+                 mesh: Optional[AgentMesh] = None):
         self.cfg, self.policy, self.dev = cfg, policy, dev
         self.specs = list(specs)
         self.n_lanes = len(specs)
         self.shapes = shapes
         self.sizes = [shape.numel() for _, shape in shapes]
         n = cfg.n_agents
-        self.blocks = None
-        if agent_blocks is not None:
-            n_blocks, block, _ = ota.blocked_layout(n, agent_blocks)
-            self.blocks = [(b * block, min((b + 1) * block, n))
-                           for b in range(n_blocks)]
         proto = specs[0]
+        check_agent_mesh(mesh, n, agent_blocks, proto.participation,
+                         proto.staleness)
+        self.mesh = mesh
+        self.n_local, self.span, self.blocks = rank_layout(n, agent_blocks,
+                                                           mesh)
         packed = pack_lanes(specs, n)
         self.packed = packed
         # --- env: one batched env, and each lane's own view for its draws
@@ -563,24 +638,30 @@ def _service_round(lanes: _Lanes, theta: torch.Tensor, gens,
     return theta_next, (reward, grad_sq, gain_mean), probes, stale_next
 
 
-def _fold(lanes: _Lanes, acc: torch.Tensor, g: torch.Tensor,
+def _fold(lanes: _Lanes, acc: Optional[torch.Tensor], g: torch.Tensor,
           h: Optional[torch.Tensor] = None,
           wire: Optional[torch.dtype] = None) -> torch.Tensor:
     """Fold a block into each lane's running sum, strictly sequentially:
     ``acc + h_0 g_0 + h_1 g_1 + ...`` over ``(L, P)`` sums, ``(L, b, P)``
-    rows and ``(L, b)`` gains (``h=None``: the plain rows).  On the card
-    ONE launch of K1's lane form over ``[acc; g]`` with gains ``[1; h]``,
-    sigma 0 and scale 1, the rows cast through ``wire`` first; on the CPU
-    the per-row fold of ``ota.stream_fold_block``'s plain chain."""
+    rows and ``(L, b)`` gains (``h=None``: the plain rows); ``acc=None``
+    folds from zero.  On the card ONE launch of K1's lane form over ``[acc;
+    g]`` with gains ``[1; h]`` (over ``g`` and ``h`` alone from zero), sigma
+    0 and scale 1, the rows cast through ``wire`` first; on the CPU the
+    per-row fold of ``ota.stream_fold_block``'s plain chain."""
     if lanes.fold_backend == "cuda":
         if wire is not None:
             g = g.to(wire).float()
-        ones = torch.ones((g.shape[0], 1), device=g.device)
-        gains = torch.cat([ones, torch.ones(g.shape[:2], device=g.device)
-                           if h is None else h.float()], 1)
+        gains = (torch.ones(g.shape[:2], device=g.device) if h is None
+                 else h.float())
+        if acc is not None:
+            ones = torch.ones((g.shape[0], 1), device=g.device)
+            g = torch.cat([acc.unsqueeze(1), g], 1)
+            gains = torch.cat([ones, gains], 1)
         return ota_fused.fused_aggregate_lanes(
-            torch.cat([acc.unsqueeze(1), g], 1), gains, sigma=0.0, scale=1.0,
+            g.contiguous(), gains.contiguous(), sigma=0.0, scale=1.0,
             with_noise=False)
+    if acc is None:
+        acc = torch.zeros((g.shape[0], g.shape[2]), device=g.device)
     for i in range(g.shape[1]):
         row = g[:, i]
         acc = acc + (row if h is None else h[:, i:i + 1] * row)
@@ -618,29 +699,75 @@ def _tail(lanes: _Lanes, v: torch.Tensor, seeds: torch.Tensor,
     return torch.stack(out)
 
 
+def _mesh_sums(lanes: _Lanes, *sums: torch.Tensor) -> List[torch.Tensor]:
+    """Each ``(L, P)`` partial sum summed over the agent mesh: ONE
+    ``all_reduce`` of them packed as ``(k, L, P)`` (the exact-mean
+    numerator and the channel signal); off a mesh they are already the
+    sums."""
+    if lanes.mesh is None:
+        return list(sums)
+    return list(lanes.mesh.all_reduce(torch.stack(sums)).unbind(0))
+
+
+def _fleet_scalars(lanes: _Lanes, returns: List[torch.Tensor],
+                   norms: List[torch.Tensor]):
+    """The whole fleet's per-agent returns ``(L, N, M)`` and squared
+    gradient norms ``(L, N)`` (None without ``norms``) from this rank's
+    blocks: on a mesh ONE ``all_gather`` of the ranks' slices, each packed
+    as ``(L, n_local, M [+ 1])`` with zero rows past its agents and cut at
+    N, so every rank reduces them in the order of the run off the mesh."""
+    m = lanes.cfg.batch_m
+    ret = torch.cat(returns, 1) if returns else torch.zeros(
+        (lanes.n_lanes, 0, m), device=lanes.dev)
+    nsq = None if not norms else torch.cat(norms, 1)
+    if lanes.mesh is None:
+        return ret, nsq
+    local = ret if nsq is None else torch.cat([ret, nsq.unsqueeze(-1)], -1)
+    pad = lanes.n_local - local.shape[1]
+    if pad:
+        local = torch.cat([local, local.new_zeros(
+            (local.shape[0], pad, local.shape[2]))], 1)
+    full = lanes.mesh.all_gather(local, 1)[:, :lanes.cfg.n_agents]
+    return full[..., :m], None if nsq is None else full[..., m]
+
+
 def _streamed_round(lanes: _Lanes, theta: torch.Tensor, gens,
                     telem: Optional[TelemetryConfig], d: RoundDraws):
     """:func:`_plain_round` block by block over the agent axis (module
     docstring): the exact-mean numerator and the channel signal are strict
     sequential folds, so the history is bitwise the same for every block
-    size; only the per-agent returns, O(N) scalars, outlive a block."""
+    size; only the per-agent returns, O(N) scalars, outlive a block.
+
+    On an agent mesh the blocks are this rank's agents, and the partial
+    sums and the per-agent scalars meet in one ``all_reduce`` and one
+    ``all_gather`` before the server tail, which every rank runs alike.
+    The stacked round on a mesh (no ``agent_blocks``) is one block, the
+    rank's slice: its exact numerator is ``fixed_sum`` (the stacked
+    round's) and its channel signal one K1 fold from zero."""
     cfg, n, sizes = lanes.cfg, lanes.cfg.n_agents, lanes.sizes
     dr = _draw_rollouts(lanes, gens, d)
     h = None
     if lanes.ota is not None:
         h, seeds = _uplink_draws(lanes, gens, d)
     want_norms = telem is not None and (telem.grad_norms or telem.dispersion)
+    stacked = lanes.blocks is None
     gsum = v = torch.zeros_like(theta)
     returns, norms = [], []
-    for lo, hi in lanes.blocks:
+    for lo, hi in [lanes.span] if stacked else lanes.blocks:
         trajs, grads = _rollout_and_grads(lanes, theta, dr, lo, hi)
-        gsum = _fold(lanes, gsum, grads)
+        gsum = fixed_sum(grads, 1) if stacked else _fold(lanes, gsum, grads)
         if h is not None:
-            v = _fold(lanes, v, grads, h[:, lo:hi], lanes.wire)
+            v = _fold(lanes, None if stacked else v, grads, h[:, lo:hi],
+                      lanes.wire)
         returns.append(discounted_return(trajs.losses, cfg.gamma))
         if want_norms:
             norms.append(flat_norm_sq(grads, sizes))
-    reward = -fixed_mean(torch.cat(returns, 1), 2)
+    if h is None:
+        (gsum,) = _mesh_sums(lanes, gsum)
+    else:
+        gsum, v = _mesh_sums(lanes, gsum, v)
+    ret, norms_sq = _fleet_scalars(lanes, returns, norms)
+    reward = -fixed_mean(ret, 2)
     mean = gsum / n
     grad_sq = flat_norm_sq(mean, sizes)
     if h is None:
@@ -655,7 +782,7 @@ def _streamed_round(lanes: _Lanes, theta: torch.Tensor, gens,
             flat_norm_sq(theta - theta_next, sizes)) / lanes.alpha_t
         probes = _probes.flat_streamed_round_probes(
             telem, v=None if h is None else v, sizes=sizes,
-            norms_sq=torch.cat(norms, 1) if want_norms else None,
+            norms_sq=norms_sq,
             noise_pow=lanes.noise_power(), drift_ref=lanes.drift_ref(),
             gain_mean=gain_mean, update_norm=update_norm)
     return theta_next, (reward, grad_sq, gain_mean), probes
@@ -698,6 +825,12 @@ def _streamed_service_round(lanes: _Lanes, theta: torch.Tensor, gens,
         returns.append(discounted_return(trajs.losses, cfg.gamma))
         if want_norms:
             norms.append(flat_norm_sq(grads, sizes))
+    # on a mesh (no staleness there): one all_reduce, one all_gather
+    if hm is None:
+        (gsum,) = _mesh_sums(lanes, gsum)
+    else:
+        gsum, v = _mesh_sums(lanes, gsum, v)
+    ret, norms_sq = _fleet_scalars(lanes, returns, norms)
     inv_w = rw.inv_w.unsqueeze(-1)
     if stale is not None:
         gsum = gsum + ssum
@@ -712,14 +845,13 @@ def _streamed_service_round(lanes: _Lanes, theta: torch.Tensor, gens,
             update = update + ssum * inv_w
         gain_mean = _service_gain_mean(hm, rw)
     theta_next = theta - lane_param(lanes.alpha, 1) * update
-    reward = _service_reward(torch.cat(returns, 1), rw, cfg.batch_m)
+    reward = _service_reward(ret, rw, cfg.batch_m)
     stale_next = None if stale is None else _StaleLanes(
         grads=torch.cat(new_rows, 1), age=svc_stale.next_age(age, mask))
     probes = None
     if telem is not None:
-        norms_sq = None
         if want_norms:
-            norms_sq = torch.where(mask, torch.cat(norms, 1),
+            norms_sq = torch.where(mask, norms_sq,
                                    torch.zeros((), device=dev))
         probes = _probes.flat_streamed_round_probes(
             telem, v=None if hm is None else v, sizes=sizes,
@@ -737,7 +869,8 @@ def _round(lanes: _Lanes, theta: torch.Tensor, gens,
     """One round of every lane, of the form ``lanes`` was built for:
     ``(theta', metrics, probes, stale')``."""
     if lanes.part is None:
-        fn = _plain_round if lanes.blocks is None else _streamed_round
+        fn = _plain_round if lanes.blocks is None and lanes.mesh is None \
+            else _streamed_round
         return fn(lanes, theta, gens, telem, d) + (None,)
     fn = _service_round if lanes.blocks is None else _streamed_service_round
     return fn(lanes, theta, gens, telem, svc_seed, k, stale, d)
@@ -748,18 +881,25 @@ def run_lanes(env, policy, cfg: FedPGConfig, specs: Sequence[LaneSpec], *,
               telemetry: Optional[TelemetryConfig] = None,
               ota_backend: str = "auto",
               agent_blocks: Optional[int] = None,
+              agent_mesh: Optional[AgentMesh] = None,
               device: DeviceLike = None) -> Tuple[Params, History]:
     """Run the lanes ``specs`` (module docstring); returns ``(theta_K,
     History)`` with a leading lane axis on every leaf and field.  ``env``
     is the env of lanes whose spec names none; ``theta0``, when given, is
     every lane's start (no draw); ``agent_blocks`` streams the agent axis
-    in blocks of that many agents.  Each spec's participation and
-    staleness must be normalised (``service.*.normalize``)."""
+    in blocks of that many agents.  ``agent_mesh`` (called on every rank
+    of the mesh, on the rank's device) splits the fleet across the ranks:
+    each rank makes every draw of the round, rolls out its own agents for
+    every lane and folds them; the lanes times the rank's agents run as one
+    lane-batched round, and every rank ends with the same theta and
+    history.  Each spec's participation and staleness must be normalised
+    (``service.*.normalize``)."""
     if not specs:
         raise ValueError("no lanes")
     if cfg.estimator not in gpomdp.ESTIMATORS:
         raise ValueError(f"unknown estimator {cfg.estimator!r}")
-    dev = resolve_device(device)
+    dev = resolve_device(device) if agent_mesh is None \
+        else mesh_device(agent_mesh, device)
     n = cfg.n_agents
     specs = list(specs)
     _check_structure(specs, n)
@@ -772,7 +912,7 @@ def run_lanes(env, policy, cfg: FedPGConfig, specs: Sequence[LaneSpec], *,
     theta = torch.stack([flatten_params(t)[0] for t in thetas])  # (L, P)
     lanes = _Lanes(env, policy, cfg, specs, dev, ota_backend,
                    [(k, thetas[0][k].shape) for k in sorted(thetas[0])],
-                   agent_blocks)
+                   agent_blocks, agent_mesh)
     svc_seed = stale = None
     if lanes.part is not None:   # after theta_0, as a service run draws it
         svc_seed = torch.stack([sample_seed(g, dev) for g in gens]) \
@@ -803,13 +943,16 @@ def lane_round_fn(env, policy, cfg: FedPGConfig,
                   part: Optional[ParticipationConfig],
                   stale_cfg: Optional[StalenessConfig],
                   telem: Optional[TelemetryConfig],
-                  agent_blocks: Optional[int] = None):
+                  agent_blocks: Optional[int] = None,
+                  agent_mesh: Optional[AgentMesh] = None):
     """:func:`fedpg.make_round_fn`'s round, stacked or streamed, plain or
-    service: this module's round at one lane, over a run's dict parameters
-    (a :class:`ServiceState` in a service round), drawing from the run's
-    generator or taking :class:`RoundDraws`.  ``part`` and ``stale_cfg``
-    normalised, ``telem`` active or None."""
+    service, on an agent mesh or off it: this module's round at one lane,
+    over a run's dict parameters (a :class:`ServiceState` in a service
+    round), drawing from the run's generator or taking :class:`RoundDraws`
+    (on a mesh the whole fleet's: each rank slices its agents).  ``part``
+    and ``stale_cfg`` normalised, ``telem`` active or None."""
     spec = LaneSpec(0, cfg.alpha, ota_cfg, None, part, stale_cfg)
+    check_agent_mesh(agent_mesh, cfg.n_agents, agent_blocks, part, stale_cfg)
     built: Dict[Any, _Lanes] = {}
 
     def round_fn(carry, generator: Optional[torch.Generator],
@@ -820,8 +963,10 @@ def lane_round_fn(env, policy, cfg: FedPGConfig,
         shapes = [(k, params[k].shape) for k in sorted(params)]
         key = (theta.device, tuple(shapes))
         if key not in built:
+            if agent_mesh is not None:
+                mesh_device(agent_mesh, theta.device)
             built[key] = _Lanes(env, policy, cfg, [spec], theta.device,
-                                ota_backend, shapes, agent_blocks)
+                                ota_backend, shapes, agent_blocks, agent_mesh)
         lanes = built[key]
         stale = seed = None
         if part is not None:

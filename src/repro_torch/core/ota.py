@@ -32,8 +32,23 @@ from zero in order, so the stack ``[acc; g_block]`` with gains ``[1;
 h_block]``, sigma 0 and scale 1 gives ``acc + h_0 g_0 + ...`` with the
 roundings of the per-agent fold (``0 + 1 * acc`` is ``acc`` exactly).  The
 tail is K1's unit-gain server pass.  The lane-batched run folds many runs'
-blocks in one launch of K1's lane form (``core/lanes.py``).  The agent-mesh
-forms come with the next slice.
+blocks in one launch of K1's lane form (``core/lanes.py``).
+
+The axis forms (``mesh=``, JAX's ``axis=`` forms inside ``shard_map``) run
+on every rank of an agent mesh (``launch.mesh.AgentMesh``): ``"axis"``
+(one agent a rank, ``local_stack=False``) and ``"axis_stacked"`` (a stack
+of the rank's agents, streamed with ``agent_blocks``, exact with
+``cfg=None``).  A rank folds its gain-weighted rows into one float32
+partial sum (one K1 launch, sigma 0, scale 1), the sums meet in ONE
+``all_reduce`` in the gradient's dtype (JAX psums in it; in the wire
+dtype when the uplink has one), and every rank runs K1's unit-gain server
+pass over the sum with the same seed, so every
+rank adds the server's one noise draw with no broadcast.  Every rank draws
+the whole fleet's gains (or takes them injected) and uses its own; rows of
+a padded local stack whose global index is past ``n_agents`` are phantoms
+and fold exact zeros; every normaliser uses the true count.  Over-the-air
+aggregation adds no communication volume over exact data-parallel
+aggregation: the gains weight the rows before the one sum.
 
 The LLM trainer's form (the channel-weighted loss, JAX's Form 3) is
 :func:`example_weights` and :func:`add_awgn`: the gains enter the loss
@@ -44,16 +59,17 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.core.channel import Channel
 from repro_torch.core.power_control import PowerPolicy, effective_moments
 from repro_torch.kernels import ota_fused, ref
+from repro_torch.launch.mesh import AgentMesh
 from repro_torch.utils.tree import (
-    Params, fixed_sum, flat_norm_sq, flatten_agent_stack, flatten_params,
-    flatten_paths, replace_paths, theta_device, tree_keys,
+    Params, _unflattener, fixed_sum, flat_norm_sq, flatten_agent_stack,
+    flatten_params, flatten_paths, replace_paths, theta_device, tree_keys,
 )
 
 Seed = Union[int, torch.Tensor]
@@ -412,15 +428,21 @@ def stream_zeros(like: Params, backend: str) -> Params:
 def _stream_superpose(grads_stacked: Params, gains: Optional[torch.Tensor],
                       agent_blocks: int, *,
                       wire_dtype: Optional[torch.dtype] = None,
-                      backend: str = "torch") -> Params:
+                      backend: str = "torch",
+                      valid: Optional[torch.Tensor] = None) -> Params:
     """Blocked fold over an already-materialised agent stack: the running
-    superposition ``sum_i h_i g_i`` (or ``sum_i g_i``)."""
+    superposition ``sum_i h_i g_i`` (or ``sum_i g_i``); ``valid`` (N,)
+    marks the real rows of a padded stack (the rest fold exact zeros)."""
     keys = tree_keys(grads_stacked)
     n = grads_stacked[keys[0]].shape[0]
     dev = grads_stacked[keys[0]].device
     n_blocks, block, pad = blocked_layout(n, agent_blocks)
     gp = block_view(pad_agent_axis(grads_stacked, pad), n_blocks, block)
-    valid = block_valid_mask(n, n_blocks, block, dev)
+    if valid is None:
+        valid = block_valid_mask(n, n_blocks, block, dev)
+    else:
+        valid = torch.cat([valid, valid.new_zeros(pad)]).reshape(n_blocks,
+                                                                 block)
     hp = None
     if gains is not None:
         hp = block_view(torch.cat([gains, gains.new_zeros(pad)]), n_blocks,
@@ -508,11 +530,138 @@ def _exact_mean_streamed(grads: Params, agent_blocks: int,
     return {k: (v[k] / n).to(grads[k].dtype) for k in tree_keys(v)}
 
 
+# ---------------------------------------------------------------------------
+# The axis forms: one rank of an agent mesh (JAX's shard_map / psum forms).
+# ---------------------------------------------------------------------------
+
+def _axis_row(grads: Params,
+              wire: Optional[torch.dtype]) -> Tuple[torch.Tensor, Callable]:
+    """One agent's gradient dict as a ``(P,)`` row, and the map back to the
+    dict.  The row's dtype is the one the ranks sum in: the uplink's wire
+    dtype when it has one, else the leaves' (float32 where they differ).
+    JAX psums each leaf in its own dtype; one row takes one, and a bf16
+    wire reads every row in bf16 anyway (a model's float32 norm scales
+    too)."""
+    keys = tree_keys(grads)
+    dtypes = {grads[k].dtype for k in keys}
+    dt = wire or (dtypes.pop() if len(dtypes) == 1 else torch.float32)
+    row = torch.cat([grads[k].reshape(-1).to(dt) for k in keys])
+    return row, _unflattener(keys, [grads[k].shape for k in keys],
+                             [grads[k].dtype for k in keys])
+
+
+def _rank_fold(rows: torch.Tensor, gains: torch.Tensor,
+              wire: Optional[torch.dtype], backend: str) -> torch.Tensor:
+    """This rank's partial superposition ``sum_i h_i g_i`` of its ``(A,
+    P)`` rows as a ``(P,)`` float32 fold from zero: one launch of K1 with
+    sigma 0 and scale 1 on ``"cuda"`` (the rows read through ``wire``),
+    K1's plain version otherwise."""
+    gains = gains.float().contiguous()
+    if backend == "cuda":
+        return ota_fused.fused_aggregate(rows.contiguous(), gains, sigma=0.0,
+                                         scale=1.0, with_noise=False,
+                                         wire_dtype=wire)
+    return ref.ota_fused_ref(rows, gains)
+
+
+def _server_row(cfg: OTAConfig, v: torch.Tensor, seed: Seed, n_total: int,
+               n_agents: Optional[int], backend: str) -> torch.Tensor:
+    """The server tail over a reduced ``(P,)`` superposition ``v`` (float32,
+    or bfloat16 read as K1's wire): the AWGN and ``scale = 1 / (n_total
+    m_h)``, one unit-gain K1 pass on ``"cuda"``, its plain version (the
+    plain chain's epilogue) otherwise; ``(P,)`` float32."""
+    row = v.reshape(1, -1)
+    ones = torch.ones(1, dtype=torch.float32, device=v.device)
+    noisy = cfg.noise_sigma > 0.0
+    scale = _server_scale(cfg, n_total, n_agents)
+    if backend == "cuda":
+        return ota_fused.fused_aggregate(
+            row, ones, sigma=cfg.noise_sigma, scale=scale, seed=seed,
+            with_noise=noisy,
+            wire_dtype=torch.bfloat16 if v.dtype == torch.bfloat16 else None)
+    noise = ref.counter_noise(seed, row.shape[1], v.device) if noisy else None
+    return ref.ota_fused_ref(row, ones, noise, sigma=cfg.noise_sigma,
+                             scale=scale)
+
+
+def _local_rows(mesh: AgentMesh, n_local: int,
+                n_total: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The global agent index of each local row (``rank * n_local + j``,
+    clipped to the fleet) and whether it is a real agent (a phantom row
+    lies past ``n_total``)."""
+    idx = mesh.rank * n_local + torch.arange(n_local, device=mesh.device)
+    return idx.clamp(max=n_total - 1), idx < n_total
+
+
+def _axis_aggregate(grads: Params, cfg: Optional[OTAConfig],
+                    mesh: AgentMesh, generator, gains, seed,
+                    n_agents: Optional[int], backend: str
+                    ) -> Tuple[Params, torch.Tensor]:
+    """``form="axis"``: one agent a rank (JAX ``_psum_axis``; ``pmean``
+    for the exact uplink).  Each ``(P,)`` buffer is dropped as soon as the
+    next exists, so beside ``grads`` at most the float32 fold and one row
+    in the summed dtype (:func:`_axis_row`) live at once: the LLM train
+    step's uplink holds what ``add_awgn``'s does."""
+    row, unflatten = _axis_row(grads, None if cfg is None
+                               else _wire_dtype(cfg))
+    dev, dtype = row.device, row.dtype
+    if cfg is None:
+        v = mesh.all_reduce(row)
+        return unflatten(v.float() / mesh.size), torch.ones((), device=dev)
+    n_total = mesh.size if n_agents is None else n_agents
+    h_all, s = _round_draws(cfg, generator, mesh.size, dev, gains, seed)
+    h = h_all[mesh.rank]
+    be = AggregateSpec(backend=backend).resolved_backend(dev)
+    v = _rank_fold(row.reshape(1, -1), h.reshape(1), None, be)
+    del row
+    v = mesh.all_reduce(v.to(dtype))
+    u = _server_row(cfg, v, s, n_total, n_agents, be)
+    del v
+    return unflatten(u), h
+
+
+def _axis_stacked_aggregate(grads: Params, cfg: Optional[OTAConfig],
+                            mesh: AgentMesh, generator, gains, seed,
+                            n_agents: Optional[int],
+                            agent_blocks: Optional[int], backend: str
+                            ) -> Tuple[Params, torch.Tensor]:
+    """``form="axis_stacked"``: a stack of this rank's agents (JAX
+    ``_psum_axis_stacked[_streamed]``, ``_exact_mean_axis_stacked
+    [_streamed]``); phantom rows fold exact zeros."""
+    keys = tree_keys(grads)
+    n_local = grads[keys[0]].shape[0]
+    dev = theta_device(grads)
+    n_total = mesh.size * n_local if n_agents is None else n_agents
+    idx, valid = _local_rows(mesh, n_local, n_total)
+    spec = AggregateSpec(exact=cfg is None, backend=backend)
+    be = _fold_backend(spec, dev)
+    h = None
+    if cfg is not None:
+        h_all, s = _round_draws(cfg, generator, n_total, dev, gains, seed)
+        h = torch.where(valid, h_all[idx], torch.zeros((), device=dev))
+    wire = _wire_dtype(cfg) if cfg is not None and be == "cuda" else None
+    if agent_blocks is not None:
+        v = _stream_superpose(grads, h, agent_blocks, wire_dtype=wire,
+                              backend=be, valid=valid)
+        flat, unflatten = flatten_params(v)
+    else:
+        rows, _, unflatten = flatten_agent_stack(grads)
+        rows = torch.where(valid[:, None], rows, torch.zeros((), device=dev))
+        flat = (fixed_sum(rows, 0) if cfg is None
+                else _rank_fold(rows, h, wire, be))
+    v = mesh.all_reduce(flat)
+    if cfg is None:
+        return unflatten(v / n_total), torch.ones((), device=dev)
+    return unflatten(_server_row(cfg, v, s, n_total, n_agents, be)), h
+
+
 def aggregate(grads: Params, cfg: Optional[OTAConfig], *,
               generator: Optional[torch.Generator] = None,
               backend: str = "auto", gains: Optional[torch.Tensor] = None,
               seed: Optional[Seed] = None,
-              agent_blocks: Optional[int] = None
+              agent_blocks: Optional[int] = None,
+              mesh: Optional[AgentMesh] = None, local_stack: bool = False,
+              n_agents: Optional[int] = None
               ) -> Tuple[Params, torch.Tensor]:
     """OTA-aggregate the (N, ...) stack ``grads``; returns ``(u_k, h)``.
 
@@ -520,7 +669,29 @@ def aggregate(grads: Params, cfg: Optional[OTAConfig], *,
     ``gains``/``seed`` inject the round's draws instead of drawing them from
     ``generator``.  ``agent_blocks`` streams the agent sum in blocks of that
     many agents (see :func:`stream_fold_block`): the same draws, a result
-    bitwise invariant to the block size."""
+    bitwise invariant to the block size.
+
+    ``mesh`` (an agent mesh; call on every rank) selects the axis forms
+    (module docstring): ``grads`` is this rank's gradient (``local_stack=
+    False``, ``"axis"``) or the ``(n_local, ...)`` stack of its agents
+    ``rank * n_local + j`` (``local_stack=True``, ``"axis_stacked"``);
+    ``n_agents`` the true fleet size (default: every row real).  ``gains``
+    are the whole fleet's (one a rank in ``"axis"``) and ``h`` comes back as
+    this rank's, phantoms zeroed."""
+    if mesh is not None:
+        if local_stack:
+            return _axis_stacked_aggregate(grads, cfg, mesh, generator, gains,
+                                           seed, n_agents, agent_blocks,
+                                           backend)
+        if agent_blocks is not None:
+            raise ValueError(
+                "agent_blocks streams an agent stack; the one-agent-per-rank "
+                "'axis' form has nothing to block (use local_stack=True)")
+        return _axis_aggregate(grads, cfg, mesh, generator, gains, seed,
+                               n_agents, backend)
+    if local_stack:
+        raise ValueError("local_stack=True is the axis-stacked form: it needs "
+                         "an agent mesh (mesh=)")
     spec = AggregateSpec(exact=cfg is None, backend=backend)
     dev = theta_device(grads)
     be = _fold_backend(spec, dev)

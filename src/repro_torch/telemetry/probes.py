@@ -29,8 +29,12 @@ probes (:func:`flat_streamed_round_probes`) take the lane axis too.  Every
 division that can take a per-lane value divides by a device tensor, in
 both forms.
 
-Not ported here: the agent-mesh forms (``sharded_*``), which wait for the
-agent-mesh slice.
+On an agent mesh the rounds feed :func:`flat_streamed_round_probes` with
+the all-reduced superposition ``v`` and the all-gathered per-agent squared
+norms (JAX's ``sharded_round_probes`` / ``sharded_streamed_round_probes``
+reduce with ``psum`` / ``pmax`` instead): the dispersion's max is over the
+whole gathered vector, every rank emits the same values, and the norm
+probes are bitwise the run's off the mesh.
 """
 from __future__ import annotations
 

@@ -40,8 +40,15 @@ leaf's gradient once.  Indexing the stacked leaf in the forward instead
 would make every layer's backward add a zero-filled gradient of the whole
 stack.
 
-Not ported: ``make_psum_train_step``, the shard_map form, which waits for
-the agent-mesh forms (``ROADMAP.md``).  Families other than dense raise.
+:func:`make_psum_train_step` is the data-parallel form over an agent mesh
+(JAX's ``shard_map`` step): each rank of the group is one agent, takes its
+slice of the global batch, computes its gradient by autograd, and
+``ota.aggregate(..., mesh=)`` in the ``"axis"`` form weights it by the
+rank's gain (one K1 launch at ``(1, d)``, sigma 0), sums the ranks' rows in
+one ``all_reduce`` (in the wire dtype when one is set, else the gradient's)
+and runs K1's server pass at ``(1, d)`` (the noise and the debias over the
+group size); clipping and AdamW follow as in :func:`make_train_step`.
+Families other than dense raise.
 """
 from __future__ import annotations
 
@@ -52,6 +59,7 @@ import torch
 
 from repro_torch.core import ota
 from repro_torch.core.channel import make_channel, noise_sigma_from_db
+from repro_torch.launch.mesh import AgentMesh
 from repro_torch.models.layers import lm_loss
 from repro_torch.models.model import Model
 from repro_torch.models import transformer
@@ -242,24 +250,7 @@ def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
                                  backend=tcfg.ota_backend)
 
         grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
-        # AdamW leaf by leaf in key order, written into the old state's
-        # tensors, so the step holds one leaf's new moments at a time
-        mu, nu, new_flat, upd_sq = {}, {}, {}, None
-        st = state.opt_state
-        for k in sorted(flat):
-            upd, st_k = opt.update(
-                {k: grads.pop(k)},
-                OptState(step=st.step, mu={k: st.mu[k]}, nu={k: st.nu[k]}),
-                {k: flat[k]})
-            p_k = apply_updates({k: flat[k]}, upd)[k]
-            sq = fixed_sum(torch.square(upd[k].float()).reshape(-1), -1)
-            upd_sq = sq if upd_sq is None else upd_sq + sq
-            for old, new in ((st.mu[k], st_k.mu[k]), (st.nu[k], st_k.nu[k]),
-                             (flat[k], p_k)):
-                old.copy_(new)
-            mu[k], nu[k], new_flat[k] = st.mu[k], st.nu[k], flat[k]
-            del upd, st_k, p_k
-        opt_state = OptState(step=st.step + 1, mu=mu, nu=nu)
+        state, upd_sq = _adamw_into(opt, state, flat, grads)
 
         gain_mean = (torch.mean(gains) if gains is not None
                      else torch.ones((), device=dev))
@@ -271,7 +262,99 @@ def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
             "gain_mean": gain_mean,
             "update_norm": torch.sqrt(upd_sq),
         }
-        return TrainState(params=replace_paths(state.params, new_flat),
-                          opt_state=opt_state, step=state.step + 1), metrics
+        return state, metrics
+
+    return train_step
+
+
+def _adamw_into(opt: Optimizer, state: TrainState,
+                flat: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor]
+                ) -> Tuple[TrainState, torch.Tensor]:
+    """AdamW leaf by leaf in key order, written into the old state's
+    tensors, so the step holds one leaf's new moments at a time; consumes
+    ``grads``.  Returns the next state and the update's squared norm."""
+    mu, nu, new_flat, upd_sq = {}, {}, {}, None
+    st = state.opt_state
+    for k in sorted(flat):
+        upd, st_k = opt.update(
+            {k: grads.pop(k)},
+            OptState(step=st.step, mu={k: st.mu[k]}, nu={k: st.nu[k]}),
+            {k: flat[k]})
+        p_k = apply_updates({k: flat[k]}, upd)[k]
+        sq = fixed_sum(torch.square(upd[k].float()).reshape(-1), -1)
+        upd_sq = sq if upd_sq is None else upd_sq + sq
+        for old, new in ((st.mu[k], st_k.mu[k]), (st.nu[k], st_k.nu[k]),
+                         (flat[k], p_k)):
+            old.copy_(new)
+        mu[k], nu[k], new_flat[k] = st.mu[k], st.nu[k], flat[k]
+        del upd, st_k, p_k
+    return TrainState(params=replace_paths(state.params, new_flat),
+                      opt_state=OptState(step=st.step + 1, mu=mu, nu=nu),
+                      step=state.step + 1), upd_sq
+
+
+def _rank_slice(x: torch.Tensor, mesh: AgentMesh) -> torch.Tensor:
+    """Rank r's contiguous slice of a global batch's leading axis."""
+    if x.shape[0] % mesh.size:
+        raise ValueError(f"global batch {x.shape[0]} does not split into "
+                         f"{mesh.size} ranks")
+    per = x.shape[0] // mesh.size
+    return x[mesh.rank * per:(mesh.rank + 1) * per]
+
+
+def make_psum_train_step(model: Model, tcfg: TrainConfig,
+                         mesh: AgentMesh) -> Callable:
+    """The data-parallel OTA train step over an agent mesh (module
+    docstring; JAX ``make_psum_train_step``): ``train_step(state, batch,
+    draws=None) -> (state', metrics)`` on every rank, ``batch`` the global
+    batch (the same on every rank), ``state`` on the rank's device.  The
+    group's ranks are the agents (``tcfg.n_agents`` is not read): step
+    ``k`` draws the group's gains, then the K1 seed, from
+    ``index_generator(tcfg.seed, k)`` on every rank, and rank r takes gain
+    r; ``draws=(gains (W,), seed)`` injects them.  ``aggregator="exact"``
+    averages the ranks' gradients (one ``all_reduce``, no K1).  No
+    microbatching.  ``metrics``: ``loss`` (the ranks' mean, one more
+    ``all_reduce`` of a scalar), ``grad_norm``, ``gain_mean`` (of the
+    group's gains) and ``update_norm``; every rank holds the same state
+    after the step, which it writes into ``state``'s tensors."""
+    _check_family(model)
+    if tcfg.microbatch != 1:
+        raise ValueError("make_psum_train_step takes no microbatching "
+                         "(microbatch=1)")
+    opt = make_optimizer(tcfg)
+    ota_cfg = tcfg.ota_config()
+    loss_fn = make_loss_fn(model)
+    w = mesh.size
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   draws: Optional[Draws] = None):
+        flat = flatten_paths(state.params)
+        dev = mesh.device
+        gains = seed = None
+        if ota_cfg is not None:
+            if draws is None:
+                gen = index_generator(tcfg.seed, int(state.step), dev)
+                gains = ota.sample_gains(ota_cfg, gen, w, dev)
+                seed = ota.sample_seed(gen, dev)
+            else:
+                gains, seed = draws
+                gains = gains.to(device=dev, dtype=torch.float32)
+
+        local = {k: _rank_slice(v, mesh)[None] for k, v in batch.items()}
+        leaves = _autograd_leaves(flat)
+        loss = loss_fn(replace_paths(state.params, leaves), local, None)
+        grads, _ = ota.aggregate(_grads(loss, leaves), ota_cfg, mesh=mesh,
+                                 gains=gains, seed=seed,
+                                 backend=tcfg.ota_backend)
+        del leaves
+        loss = mesh.all_reduce(loss.detach().float().reshape(1))[0] / w
+
+        grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
+        state, upd_sq = _adamw_into(opt, state, flat, grads)
+        gain_mean = (torch.mean(gains) if gains is not None
+                     else torch.ones((), device=dev))
+        metrics = {"loss": loss, "grad_norm": gnorm, "gain_mean": gain_mean,
+                   "update_norm": torch.sqrt(upd_sq)}
+        return state, metrics
 
     return train_step

@@ -1119,3 +1119,113 @@ def test_sharded_cells_launch_k1_on_their_own_card(cuda, monkeypatch):
         np.testing.assert_array_equal(x, y)
     assert seen == want
     assert set(want) == {d.index for d in devices}
+
+
+# ---------------------------------------------------------------------------
+# the agent mesh: ranks of a torch.distributed group (nccl), one card each
+# ---------------------------------------------------------------------------
+
+MESH_CFG = dict(batch_m=4, horizon=9, n_rounds=3, alpha=1e-2)
+
+
+def _mesh_forms():
+    from repro_torch.core.channel import RayleighChannel
+    from repro_torch.core.ota import OTAConfig
+    from repro_torch.service import ParticipationConfig
+
+    ota = OTAConfig(RayleighChannel(), noise_sigma=1e-3, debias=True)
+    return {"stacked": (8, dict(ota=ota)),
+            "exact": (8, dict()),
+            "streamed": (10, dict(ota=ota, agent_blocks=2)),
+            "service": (10, dict(ota=ota, agent_blocks=2,
+                                 participation=ParticipationConfig(rate=0.5)))}
+
+
+def _mesh_runs(mesh):
+    """Every form on this rank (run by ``launch.mesh.run_local``), with its
+    K1 launches and collectives."""
+    from repro_torch.core import fedpg
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+
+    out = {}
+    for name, (n, kw) in _mesh_forms().items():
+        cfg = fedpg.FedPGConfig(n_agents=n, **MESH_CFG)
+        before = (ota_fused.LAUNCHES, mesh_lib.ALL_REDUCES,
+                  mesh_lib.ALL_GATHERS)
+        res = fedpg.run(LandmarkNav(), MLPPolicy(), cfg, 5, agent_mesh=mesh,
+                        **kw)
+        after = (ota_fused.LAUNCHES, mesh_lib.ALL_REDUCES,
+                 mesh_lib.ALL_GATHERS)
+        out[name] = (res, tuple(a - b for a, b in zip(after, before)))
+    return out
+
+
+def _mesh_k1(name, n, blocks, rank, size):
+    from repro_torch.core import lanes
+    from repro_torch.launch.mesh import AgentMesh
+
+    if name == "exact":
+        return 0
+    mesh = AgentMesh(None, rank, size, torch.device("cuda", rank))
+    layout = lanes.rank_layout(n, blocks, mesh)[2]
+    return 2 if layout is None else 2 * len(layout) + 1
+
+
+@pytest.mark.cuda
+def test_agent_mesh_one_rank_is_bitwise_the_run_on_the_card(cuda):
+    """A one-rank nccl mesh on ``cuda:0``: each form bitwise ``fedpg.run``
+    off the mesh on the card; K1 launches a round (the fold and the tail;
+    2 a block + 1 streamed; none for the exact stacked round), one
+    all_reduce and one all_gather a round."""
+    from repro_torch.core import fedpg
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+
+    ranks = mesh_lib.run_local(_mesh_runs, 1, device="cuda", timeout=600)
+    k = MESH_CFG["n_rounds"]
+    for name, (n, kw) in _mesh_forms().items():
+        (theta, hist), counts = ranks[0][name]
+        cfg = fedpg.FedPGConfig(n_agents=n, **MESH_CFG)
+        t1, h1 = fedpg.run(LandmarkNav(), MLPPolicy(), cfg, 5, **kw)
+        for x, y in zip(hist, h1):
+            assert torch.equal(x, y.cpu()), name
+        for key in t1:
+            assert torch.equal(theta[key], t1[key].cpu()), (name, key)
+        assert counts == (_mesh_k1(name, n, kw.get("agent_blocks"), 0, 1) * k,
+                          k, k), (name, counts)
+
+
+@pytest.mark.cuda
+def test_agent_mesh_over_every_card(cuda):
+    """The mesh over every visible card (a rank each): every rank ends
+    bitwise the same, within rtol 1e-5 of the run off the mesh, with its
+    own K1 launches a round.  Skips below two cards."""
+    from repro_torch.core import fedpg
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.rl.env import LandmarkNav
+    from repro_torch.rl.policy import MLPPolicy
+
+    w = torch.cuda.device_count()
+    if w < 2:
+        pytest.skip("needs two or more cards")
+    ranks = mesh_lib.run_local(_mesh_runs, w, device="cuda", timeout=600)
+    k = MESH_CFG["n_rounds"]
+    for name, (n, kw) in _mesh_forms().items():
+        (theta0, hist0), _ = ranks[0][name]
+        cfg = fedpg.FedPGConfig(n_agents=n, **MESH_CFG)
+        t1, h1 = fedpg.run(LandmarkNav(), MLPPolicy(), cfg, 5, **kw)
+        assert torch.equal(hist0.gain_mean, h1.gain_mean.cpu()), name
+        for x, y in zip(hist0, h1):
+            np.testing.assert_allclose(x.numpy(), y.cpu().numpy(),
+                                       rtol=1e-5, atol=1e-6, err_msg=name)
+        for r, res in enumerate(ranks):
+            (theta, hist), counts = res[name]
+            for x, y in zip(hist, hist0):
+                assert torch.equal(x, y), (name, r)
+            for key in theta0:
+                assert torch.equal(theta[key], theta0[key]), (name, r, key)
+            assert counts == (_mesh_k1(name, n, kw.get("agent_blocks"), r, w)
+                              * k, k, k), (name, r, counts)

@@ -36,6 +36,17 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
     assert bad == [], f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("name", ["test_torch_agent_mesh.py",
+                                  "test_torch_cuda.py"])
+def test_rank_side_test_modules_import_no_jax(name):
+    """Spawned ranks import these modules to find their functions, and the
+    card tests run without the JAX package: neither imports JAX or
+    ``repro``."""
+    path = ROOT / "tests" / name
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert bad == [], f"tests/{name} imports {bad}"
+
+
 def test_forbidden_matches_repro_not_repro_torch():
     assert _forbidden("repro") and _forbidden("repro.core.ota")
     assert _forbidden("jax.numpy") and not _forbidden("repro_torch.core")
