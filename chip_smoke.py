@@ -43,7 +43,8 @@ Phases, in order; any failure raises and exits non-zero:
               kernel and the device's busy share of a round;
 8. K3       — the flash-attention kernels against their plain version on
               the card: f32 and bf16, causal / window 128 / bidirectional, GQA
-              g = 1-4, Dh 64/80/112/128, ragged lengths, Sq != Sk and 2048
+              g = 1-4, Dh 64/80/112/128, ragged lengths, Sq != Sk, 2048 at
+              llama3.2-3b's and granite-moe-1b-a400m's prefill shapes
               (bf16 also within one bf16 ulp), positions where some queries
               see no key, and views the tensor-core kernel refuses (Dh 72,
               stride 68); each call must launch the kernel the dispatch rule
@@ -66,7 +67,9 @@ Phases, in order; any failure raises and exits non-zero:
               prefills (float32: 24 launches of PR 12's K4);
 12. K3/K4 times — median of 60 CUDA-event timings at the serve shapes, the
               tensor-core kernels and PR 12's on the same inputs in turns,
-              beside the bound, the plain version and (K3) SDPA;
+              beside the bound, the plain version and (K3) SDPA; K3 also at
+              granite-moe-1b-a400m's prefill shape (H=16 Hkv=8 Dh=64), held
+              to its plain version first;
 13. serve profile — torch.profiler over one prefill, then over 4 decode
               steps, of each config: the tensor-core K3's and K4's share of
               device time, launches, and the device's busy share of each;
@@ -179,7 +182,23 @@ Phases, in order; any failure raises and exits non-zero:
               (M=1 T=3, blocks of 32, K=3): ms a round, peak MB per rank;
               at one rank the psum train step of llama3.2-3b (B=8 S=256,
               3 steps, 2 K1 launches at (1, d) a step) in turns with the
-              plain step: ms and peak memory.
+              plain step: ms and peak memory;
+32. granite — serve granite-moe-1b-a400m at full width in bf16 (24 layers,
+              d_model 1024, 32 experts top-8): prefill B=4 S=2048 (24
+              launches of the tensor-core K3), 16 greedy serve steps, peak
+              memory, the float32 prefill (24 launches of PR 12's K3)
+              against the plain attention's (asserted within 2e-2), the
+              bf16 one beside its noise floor;
+33. train granite — granite-moe-1b-a400m at full width, bf16, OTA
+              (Rayleigh, -60 dB, debias, bf16 wire), 4 agents, B=8 S=256, 4
+              steps: one wide K1 launch a step at (1, d), no K3/K4 launch,
+              finite metrics, ms a step, peak memory, K1's share of a
+              profiled step; K1 at (1, d) bitwise on two windows, timed
+              beside its byte bound and ``torch.mv``; one psum step at one
+              rank (2 K1 launches) in turns with the plain step;
+34. train mamba2 — mamba2-130m the same way (the mixer through the plain
+              scan: no K4 launch in a step); K3's and K4's wrappers refuse
+              CUDA tensors that require grad (they have no backward).
 
 ``python3 chip_smoke.py --agent-mesh-across-cards`` runs phases 1, 2 and
 31's mesh over every visible card alone, then the card test of the mesh
@@ -219,6 +238,7 @@ K3_CASES = [  # (b, h, hkv, s, dh, causal, window)
     (2, 2, 2, 384, 64, False, None),      # bidirectional
     (4, 24, 8, 48, 128, True, None),      # a short prompt
     (4, 24, 8, 2048, 128, True, None),    # llama3.2-3b's prefill
+    (4, 16, 8, 2048, 64, True, None),     # granite-moe-1b-a400m's prefill
 ]
 K3_EDGE_CASES = [  # (b, h, hkv, sq, sk, dh, causal, window, row pad)
     (1, 3, 1, 130, 300, 128, True, None, 0),   # Sq != Sk, neither of 128
@@ -1645,10 +1665,10 @@ def events(torch):
 
 
 def widen_cache(m, cache, capacity):
-    """The dense prefill's KV copied into a cache of ``capacity`` slots, as
-    examples/serve_smoke.py does; the SSM prefill's cache (zeroed, as the
-    JAX package returns it) is kept as it is."""
-    if m.cfg.family != "dense":
+    """The dense or moe prefill's KV copied into a cache of ``capacity``
+    slots, as examples/serve_smoke.py does; the SSM prefill's cache
+    (zeroed, as the JAX package returns it) is kept as it is."""
+    if m.cfg.family not in ("dense", "moe"):
         return cache
     b, s = cache.kv.k.shape[1], cache.kv.k.shape[2]   # (L, B, S, Hkv, Dh)
     full = m.init_cache(b, capacity, device="cuda")
@@ -1684,18 +1704,19 @@ def bf16_cross_check(torch, m, params, prompt, kernel, logits):
     return out
 
 
-def serve(torch, arch, kernel, kernel32, n_launches):
-    """Serve one config at full width: prefill, decode, plain cross-check.
-    ``kernel`` names the counter the bf16 prefill must advance by
-    ``n_launches`` (and no other K3/K4 counter), ``kernel32`` the one the
-    float32 prefill must.  Returns the numbers, the model and its seed-0
-    parameters and prompt.
+def serve(torch, arch, kernel, kernel32, n_launches, steps=SERVE_STEPS,
+          seeds=FLOOR_SEEDS):
+    """Serve one config at full width: prefill, ``steps`` decode steps,
+    plain cross-check.  ``kernel`` names the counter the bf16 prefill must
+    advance by ``n_launches`` (and no other K3/K4 counter), ``kernel32`` the
+    one the float32 prefill must.  Returns the numbers (peak memory of the
+    bf16 serve included), the model and its seed-0 parameters and prompt.
 
     The cross-check against the plain version is asserted in float32: in
     bf16, 24-28 layers of random weights amplify the rounding of either
     version to about the 2e-2 bound (two plain versions that only sum in
     another order differ by as much), so the bf16 difference is reported
-    beside that noise floor, on each of ``FLOOR_SEEDS``.  The kernels' bf16
+    beside that noise floor, on each of ``seeds``.  The kernels' bf16
     arithmetic is held in phases 8 and 9."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
@@ -1705,9 +1726,11 @@ def serve(torch, arch, kernel, kernel32, n_launches):
 
     cfg = get_config(arch)
     m = model_lib.build(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     s0, s1 = events(torch)
     s0.record()
-    params, prompt = model_and_prompt(torch, m, FLOOR_SEEDS[0])
+    params, prompt = model_and_prompt(torch, m, seeds[0])
     s1.record()
     torch.cuda.synchronize()
     n_params = param_count(params)
@@ -1732,7 +1755,7 @@ def serve(torch, arch, kernel, kernel32, n_launches):
           and bool(torch.isfinite(logits.float()).all()),
           f"{arch} prefill logits not finite / wrong shape")
 
-    cap = s + SERVE_STEPS
+    cap = s + steps
     full = widen_cache(m, cache, cap)
     del cache
     step = server.make_serve_step(
@@ -1740,7 +1763,7 @@ def serve(torch, arch, kernel, kernel32, n_launches):
     tok = torch.argmax(logits[:, -1:, :], -1)
     step_logits = []
     s0.record()
-    for _ in range(SERVE_STEPS):
+    for _ in range(steps):
         tok, lg, full = step(params, full, tok)
         step_logits.append(lg)
     s1.record()
@@ -1749,14 +1772,15 @@ def serve(torch, arch, kernel, kernel32, n_launches):
     check(all(bool(torch.isfinite(lg.float()).all()) for lg in step_logits),
           f"{arch} decode logits not finite")
     del step_logits
-    check(full.pos == (s + SERVE_STEPS if cfg.family == "dense"
-                       else SERVE_STEPS), f"{arch} cache position")
+    check(full.pos == (s + steps if cfg.family in ("dense", "moe")
+                       else steps), f"{arch} cache position")
     del full
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # bf16: the kernel's prefill against the plain version's, on each seed
     bf16 = [bf16_cross_check(torch, m, params, prompt, kernel, logits)]
     del logits
-    for seed in FLOOR_SEEDS[1:]:
+    for seed in seeds[1:]:
         p_seed, prompt_seed = model_and_prompt(torch, m, seed)
         with torch.no_grad():
             lg, _ = m.prefill(p_seed, prompt_seed)
@@ -1768,7 +1792,7 @@ def serve(torch, arch, kernel, kernel32, n_launches):
     # the asserted cross-check: the seed-0 model and prompt in float32
     m32 = model_lib.build(cfg.with_(dtype="float32"))
     params32 = m32.init(torch.Generator(device="cuda").manual_seed(
-        FLOOR_SEEDS[0]), device="cuda")
+        seeds[0]), device="cuda")
     with torch.no_grad():
         reset_counts()
         logits32, _ = m32.prefill(params32, prompt)
@@ -1786,19 +1810,21 @@ def serve(torch, arch, kernel, kernel32, n_launches):
     torch.cuda.empty_cache()
     res = {"params": n_params, "prefill_ms": prefill_ms,
            "prefill_tokens_per_s": b * s / prefill_ms * 1e3,
-           "decode_ms_per_step": decode_ms / SERVE_STEPS,
-           "decode_tokens_per_s": b * SERVE_STEPS / decode_ms * 1e3,
+           "decode_ms_per_step": decode_ms / steps,
+           "decode_tokens_per_s": b * steps / decode_ms * 1e3,
+           "decode_steps": steps, "peak_gb": peak_gb,
            "launches": counts, "launches_f32": counts32,
            "plain_rel_err_f32": rel32,
-           "bf16_by_seed": dict(zip(FLOOR_SEEDS, bf16))}
+           "bf16_by_seed": dict(zip(seeds, bf16))}
     log(f"{arch}: prefill B={b} S={s} {prefill_ms:.2f} ms "
         f"({res['prefill_tokens_per_s']:.0f} tok/s), {kernel} launches "
-        f"{counts[kernel]}; decode {SERVE_STEPS} steps "
+        f"{counts[kernel]}; decode {steps} steps "
         f"{res['decode_ms_per_step']:.2f} ms/step "
-        f"({res['decode_tokens_per_s']:.1f} tok/s)")
+        f"({res['decode_tokens_per_s']:.1f} tok/s); peak {peak_gb:.2f} GB "
+        f"allocated")
     log(f"{arch}: last-position logits, kernel vs plain prefill, f32 "
         f"{rel32:.3e} (asserted < 2e-2)")
-    for seed, r in zip(FLOOR_SEEDS, bf16):
+    for seed, r in zip(seeds, bf16):
         log(f"{arch}: seed {seed} bf16 {r['rel_err']:.3e} beside a noise "
             f"floor of {r['noise_floor']:.3e} (plain vs plain with "
             f"{r['floor_by']}); first greedy token equal: "
@@ -1870,33 +1896,51 @@ def phase_k34_times(torch):
         return statistics.median([a, d]), statistics.median([b, c]), \
             [a, b, c, d]
 
-    b, h, hkv, s, dh = SERVE_BATCH, 24, 8, SERVE_PROMPT, 128
-    q, k, v = (x.transpose(1, 2).contiguous() for x in
-               k3_inputs(torch, b, h, hkv, s, dh, torch.bfloat16, 5))
-    pos = torch.arange(s, dtype=torch.int32, device="cuda")
-    call = lambda: flash_attention.attend_bshd(q, k, v, q_pos=pos, k_pos=pos)
-    launched(torch, call, "flash_attention_wgmma")
-    ms, old_ms, order = turns(call, call, flash_attention, iters_old=20)
-    plain_ms = device_ms(torch, lambda: plain_attention(
-        q, k, v, q_pos=pos, k_pos=pos), sleep_cycles=20_000_000)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
-    bound, by, flops, nbytes = k3_bound(b, h, hkv, s, dh, 2)
-    k3 = {"shape": [b, h, hkv, s, dh], "dtype": "bfloat16", "causal": True,
-          "ms": ms, "ms_pr12_kernel": old_ms, "turns_new_old_old_new": order,
-          "plain_ms": plain_ms, "library_ms": lib_ms,
-          "library_call": "F.scaled_dot_product_attention(is_causal=True, "
-                          "enable_gqa=True)",
-          "bound_ms": bound, "bound_by": by, "flops": flops, "bytes": nbytes,
-          "achieved_tflops": flops / ms / 1e9,
-          "achieved_tflops_pr12_kernel": flops / old_ms / 1e9}
-    log(f"K3 (B={b}, H={h}, Hkv={hkv}, S={s}, Dh={dh}) causal bf16: "
-        f"wgmma {ms:.4f} ms ({k3['achieved_tflops']:.2f} TFLOP/s; bound "
-        f"{bound:.4f} ms, {by}, {bound / ms:.2%} of it) | PR 12 kernel "
-        f"{old_ms:.4f} ms ({bound / old_ms:.2%}) | plain {plain_ms:.4f} ms | "
-        f"SDPA {lib_ms:.4f} ms | turns {[round(t, 4) for t in order]}")
-    del q, k, v, qt, kt, vt
+    def k3_times(h, hkv, dh, seed, arch):
+        """The tensor-core K3 at ``arch``'s prefill shape (B=4, S=2048,
+        bf16, causal): held to its plain version (2e-2 and one bf16 ulp),
+        then timed beside PR 12's kernel, the plain version and SDPA."""
+        b, s = SERVE_BATCH, SERVE_PROMPT
+        q, k, v = (x.transpose(1, 2).contiguous() for x in
+                   k3_inputs(torch, b, h, hkv, s, dh, torch.bfloat16, seed))
+        pos = torch.arange(s, dtype=torch.int32, device="cuda")
+        call = lambda: flash_attention.attend_bshd(q, k, v, q_pos=pos,
+                                                   k_pos=pos)
+        got = launched(torch, call, "flash_attention_wgmma")
+        want = plain_attention(q, k, v, q_pos=pos, k_pos=pos)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+        check(ulp_excess(got, want) <= 0, f"K3 at {arch}'s prefill shape: "
+              f"more than one bf16 ulp from the plain version")
+        err = (got.float() - want.float()).abs().max().item()
+        del got, want
+        ms, old_ms, order = turns(call, call, flash_attention, iters_old=20)
+        plain_ms = device_ms(torch, lambda: plain_attention(
+            q, k, v, q_pos=pos, k_pos=pos), sleep_cycles=20_000_000)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        bound, by, flops, nbytes = k3_bound(b, h, hkv, s, dh, 2)
+        row = {"arch": arch, "shape": [b, h, hkv, s, dh], "dtype": "bfloat16",
+               "causal": True, "ms": ms, "ms_pr12_kernel": old_ms,
+               "turns_new_old_old_new": order, "max_abs_err": err,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library_call": "F.scaled_dot_product_attention(is_causal="
+                               "True, enable_gqa=True)",
+               "bound_ms": bound, "bound_by": by, "flops": flops,
+               "bytes": nbytes, "achieved_tflops": flops / ms / 1e9,
+               "achieved_tflops_pr12_kernel": flops / old_ms / 1e9}
+        log(f"K3 at {arch}'s prefill (B={b}, H={h}, Hkv={hkv}, S={s}, "
+            f"Dh={dh}) causal bf16: wgmma {ms:.4f} ms "
+            f"({row['achieved_tflops']:.2f} TFLOP/s; bound {bound:.4f} ms, "
+            f"{by}, {bound / ms:.2%} of it; max abs err {err:.3e}) | PR 12 "
+            f"kernel {old_ms:.4f} ms ({bound / old_ms:.2%}) | plain "
+            f"{plain_ms:.4f} ms | SDPA {lib_ms:.4f} ms | turns "
+            f"{[round(t, 4) for t in order]}")
+        return row
+
+    k3 = k3_times(24, 8, 128, 5, "llama3.2-3b")
+    k3["granite"] = k3_times(16, 8, 64, 8, "granite-moe-1b-a400m")
 
     b, s, h, p, g, n, chunk = SERVE_BATCH, SERVE_PROMPT, 24, 64, 1, 128, 128
     x, dt, A, B, C = ssd_inputs(torch, b, s, h, p, g, n, torch.bfloat16, 6)
@@ -1995,27 +2039,32 @@ def phase_serve_profile(torch, llama, mamba):
     for arch, served, name in (("llama3.2-3b", llama,
                                 "flash_fwd_wgmma_kernel"),
                                ("mamba2-130m", mamba, "ssd_scan_tc_kernel")):
-        res, m, params, prompt = served
-        prof = profile_serve(torch, m, params, prompt, name, res)
-        pre, dec = prof["prefill"], prof["decode_step"]
-        for t in pre["top"]:
-            log(f"prefill {t['device_us']:11.1f} us x{t['launches']:5d}  "
-                f"{t['name']}")
-        for t in dec["top"]:
-            log(f"decode  {t['device_us']:11.1f} us x{t['launches']:7.1f}  "
-                f"{t['name']} (per step)")
-        log(f"{arch} prefill: device busy {pre['device_busy_us']:.1f} us over "
-            f"{pre['launches']} launches; {name} {pre['kernel_us']:.1f} us "
-            f"({pre['kernel_share']:.2%} of device time); busy share of the "
-            f"unprofiled {res['prefill_ms']:.2f} ms prefill "
-            f"{pre['busy_share_of_unprofiled']:.2%}")
-        log(f"{arch} decode: device busy {dec['device_busy_us']:.1f} us over "
-            f"{dec['launches']:.0f} launches per step; busy share of the "
-            f"unprofiled {res['decode_ms_per_step']:.2f} ms step "
-            f"{dec['busy_share_of_unprofiled']:.2%}")
-        out[arch] = prof
+        out[arch] = logged_serve_profile(torch, arch, served, name)
     RECORD["serve_profile"] = out
     done("serve profile", t0)
+
+
+def logged_serve_profile(torch, arch, served, name):
+    """``profile_serve`` of one served model, and its log lines."""
+    res, m, params, prompt = served
+    prof = profile_serve(torch, m, params, prompt, name, res)
+    pre, dec = prof["prefill"], prof["decode_step"]
+    for t in pre["top"]:
+        log(f"prefill {t['device_us']:11.1f} us x{t['launches']:5d}  "
+            f"{t['name']}")
+    for t in dec["top"]:
+        log(f"decode  {t['device_us']:11.1f} us x{t['launches']:7.1f}  "
+            f"{t['name']} (per step)")
+    log(f"{arch} prefill: device busy {pre['device_busy_us']:.1f} us over "
+        f"{pre['launches']} launches; {name} {pre['kernel_us']:.1f} us "
+        f"({pre['kernel_share']:.2%} of device time); busy share of the "
+        f"unprofiled {res['prefill_ms']:.2f} ms prefill "
+        f"{pre['busy_share_of_unprofiled']:.2%}")
+    log(f"{arch} decode: device busy {dec['device_busy_us']:.1f} us over "
+        f"{dec['launches']:.0f} launches per step; busy share of the "
+        f"unprofiled {res['decode_ms_per_step']:.2f} ms step "
+        f"{dec['busy_share_of_unprofiled']:.2%}")
+    return prof
 
 
 # ---------------------------------------------------------------------------
@@ -2987,10 +3036,128 @@ def train_config(aggregator, steps, **kw):
         debias=True, n_agents=TRAIN_AGENTS, total_steps=steps, **kw)
 
 
+def timed_train_steps(torch, step, state, batches, what):
+    """Each of ``batches`` through ``step`` (CUDA events around each), then
+    one more step under the profiler.  Asserts finite metrics and no K3 or
+    K4 launch (the trainers' forward is the differentiable one).  Returns
+    the state and the record: ms a step, metrics, K1 launches by body, peak
+    memory since the caller's ``reset_peak_memory_stats``, the profile."""
+    torch.cuda.synchronize()
+    reset_counts()
+    times, metrics = [], []
+    for batch in batches:
+        s, e = events(torch)
+        s.record()
+        state, m = step(state, batch)
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+        metrics.append({k: v.item() for k, v in m.items()})
+    counts, bodies = read_counts(), k1_body_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(not any(counts[k] for k in K34),
+          f"{what}: a train step launched K3/K4: {counts}")
+    for m in metrics:
+        check(all(math_isfinite(v) for v in m.values()),
+              f"{what}: metrics not finite: {m}")
+    ms_step = statistics.median(times[1:])
+    log(f"{what}: {len(batches)} steps: ms per step "
+        f"{[round(t, 1) for t in times]} (median after the first "
+        f"{ms_step:.1f}); loss {[round(m['loss'], 4) for m in metrics]}; "
+        f"grad norm {[round(m['grad_norm'], 3) for m in metrics]}; peak "
+        f"{peak_gb:.2f} GB allocated; K1 {counts['ota_fused']} launches "
+        f"({bodies})")
+    # where a step's time goes: the profiler over one more step; its busy
+    # time against the unprofiled step (the profiled window's own length
+    # holds the profiler's work)
+    kernels, busy_us, (state, _) = device_kernels(
+        torch, lambda: step(state, batches[0]))
+    busy_share = busy_us / (ms_step * 1e3)
+    top = [{"kernel": k.key[:80], "us": dev_us(k), "calls": k.count,
+            "share": dev_us(k) / busy_us} for k in kernels[:8]]
+    k1_us = sum(dev_us(k) for k in kernels if "ota_fused" in k.key)
+    log(f"{what}: profiled step: device busy {busy_us / 1e3:.1f} ms, "
+        f"{busy_share:.1%} of the unprofiled {ms_step:.1f} ms step; K1 "
+        f"{k1_us / 1e3:.2f} ms ({k1_us / busy_us:.1%} of busy, "
+        f"{k1_us / (ms_step * 1e3):.1%} of the step); top kernels:")
+    for t in top:
+        log(f"  {t['us'] / 1e3:8.2f} ms {t['share']:6.1%} x{t['calls']:<5d} "
+            f"{t['kernel']}")
+    return state, {"steps": metrics, "ms_per_step": times,
+                   "ms_per_step_median": ms_step, "peak_gb": peak_gb,
+                   "profile": {"busy_us": busy_us,
+                               "busy_share_of_unprofiled": busy_share,
+                               "k1_us": k1_us, "top": top},
+                   "k1_launches": counts["ota_fused"], "k1_bodies": bodies,
+                   "k1_per_step": 1}
+
+
+def k1_unit_row(torch, d, wires, windows):
+    """K1 at the trainer's ``(1, d)`` unit-gain row (agg with noise), for
+    each wire: bitwise its plain version on each window of the output, then
+    timed (median of ``K1_ROW_TIMES``) beside its byte bound, ``torch.mv``
+    (cuBLAS takes sizes below 2^31 only) and the plain version on one
+    window."""
+    from repro_torch.kernels import ota_fused, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    row = torch.randn(1, d, device="cuda", generator=gen)
+    ones = torch.ones(1, device="cuda")
+    kw = dict(sigma=float(ref.f32(1e-3) / TRAIN_AGENTS),
+              scale=1.0 / RAYLEIGH_MH, seed=123457, with_noise=True)
+    rows = {}
+    for wire in wires:
+        g = row.to(torch.bfloat16) if wire == "bf16" else row
+        wdt = torch.bfloat16 if wire == "bf16" else None
+        check(ota_fused.k1_body(1, d, g.dtype, data_ptr=g.data_ptr())
+              == "wide", "the rule must give (1, d) to the wide body")
+        out = ota_fused.fused_aggregate(g, ones, wire_dtype=wdt, **kw)
+        err = 0.0
+        for lo, hi in windows:
+            want = ref.ota_fused_ref(
+                g[:, lo:hi], ones,
+                ref.counter_noise(kw["seed"], hi - lo, "cuda", start=lo),
+                sigma=kw["sigma"], scale=kw["scale"])
+            check(torch.equal(out[lo:hi], want),
+                  f"K1 (1, d) {wire}: window [{lo}, {hi}) not bitwise its "
+                  f"plain version")
+            err = max(err, (out[lo:hi] - want).abs().max().item())
+        del out
+        ms = device_ms(torch, lambda: ota_fused.fused_aggregate(
+            g, ones, wire_dtype=wdt, **kw), iters=K1_ROW_TIMES, warmup=1,
+            sleep_cycles=0)
+        bound, by = k1_bound(1, d, 2 if wire == "bf16" else 4, "agg")
+        lib = None
+        if d < 2 ** 31:
+            vec = ones.to(g.dtype)
+            lib = device_ms(torch, lambda: torch.mv(g.t(), vec),
+                            iters=K1_ROW_TIMES, warmup=1, sleep_cycles=0)
+        lo, hi = windows[-1]
+        plain = device_ms(torch, lambda: ref.ota_fused_ref(
+            g[:, lo:hi], ones, ref.counter_noise(kw["seed"], hi - lo,
+                                                 "cuda", start=lo),
+            sigma=kw["sigma"], scale=kw["scale"]), iters=K1_ROW_TIMES,
+            warmup=1, sleep_cycles=0)
+        rows[wire] = {"A": 1, "P": d, "wire": wire, "ms": ms,
+                      "bound_ms": bound, "bound_by": by, "library_ms": lib,
+                      "plain_ms_window": plain, "window": hi - lo,
+                      "max_abs_err": err}
+        lib_text = ("torch.mv refuses n >= 2^31" if lib is None
+                    else f"torch.mv {lib:.3f} ms")
+        log(f"K1 agg (1, {d}) {wire} wire: {ms:.3f} ms (median of "
+            f"{K1_ROW_TIMES}); byte bound {bound:.3f} ms ({by}, "
+            f"{bound / ms:.1%} of it); {lib_text}; plain version on a "
+            f"{hi - lo} window {plain:.3f} ms; {len(windows)} windows "
+            f"bitwise")
+        del g
+    del row
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_train(torch):
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
-    from repro_torch.kernels import ota_fused, ref
     from repro_torch.models import model as model_lib
     from repro_torch.train import trainer
     from repro_torch.utils.tree import flatten_paths
@@ -3013,50 +3180,11 @@ def phase_train(torch):
                                   global_batch=TRAIN_BATCH), "cuda")
     step = trainer.make_train_step(model, tcfg)
     batches = [data.batch(i) for i in range(TRAIN_STEPS)]
-    torch.cuda.synchronize()
-    reset_counts()
-    times, metrics = [], []
-    for i in range(TRAIN_STEPS):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        state, m = step(state, batches[i])
-        e.record()
-        torch.cuda.synchronize()
-        times.append(s.elapsed_time(e))
-        metrics.append({k: v.item() for k, v in m.items()})
-    launches, bodies = read_counts()["ota_fused"], k1_body_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(launches == bodies["wide"] == TRAIN_STEPS,
-          f"train: {launches} K1 launches ({bodies}), expected one wide "
-          f"launch a step")
-    for m in metrics:
-        check(all(math_isfinite(v) for v in m.values()),
-              f"train: metrics not finite: {m}")
-    ms_step = statistics.median(times[1:])
-    log(f"{TRAIN_STEPS} steps: ms per step {[round(t, 1) for t in times]} "
-        f"(median after the first {ms_step:.1f}); loss "
-        f"{[round(m['loss'], 4) for m in metrics]}; grad norm "
-        f"{[round(m['grad_norm'], 3) for m in metrics]}; peak "
-        f"{peak_gb:.2f} GB allocated; K1 {launches} launches ({bodies})")
-    # where a step's time goes: the profiler over one more OTA step
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    s.record()
-    kernels, busy_us, (state, _) = device_kernels(
-        torch, lambda: step(state, batches[0]))
-    e.record()
-    torch.cuda.synchronize()
-    wall_us = s.elapsed_time(e) * 1e3
-    top = [{"kernel": k.key[:80], "us": dev_us(k), "calls": k.count,
-            "share": dev_us(k) / busy_us} for k in kernels[:8]]
-    k1_us = sum(dev_us(k) for k in kernels if "ota_fused" in k.key)
-    log(f"profiled step: device busy {busy_us / 1e3:.1f} ms of "
-        f"{wall_us / 1e3:.1f} ms ({busy_us / wall_us:.1%}); K1 "
-        f"{k1_us / 1e3:.2f} ms ({k1_us / busy_us:.1%} of busy); top kernels:")
-    for t in top:
-        log(f"  {t['us'] / 1e3:8.2f} ms {t['share']:6.1%} x{t['calls']:<5d} "
-            f"{t['kernel']}")
+    state, res = timed_train_steps(torch, step, state, batches,
+                                   "llama3.2-3b")
+    check(res["k1_launches"] == res["k1_bodies"]["wide"] == TRAIN_STEPS,
+          f"train: {res['k1_launches']} K1 launches ({res['k1_bodies']}), "
+          f"expected one wide launch a step")
     # two exact steps: Algorithm 1 makes no K1 launch
     exact = trainer.make_train_step(model, train_config(
         "exact", TRAIN_STEPS, lr=1e-4, warmup=2))
@@ -3070,66 +3198,11 @@ def phase_train(torch):
     torch.cuda.empty_cache()
 
     # K1 at (1, d): windows against the plain version, bitwise in agg
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    row = torch.randn(1, d, device="cuda", generator=gen)
-    ones = torch.ones(1, device="cuda")
-    kw = dict(sigma=float(ref.f32(1e-3) / TRAIN_AGENTS),
-              scale=1.0 / RAYLEIGH_MH, seed=123457, with_noise=True)
-    windows = [(0, K1_WINDOW), (2 ** 31, 2 ** 31 + K1_WINDOW),
-               (d - K1_WINDOW, d)]
-    rows = {}
-    for wire, g in (("bf16", row.to(torch.bfloat16)), ("f32", row)):
-        wdt = torch.bfloat16 if wire == "bf16" else None
-        check(ota_fused.k1_body(1, d, g.dtype, data_ptr=g.data_ptr())
-              == "wide", "the rule must give (1, d) to the wide body")
-        out = ota_fused.fused_aggregate(g, ones, wire_dtype=wdt, **kw)
-        err = 0.0
-        for lo, hi in windows:
-            want = ref.ota_fused_ref(
-                g[:, lo:hi], ones,
-                ref.counter_noise(kw["seed"], hi - lo, "cuda", start=lo),
-                sigma=kw["sigma"], scale=kw["scale"])
-            check(torch.equal(out[lo:hi], want),
-                  f"K1 (1, d) {wire}: window [{lo}, {hi}) not bitwise its "
-                  f"plain version")
-            err = max(err, (out[lo:hi] - want).abs().max().item())
-        del out
-        ms = device_ms(torch, lambda: ota_fused.fused_aggregate(
-            g, ones, wire_dtype=wdt, **kw), iters=K1_ROW_TIMES, warmup=1,
-            sleep_cycles=0)
-        bound, by = k1_bound(1, d, 2 if wire == "bf16" else 4, "agg")
-        # torch.mv's cuBLAS call takes sizes below 2^31 only: at this d
-        # there is no one library call for the matvec
-        lib = None
-        if d < 2 ** 31:
-            vec = ones.to(g.dtype)
-            lib = device_ms(torch, lambda: torch.mv(g.t(), vec),
-                            iters=K1_ROW_TIMES, warmup=1, sleep_cycles=0)
-        lo, hi = windows[1]
-        plain = device_ms(torch, lambda: ref.ota_fused_ref(
-            g[:, lo:hi], ones, ref.counter_noise(kw["seed"], hi - lo,
-                                                 "cuda", start=lo),
-            sigma=kw["sigma"], scale=kw["scale"]), iters=K1_ROW_TIMES,
-            warmup=1, sleep_cycles=0)
-        rows[wire] = {"A": 1, "P": d, "wire": wire, "ms": ms,
-                      "bound_ms": bound, "bound_by": by, "library_ms": lib,
-                      "plain_ms_window": plain, "window": K1_WINDOW,
-                      "max_abs_err": err}
-        lib_text = ("torch.mv refuses n >= 2^31" if lib is None
-                    else f"torch.mv {lib:.3f} ms")
-        log(f"K1 agg (1, {d}) {wire} wire: {ms:.3f} ms (median of "
-            f"{K1_ROW_TIMES}); byte bound {bound:.3f} ms ({by}, "
-            f"{bound / ms:.1%} of it); {lib_text}; plain version on a 2^20 "
-            f"window {plain:.3f} ms; 3 windows bitwise")
-        del g
-    del row
-    torch.cuda.empty_cache()
-    RECORD["train"] = {"d": d, "steps": metrics, "ms_per_step": times,
-                       "ms_per_step_median": ms_step, "peak_gb": peak_gb,
-                       "profile": {"busy_us": busy_us, "wall_us": wall_us,
-                                   "k1_us": k1_us, "top": top},
-                       "k1_launches": launches, "k1_per_step": 1,
-                       "k1_row": rows}
+    rows = k1_unit_row(torch, d, ("bf16", "f32"),
+                       [(0, K1_WINDOW), (2 ** 31, 2 ** 31 + K1_WINDOW),
+                        (d - K1_WINDOW, d)])
+    res.pop("k1_bodies")
+    RECORD["train"] = {"d": d, **res, "k1_row": rows}
     done("train", t0)
     return RECORD["train"]
 
@@ -3648,8 +3721,8 @@ def mesh_rank(mesh, with_train):
     return out
 
 
-def psum_train(torch, mesh):
-    """llama3.2-3b at full width, bf16, OTA with the bf16 wire: PSUM_STEPS
+def psum_train(torch, mesh, arch="llama3.2-3b", n_steps=PSUM_STEPS):
+    """``arch`` at full width, bf16, OTA with the bf16 wire: ``n_steps``
     psum steps on this one-rank mesh in turns with the plain OTA step over
     one agent, on the same state: ms a step, peak memory, K1 launches."""
     from repro_torch.configs import get_config
@@ -3657,13 +3730,13 @@ def psum_train(torch, mesh):
     from repro_torch.models import model as model_lib
     from repro_torch.train import trainer
 
-    cfg = get_config("llama3.2-3b")
+    cfg = get_config(arch)
     dev = mesh.device
     torch.cuda.reset_peak_memory_stats(dev)
     model = model_lib.build(cfg)
     tcfg = trainer.TrainConfig(aggregator="ota", channel="rayleigh",
                                noise_db=-60.0, debias=True, n_agents=1,
-                               total_steps=2 * PSUM_STEPS, lr=1e-4, warmup=2,
+                               total_steps=2 * n_steps, lr=1e-4, warmup=2,
                                wire_dtype="bfloat16")
     state = trainer.init_state(model, tcfg, device=dev)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
@@ -3671,7 +3744,7 @@ def psum_train(torch, mesh):
     steps = {"psum": trainer.make_psum_train_step(model, tcfg, mesh),
              "plain": trainer.make_train_step(model, tcfg)}
     rows = {"psum": [], "plain": []}
-    for i in range(PSUM_STEPS):
+    for i in range(n_steps):
         for name in ("psum", "plain"):
             batch = data.batch(i)
             torch.cuda.synchronize(dev)
@@ -3824,6 +3897,150 @@ def check_mesh_world(torch, w, ranks):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 32-34: the moe family served and trained, SSM training
+# ---------------------------------------------------------------------------
+
+GRANITE = "granite-moe-1b-a400m"
+GRANITE_SERVE_STEPS = 16
+GRANITE_PREFILL_K3 = 24        # one wgmma launch a layer
+FAMILY_TRAIN_STEPS = 4
+FAMILY_PSUM_STEPS = 2           # in turns with the plain step; the first warms up
+
+
+def phase_granite_serve(torch):
+    """Phase 32: granite-moe-1b-a400m at its published width (24 layers,
+    d_model 1024, 32 experts top-8, vocab 49155, bf16, random weights):
+    prefill B=4 S=2048 through K3 (24 wgmma launches), 16 decode steps,
+    the float32 prefill (PR 12's K3) against the plain attention's within
+    2e-2 of the max abs logit, the bf16 one beside its noise floor; then
+    phase 13's profile of one prefill and 4 decode steps."""
+    t0 = phase(f"32. serve {GRANITE} (bf16, full width) and profile it")
+    served = serve(torch, GRANITE, "flash_attention_wgmma", "flash_attention",
+                   GRANITE_PREFILL_K3, steps=GRANITE_SERVE_STEPS,
+                   seeds=FLOOR_SEEDS[:1])
+    res = served[0]
+    res["profile"] = logged_serve_profile(torch, GRANITE, served,
+                                          "flash_fwd_wgmma_kernel")
+    del served
+    torch.cuda.empty_cache()
+    RECORD["serve"][GRANITE] = res
+    done("granite serve", t0)
+    return res
+
+
+def grad_refusals(torch):
+    """K3's and K4's wrappers on CUDA tensors that require grad, under grad
+    mode: each raises (the kernels have no backward) and launches
+    nothing."""
+    from repro_torch.kernels import flash_attention, ops
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    kw = dict(device="cuda", generator=gen)
+    x = torch.randn(1, 64, 2, 32, **kw).requires_grad_()
+    dt = torch.rand(1, 64, 2, **kw) * 0.1
+    A = -torch.rand(2, **kw) - 0.5
+    B, C = (torch.randn(1, 64, 1, 16, **kw) for _ in range(2))
+    q = torch.randn(1, 64, 4, 64, **kw).to(torch.bfloat16).requires_grad_()
+    k, v = (torch.randn(1, 64, 2, 64, **kw).to(torch.bfloat16)
+            for _ in range(2))
+    pos = torch.arange(64, dtype=torch.int32, device="cuda")
+    calls = {"ops.ssd (K4)": lambda: ops.ssd(x, dt, A, B, C, chunk=32),
+             "attend_bshd (K3)": lambda: flash_attention.attend_bshd(
+                 q, k, v, q_pos=pos, k_pos=pos)}
+    out = {}
+    for name, call in calls.items():
+        reset_counts()
+        try:
+            call()
+            msg = None
+        except RuntimeError as e:
+            msg = str(e)
+        torch.cuda.synchronize()
+        check(msg is not None and "no backward" in msg
+              and not any(read_counts()[c] for c in K34),
+              f"{name} on a CUDA tensor that requires grad did not refuse: "
+              f"{msg}")
+        out[name] = msg
+        log(f"{name} with an operand that requires grad: raises "
+            f"RuntimeError, no launch")
+    return out
+
+
+def phase_family_train(torch, arch, number):
+    """Phases 33-34: ``arch`` at full width, bf16, OTA (Rayleigh, -60 dB,
+    debias, bf16 wire), 4 agents, B=8 S=256, ``FAMILY_TRAIN_STEPS`` steps:
+    one wide K1 launch a step at (1, d), no K3/K4 launch, finite metrics,
+    ms a step, peak memory, K1's share of a profiled step; then K1 at (1,
+    d) bitwise on two windows and timed beside ``torch.mv``.  granite
+    adds one psum step at one rank (2 K1 launches); mamba2 adds the
+    refusal of K3/K4 on tensors that require grad."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import trainer
+    from repro_torch.utils.tree import flatten_paths
+
+    cfg = get_config(arch)
+    t0 = phase(f"{number}. train {arch} at full width ({cfg.n_layers} layers, "
+               f"d_model {cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}), OTA "
+               f"through K1, B={TRAIN_BATCH} S={TRAIN_SEQ}, "
+               f"{TRAIN_AGENTS} agents")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = model_lib.build(cfg)
+    tcfg = train_config("ota", FAMILY_TRAIN_STEPS + 1, lr=1e-4, warmup=2,
+                        wire_dtype="bfloat16")
+    state = trainer.init_state(model, tcfg, device="cuda")
+    d = sum(v.numel() for v in flatten_paths(state.params).values())
+    log(f"d = {d} parameters ({d / 2 ** 31:.3f} x 2^31); wire bf16")
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH), "cuda")
+    step = trainer.make_train_step(model, tcfg)
+    batches = [data.batch(i) for i in range(FAMILY_TRAIN_STEPS)]
+    state, res = timed_train_steps(torch, step, state, batches, arch)
+    check(res["k1_launches"] == res["k1_bodies"]["wide"]
+          == FAMILY_TRAIN_STEPS,
+          f"{arch}: {res['k1_launches']} K1 launches ({res['k1_bodies']}), "
+          f"expected one wide launch a step")
+    del state, step, batches
+    torch.cuda.empty_cache()
+    res["d"] = d
+    res["k1_row"] = k1_unit_row(torch, d, ("bf16",),
+                                [(0, K1_WINDOW), (d - K1_WINDOW, d)])
+    if cfg.family == "moe":
+        ranks = mesh_lib.run_local(psum_rank, 1, arch, FAMILY_PSUM_STEPS,
+                                   device="cuda", timeout=600)
+        psum = ranks[0]
+        for row in psum["rows"]["psum"]:
+            check(row["k1"] == row["bodies"]["wide"] == 2
+                  and all(math_isfinite(v) for v in row["metrics"].values()),
+                  f"{arch} psum step: {row}")
+        log(f"{arch} psum step at one rank: ms "
+            f"{[round(r['ms'], 1) for r in psum['rows']['psum']]} against "
+            f"the plain step's "
+            f"{[round(r['ms'], 1) for r in psum['rows']['plain']]} in "
+            f"turns; 2 K1 launches a step; peak {psum['peak_gb']:.2f} GB")
+        res["psum"] = psum
+    if cfg.family == "ssm":
+        res["grad_refusals"] = grad_refusals(torch)
+    res.pop("k1_bodies")
+    RECORD.setdefault("family_train", {})[arch] = res
+    done(f"train {arch}", t0)
+    return res
+
+
+def psum_rank(mesh, arch, n_steps):
+    """One rank of phase 33's psum step (``launch.mesh.run_local``)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return psum_train(torch, mesh, arch, n_steps)
+
+
 def fmt_ms(xs):
     return "/".join(f"{x:.1f}" for x in xs)
 
@@ -3886,6 +4103,9 @@ def main():
     stream_rows, fold_rows = phase_streamed_lanes(torch)
     sharded_k1 = phase_sharded(torch)
     mesh = phase_agent_mesh(torch)
+    granite = phase_granite_serve(torch)
+    fam = {arch: phase_family_train(torch, arch, n)
+           for arch, n in ((GRANITE, 33), ("mamba2-130m", 34))}
     RECORD["seconds"] = time.perf_counter() - t_all
 
     # K1's two bodies.  The wide body runs the main path (Algorithm 2 at
@@ -3924,7 +4144,13 @@ def main():
         f"agent mesh, one rank, service streamed in {MESH_BLOCKS}s":
             mesh["forms"]["service"]["k1_per_round_mesh"][0],
         "psum train step, llama3.2-3b, one rank (1, d)":
-            mesh["train"]["k1_per_step"]}
+            mesh["train"]["k1_per_step"],
+        f"OTA train step, {GRANITE} (1, d)":
+            fam[GRANITE]["k1_launches"] / FAMILY_TRAIN_STEPS,
+        f"psum train step, {GRANITE}, one rank (1, d)":
+            fam[GRANITE]["psum"]["rows"]["psum"][0]["k1"],
+        "OTA train step, mamba2-130m (1, d)":
+            fam["mamba2-130m"]["k1_launches"] / FAMILY_TRAIN_STEPS}
     kernels = {"kernels": [{
         "name": "ota_fused_wide", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ota_fused.cu",
@@ -3944,7 +4170,12 @@ def main():
                           launches=train["k1_launches"],
                           launches_from=f"{TRAIN_STEPS} OTA train steps, "
                                         f"llama3.2-3b (phase 27)"),
-        "train_row_f32": train["k1_row"]["f32"]}, {
+        "train_row_f32": train["k1_row"]["f32"],
+        "train_rows_by_arch": {
+            arch: dict(r["k1_row"]["bf16"], launches=r["k1_launches"],
+                       launches_from=f"{FAMILY_TRAIN_STEPS} OTA train "
+                                     f"steps, {arch} (phases 33-34)")
+            for arch, r in fam.items()}}, {
         "name": "ota_fused_tall", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ota_fused.cu",
         "replaces": "src/repro/kernels/ota_fused.py:85",
@@ -3993,6 +4224,20 @@ def main():
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"]})
+        if name.startswith("flash_attention"):
+            # this slice's path: granite's prefill (Dh = 64), its launches
+            # counted there and the kernel timed at its shape in phase 12
+            g = t["granite"]
+            kernels["kernels"][-1][f"{GRANITE} prefill"] = {
+                "launches": granite["launches" if new else "launches_f32"][
+                    name],
+                "launches_from": ("bf16 prefill (phase 32)" if new
+                                  else "float32 prefill (phase 32)"),
+                "ms": g["ms" if new else "ms_pr12_kernel"],
+                "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+                "bound_by": g["bound_by"], "library_ms": g["library_ms"],
+                "shape": g["shape"],
+                **({"max_abs_err": g["max_abs_err"]} if new else {})}
     RECORD["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

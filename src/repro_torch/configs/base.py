@@ -3,8 +3,14 @@
 Counterpart of ``repro/configs/base.py``, field for field: one
 ``ModelConfig`` describes every family (dense / moe / ssm / hybrid / encdec /
 vlm); family-specific blocks are optional sub-configs.  Configs are frozen
-and hashable.  The port runs the ``dense`` and ``ssm`` families so far; the
-other families' fields are kept so a config reads the same in both packages.
+and hashable.  The port runs the ``dense``, ``ssm`` and ``moe`` families so far;
+the other families' fields are kept so a config reads the same in both
+packages.
+
+``remat`` is the JAX package's per-layer activation checkpoint.  The port's
+trainer does not checkpoint activations: at B=8 S=256 the full-width train
+steps of llama3.2-3b, granite-moe-1b-a400m and mamba2-130m fit one H100
+80GB without it (``PERF.md`` §5), so the field is kept for parity only.
 """
 from __future__ import annotations
 
@@ -58,7 +64,7 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
-    remat: bool = True                    # kept for parity; no gradient is taken here
+    remat: bool = True                    # read by nothing: the trainer keeps every activation
     source: str = ""                      # citation for the config
 
     @property

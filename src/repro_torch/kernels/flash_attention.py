@@ -21,9 +21,12 @@ Two CUDA kernels compute it:
 Dispatch is by the device of ``q``, then by those properties alone: a CPU
 tensor takes the plain version; a CUDA tensor is checked (device, dtype,
 shape, strides) and launched on PyTorch's current stream, or the call
-raises.  There is no fallback: a failed build or launch raises.
-``LAUNCHES`` counts the f32 kernel's launches, ``LAUNCHES_TC`` the tensor-
-core kernel's.
+raises.  There is no fallback: a failed build or launch raises.  K3 has no
+backward: a CUDA call under grad mode with an operand that requires grad
+raises (its output would carry no gradient); a forward that autograd
+differentiates takes ``models.attention.attend`` (``blockwise=False``, as
+the trainers' forward does).  ``LAUNCHES`` counts the f32 kernel's
+launches, ``LAUNCHES_TC`` the tensor-core kernel's.
 """
 from __future__ import annotations
 
@@ -139,6 +142,16 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         LAUNCHES += 1
 
 
+def _refuse_grad(*ops: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
+        raise RuntimeError(
+            "K3 (flash_attention) has no backward, and an operand requires "
+            "grad: a differentiable forward takes the materialised "
+            "models.attention.attend (self_attention(..., blockwise=False); "
+            "the trainers' forward, transformer.forward(..., "
+            "differentiable=True))")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
@@ -147,6 +160,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not q.is_cuda:
         _check_window(window)
         return ref.flash_attention_plain(q, k, v, causal=causal, window=window)
+    _refuse_grad(q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(q, k, v, out, None, None, causal, window)
     return out
@@ -163,6 +177,7 @@ def attend_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, window=window, q_pos=q_pos,
             k_pos=k_pos).transpose(1, 2)
+    _refuse_grad(q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             out.transpose(1, 2), q_pos, k_pos, causal, window)

@@ -416,8 +416,12 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     seg = cum_g[:, :, :, None] - cum_g[:, :, None, :]            # (b,nc,Q,K,g,hg)
     mask = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
                                  device=x.device))
-    decay = torch.where(mask[None, None, :, :, None, None], torch.exp(seg),
-                        0.0)
+    # masked before the exp: above the diagonal seg is a positive sum that
+    # overflows exp at a real model's dt and A, and autograd would then
+    # carry inf * 0 = nan back from the masked entries.  exp(-inf) = 0 is
+    # the same forward value bit for bit
+    decay = torch.exp(torch.where(mask[None, None, :, :, None, None], seg,
+                                  float("-inf")))
     y_intra = torch.einsum("bcgqk,bcqkgh,bckghp->bcqghp", scores, decay, xc)
 
     # chunk states

@@ -20,9 +20,12 @@ Two CUDA kernels compute it:
 Dispatch is by the device of ``x``, then by those properties alone: a CPU
 tensor takes the plain version; a CUDA tensor is checked (device, dtype,
 shape, contiguity) and launched on PyTorch's current stream, or the call
-raises.  There is no fallback: a failed build or launch raises.
-``LAUNCHES`` counts the f32 kernel's launches, ``LAUNCHES_TC`` the tensor-
-core kernel's.
+raises.  There is no fallback: a failed build or launch raises.  K4 has no
+backward: a CUDA call under grad mode with an operand that requires grad
+raises (its output would carry no gradient); a forward that autograd
+differentiates runs ``ref.ssd_ref`` (``ssm_mixer(..., plain_scan=True)``,
+which the trainer's forward takes).  ``LAUNCHES`` counts the f32
+kernel's launches, ``LAUNCHES_TC`` the tensor-core kernel's.
 """
 from __future__ import annotations
 
@@ -73,6 +76,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     global LAUNCHES, LAUNCHES_TC
     if not x.is_cuda:
         return ref.ssd_ref(x, dt, A, B, C, chunk)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B, C)):
+        raise RuntimeError(
+            "K4 (ssd_scan) has no backward, and an operand requires grad: "
+            "a differentiable forward takes the plain scan ref.ssd_ref "
+            "(ssm_mixer(..., plain_scan=True); the trainers' forward, "
+            "transformer.forward(..., differentiable=True))")
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     dev = x.device

@@ -4,7 +4,10 @@ Counterpart of ``repro/models/ssm.py``.  The SSD recurrence
 s_t = exp(dt_t A) s_{t-1} + dt_t B_t x_t,  y_t = C_t s_t  is evaluated
 chunk-wise by ``ops.ssd``: K4 (``kernels/ssd_scan.py``) on a CUDA tensor, the
 plain chunked SSD (``kernels/ref.py::ssd_ref``, the JAX model's oracle) on a
-CPU tensor.  ``ssm_step`` is the O(1) recurrent decode form, plain torch.
+CPU tensor.  K4 has no backward: ``ssm_mixer(..., plain_scan=True)`` runs
+``ref.ssd_ref`` on any device, which autograd differentiates (the trainer's
+forward; the JAX model always takes it).  ``ssm_step`` is the O(1) recurrent
+decode form, plain torch.
 
 Projections are split per segment (z/x/B/C/dt) with the JAX package's
 layouts (``w_x`` is ``(d_model, d_inner)``).
@@ -17,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.param import decl
 
@@ -111,8 +114,11 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def ssm_mixer(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Full-sequence Mamba2 block body (pre-norm residual branch)."""
+def ssm_mixer(params, x: torch.Tensor, cfg: ModelConfig, *,
+              plain_scan: bool = False) -> torch.Tensor:
+    """Full-sequence Mamba2 block body (pre-norm residual branch); the scan
+    through ``ops.ssd`` (K4 on the card), or ``ref.ssd_ref`` where
+    ``plain_scan``."""
     b, s, _ = x.shape
     scfg = cfg.ssm
     d_in, h_heads, g, n = dims(cfg)
@@ -131,7 +137,10 @@ def ssm_mixer(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     Bh = Bp.reshape(b, s, g, n)
     Ch = Cp.reshape(b, s, g, n)
 
-    y = ops.ssd(xh, dt, A, Bh, Ch, chunk=scfg.chunk)          # float32
+    if plain_scan:
+        y = ref.ssd_ref(xh, dt, A, Bh, Ch, scfg.chunk)        # float32
+    else:
+        y = ops.ssd(xh, dt, A, Bh, Ch, chunk=scfg.chunk)      # float32
     y = y + params["D"][None, None, :, None] * xh.float()
     y = y.reshape(b, s, d_in).to(x.dtype)
 

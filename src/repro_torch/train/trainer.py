@@ -1,7 +1,13 @@
 """The LLM train step: forward and backward, OTA or exact aggregation, AdamW.
 
-Counterpart of ``repro/train/trainer.py`` for the dense family.  The
-paper's technique enters through one seam, the gradient aggregation:
+Counterpart of ``repro/train/trainer.py`` for the dense, ssm and moe
+families.  The forward is the differentiable one
+(``transformer.forward(..., differentiable=True)``: ``attend``, not K3, and
+the SSM mixer's plain scan, not K4); the moe family's load-balance loss is
+added to the CE, as JAX's ``lm_loss(...) + aux``.  One forward runs over the
+whole microbatch, every agent's slice together, so the MoE capacity is the
+JAX trainer's.  The paper's technique enters through one seam, the gradient
+aggregation:
 
 * ``aggregator="exact"`` — Algorithm 1: the batch gradient is the plain
   mean;
@@ -48,7 +54,7 @@ rank's gain (one K1 launch at ``(1, d)``, sigma 0), sums the ranks' rows in
 one ``all_reduce`` (in the wire dtype when one is set, else the gradient's)
 and runs K1's server pass at ``(1, d)`` (the noise and the debias over the
 group size); clipping and AdamW follow as in :func:`make_train_step`.
-Families other than dense raise.
+Families other than dense, ssm and moe raise.
 """
 from __future__ import annotations
 
@@ -75,7 +81,7 @@ from repro_torch.utils.tree import (
 )
 
 Draws = Tuple[torch.Tensor, Any]     # (gains (N,), K1 seed)
-TRAINED_FAMILIES = ("dense",)
+TRAINED_FAMILIES = ("dense", "ssm", "moe")
 
 
 @dataclass(frozen=True)
@@ -164,14 +170,16 @@ def _agent_major(batch: Dict[str, torch.Tensor], n_agents: int,
 
 def make_loss_fn(model: Model) -> Callable:
     """loss(params, microbatch, weights) over (n_agents, per, ...) batches:
-    the materialised forward and :func:`lm_loss`, as the JAX trainer's."""
+    the differentiable forward over the flattened ``n_agents * per``
+    sequences and :func:`lm_loss` + aux, as the JAX trainer's."""
     _check_family(model)
 
     def loss_fn(params, mb, weights):
         na, per = mb["tokens"].shape[:2]
         fb = {k: v.reshape((na * per,) + v.shape[2:]) for k, v in mb.items()}
         logits, aux = transformer.forward(params, model.cfg, fb["tokens"],
-                                          fb.get("memory"))
+                                          fb.get("memory"),
+                                          differentiable=True)
         w = None if weights is None else torch.repeat_interleave(weights, per)
         return lm_loss(logits, fb["labels"], w) + aux
 

@@ -22,8 +22,8 @@ agent), against the port's own runs off the mesh with the same seed:
 * every rank's theta and history bitwise the same;
 * the guards, ``agent_mesh_for``'s subgroup (N=6: ranks 0-2, rank 3 sits
   out), the axis forms of ``ota.aggregate`` against the stacked form, the
-  psum train step's exact form against ``make_train_step``'s, and the
-  launcher's error paths.
+  psum train step's exact form against ``make_train_step``'s (smoke llama,
+  granite-moe and mamba2), and the launcher's error paths.
 
 This file imports nothing of JAX: the spawned ranks import it to find
 their functions.  ``test_torch_agent_mesh_parity.py`` holds the mesh forms
@@ -242,22 +242,34 @@ def _aggregates(mesh):
 PSUM_LR = 1e-2
 
 
-def smoke_llama():
-    """SMOKE llama in float32, as ``test_torch_trainer.py`` trains it."""
+PSUM_ARCHS = ("llama3.2-3b", "granite-moe-1b-a400m", "mamba2-130m")
+
+
+def smoke_model(arch="llama3.2-3b"):
+    """SMOKE ``arch`` in float32, as ``test_torch_trainer.py`` trains it.
+    The moe family's capacity and load-balance loss are functions of one
+    forward's tokens: a rank's forward sees its own sequences, the unmeshed
+    step's every agent's (as in the JAX package's psum step), so the two
+    steps agree where nothing drops (capacity factor 4.0) and without the
+    load-balance term (coefficient 0; the mean of the ranks' aux is not the
+    aux of all their tokens)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import model as model_lib
 
-    return model_lib.build(
-        get_smoke_config("llama3.2-3b").with_(dtype="float32"))
+    cfg = get_smoke_config(arch).with_(dtype="float32")
+    if cfg.moe is not None:
+        cfg = cfg.with_(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=4.0, load_balance_coef=0.0))
+    return model_lib.build(cfg)
 
 
-def _psum_exact_step(mesh):
+def _psum_exact_step(mesh, arch="llama3.2-3b"):
     """One exact step of the psum form on every rank of the mesh (or,
     without one, of ``make_train_step`` over as many agents)."""
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.train import trainer
 
-    model = smoke_llama()
+    model = smoke_model(arch)
     tcfg = trainer.TrainConfig(aggregator="exact", n_agents=RANKS,
                                lr=PSUM_LR, warmup=2, total_steps=10)
     state = trainer.init_state(model, tcfg, device="cpu")
@@ -296,7 +308,7 @@ def _mesh_cases(mesh):
     out["guards"] = _guards(mesh)
     out["subgroup"] = _subgroup()
     out["aggregates"] = _aggregates(mesh)
-    out["psum_exact"] = _psum_exact_step(mesh)
+    out["psum_exact"] = {a: _psum_exact_step(mesh, a) for a in PSUM_ARCHS}
     mesh_lib.ALL_REDUCES = mesh_lib.ALL_GATHERS = 0
     _run("streamed_3", mesh)
     out["collectives"] = (mesh_lib.ALL_REDUCES, mesh_lib.ALL_GATHERS)
@@ -511,11 +523,23 @@ def test_psum_exact_step_matches_the_plain_exact_step(ranks):
     four agents of two, from the same state: the same mean gradient,
     another association; metrics at rtol 1e-5, parameters by
     :func:`params_close`."""
+    _check_psum_exact(ranks, "llama3.2-3b")
+
+
+@pytest.mark.parametrize("arch", PSUM_ARCHS[1:])
+def test_psum_exact_step_of_the_moe_and_ssm_families(ranks, arch):
+    """The same for the moe family (routing and dispatch in each rank's
+    forward; see :func:`smoke_model`) and the ssm family (the plain scan):
+    the psum step takes every trained family."""
+    _check_psum_exact(ranks, arch)
+
+
+def _check_psum_exact(ranks, arch):
     from repro_torch.optim.optimizers import warmup_cosine
     from repro_torch.utils.tree import flatten_paths
 
-    params, metrics = ranks[0]["psum_exact"]
-    params_p, metrics_p = _psum_exact_step(None)
+    params, metrics = ranks[0]["psum_exact"][arch]
+    params_p, metrics_p = _psum_exact_step(None, arch)
     for k in ("loss", "grad_norm", "update_norm"):
         np.testing.assert_allclose(metrics[k], metrics_p[k], rtol=1e-5,
                                    err_msg=k)
@@ -523,7 +547,7 @@ def test_psum_exact_step_matches_the_plain_exact_step(ranks):
     flat = flatten_paths(params)
     params_close(flat, flatten_paths(params_p), lr_t)
     for r in ranks[1:]:
-        for k, v in flatten_paths(r["psum_exact"][0]).items():
+        for k, v in flatten_paths(r["psum_exact"][arch][0]).items():
             _bitwise(v, flat[k], f"rank {r['rank']} {k}")
 
 
@@ -601,7 +625,7 @@ def parity_cases(mesh, refs):
         out["aggregates"][name] = interop.to_numpy(u)
     pair = mesh_lib.make_agent_mesh(2)
     if pair is not None:
-        model = smoke_llama()
+        model = smoke_model()
         tcfg = trainer.TrainConfig(**refs["psum"]["config"])
         step = trainer.make_psum_train_step(model, tcfg, pair)
         steps = []

@@ -1229,3 +1229,147 @@ def test_agent_mesh_over_every_card(cuda):
                 assert torch.equal(theta[key], theta0[key]), (name, r, key)
             assert counts == (_mesh_k1(name, n, kw.get("agent_blocks"), r, w)
                               * k, k, k), (name, r, counts)
+
+
+# ---------------------------------------------------------------------------
+# the moe family, and K3/K4 under autograd
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_k3_k4_refuse_inputs_that_require_grad(cuda):
+    """K3 and K4 have no backward: a CUDA call under grad mode with an
+    operand that requires grad raises, naming the kernel; under no_grad,
+    or with no operand that requires grad, it launches; a CPU call runs the
+    plain version either way."""
+    x, dt, A, B, C = _ssd_inputs(3, 1, 64, 2, 32, 1, 16, torch.float32, cuda)
+    q, k, v = _qkv(4, 1, 4, 2, 64, 64, 64, torch.bfloat16, cuda)
+    pos = torch.arange(64, dtype=torch.int32, device=cuda)
+    calls = {
+        "ssd_scan": lambda g: ssd_scan.ssd_scan(
+            g(x), dt, A, B, C, chunk=32),
+        "flash_attention": lambda g: flash_attention.flash_attention(
+            g(q), k, v),
+        "attend_bshd": lambda g: flash_attention.attend_bshd(
+            g(q.transpose(1, 2)), k.transpose(1, 2), v.transpose(1, 2),
+            q_pos=pos, k_pos=pos)}
+    grad = lambda t: t.detach().requires_grad_()
+    plain = lambda t: t
+    for name, call in calls.items():
+        kernel = "K4" if name == "ssd_scan" else "K3"
+        before = (ssd_scan.LAUNCHES + ssd_scan.LAUNCHES_TC
+                  + flash_attention.LAUNCHES + flash_attention.LAUNCHES_TC)
+        with pytest.raises(RuntimeError, match=f"{kernel} .*no backward"):
+            call(grad)
+        with torch.no_grad():
+            call(grad)
+        call(plain)
+        torch.cuda.synchronize()
+        after = (ssd_scan.LAUNCHES + ssd_scan.LAUNCHES_TC
+                 + flash_attention.LAUNCHES + flash_attention.LAUNCHES_TC)
+        assert after == before + 2, name
+    y = ssd_scan.ssd_scan(x.cpu().requires_grad_(), dt.cpu(), A.cpu(),
+                          B.cpu(), C.cpu(), chunk=32)
+    assert y.requires_grad
+
+
+def _moe_smoke(capacity_factor, dtype=torch.float32):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config("granite-moe-1b-a400m").with_(
+        dtype=str(dtype)[6:])
+    return cfg.with_(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=capacity_factor))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity_factor", [1.0, 4.0],
+                         ids=["drops", "no-drops"])
+def test_moe_ffn_on_the_card_matches_the_cpu(cuda, capacity_factor):
+    """``moe_ffn`` of granite's smoke layer on the card against the CPU on
+    the same float32 inputs: routing and dispatch (idx, keep, dest) equal,
+    the output and aux within rtol 1e-5."""
+    from repro_torch.models import moe
+    from repro_torch.models.param import init_params
+
+    cfg = _moe_smoke(capacity_factor)
+    params = init_params(moe.moe_plan(cfg), "float32",
+                         generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (4, 64, cfg.d_model)).astype(np.float32))
+    outs = {}
+    for dev in ("cpu", cuda):
+        p = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                 if isinstance(v, dict) else v.to(dev))
+             for k, v in params.items()}
+        xd = x.to(dev)
+        h = moe.rmsnorm(p["norm"], xd, cfg.norm_eps).reshape(-1, cfg.d_model)
+        idx, gates, _ = moe.route(p, h, cfg)
+        _, keep, dest = moe.dispatch(idx, cfg.moe.num_experts,
+                                     moe._capacity(h.shape[0], cfg))
+        out, aux = moe.moe_ffn(p, xd, cfg)
+        outs[str(dev)] = [t.cpu() for t in (idx, keep, dest, out, aux)]
+    (i0, k0, d0, o0, a0), (i1, k1, d1, o1, a1) = outs.values()
+    assert torch.equal(i0, i1) and torch.equal(k0, k1)
+    assert torch.equal(d0, d1)
+    assert bool(k0.all()) == (capacity_factor == 4.0)
+    torch.testing.assert_close(o1, o0, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(a1, a0, rtol=1e-5, atol=0)
+
+
+def _smoke_train_step(cfg, seed):
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import make_batch
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import trainer
+
+    m = model_lib.build(cfg)
+    tcfg = trainer.TrainConfig(aggregator="ota", n_agents=4, total_steps=4,
+                               lr=1e-3, warmup=1, seed=seed,
+                               wire_dtype="bfloat16")
+    state = trainer.init_state(m, tcfg)
+    batch = make_batch(cfg, InputShape("t", 32, 8, "train"), 0)
+    return trainer.make_train_step(m, tcfg)(state, batch)
+
+
+@pytest.mark.cuda
+def test_moe_train_step_deterministic_twice_the_same_bits(cuda):
+    """A granite-moe smoke OTA train step (bf16, drops at capacity 1.25)
+    runs under ``torch.use_deterministic_algorithms(True)`` (every dispatch
+    op has a deterministic kernel) and gives the same bits twice; one K1
+    launch a step."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.utils.tree import flatten_paths
+
+    cfg = get_smoke_config("granite-moe-1b-a400m")
+    torch.use_deterministic_algorithms(True)
+    try:
+        before = ota_fused.LAUNCHES
+        runs = [_smoke_train_step(cfg, 3) for _ in range(2)]
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert ota_fused.LAUNCHES - before == 2
+    (s0, m0), (s1, m1) = runs
+    a, b = flatten_paths(s0.params), flatten_paths(s1.params)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    for k in m0:
+        assert torch.equal(m0[k], m1[k]), k
+        assert bool(torch.isfinite(m0[k])), k
+
+
+@pytest.mark.cuda
+def test_ssm_train_step_launches_k1_and_no_k4(cuda):
+    """A mamba2-130m smoke OTA train step on the card: the mixer trains
+    through the plain scan (no K4 launch), one K1 launch, finite
+    metrics."""
+    from repro_torch.configs import get_smoke_config
+
+    before = (ssd_scan.LAUNCHES, ssd_scan.LAUNCHES_TC, ota_fused.LAUNCHES)
+    _, metrics = _smoke_train_step(get_smoke_config("mamba2-130m"), 0)
+    torch.cuda.synchronize()
+    assert (ssd_scan.LAUNCHES, ssd_scan.LAUNCHES_TC) == before[:2]
+    assert ota_fused.LAUNCHES == before[2] + 1
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())

@@ -1,5 +1,6 @@
-"""The port's model substrate (dense and SSM families, serving) against the
-JAX package, at ``SMOKE_CONFIG`` of llama3.2-3b and mamba2-130m.
+"""The port's model substrate (dense, SSM and MoE families, serving) against
+the JAX package, at ``SMOKE_CONFIG`` of llama3.2-3b, mamba2-130m,
+granite-moe-1b-a400m and mixtral-8x22b.
 
 Both packages run on the same numpy-made inputs with the JAX package's
 parameters carried across by ``repro_torch.interop``.  On the CPU the port's
@@ -9,6 +10,9 @@ version.  Tolerances: float32 building blocks at rtol 1e-5, with an atol of
 terms round differently in the two packages); float32 model outputs at a max-abs error below 1e-5 of
 max|logits|, with identical greedy tokens; bfloat16 model outputs below
 2e-2 of max|logits| (the JAX package's own bound, ``tests/test_models.py:103``).
+The MoE family's bf16 reference is the JAX package run op by op
+(``jax.disable_jit()``): its compiled scan rounds bf16 intermediates
+otherwise, which can move a token's top-k choice (``test_torch_moe.py``).
 """
 import functools
 
@@ -32,7 +36,8 @@ from repro_torch.kernels import flash_attention, ssd_scan
 from repro_torch.models import attention, layers, model, ssm, transformer
 from repro_torch.train import server
 
-ARCHS = ("llama3.2-3b", "mamba2-130m")
+ARCHS = ("llama3.2-3b", "mamba2-130m", "granite-moe-1b-a400m",
+         "mixtral-8x22b")
 RTOL = 1e-5
 
 
@@ -266,15 +271,26 @@ def _serve(arch, dtype, b=2, s=16, steps=8):
     (forward logits, prefill logits, prefill cache, step logits, tokens,
     final cache)."""
     jm, jp, tm, tp = _pair(arch, dtype)
-    tokens = np.random.default_rng(13).integers(
-        0, tm.cfg.vocab, (b, s)).astype(np.int32)
+    op_by_op = tm.cfg.family == "moe" and dtype == "bfloat16"
+    with jax.disable_jit(op_by_op):
+        out = {"jax": _serve_jax(jm, jp, tm.cfg.vocab, b, s, steps)}
+    out["port"] = _serve_port(tm, tp, b, s, steps)
+    return out
+
+
+def _tokens(vocab, b, s):
+    return np.random.default_rng(13).integers(0, vocab, (b, s)).astype(
+        np.int32)
+
+
+def _serve_jax(jm, jp, vocab, b, s, steps):
+    tokens = _tokens(vocab, b, s)
     cap = s + steps
-    out = {}
 
     jfwd, _ = jm.forward(jp, jnp.asarray(tokens))
     jlog, jcache = jm.prefill(jp, jnp.asarray(tokens))
     jpre = interop.cache_to_numpy(jax.tree.map(np.asarray, jcache))
-    if jm.cfg.family == "dense":
+    if jm.cfg.family in ("dense", "moe"):
         full = jm.init_cache(b, cap)
         full = full._replace(kv=jax.tree.map(
             lambda dst, src: jax.lax.dynamic_update_slice(
@@ -291,15 +307,18 @@ def _serve(arch, dtype, b=2, s=16, steps=8):
         tok, lg, full = step(jp, full, tok)
         toks.append(np.asarray(tok))
         logs.append(np.asarray(lg, np.float32))
-    out["jax"] = (np.asarray(jfwd, np.float32), np.asarray(jlog, np.float32),
-                  jpre, logs, np.concatenate(toks, 1),
-                  interop.cache_to_numpy(jax.tree.map(np.asarray, full)))
+    return (np.asarray(jfwd, np.float32), np.asarray(jlog, np.float32),
+            jpre, logs, np.concatenate(toks, 1),
+            interop.cache_to_numpy(jax.tree.map(np.asarray, full)))
 
-    ttok = torch.from_numpy(tokens).long()
+
+def _serve_port(tm, tp, b, s, steps):
+    cap = s + steps
+    ttok = torch.from_numpy(_tokens(tm.cfg.vocab, b, s)).long()
     tfwd, _ = tm.forward(tp, ttok)
     tlog, tcache = tm.prefill(tp, ttok)
     tpre = interop.cache_to_numpy(tcache)
-    if tm.cfg.family == "dense":
+    if tm.cfg.family in ("dense", "moe"):
         tfull = tm.init_cache(b, cap, device="cpu")
         tfull.kv.k[:, :, :s] = tcache.kv.k
         tfull.kv.v[:, :, :s] = tcache.kv.v
@@ -314,9 +333,8 @@ def _serve(arch, dtype, b=2, s=16, steps=8):
         tok, lg, tfull = tstep(tp, tfull, tok)
         toks.append(tok.numpy())
         logs.append(_f32(lg))
-    out["port"] = (_f32(tfwd), _f32(tlog), tpre, logs, np.concatenate(toks, 1),
-                   interop.cache_to_numpy(tfull))
-    return out
+    return (_f32(tfwd), _f32(tlog), tpre, logs, np.concatenate(toks, 1),
+            interop.cache_to_numpy(tfull))
 
 
 def _cache_rel(a, b):
@@ -368,12 +386,19 @@ def test_forward_prefill_serve_bfloat16(arch):
 
 
 def test_unported_family_raises():
-    cfg = get_smoke_config("llama3.2-3b").with_(family="moe")
+    """The hybrid family (zamba2-7b) is the next to port: a config of it
+    raises naming ``ROADMAP.md``, as its id does."""
+    cfg = get_smoke_config("llama3.2-3b").with_(family="hybrid",
+                                                 shared_attn_every=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.build(cfg)
     tm = model.build(get_smoke_config("llama3.2-3b"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         transformer.init_cache(cfg, 1, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        transformer.forward({}, cfg, torch.zeros(1, 4, dtype=torch.long))
+    with pytest.raises(ValueError, match="ROADMAP"):
+        get_config("zamba2-7b")
     assert server.init_cache_for_shape(
         tm, InputShape("d", seq_len=32, global_batch=2, kind="decode"),
         device="cpu").pos == 31
