@@ -44,15 +44,18 @@ Phases, in order; any failure raises and exits non-zero:
 8. K3       — the flash-attention kernels against their plain version on
               the card: f32 and bf16, causal / window 128 / bidirectional, GQA
               g = 1-4, Dh 64/80/112/128, ragged lengths, Sq != Sk, 2048 at
-              llama3.2-3b's and granite-moe-1b-a400m's prefill shapes
-              (bf16 also within one bf16 ulp), positions where some queries
+              llama3.2-3b's, granite-moe-1b-a400m's, llama-3.2-vision-11b's
+              and seamless-m4t-large-v2's decoder's prefill shapes, the
+              latter's encoder (512 frames, bidirectional) (bf16 also
+              within one bf16 ulp), positions where some queries
               see no key, and views the tensor-core kernel refuses (Dh 72,
               stride 68); each call must launch the kernel the dispatch rule
               names (bf16 on tensor cores, the rest on f32 cores), and the
               tensor-core kernel also within one bf16 ulp of its plain model;
               then how far a single bf16 P would part from the plain version;
 9. K4       — the SSD-scan kernels (f32 out) against their plain version: the
-              JAX sweep's shapes and mamba2-130m's, P and S not multiples of
+              JAX sweep's shapes, mamba2-130m's and zamba2-7b's (H=112,
+              N=64), P and S not multiples of
               the 16-column slice and the chunk, f32 and bf16 in, the
               tensor-core kernel also against its plain model, and both
               against the sequential recurrence;
@@ -68,8 +71,11 @@ Phases, in order; any failure raises and exits non-zero:
 12. K3/K4 times — median of 60 CUDA-event timings at the serve shapes, the
               tensor-core kernels and PR 12's on the same inputs in turns,
               beside the bound, the plain version and (K3) SDPA; K3 also at
-              granite-moe-1b-a400m's prefill shape (H=16 Hkv=8 Dh=64), held
-              to its plain version first;
+              granite-moe-1b-a400m's prefill shape (H=16 Hkv=8 Dh=64),
+              llama-3.2-vision-11b's (H=32 Hkv=8 Dh=128) and
+              seamless-m4t-large-v2's encoder (S=512, bidirectional) and
+              decoder (H=16 Hkv=16 Dh=64), held to its plain version first;
+              K4 also at zamba2-7b's (H=112 N=64);
 13. serve profile — torch.profiler over one prefill, then over 4 decode
               steps, of each config: the tensor-core K3's and K4's share of
               device time, launches, and the device's busy share of each;
@@ -95,7 +101,7 @@ Phases, in order; any failure raises and exits non-zero:
               (realised and expected debias), subset 3, Bernoulli 0.5 with
               an exp(1) straggler and deadline 2, each with and without
               staleness (4, 0.8); stacked (K=100, 1 K1 launch a round) and
-              streamed at ``agent_blocks`` 1/3/4/10 (K=25, 2 or 3 K1
+              streamed at ``agent_blocks`` 1/3/4/10 (K=10, 2 or 3 K1
               launches a block + 1): histories bitwise equal across block
               sizes, gain means bitwise the stacked run's, the realised
               rate within 5 standard errors; full participation bitwise the
@@ -198,7 +204,25 @@ Phases, in order; any failure raises and exits non-zero:
               rank (2 K1 launches) in turns with the plain step;
 34. train mamba2 — mamba2-130m the same way (the mixer through the plain
               scan: no K4 launch in a step); K3's and K4's wrappers refuse
-              CUDA tensors that require grad (they have no backward).
+              CUDA tensors that require grad (they have no backward);
+35. families — serve zamba2-7b, llama-3.2-vision-11b and
+              seamless-m4t-large-v2 at their published widths in bf16 as
+              phase 32 (prefill B=4 S=2048, 4 decode steps, peak memory,
+              profile): zamba2 81 launches of the tensor-core K4 and no K3
+              (its shared attention runs ``attend``); vision 40 wgmma K3
+              launches (32 dense and 8 cross layers' self attention; the
+              cross attention over the (4, 1601, 4096) patch memory runs
+              ``attend``); seamless 48, 24 of them bidirectional (the
+              encoder's over its (4, 512, 1024) frames, counted by the
+              wrapper in the same prefill); the float32 prefill
+              (PR 12's kernels; zamba2 at 13 layers, vision at 10) against
+              the plain attention and scan within 2e-2;
+36. train families — the three OTA train steps as phase 33 (4 agents, B=8
+              S=256, bf16 wire, one wide K1 launch a step, no K3/K4
+              launch): seamless at full width (memory (8, 64, 1024)),
+              zamba2 at its published width with 13 layers (two groups,
+              the shared block twice, a tail of 1), vision with 10 (two
+              groups of 4 dense layers and a cross layer).
 
 ``python3 chip_smoke.py --agent-mesh-across-cards`` runs phases 1, 2 and
 31's mesh over every visible card alone, then the card test of the mesh
@@ -213,6 +237,7 @@ line ``{"ok": true, "device": {...}}``.  The full record also goes to
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -220,6 +245,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -239,6 +265,9 @@ K3_CASES = [  # (b, h, hkv, s, dh, causal, window)
     (4, 24, 8, 48, 128, True, None),      # a short prompt
     (4, 24, 8, 2048, 128, True, None),    # llama3.2-3b's prefill
     (4, 16, 8, 2048, 64, True, None),     # granite-moe-1b-a400m's prefill
+    (4, 32, 8, 2048, 128, True, None),    # llama-3.2-vision-11b's prefill
+    (4, 16, 16, 512, 64, False, None),    # seamless-m4t-large-v2's encoder
+    (4, 16, 16, 2048, 64, True, None),    # seamless-m4t-large-v2's decoder
 ]
 K3_EDGE_CASES = [  # (b, h, hkv, sq, sk, dh, causal, window, row pad)
     (1, 3, 1, 130, 300, 128, True, None, 0),   # Sq != Sk, neither of 128
@@ -251,12 +280,13 @@ K3_BLIND_CASES = [  # (key position stride, shift, window): queries that see
     (1, 100, None),   # no key: the first 100, and every odd one
     (2, 0, 1),
 ]
-K4_CASES = [  # (b, s, h, p, g, n, chunk): tests/test_kernels.py:69-72 + mamba2
+K4_CASES = [  # (b, s, h, p, g, n, chunk): tests/test_kernels.py:69-72, the models
     (1, 128, 2, 64, 1, 64, 64),
     (2, 256, 4, 64, 1, 128, 128),
     (1, 256, 4, 32, 2, 16, 64),
     (2, 128, 8, 64, 2, 64, 32),
     (4, 2048, 24, 64, 1, 128, 128),
+    (4, 2048, 112, 64, 1, 64, 128),  # zamba2-7b's prefill
 ]
 K4_EDGE_CASES = [  # P and S not multiples of the 16-column slice and the chunk
     (1, 200, 2, 40, 1, 16, 64),
@@ -294,7 +324,7 @@ BATCH_ROUNDS = 20
 BATCH_K1_LANES = (20, 100)
 TEL_ROUNDS = 50
 MAIN_ROUNDS = 100
-SERVICE_STREAM_ROUNDS = 25     # streamed service runs: K cut from 100
+SERVICE_STREAM_ROUNDS = 10     # streamed service runs: K cut from 100
 SERVICE_LARGE_N = 10 ** 4      # benchmarks/fig_participation.py
 SERVICE_LARGE_ROUNDS = 5
 LARGE_SERVICE_BLOCKS = 64      # benchmarks/fig_participation.py
@@ -520,19 +550,26 @@ def phase_k1(torch):
         bodies = k1_bodies(n_params)
         for wire in (None, torch.bfloat16):
             gw = g if wire is None else g.to(wire)
-            # the plain versions, once for both bodies
-            want = ref.ota_fused_ref(gw, h, noise, **rkw)
-            want0 = ref.ota_fused_ref(gw, h, None, **rkw)
-            want_s = ref.ota_fused_sgd_ref(gw, h, p, noise, alpha=0.05, **rkw)
-            want_a = ref.ota_fused_adam_ref(gw, h, p, mu, nu, noise, **akw,
-                                            **rkw)
+            # the plain versions, once for both bodies.  Their fold
+            # sum_a h_a g_a (A sequential adds, the costly part at A = 10^5)
+            # is made once (sigma 0, scale 1: (0 + sum) * 1 is the sum);
+            # each version then folds it as a one-agent stack of unit gain,
+            # where 0 + 1 * sum is the sum bit for bit, and finishes it
+            acc = ref.ota_fused_ref(gw, h)[None]
+            unit = torch.ones(1, device="cuda")
+            want = ref.ota_fused_ref(acc, unit, noise, **rkw)
+            want0 = ref.ota_fused_ref(acc, unit, None, **rkw)
+            want_s = ref.ota_fused_sgd_ref(acc, unit, p, noise, alpha=0.05,
+                                           **rkw)
+            want_a = ref.ota_fused_adam_ref(acc, unit, p, mu, nu, noise,
+                                            **akw, **rkw)
             # the device rescale factor (the round service's N / W, made
             # on the card as the streamed round makes it)
             factors = [ota_lib._participation_rescale(
                 n_agents, torch.tensor(w, device="cuda")).reshape(1)
                 for w in (3.0, 7.0, 0.0)]
-            want_r = [(ref.ota_fused_ref(gw, h, noise, rescale=r, **rkw),
-                       ref.ota_fused_sgd_ref(gw, h, p, noise, alpha=0.05,
+            want_r = [(ref.ota_fused_ref(acc, unit, noise, rescale=r, **rkw),
+                       ref.ota_fused_sgd_ref(acc, unit, p, noise, alpha=0.05,
                                              rescale=r, **rkw))
                       for r in factors]
             outs = {}
@@ -1301,31 +1338,17 @@ def profile_rounds(torch, run, rounds, ms_per_round):
     """torch.profiler over ``run()`` (``rounds`` rounds): device time by
     kernel, launches per round, K1's time, and the device's busy share of
     an unprofiled round of ``ms_per_round``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
-    check(kernels, "the profiler recorded no device activity")
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0)
-
-    kernels.sort(key=dev_us, reverse=True)
-    busy = sum(dev_us(e) for e in kernels) / rounds
+    kernels, busy, _ = device_kernels(torch, run)
+    busy /= rounds
     return {"device_busy_us_per_round": busy,
             "device_launches_per_round":
                 sum(e.count for e in kernels) / rounds,
-            "k1_us_per_round": sum(dev_us(e) for e in kernels
+            "k1_us_per_round": sum(e.device_us for e in kernels
                                    if "ota_fused" in e.key) / rounds,
             "busy_share": busy / (ms_per_round * 1e3),
             "kernel_names": len(kernels),
             "top": [{"name": e.key[:90],
-                     "device_us_per_round": dev_us(e) / rounds,
+                     "device_us_per_round": e.device_us / rounds,
                      "launches_per_round": e.count / rounds}
                     for e in kernels[:12]]}
 
@@ -1378,11 +1401,21 @@ def counters():
 
 
 def reset_counts():
-    from repro_torch.kernels import ota_fused
+    from repro_torch.kernels import flash_attention, ota_fused
 
     for mod, attr in counters().values():
         setattr(mod, attr, 0)
     ota_fused.LAUNCHES_WIDE = ota_fused.LAUNCHES_TALL = 0
+    flash_attention.LAUNCHES_BIDIR = flash_attention.LAUNCHES_TC_BIDIR = 0
+
+
+def k3_bidir_counts():
+    """K3's bidirectional launches of each kernel since ``reset_counts``
+    (counted among the kernel's launches, where the wrapper launches it)."""
+    from repro_torch.kernels import flash_attention
+
+    return {"flash_attention": flash_attention.LAUNCHES_BIDIR,
+            "flash_attention_wgmma": flash_attention.LAUNCHES_TC_BIDIR}
 
 
 def k1_body_counts():
@@ -1649,9 +1682,10 @@ def plain_prefill(torch, m, params, prompt, kernel, **alt):
                functools.partial(plain_attention, **alt))
               if kernel.startswith("flash_attention")
               else (ssd_scan, "ssd_scan", functools.partial(plain_ssd, **alt)))
+    memory = model_memory(m, prompt)
     with torch.no_grad(), mock.patch.object(*target):
         reset_counts()
-        logits, _ = m.prefill(params, prompt)
+        logits, _ = m.prefill(params, prompt, memory)
         torch.cuda.synchronize()
         counts = read_counts()
         check(not any(counts[k] for k in K34), "the plain prefill launched "
@@ -1664,17 +1698,38 @@ def events(torch):
             torch.cuda.Event(enable_timing=True))
 
 
+KV_FIELDS = ("kv", "groups_kv", "cross_self_kv")   # caches with a capacity
+
+
+def model_memory(m, prompt):
+    """The vlm and encdec families' frontend memory for ``prompt`` (the
+    data pipeline's stub, a function of the prompt and a fixed seed), in
+    the model's dtype; None for the other families."""
+    from repro_torch.data import memory_stub
+    from repro_torch.models.model import needs_memory
+
+    if not needs_memory(m.cfg):
+        return None
+    return memory_stub(m.cfg, prompt, prompt.shape[1])
+
+
 def widen_cache(m, cache, capacity):
-    """The dense or moe prefill's KV copied into a cache of ``capacity``
-    slots, as examples/serve_smoke.py does; the SSM prefill's cache
-    (zeroed, as the JAX package returns it) is kept as it is."""
-    if m.cfg.family not in ("dense", "moe"):
+    """A prefill's KV (the dense, moe and encdec families' ``kv``; the vlm
+    family's ``groups_kv`` and ``cross_self_kv``) copied into a cache of
+    ``capacity`` slots, as examples/serve_smoke.py does, with its
+    ``cross_kv`` as it is; the SSM and hybrid prefills' caches (zeroed, as
+    the JAX package returns them) are kept as they are."""
+    if m.cfg.family in ("ssm", "hybrid"):
         return cache
-    b, s = cache.kv.k.shape[1], cache.kv.k.shape[2]   # (L, B, S, Hkv, Dh)
-    full = m.init_cache(b, capacity, device="cuda")
-    full.kv.k[:, :, :s] = cache.kv.k
-    full.kv.v[:, :, :s] = cache.kv.v
-    return full._replace(pos=cache.pos)
+    fields = [f for f in KV_FIELDS if getattr(cache, f) is not None]
+    k = getattr(cache, fields[0]).k                  # (lead..., B, S, Hkv, Dh)
+    b, s = k.shape[-4], k.shape[-3]
+    mem_len = 0 if cache.cross_kv is None else cache.cross_kv[0].shape[2]
+    full = m.init_cache(b, capacity, mem_len, device="cuda")
+    for f in fields:
+        for dst, src in zip(getattr(full, f), getattr(cache, f)):
+            dst[..., :s, :, :] = src
+    return full._replace(pos=cache.pos, cross_kv=cache.cross_kv)
 
 
 def model_and_prompt(torch, m, seed):
@@ -1705,12 +1760,17 @@ def bf16_cross_check(torch, m, params, prompt, kernel, logits):
 
 
 def serve(torch, arch, kernel, kernel32, n_launches, steps=SERVE_STEPS,
-          seeds=FLOOR_SEEDS):
+          seeds=FLOOR_SEEDS, depth32=None, n_launches32=None, n_bidir=0):
     """Serve one config at full width: prefill, ``steps`` decode steps,
     plain cross-check.  ``kernel`` names the counter the bf16 prefill must
-    advance by ``n_launches`` (and no other K3/K4 counter), ``kernel32`` the
-    one the float32 prefill must.  Returns the numbers (peak memory of the
-    bf16 serve included), the model and its seed-0 parameters and prompt.
+    advance by ``n_launches`` (and no other K3/K4 counter), ``n_bidir`` of
+    them bidirectional (the float32 prefill as many); ``kernel32`` the one
+    the float32 prefill must (by ``n_launches32``, default ``n_launches``;
+    the float32 model has ``depth32`` layers where given, a cut that lets
+    it fit beside the bf16 weights).  The vlm and encdec
+    families take the data pipeline's memory stub of the prompt.  Returns
+    the numbers (peak memory of the bf16 serve included), the model and its
+    seed-0 parameters and prompt.
 
     The cross-check against the plain version is asserted in float32: in
     bf16, 24-28 layers of random weights amplify the rounding of either
@@ -1726,6 +1786,7 @@ def serve(torch, arch, kernel, kernel32, n_launches, steps=SERVE_STEPS,
 
     cfg = get_config(arch)
     m = model_lib.build(cfg)
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     s0, s1 = events(torch)
@@ -1737,20 +1798,24 @@ def serve(torch, arch, kernel, kernel32, n_launches, steps=SERVE_STEPS,
     log(f"{arch}: {n_params / 1e9:.3f} B parameters ({cfg.dtype}), init "
         f"{s0.elapsed_time(s1):.1f} ms")
     b, s = SERVE_BATCH, SERVE_PROMPT
+    memory = model_memory(m, prompt)
     with torch.no_grad():
-        m.prefill(params, prompt)                 # warm-up: cuBLAS, library load
+        m.prefill(params, prompt, memory)   # warm-up: cuBLAS, library load
         torch.cuda.synchronize()
         reset_counts()
         s0.record()
-        logits, cache = m.prefill(params, prompt)
+        logits, cache = m.prefill(params, prompt, memory)
         s1.record()
         torch.cuda.synchronize()
-        counts = read_counts()
+        counts, bidir = read_counts(), k3_bidir_counts()
     prefill_ms = s0.elapsed_time(s1)
     check(counts[kernel] == n_launches
           and sum(counts[k] for k in K34) == n_launches,
           f"{arch} prefill: {counts} launches, expected {n_launches} of "
           f"{kernel} and no other K3/K4")
+    check(bidir.get(kernel, 0) == sum(bidir.values()) == n_bidir,
+          f"{arch} prefill: bidirectional K3 launches {bidir}, expected "
+          f"{n_bidir} of {kernel}")
     check(logits.shape == (b, 1, cfg.vocab)
           and bool(torch.isfinite(logits.float()).all()),
           f"{arch} prefill logits not finite / wrong shape")
@@ -1772,8 +1837,8 @@ def serve(torch, arch, kernel, kernel32, n_launches, steps=SERVE_STEPS,
     check(all(bool(torch.isfinite(lg.float()).all()) for lg in step_logits),
           f"{arch} decode logits not finite")
     del step_logits
-    check(full.pos == (s + steps if cfg.family in ("dense", "moe")
-                       else steps), f"{arch} cache position")
+    check(full.pos == (steps if cfg.family in ("ssm", "hybrid")
+                       else s + steps), f"{arch} cache position")
     del full
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -1783,24 +1848,32 @@ def serve(torch, arch, kernel, kernel32, n_launches, steps=SERVE_STEPS,
     for seed in seeds[1:]:
         p_seed, prompt_seed = model_and_prompt(torch, m, seed)
         with torch.no_grad():
-            lg, _ = m.prefill(p_seed, prompt_seed)
+            lg, _ = m.prefill(p_seed, prompt_seed,
+                              model_memory(m, prompt_seed))
         bf16.append(bf16_cross_check(torch, m, p_seed, prompt_seed, kernel,
                                      lg))
         del p_seed, prompt_seed, lg
         torch.cuda.empty_cache()
 
-    # the asserted cross-check: the seed-0 model and prompt in float32
-    m32 = model_lib.build(cfg.with_(dtype="float32"))
+    # the asserted cross-check: the seed-0 model (``depth32`` layers) and
+    # prompt in float32
+    n32 = n_launches if n_launches32 is None else n_launches32
+    m32 = model_lib.build(cfg.with_(dtype="float32",
+                                    n_layers=depth32 or cfg.n_layers))
     params32 = m32.init(torch.Generator(device="cuda").manual_seed(
         seeds[0]), device="cuda")
     with torch.no_grad():
         reset_counts()
-        logits32, _ = m32.prefill(params32, prompt)
+        logits32, _ = m32.prefill(params32, prompt, model_memory(m32, prompt))
         torch.cuda.synchronize()
-        counts32 = read_counts()
-        check(counts32[kernel32] == n_launches,
+        counts32, bidir32 = read_counts(), k3_bidir_counts()
+        check(counts32[kernel32] == n32
+              and sum(counts32[k] for k in K34) == n32,
               f"{arch} f32 prefill: {counts32} launches, expected "
-              f"{n_launches} of {kernel32}")
+              f"{n32} of {kernel32} and no other K3/K4")
+        check(bidir32.get(kernel32, 0) == sum(bidir32.values()) == n_bidir,
+              f"{arch} f32 prefill: bidirectional K3 launches {bidir32}, "
+              f"expected {n_bidir} of {kernel32}")
     plain32 = plain_prefill(torch, m32, params32, prompt, kernel)
     rel32 = rel_err(logits32, plain32)
     check(bool(torch.isfinite(logits32).all()), f"{arch} f32 logits")
@@ -1814,16 +1887,19 @@ def serve(torch, arch, kernel, kernel32, n_launches, steps=SERVE_STEPS,
            "decode_tokens_per_s": b * steps / decode_ms * 1e3,
            "decode_steps": steps, "peak_gb": peak_gb,
            "launches": counts, "launches_f32": counts32,
-           "plain_rel_err_f32": rel32,
+           "bidirectional_launches": bidir,
+           "bidirectional_launches_f32": bidir32,
+           "f32_layers": m32.cfg.n_layers, "plain_rel_err_f32": rel32,
            "bf16_by_seed": dict(zip(seeds, bf16))}
     log(f"{arch}: prefill B={b} S={s} {prefill_ms:.2f} ms "
         f"({res['prefill_tokens_per_s']:.0f} tok/s), {kernel} launches "
-        f"{counts[kernel]}; decode {steps} steps "
+        f"{counts[kernel]}{f' ({n_bidir} bidirectional)' if n_bidir else ''}"
+        f"; decode {steps} steps "
         f"{res['decode_ms_per_step']:.2f} ms/step "
         f"({res['decode_tokens_per_s']:.1f} tok/s); peak {peak_gb:.2f} GB "
         f"allocated")
-    log(f"{arch}: last-position logits, kernel vs plain prefill, f32 "
-        f"{rel32:.3e} (asserted < 2e-2)")
+    log(f"{arch}: last-position logits, kernel vs plain prefill, f32 at "
+        f"{m32.cfg.n_layers} layers {rel32:.3e} (asserted < 2e-2)")
     for seed, r in zip(seeds, bf16):
         log(f"{arch}: seed {seed} bf16 {r['rel_err']:.3e} beside a noise "
             f"floor of {r['noise_floor']:.3e} (plain vs plain with "
@@ -1844,11 +1920,12 @@ def phase_serve(torch):
     return llama, mamba
 
 
-def k3_bound(b, h, hkv, s, dh, elem_bytes):
-    """Least time in ms for causal attention at these shapes: 4*dh FLOP per
-    visible (query, key) pair over the bf16 tensor-core peak, against Q, K,
-    V read once and O written once over HBM bandwidth."""
-    pairs = s * (s + 1) // 2
+def k3_bound(b, h, hkv, s, dh, elem_bytes, causal=True):
+    """Least time in ms for attention at these shapes (causal or
+    bidirectional): 4*dh FLOP per visible (query, key) pair over the bf16
+    tensor-core peak, against Q, K, V read once and O written once over HBM
+    bandwidth."""
+    pairs = s * (s + 1) // 2 if causal else s * s
     flops = 4 * b * h * dh * pairs
     nbytes = elem_bytes * (2 * b * h * s * dh + 2 * b * hkv * s * dh)
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
@@ -1896,42 +1973,47 @@ def phase_k34_times(torch):
         return statistics.median([a, d]), statistics.median([b, c]), \
             [a, b, c, d]
 
-    def k3_times(h, hkv, dh, seed, arch):
-        """The tensor-core K3 at ``arch``'s prefill shape (B=4, S=2048,
-        bf16, causal): held to its plain version (2e-2 and one bf16 ulp),
-        then timed beside PR 12's kernel, the plain version and SDPA."""
-        b, s = SERVE_BATCH, SERVE_PROMPT
+    def k3_times(h, hkv, dh, seed, arch, s=SERVE_PROMPT, causal=True,
+                 what="prefill"):
+        """The tensor-core K3 at ``arch``'s ``what`` shape (B=4, bf16; S
+        2048 and causal unless given): held to its plain version (2e-2 and
+        one bf16 ulp), then timed beside PR 12's kernel, the plain version
+        and SDPA."""
+        b = SERVE_BATCH
         q, k, v = (x.transpose(1, 2).contiguous() for x in
                    k3_inputs(torch, b, h, hkv, s, dh, torch.bfloat16, seed))
         pos = torch.arange(s, dtype=torch.int32, device="cuda")
         call = lambda: flash_attention.attend_bshd(q, k, v, q_pos=pos,
-                                                   k_pos=pos)
+                                                   k_pos=pos, causal=causal)
         got = launched(torch, call, "flash_attention_wgmma")
-        want = plain_attention(q, k, v, q_pos=pos, k_pos=pos)
+        want = plain_attention(q, k, v, q_pos=pos, k_pos=pos, causal=causal)
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                    rtol=2e-2)
-        check(ulp_excess(got, want) <= 0, f"K3 at {arch}'s prefill shape: "
+        check(ulp_excess(got, want) <= 0, f"K3 at {arch}'s {what} shape: "
               f"more than one bf16 ulp from the plain version")
         err = (got.float() - want.float()).abs().max().item()
         del got, want
         ms, old_ms, order = turns(call, call, flash_attention, iters_old=20)
         plain_ms = device_ms(torch, lambda: plain_attention(
-            q, k, v, q_pos=pos, k_pos=pos), sleep_cycles=20_000_000)
+            q, k, v, q_pos=pos, k_pos=pos, causal=causal),
+            sleep_cycles=20_000_000)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
-        bound, by, flops, nbytes = k3_bound(b, h, hkv, s, dh, 2)
-        row = {"arch": arch, "shape": [b, h, hkv, s, dh], "dtype": "bfloat16",
-               "causal": True, "ms": ms, "ms_pr12_kernel": old_ms,
+            qt, kt, vt, is_causal=causal, enable_gqa=True))
+        bound, by, flops, nbytes = k3_bound(b, h, hkv, s, dh, 2, causal)
+        row = {"arch": arch, "what": what, "shape": [b, h, hkv, s, dh],
+               "dtype": "bfloat16", "causal": causal, "ms": ms,
+               "ms_pr12_kernel": old_ms,
                "turns_new_old_old_new": order, "max_abs_err": err,
                "plain_ms": plain_ms, "library_ms": lib_ms,
-               "library_call": "F.scaled_dot_product_attention(is_causal="
-                               "True, enable_gqa=True)",
+               "library_call": f"F.scaled_dot_product_attention(is_causal="
+                               f"{causal}, enable_gqa=True)",
                "bound_ms": bound, "bound_by": by, "flops": flops,
                "bytes": nbytes, "achieved_tflops": flops / ms / 1e9,
                "achieved_tflops_pr12_kernel": flops / old_ms / 1e9}
-        log(f"K3 at {arch}'s prefill (B={b}, H={h}, Hkv={hkv}, S={s}, "
-            f"Dh={dh}) causal bf16: wgmma {ms:.4f} ms "
+        log(f"K3 at {arch}'s {what} (B={b}, H={h}, Hkv={hkv}, S={s}, "
+            f"Dh={dh}) {'causal' if causal else 'bidirectional'} bf16: "
+            f"wgmma {ms:.4f} ms "
             f"({row['achieved_tflops']:.2f} TFLOP/s; bound {bound:.4f} ms, "
             f"{by}, {bound / ms:.2%} of it; max abs err {err:.3e}) | PR 12 "
             f"kernel {old_ms:.4f} ms ({bound / old_ms:.2%}) | plain "
@@ -1941,51 +2023,79 @@ def phase_k34_times(torch):
 
     k3 = k3_times(24, 8, 128, 5, "llama3.2-3b")
     k3["granite"] = k3_times(16, 8, 64, 8, "granite-moe-1b-a400m")
+    k3[VISION] = k3_times(32, 8, 128, 9, VISION)
+    k3[SEAMLESS] = k3_times(16, 16, 64, 10, SEAMLESS, s=SERVE_PROMPT // 4,
+                            causal=False, what="encoder")
+    k3[SEAMLESS + " decoder"] = k3_times(16, 16, 64, 12, SEAMLESS,
+                                         what="decoder")
 
-    b, s, h, p, g, n, chunk = SERVE_BATCH, SERVE_PROMPT, 24, 64, 1, 128, 128
-    x, dt, A, B, C = ssd_inputs(torch, b, s, h, p, g, n, torch.bfloat16, 6)
-    dt = dt.float()             # the model's dt is float32 (softplus)
-    call = lambda: ssd_scan.ssd_scan(x, dt, A, B, C, chunk=chunk)
-    launched(torch, call, "ssd_scan_tc")
-    ms, old_ms, order = turns(call, call, ssd_scan)
-    plain_ms = device_ms(torch, lambda: ref.ssd_ref(x, dt, A, B, C, chunk),
-                         sleep_cycles=20_000_000)
-    bound, by, flops, nbytes = k4_bound(b, s, h, p, g, n, chunk, 2, 4)
-    k4 = {"shape": [b, s, h, p, g, n, chunk], "dtype": "bfloat16 in, f32 out",
-          "ms": ms, "ms_pr12_kernel": old_ms, "turns_new_old_old_new": order,
-          "plain_ms": plain_ms, "library_ms": None,
-          "bound_ms": bound, "bound_by": by, "flops": flops, "bytes": nbytes,
-          "achieved_tflops": flops / ms / 1e9}
-    log(f"K4 (B={b}, S={s}, H={h}, P={p}, G={g}, N={n}, Q={chunk}) bf16 in, "
-        f"f32 out: tensor cores {ms:.4f} ms (bound {bound:.4f} ms, {by}, "
-        f"{bound / ms:.2%} of it) | PR 12 kernel {old_ms:.4f} ms "
-        f"({bound / old_ms:.2%}) | plain {plain_ms:.4f} ms | no single "
-        f"PyTorch call computes the scan | turns "
-        f"{[round(t, 4) for t in order]}")
+    def k4_times(h, n, seed, arch):
+        """The tensor-core K4 at ``arch``'s prefill shape (B=4, S=2048,
+        P=64, G=1, Q=128, bf16 in, f32 out) beside PR 12's kernel and the
+        plain version."""
+        b, s, p, g, chunk = SERVE_BATCH, SERVE_PROMPT, 64, 1, 128
+        x, dt, A, B, C = ssd_inputs(torch, b, s, h, p, g, n, torch.bfloat16,
+                                    seed)
+        dt = dt.float()             # the model's dt is float32 (softplus)
+        call = lambda: ssd_scan.ssd_scan(x, dt, A, B, C, chunk=chunk)
+        launched(torch, call, "ssd_scan_tc")
+        ms, old_ms, order = turns(call, call, ssd_scan)
+        plain_ms = device_ms(torch, lambda: ref.ssd_ref(x, dt, A, B, C,
+                                                        chunk),
+                             sleep_cycles=20_000_000)
+        bound, by, flops, nbytes = k4_bound(b, s, h, p, g, n, chunk, 2, 4)
+        row = {"arch": arch, "shape": [b, s, h, p, g, n, chunk],
+               "dtype": "bfloat16 in, f32 out", "ms": ms,
+               "ms_pr12_kernel": old_ms, "turns_new_old_old_new": order,
+               "plain_ms": plain_ms, "library_ms": None,
+               "bound_ms": bound, "bound_by": by, "flops": flops,
+               "bytes": nbytes, "achieved_tflops": flops / ms / 1e9}
+        log(f"K4 at {arch}'s prefill (B={b}, S={s}, H={h}, P={p}, G={g}, "
+            f"N={n}, Q={chunk}) bf16 in, f32 out: tensor cores {ms:.4f} ms "
+            f"(bound {bound:.4f} ms, {by}, {bound / ms:.2%} of it; "
+            f"{nbytes / 1e9:.3f} GB, {flops / 1e12:.3f} TFLOP) | PR 12 "
+            f"kernel {old_ms:.4f} ms ({bound / old_ms:.2%}) | plain "
+            f"{plain_ms:.4f} ms | no single PyTorch call computes the scan "
+            f"| turns {[round(t, 4) for t in order]}")
+        return row
+
+    k4 = k4_times(24, 128, 6, "mamba2-130m")
+    k4[ZAMBA] = k4_times(112, 64, 13, ZAMBA)
     RECORD["k34_times"] = {"flash_attention": k3, "ssd_scan": k4}
     done("K3/K4 times", t0)
     return k3, k4
 
 
+class DeviceKernel(NamedTuple):
+    key: str              # the kernel's (or copy's) name
+    count: int            # its launches
+    device_us: float      # their device time
+
+
 def device_kernels(torch, fn):
-    """torch.profiler around ``fn()``: the device events (by kernel name),
-    sorted by device time, and their total device time in us."""
+    """torch.profiler around ``fn()``: the device events (kernels, copies)
+    summed by name into ``DeviceKernel``s, sorted by device time, their
+    total device time in us, and ``fn()``'s result.  The profiler's raw
+    events are summed here: ``key_averages()`` gives the same counts and
+    times, but builds a Python object per host and device event first,
+    seconds for a prefill's few thousand launches."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            n, us = by_name.get(e.name(), (0, 0.0))
+            by_name[e.name()] = (n + 1, us + e.duration_ns() / 1e3)
+    kernels = sorted((DeviceKernel(k, n, us)
+                      for k, (n, us) in by_name.items()),
+                     key=lambda k: k.device_us, reverse=True)
     check(kernels, "the profiler recorded no device activity")
-    kernels.sort(key=dev_us, reverse=True)
-    return kernels, sum(dev_us(e) for e in kernels), out
-
-
-def dev_us(e):
-    return getattr(e, "self_device_time_total", None) or getattr(
-        e, "self_cuda_time_total", 0)
+    return kernels, sum(e.device_us for e in kernels), out
 
 
 def profile_serve(torch, m, params, prompt, kernel_name, res, steps=4):
@@ -2000,15 +2110,16 @@ def profile_serve(torch, m, params, prompt, kernel_name, res, steps=4):
                       kind="decode"))
     out = {}
     with torch.no_grad():
+        memory = model_memory(m, prompt)
         kernels, busy, (logits, cache) = device_kernels(
-            torch, lambda: m.prefill(params, prompt))
-        ours = sum(dev_us(e) for e in kernels if kernel_name in e.key)
+            torch, lambda: m.prefill(params, prompt, memory))
+        ours = sum(e.device_us for e in kernels if kernel_name in e.key)
         out["prefill"] = {
             "device_busy_us": busy, "kernel_us": ours,
             "kernel_share": ours / busy, "launches": sum(
                 e.count for e in kernels),
             "busy_share_of_unprofiled": busy / (res["prefill_ms"] * 1e3),
-            "top": [{"name": e.key[:90], "device_us": dev_us(e),
+            "top": [{"name": e.key[:90], "device_us": e.device_us,
                      "launches": e.count} for e in kernels[:8]]}
         state = {"tok": torch.argmax(logits[:, -1:, :], -1),
                  "cache": widen_cache(m, cache, s + steps)}
@@ -2025,7 +2136,7 @@ def profile_serve(torch, m, params, prompt, kernel_name, res, steps=4):
             "launches": sum(e.count for e in kernels) / steps,
             "busy_share_of_unprofiled": busy / steps / (
                 res["decode_ms_per_step"] * 1e3),
-            "top": [{"name": e.key[:90], "device_us": dev_us(e) / steps,
+            "top": [{"name": e.key[:90], "device_us": e.device_us / steps,
                      "launches": e.count / steps} for e in kernels[:6]]}
     del logits, state
     torch.cuda.empty_cache()
@@ -3073,9 +3184,9 @@ def timed_train_steps(torch, step, state, batches, what):
     kernels, busy_us, (state, _) = device_kernels(
         torch, lambda: step(state, batches[0]))
     busy_share = busy_us / (ms_step * 1e3)
-    top = [{"kernel": k.key[:80], "us": dev_us(k), "calls": k.count,
-            "share": dev_us(k) / busy_us} for k in kernels[:8]]
-    k1_us = sum(dev_us(k) for k in kernels if "ota_fused" in k.key)
+    top = [{"kernel": k.key[:80], "us": k.device_us, "calls": k.count,
+            "share": k.device_us / busy_us} for k in kernels[:8]]
+    k1_us = sum(k.device_us for k in kernels if "ota_fused" in k.key)
     log(f"{what}: profiled step: device busy {busy_us / 1e3:.1f} ms, "
         f"{busy_share:.1%} of the unprofiled {ms_step:.1f} ms step; K1 "
         f"{k1_us / 1e3:.2f} ms ({k1_us / busy_us:.1%} of busy, "
@@ -3167,6 +3278,7 @@ def phase_train(torch):
                f"d_model {cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}), OTA "
                f"through K1, B={TRAIN_BATCH} S={TRAIN_SEQ}, "
                f"{TRAIN_AGENTS} agents")
+    gc.collect()     # the peak below is this phase's, whatever the collector
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3967,26 +4079,35 @@ def grad_refusals(torch):
     return out
 
 
-def phase_family_train(torch, arch, number):
-    """Phases 33-34: ``arch`` at full width, bf16, OTA (Rayleigh, -60 dB,
-    debias, bf16 wire), 4 agents, B=8 S=256, ``FAMILY_TRAIN_STEPS`` steps:
-    one wide K1 launch a step at (1, d), no K3/K4 launch, finite metrics,
-    ms a step, peak memory, K1's share of a profiled step; then K1 at (1,
-    d) bitwise on two windows and timed beside ``torch.mv``.  granite
-    adds one psum step at one rank (2 K1 launches); mamba2 adds the
-    refusal of K3/K4 on tensors that require grad."""
+def phase_family_train(torch, arch, number, n_layers=None):
+    """Phases 33-34 and 36: ``arch`` at full width (``n_layers`` layers
+    where given: the published width, the depth cut to fit one card), bf16,
+    OTA (Rayleigh, -60 dB, debias, bf16 wire), 4 agents, B=8 S=256, the
+    vlm and encdec families with the memory stub, ``FAMILY_TRAIN_STEPS``
+    steps: one wide K1 launch a step at (1, d), no K3/K4 launch, finite
+    metrics, ms a step, peak memory, K1's share of a profiled step; then K1
+    at (1, d) bitwise on two windows and timed beside ``torch.mv``.
+    granite adds one psum step at one rank (2 K1 launches); mamba2 adds
+    the refusal of K3/K4 on tensors that require grad."""
     from repro_torch.configs import get_config
-    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import make_batch
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import model as model_lib
     from repro_torch.train import trainer
     from repro_torch.utils.tree import flatten_paths
 
     cfg = get_config(arch)
-    t0 = phase(f"{number}. train {arch} at full width ({cfg.n_layers} layers, "
+    width = "full width"
+    if n_layers is not None:
+        width = (f"its published width, depth cut from {cfg.n_layers} to "
+                 f"{n_layers} layers")
+        cfg = cfg.with_(n_layers=n_layers)
+    t0 = phase(f"{number}. train {arch} at {width} ({cfg.n_layers} layers, "
                f"d_model {cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}), OTA "
                f"through K1, B={TRAIN_BATCH} S={TRAIN_SEQ}, "
                f"{TRAIN_AGENTS} agents")
+    gc.collect()     # the peak below is this phase's, whatever the collector
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3996,10 +4117,13 @@ def phase_family_train(torch, arch, number):
     state = trainer.init_state(model, tcfg, device="cuda")
     d = sum(v.numel() for v in flatten_paths(state.params).values())
     log(f"d = {d} parameters ({d / 2 ** 31:.3f} x 2^31); wire bf16")
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                                  global_batch=TRAIN_BATCH), "cuda")
     step = trainer.make_train_step(model, tcfg)
-    batches = [data.batch(i) for i in range(FAMILY_TRAIN_STEPS)]
+    shape = InputShape("train", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                       kind="train")
+    batches = [make_batch(cfg, shape, i, device="cuda")
+               for i in range(FAMILY_TRAIN_STEPS)]
+    if model_lib.needs_memory(cfg):
+        log(f"memory stub {tuple(batches[0]['memory'].shape)}")
     state, res = timed_train_steps(torch, step, state, batches, arch)
     check(res["k1_launches"] == res["k1_bodies"]["wide"]
           == FAMILY_TRAIN_STEPS,
@@ -4008,6 +4132,7 @@ def phase_family_train(torch, arch, number):
     del state, step, batches
     torch.cuda.empty_cache()
     res["d"] = d
+    res["n_layers"] = cfg.n_layers
     res["k1_row"] = k1_unit_row(torch, d, ("bf16",),
                                 [(0, K1_WINDOW), (d - K1_WINDOW, d)])
     if cfg.family == "moe":
@@ -4030,6 +4155,68 @@ def phase_family_train(torch, arch, number):
     RECORD.setdefault("family_train", {})[arch] = res
     done(f"train {arch}", t0)
     return res
+
+
+# ---------------------------------------------------------------------------
+# phases 35-36: the hybrid, vlm and encdec families served and trained
+# ---------------------------------------------------------------------------
+
+ZAMBA = "zamba2-7b"
+VISION = "llama-3.2-vision-11b"
+SEAMLESS = "seamless-m4t-large-v2"
+FAMILY_SERVE_STEPS = 4         # decode is host-bound (10-18 % busy): 4 show it
+FAMILY_SERVE = [  # (arch, bf16 prefill kernel, its launches, of them
+    #                bidirectional (seamless's encoder: one a layer), its
+    #                kernel's profiler name, float32 kernel, float32 depth,
+    #                its launches)
+    (ZAMBA, "ssd_scan_tc", 81, 0, "ssd_scan_tc_kernel", "ssd_scan", 13, 13),
+    (VISION, "flash_attention_wgmma", 40, 0, "flash_fwd_wgmma_kernel",
+     "flash_attention", 10, 10),
+    (SEAMLESS, "flash_attention_wgmma", 48, 24, "flash_fwd_wgmma_kernel",
+     "flash_attention", None, 48),
+]
+# phase 36's depth cuts at the published widths (PERF.md section 4): zamba2
+# two groups of 6 mamba layers, the shared block twice and a tail of 1;
+# vision two groups of 4 dense layers and a cross layer; seamless whole
+FAMILY_TRAIN_DEPTH = {ZAMBA: 13, VISION: 10, SEAMLESS: None}
+
+
+def phase_family_serve(torch):
+    """Phase 35: zamba2-7b, llama-3.2-vision-11b and seamless-m4t-large-v2
+    at their published widths (bf16, random weights), each as phase 32:
+    prefill B=4 S=2048 (zamba2: 81 tensor-core K4 launches, no K3, the
+    shared attention through ``attend``; vision: 40 wgmma K3 launches, the
+    patch memory (4, 1601, 4096) through ``attend``; seamless: 48, 24 of
+    them the encoder's bidirectional ones over (4, 512, 1024) frames, each
+    count read from the one timed prefill), ``FAMILY_SERVE_STEPS`` greedy
+    decode steps, peak memory, the float32 prefill (PR 12's kernels; zamba2
+    at 13 layers and vision at 10 beside the bf16 weights) against the
+    plain attention and scan's within 2e-2 of the max abs logit, the bf16
+    one beside its noise floor; then phase 13's profile of one prefill and
+    4 decode steps."""
+    t0 = phase(f"35. serve {ZAMBA}, {VISION} and {SEAMLESS} (bf16, full "
+               f"width) and profile them")
+    out = {}
+    for (arch, kernel, n, n_bidir, prof_name, kernel32, depth32,
+         n32) in FAMILY_SERVE:
+        log(f"-- {arch}")
+        t_arch = time.perf_counter()
+        served = serve(torch, arch, kernel, kernel32, n,
+                       steps=FAMILY_SERVE_STEPS, seeds=FLOOR_SEEDS[:1],
+                       depth32=depth32, n_launches32=n32, n_bidir=n_bidir)
+        res = served[0]
+        t_prof = time.perf_counter()
+        res["profile"] = logged_serve_profile(torch, arch, served, prof_name)
+        del served
+        torch.cuda.empty_cache()
+        res["seconds"] = {"serve": t_prof - t_arch,
+                          "profile": time.perf_counter() - t_prof}
+        log(f"{arch}: serve and checks {res['seconds']['serve']:.1f} s, "
+            f"profile {res['seconds']['profile']:.1f} s")
+        out[arch] = res
+    RECORD["serve"].update(out)
+    done("hybrid, vlm and encdec serve", t0)
+    return out
 
 
 def psum_rank(mesh, arch, n_steps):
@@ -4106,6 +4293,11 @@ def main():
     granite = phase_granite_serve(torch)
     fam = {arch: phase_family_train(torch, arch, n)
            for arch, n in ((GRANITE, 33), ("mamba2-130m", 34))}
+    fam_serve = phase_family_serve(torch)
+    for arch, depth in FAMILY_TRAIN_DEPTH.items():
+        fam[arch] = phase_family_train(torch, arch, 36, depth)
+    train_phase = {GRANITE: "33", "mamba2-130m": "34", ZAMBA: "36",
+                   VISION: "36", SEAMLESS: "36"}
     RECORD["seconds"] = time.perf_counter() - t_all
 
     # K1's two bodies.  The wide body runs the main path (Algorithm 2 at
@@ -4149,8 +4341,9 @@ def main():
             fam[GRANITE]["k1_launches"] / FAMILY_TRAIN_STEPS,
         f"psum train step, {GRANITE}, one rank (1, d)":
             fam[GRANITE]["psum"]["rows"]["psum"][0]["k1"],
-        "OTA train step, mamba2-130m (1, d)":
-            fam["mamba2-130m"]["k1_launches"] / FAMILY_TRAIN_STEPS}
+        **{f"OTA train step, {arch} at {fam[arch]['n_layers']} layers "
+           f"(1, d)": fam[arch]["k1_launches"] / FAMILY_TRAIN_STEPS
+           for arch in ("mamba2-130m", ZAMBA, VISION, SEAMLESS)}}
     kernels = {"kernels": [{
         "name": "ota_fused_wide", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ota_fused.cu",
@@ -4174,7 +4367,8 @@ def main():
         "train_rows_by_arch": {
             arch: dict(r["k1_row"]["bf16"], launches=r["k1_launches"],
                        launches_from=f"{FAMILY_TRAIN_STEPS} OTA train "
-                                     f"steps, {arch} (phases 33-34)")
+                                     f"steps, {arch} at {r['n_layers']} "
+                                     f"layers (phase {train_phase[arch]})")
             for arch, r in fam.items()}}, {
         "name": "ota_fused_tall", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ota_fused.cu",
@@ -4224,6 +4418,35 @@ def main():
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"]})
+        # the hybrid, vlm and encdec prefills (phase 35), their launches
+        # counted there and the kernel timed at their shapes in phase 12
+        for arch, rows in (
+                [(VISION, [t[VISION]]),
+                 (SEAMLESS, [t[SEAMLESS], t[SEAMLESS + " decoder"]])]
+                if name.startswith("flash_attention") else [(ZAMBA,
+                                                             [t[ZAMBA]])]):
+            r = fam_serve[arch]
+            entry = {
+                "launches": r["launches" if new else "launches_f32"][name],
+                "launches_from": (
+                    "bf16 prefill (phase 35)" if new else
+                    f"float32 prefill at {r['f32_layers']} layers (phase "
+                    f"35)"),
+                "timings": [{
+                    "what": row.get("what", "prefill"), "shape": row["shape"],
+                    **({"causal": row["causal"]} if "causal" in row else {}),
+                    "ms": row["ms" if new else "ms_pr12_kernel"],
+                    "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                    "bound_by": row["bound_by"],
+                    "library_ms": row["library_ms"],
+                    **({"max_abs_err": row["max_abs_err"]}
+                       if new and "max_abs_err" in row else {})}
+                    for row in rows]}
+            if name.startswith("flash_attention"):
+                entry["bidirectional_launches"] = r[
+                    "bidirectional_launches" if new
+                    else "bidirectional_launches_f32"][name]
+            kernels["kernels"][-1][f"{arch} prefill"] = entry
         if name.startswith("flash_attention"):
             # this slice's path: granite's prefill (Dh = 64), its launches
             # counted there and the kernel timed at its shape in phase 12

@@ -1,7 +1,7 @@
 """Synthetic-but-structured token pipeline.
 
-Counterpart of ``repro/data/pipeline.py`` for the dense family.  It stands
-in for a tokenised corpus: deterministic (step -> batch is a function of
+Counterpart of ``repro/data/pipeline.py``.  It stands in for a tokenised
+corpus: deterministic (step -> batch is a function of
 the seed and the step alone, drawn from
 ``utils.device.index_generator(seed + 1, step)``, so a resumed run sees
 the batches an uninterrupted one saw), and learnable (a mixture of Markov
@@ -10,8 +10,12 @@ model's loss falls).  Torch cannot replay JAX's threefry draws, so the
 batches match the JAX package's in distribution; ``trans_logits=``
 injects its transition table (numpy) so tests can share it.
 
-The memory stub of the audio and vision families (``memory_stub``) is not
-ported: ``make_batch`` raises for them (``ROADMAP.md``).
+The memory stub of the audio and vision families (``memory_stub``) comes
+from here too: a fixed random projection of the token prefix stands in
+for the modality frontends (out of scope, as in the JAX package); its
+projection is drawn from a seeded generator, and ``proj=`` injects the
+JAX package's.  The batch specs (``make_batch_specs``, a sharding rule)
+wait for the sharding slice (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models.model import needs_memory
+from repro_torch.models.transformer import cross_len
 from repro_torch.utils.device import (
     DeviceLike, index_generator, make_generator, resolve_device,
 )
@@ -88,16 +93,42 @@ class SyntheticLM:
         return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
 
 
+def memory_stub(cfg: ModelConfig, tokens: torch.Tensor, seq_len: int,
+                seed: int = 7, proj: Optional[np.ndarray] = None
+                ) -> torch.Tensor:
+    """Precomputed frontend embeddings (B, mem_len, d_model) in the
+    config's dtype, on ``tokens``' device: a fixed random projection
+    ``(mem_len, d_model) * 0.02`` (drawn from ``make_generator(seed)``, or
+    ``proj``, numpy, already scaled) times ``1 + tokens[:, :1] / vocab``,
+    standing in for the ViT / speech-codec output."""
+    mem_len = cross_len(cfg, seq_len)
+    dev = tokens.device
+    if proj is None:
+        gen = make_generator(seed, dev)
+        p = torch.randn((mem_len, cfg.d_model), generator=gen,
+                        device=dev) * 0.02
+    else:
+        if tuple(proj.shape) != (mem_len, cfg.d_model):
+            raise ValueError(f"proj must be {(mem_len, cfg.d_model)}, got "
+                             f"{tuple(proj.shape)}")
+        p = torch.from_numpy(np.array(proj, np.float32)).to(dev)
+    # tensor by tensor: a true division, as the JAX package's
+    vocab = torch.full((), max(cfg.vocab, 1), dtype=torch.float32, device=dev)
+    phase = tokens[:, :1].float() / vocab
+    return (p[None] * (1.0 + phase[..., None])).to(getattr(torch, cfg.dtype))
+
+
 def make_batch(model_cfg: ModelConfig, shape: InputShape, step: int,
                seed: int = 0, device: DeviceLike = None,
-               trans_logits: Optional[np.ndarray] = None
+               trans_logits: Optional[np.ndarray] = None,
+               proj: Optional[np.ndarray] = None
                ) -> Dict[str, torch.Tensor]:
-    """One training batch for (arch, shape).  The vlm and encdec families'
-    frontend memory stub is not ported."""
-    if needs_memory(model_cfg):
-        raise NotImplementedError(
-            f"family {model_cfg.family!r} needs the frontend memory stub, "
-            f"which is not ported yet (ROADMAP.md)")
+    """One training batch for (arch, shape), memory stub included
+    (``proj``: :func:`memory_stub`'s)."""
     dcfg = DataConfig(vocab=model_cfg.vocab, seq_len=shape.seq_len,
                       global_batch=shape.global_batch, seed=seed)
-    return SyntheticLM(dcfg, device, trans_logits).batch(step)
+    batch = SyntheticLM(dcfg, device, trans_logits).batch(step)
+    if needs_memory(model_cfg):
+        batch["memory"] = memory_stub(model_cfg, batch["tokens"],
+                                      shape.seq_len, proj=proj)
+    return batch

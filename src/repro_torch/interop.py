@@ -18,8 +18,9 @@ stays ``(obs_dim, hidden)`` and ``wq`` stays ``(d, h, dh)``, not
   keeping its dtype.  bfloat16 leaves arrive as ``ml_dtypes.bfloat16``
   arrays and go through float32, which is exact both ways.
 * :func:`cache_from_jax` / :func:`cache_to_numpy`: the model caches
-  (``transformer.Cache`` with ``KVCache`` / ``SSMState`` fields), matched by
-  field name, so the JAX package's named tuples convert without importing it.
+  (``transformer.Cache`` with ``KVCache`` / ``SSMState`` fields and the
+  ``cross_kv`` pair), matched by field name, so the JAX package's named
+  tuples convert without importing it.
 * :func:`train_state_from_jax`: the trainer's state (params, AdamW moments,
   steps), so both packages' train steps start from the same values.
 """
@@ -116,31 +117,44 @@ def params_to_jax(tree: Any) -> Any:
 
 
 def cache_from_jax(cache: Any, device: DeviceLike = None):
-    """The JAX package's ``Cache`` (leaves as numpy) -> the port's."""
+    """The JAX package's ``Cache`` (leaves as numpy) -> the port's: the
+    ``KVCache`` and ``SSMState`` fields (one or two leading axes) as named
+    tuples of tensors, ``cross_kv`` as the same ``(k, v)`` pair."""
     from repro_torch.models.attention import KVCache
     from repro_torch.models.ssm import SSMState
     from repro_torch.models.transformer import Cache
 
     dev = resolve_device(device)
-    kinds = {"kv": KVCache, "ssm": SSMState}
+    kinds = {"kv": KVCache, "groups_kv": KVCache, "cross_self_kv": KVCache,
+             "ssm": SSMState, "groups_ssm": SSMState, "tail_ssm": SSMState,
+             "cross_kv": lambda k, v: (k, v)}
     fields = {}
     for name, value in cache._asdict().items():
         if name == "pos":
             fields[name] = int(np.asarray(value))
         elif value is None:
             fields[name] = None
-        elif name in kinds:
+        else:
             fields[name] = kinds[name](*(array_to_tensor(v, dev)
                                          for v in value))
-        else:
-            raise NotImplementedError(f"cache field {name!r} is not ported")
     return Cache(**fields)
+
+
+def _cache_parts(value) -> Dict[str, Any]:
+    """A cache field's parts by name: a named tuple's fields, a plain
+    ``(k, v)`` pair's by position."""
+    if hasattr(value, "_asdict"):
+        return value._asdict()
+    k, v = value
+    return {"k": k, "v": v}
 
 
 def cache_to_numpy(cache: Any) -> Dict[str, Any]:
     """A cache (the port's or the JAX package's, leaves tensors or arrays)
     -> ``{field: {subfield: numpy array} | None, "pos": int}``, so two
-    caches compare field by field."""
+    caches compare field by field (``cross_kv``'s parts as ``k`` and
+    ``v``).  The arrays are copies: decode's in-place KV writes leave
+    them as they were."""
     out: Dict[str, Any] = {}
     for name, value in cache._asdict().items():
         if name == "pos":
@@ -148,9 +162,9 @@ def cache_to_numpy(cache: Any) -> Dict[str, Any]:
         elif value is None:
             out[name] = None
         else:
-            out[name] = {k: (tensor_to_array(v) if isinstance(v, torch.Tensor)
-                             else np.asarray(v))
-                         for k, v in value._asdict().items()}
+            out[name] = {k: np.array(tensor_to_array(v)
+                                     if isinstance(v, torch.Tensor) else v)
+                         for k, v in _cache_parts(value).items()}
     return out
 
 

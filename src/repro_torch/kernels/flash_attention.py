@@ -26,7 +26,9 @@ backward: a CUDA call under grad mode with an operand that requires grad
 raises (its output would carry no gradient); a forward that autograd
 differentiates takes ``models.attention.attend`` (``blockwise=False``, as
 the trainers' forward does).  ``LAUNCHES`` counts the f32 kernel's
-launches, ``LAUNCHES_TC`` the tensor-core kernel's.
+launches, ``LAUNCHES_TC`` the tensor-core kernel's; ``LAUNCHES_BIDIR`` and
+``LAUNCHES_TC_BIDIR`` count those of them that were bidirectional
+(``causal=False``), as an encoder's are.
 """
 from __future__ import annotations
 
@@ -39,6 +41,8 @@ from repro_torch.kernels import build, ref
 
 LAUNCHES = 0
 LAUNCHES_TC = 0
+LAUNCHES_BIDIR = 0
+LAUNCHES_TC_BIDIR = 0
 
 MAX_HEAD_DIM = 128
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -102,7 +106,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             window: Optional[int]) -> None:
     """Check the CUDA operands, given as (B, H, S, Dh) views, and launch K3
     writing into the (B, H, Sq, Dh) view ``out``."""
-    global LAUNCHES, LAUNCHES_TC
+    global LAUNCHES, LAUNCHES_TC, LAUNCHES_BIDIR, LAUNCHES_TC_BIDIR
     dev = q.device
     b, h, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -138,8 +142,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     if tc:
         LAUNCHES_TC += 1
+        LAUNCHES_TC_BIDIR += int(not causal)
     else:
         LAUNCHES += 1
+        LAUNCHES_BIDIR += int(not causal)
 
 
 def _refuse_grad(*ops: torch.Tensor) -> None:

@@ -11,6 +11,11 @@ Usage:
         --steps 200 --aggregator ota --channel rayleigh
     python -m repro_torch.launch.train --example --steps 300 \\
         --ckpt-dir ckpt --ckpt-every 100
+    python -m repro_torch.launch.train --arch seamless-m4t-large-v2 \\
+        --smoke --steps 6 --seq-len 32 --global-batch 8 --device cpu
+
+The vlm and encdec families' batches carry the frontend memory stub
+(``data.pipeline.memory_stub``).
 
 ``--example`` trains the width of ``examples/ota_llm_training.py`` (the
 llama3.2-3b family at 4 layers, d_model 512, 8 heads, 4 KV heads, d_ff
@@ -26,7 +31,7 @@ from typing import Any, Dict, List, Optional, Tuple
 from repro_torch import checkpoint
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.configs.base import InputShape, ModelConfig
-from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.data.pipeline import make_batch
 from repro_torch.models import model as model_lib
 from repro_torch.telemetry import trace
 from repro_torch.train import trainer
@@ -62,16 +67,14 @@ def train(cfg: ModelConfig, tcfg: trainer.TrainConfig, shape: InputShape, *,
             state = checkpoint.restore(ckpt_dir, last, state)
             if verbose:
                 print(f"restored step {int(state.step)} from {ckpt_dir}")
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=shape.seq_len,
-                                  global_batch=shape.global_batch,
-                                  seed=data_seed), dev)
     step_fn = trainer.make_train_step(model, tcfg)
     history: List[Dict[str, Any]] = []
     wall_us = 0.0
     for i in range(int(state.step), steps):
         log = i % log_every == 0 or i == steps - 1
+        batch = make_batch(cfg, shape, i, seed=data_seed, device=dev)
         with trace.span("train_step", step=i) as sp:
-            state, metrics = step_fn(state, data.batch(i))
+            state, metrics = step_fn(state, batch)
             if log:
                 m = {k: float(v) for k, v in metrics.items()}
         wall_us += sp.duration_us

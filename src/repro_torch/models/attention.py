@@ -1,4 +1,4 @@
-"""Grouped-query attention: full, sliding-window and cached decode.
+"""Grouped-query attention: full, sliding-window, cross and cached decode.
 
 Counterpart of ``repro/models/attention.py``.  Two numerics paths:
 
@@ -14,13 +14,13 @@ All shapes: q (B, Sq, H, Dh); k/v (B, Sk, Hkv, Dh); GQA via head grouping.
 ``decode_self_attention`` writes the new token's K and V into the cache's
 tensors in place (one slot per step, not a copy of the cache) and returns
 the same tensors; its ``pos`` is a Python int, so the ring-buffer slot
-arithmetic stays on the host.
-``cross_attention`` and ``project_memory`` come with the vlm and encdec
-families (``ROADMAP.md``).
+arithmetic stays on the host.  ``cross_attention`` (the vlm and encdec
+families) attends over memory K/V that ``project_memory`` precomputes,
+through ``attend`` (materialised, as the JAX package), never K3.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -122,14 +122,17 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype,
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
 
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) against w (D, heads, Dh) -> (B, S, heads, Dh)."""
+    d, heads, dh = w.shape
+    return (x @ w.to(x.dtype).reshape(d, heads * dh)).unflatten(
+        -1, (heads, dh))
+
+
 def _project_qkv(params, x: torch.Tensor):
     """x (B, S, D) -> q (B, S, H, Dh), k and v (B, S, Hkv, Dh)."""
-    def proj(w):
-        d, heads, dh = w.shape
-        return (x @ w.to(x.dtype).reshape(d, heads * dh)).unflatten(
-            -1, (heads, dh))
-
-    return proj(params["wq"]), proj(params["wk"]), proj(params["wv"])
+    return _proj(x, params["wq"]), _proj(x, params["wk"]), \
+        _proj(x, params["wv"])
 
 
 def _out_proj(params, o: torch.Tensor) -> torch.Tensor:
@@ -162,6 +165,29 @@ def self_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
     return out
 
 
+def cross_attention(params, x: torch.Tensor,
+                    memory_kv: Tuple[torch.Tensor, torch.Tensor],
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Cross attention over precomputed memory K/V (no mask, no rope); the
+    grouped form for one-token decode, the expanded one otherwise."""
+    sq = x.shape[1]
+    q = _proj(rmsnorm(params["norm"], x, cfg.norm_eps), params["wq"])
+    k, v = memory_kv
+    dev = x.device
+    o = attend(q, k, v,
+               q_pos=torch.zeros(sq, dtype=torch.int32, device=dev),
+               k_pos=torch.zeros(k.shape[1], dtype=torch.int32, device=dev),
+               causal=False, expand_kv=sq > 1)
+    return _out_proj(params, o)
+
+
+def project_memory(params, memory: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V (B, M, Hkv, Dh) of encoder/frontend output (B, M,
+    D), in its dtype."""
+    return _proj(memory, params["wk"]), _proj(memory, params["wv"])
+
+
 def decode_self_attention(params, x: torch.Tensor, cache: KVCache, pos: int,
                           cfg: ModelConfig, *,
                           window: Optional[int] = None):
@@ -192,3 +218,10 @@ def decode_self_attention(params, x: torch.Tensor, cache: KVCache, pos: int,
     o = attend(q, cache.k, cache.v, q_pos=p, k_pos=k_pos, causal=True,
                window=eff_window, k_valid=k_pos >= 0)
     return _out_proj(params, o), cache
+
+
+def decode_cross_attention(params, x: torch.Tensor,
+                           memory_kv: Tuple[torch.Tensor, torch.Tensor],
+                           cfg: ModelConfig) -> torch.Tensor:
+    """Cross attention during decode: the memory K/V are static."""
+    return cross_attention(params, x, memory_kv, cfg)

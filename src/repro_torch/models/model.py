@@ -1,6 +1,9 @@
 """Public model API: ``build(config)`` -> a ``Model`` of plain functions.
 
-Counterpart of ``repro/models/model.py`` for the dense and SSM families.
+Counterpart of ``repro/models/model.py`` for every family; the vlm and
+encdec families take their frontend ``memory`` (``data.pipeline.memory_stub``)
+in ``forward`` and ``prefill``, and ``init_cache`` sizes its K/V by
+``mem_len``.
 ``Model.init`` draws the parameters from an explicit ``torch.Generator`` of
 the device it is given (``cuda`` unless the caller passes ``device="cpu"``).
 The JAX package's ``abstract_*`` stand-ins have no counterpart here.

@@ -1,12 +1,13 @@
 """The LLM train step: forward and backward, OTA or exact aggregation, AdamW.
 
-Counterpart of ``repro/train/trainer.py`` for the dense, ssm and moe
-families.  The forward is the differentiable one
-(``transformer.forward(..., differentiable=True)``: ``attend``, not K3, and
-the SSM mixer's plain scan, not K4); the moe family's load-balance loss is
-added to the CE, as JAX's ``lm_loss(...) + aux``.  One forward runs over the
-whole microbatch, every agent's slice together, so the MoE capacity is the
-JAX trainer's.  The paper's technique enters through one seam, the gradient
+Counterpart of ``repro/train/trainer.py`` for every family.  The forward
+is the differentiable one (``transformer.forward(..., differentiable=True)``:
+``attend``, not K3, the encoder's and the hybrid's shared block's
+included, and the SSM mixer's plain scan, not K4); the moe family's
+load-balance loss is added to the CE, as JAX's ``lm_loss(...) + aux``; the
+vlm and encdec families' ``memory`` rides in the batch.  One forward runs
+over the whole microbatch, every agent's slice together, so the MoE
+capacity is the JAX trainer's.  The paper's technique enters through one seam, the gradient
 aggregation:
 
 * ``aggregator="exact"`` — Algorithm 1: the batch gradient is the plain
@@ -40,11 +41,14 @@ states of bf16 parameters and float32 moments do not fit one NVIDIA H100
 80GB HBM3 beside the gradients).  The returned state holds the same
 tensors.
 
-Autograd sees each stacked layer leaf (``layers/...``, leading axis
-``n_layers``) as one leaf per layer, unbound once a step, and stacks each
-leaf's gradient once.  Indexing the stacked leaf in the forward instead
-would make every layer's backward add a zero-filled gradient of the whole
-stack.
+Autograd sees each stacked layer leaf as one leaf per layer, unbound once
+a step, and stacks each leaf's gradient once.  Which leaves are stacked,
+and over how many axes, the plan's declarations say: the leading axes
+named in ``transformer.STACK_AXES`` (``layers``; the hybrid's and vlm's
+groups also ``sublayers``, unbound over both).  Indexing the stacked leaf
+in the forward instead would make every layer's backward add a
+zero-filled gradient of the whole stack.  The hybrid's ``shared`` block is
+one leaf; its gradient sums over its uses.
 
 :func:`make_psum_train_step` is the data-parallel form over an agent mesh
 (JAX's ``shard_map`` step): each rank of the group is one agent, takes its
@@ -54,10 +58,11 @@ rank's gain (one K1 launch at ``(1, d)``, sigma 0), sums the ranks' rows in
 one ``all_reduce`` (in the wire dtype when one is set, else the gradient's)
 and runs K1's server pass at ``(1, d)`` (the noise and the debias over the
 group size); clipping and AdamW follow as in :func:`make_train_step`.
-Families other than dense, ssm and moe raise.
 """
 from __future__ import annotations
 
+import collections
+import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -81,7 +86,6 @@ from repro_torch.utils.tree import (
 )
 
 Draws = Tuple[torch.Tensor, Any]     # (gains (N,), K1 seed)
-TRAINED_FAMILIES = ("dense", "ssm", "moe")
 
 
 @dataclass(frozen=True)
@@ -131,19 +135,11 @@ def make_optimizer(tcfg: TrainConfig) -> Optimizer:
     return adamw(sched, weight_decay=tcfg.weight_decay)
 
 
-def _check_family(model: Model) -> None:
-    if model.cfg.family not in TRAINED_FAMILIES:
-        raise NotImplementedError(
-            f"training family {model.cfg.family!r} is not ported; the port "
-            f"trains {TRAINED_FAMILIES} (ROADMAP.md lists the rest)")
-
-
 def init_state(model: Model, tcfg: TrainConfig,
                generator: Optional[torch.Generator] = None,
                device: DeviceLike = None) -> TrainState:
     """Parameters from ``generator`` (default: one seeded ``tcfg.seed`` on
     ``device``, which None makes cuda), zero moments, step 0."""
-    _check_family(model)
     gen = generator or make_generator(tcfg.seed, device)
     params = model.init(gen, device if generator is None else gen.device)
     return TrainState(params=params,
@@ -172,7 +168,6 @@ def make_loss_fn(model: Model) -> Callable:
     """loss(params, microbatch, weights) over (n_agents, per, ...) batches:
     the differentiable forward over the flattened ``n_agents * per``
     sequences and :func:`lm_loss` + aux, as the JAX trainer's."""
-    _check_family(model)
 
     def loss_fn(params, mb, weights):
         na, per = mb["tokens"].shape[:2]
@@ -186,25 +181,47 @@ def make_loss_fn(model: Model) -> Callable:
     return loss_fn
 
 
-def _autograd_leaves(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """Leaves that require grad: a tensor per key, or for a stacked layer
-    leaf the list of its layers (module docstring)."""
-    return {k: ([x.requires_grad_() for x in v.detach().unbind(0)]
-                if k.startswith("layers/") else v.detach().requires_grad_())
-            for k, v in flat.items()}
+def _stack_depth(decl) -> int:
+    """How many leading axes of a declared leaf are stacked layers."""
+    n = 0
+    while n < len(decl.axes) and decl.axes[n] in transformer.STACK_AXES:
+        n += 1
+    return n
+
+
+def _autograd_leaves(flat: Dict[str, torch.Tensor],
+                     plan) -> Dict[str, Any]:
+    """Leaves that require grad: a tensor per key, or for a stacked leaf
+    the (nested, one level a stacked axis) list of its layers; ``plan`` is
+    the model's (module docstring)."""
+    depth = {k: _stack_depth(d) for k, d in flatten_paths(plan).items()}
+
+    def unbind(x, n):
+        if n == 0:
+            return x.requires_grad_()
+        return [unbind(y, n - 1) for y in x.unbind(0)]
+
+    return {k: unbind(v.detach(), depth[k]) for k, v in flat.items()}
+
+
+def _nested(v) -> list:
+    """The tensors of a leaf, a stacked leaf's in layer order."""
+    return [x for y in v for x in _nested(y)] if isinstance(v, list) else [v]
 
 
 def _grads(loss: torch.Tensor, leaves: Dict[str, Any]) -> Dict[str, Any]:
-    """d loss / d leaves, each stacked leaf's layers stacked back."""
-    inputs = [x for v in leaves.values()
-              for x in (v if isinstance(v, list) else [v])]
-    g, out = list(torch.autograd.grad(loss, inputs)), {}
+    """d loss / d leaves, each stacked leaf's layers stacked back (in one
+    copy, whatever its number of stacked axes).  Each layer's gradient is
+    released once it is stacked, so at most one leaf is held twice."""
+    inputs = [x for v in leaves.values() for x in _nested(v)]
+    g, out = collections.deque(torch.autograd.grad(loss, inputs)), {}
     for k, v in leaves.items():
-        if isinstance(v, list):
-            out[k] = torch.stack(g[:len(v)])
-            del g[:len(v)]
-        else:
-            out[k] = g.pop(0)
+        lead = []
+        while isinstance(v, list):
+            lead.append(len(v))
+            v = v[0]
+        out[k] = (torch.stack([g.popleft() for _ in range(math.prod(lead))])
+                  .unflatten(0, lead) if lead else g.popleft())
     return out
 
 
@@ -234,7 +251,7 @@ def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
                 gains, seed = draws
                 gains = gains.to(device=dev, dtype=torch.float32)
 
-        leaves = _autograd_leaves(flat)
+        leaves = _autograd_leaves(flat, model.plan)
         tree = replace_paths(state.params, leaves)
         mbs = _agent_major(batch, n, tcfg.microbatch)
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
@@ -325,7 +342,6 @@ def make_psum_train_step(model: Model, tcfg: TrainConfig,
     ``all_reduce`` of a scalar), ``grad_norm``, ``gain_mean`` (of the
     group's gains) and ``update_norm``; every rank holds the same state
     after the step, which it writes into ``state``'s tensors."""
-    _check_family(model)
     if tcfg.microbatch != 1:
         raise ValueError("make_psum_train_step takes no microbatching "
                          "(microbatch=1)")
@@ -349,7 +365,7 @@ def make_psum_train_step(model: Model, tcfg: TrainConfig,
                 gains = gains.to(device=dev, dtype=torch.float32)
 
         local = {k: _rank_slice(v, mesh)[None] for k, v in batch.items()}
-        leaves = _autograd_leaves(flat)
+        leaves = _autograd_leaves(flat, model.plan)
         loss = loss_fn(replace_paths(state.params, leaves), local, None)
         grads, _ = ota.aggregate(_grads(loss, leaves), ota_cfg, mesh=mesh,
                                  gains=gains, seed=seed,

@@ -242,7 +242,8 @@ def _aggregates(mesh):
 PSUM_LR = 1e-2
 
 
-PSUM_ARCHS = ("llama3.2-3b", "granite-moe-1b-a400m", "mamba2-130m")
+PSUM_ARCHS = ("llama3.2-3b", "granite-moe-1b-a400m", "mamba2-130m",
+              "seamless-m4t-large-v2")
 
 
 def smoke_model(arch="llama3.2-3b"):
@@ -266,18 +267,19 @@ def smoke_model(arch="llama3.2-3b"):
 def _psum_exact_step(mesh, arch="llama3.2-3b"):
     """One exact step of the psum form on every rank of the mesh (or,
     without one, of ``make_train_step`` over as many agents)."""
-    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import make_batch
     from repro_torch.train import trainer
 
     model = smoke_model(arch)
     tcfg = trainer.TrainConfig(aggregator="exact", n_agents=RANKS,
                                lr=PSUM_LR, warmup=2, total_steps=10)
     state = trainer.init_state(model, tcfg, device="cpu")
-    data = SyntheticLM(DataConfig(vocab=model.cfg.vocab, seq_len=16,
-                                  global_batch=2 * RANKS), "cpu")
+    batch = make_batch(model.cfg, InputShape("t", 16, 2 * RANKS, "train"), 0,
+                       device="cpu")     # seamless: with its memory stub
     step = (trainer.make_train_step(model, tcfg) if mesh is None
             else trainer.make_psum_train_step(model, tcfg, mesh))
-    state, m = step(state, data.batch(0))
+    state, m = step(state, batch)
     return state.params, {k: float(v) for k, v in m.items()}
 
 
@@ -526,12 +528,19 @@ def test_psum_exact_step_matches_the_plain_exact_step(ranks):
     _check_psum_exact(ranks, "llama3.2-3b")
 
 
-@pytest.mark.parametrize("arch", PSUM_ARCHS[1:])
+@pytest.mark.parametrize("arch", PSUM_ARCHS[1:3])
 def test_psum_exact_step_of_the_moe_and_ssm_families(ranks, arch):
     """The same for the moe family (routing and dispatch in each rank's
     forward; see :func:`smoke_model`) and the ssm family (the plain scan):
     the psum step takes every trained family."""
     _check_psum_exact(ranks, arch)
+
+
+def test_psum_exact_step_of_the_encdec_family(ranks):
+    """The same for the encdec family: each rank's slice of the batch
+    carries its sequences' frame embeddings through the encoder and the
+    cross attention."""
+    _check_psum_exact(ranks, "seamless-m4t-large-v2")
 
 
 def _check_psum_exact(ranks, arch):

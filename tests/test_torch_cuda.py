@@ -1373,3 +1373,71 @@ def test_ssm_train_step_launches_k1_and_no_k4(cuda):
     assert (ssd_scan.LAUNCHES, ssd_scan.LAUNCHES_TC) == before[:2]
     assert ota_fused.LAUNCHES == before[2] + 1
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+FAMILY_PREFILLS = [  # (arch, K3 wgmma launches, K4 tensor-core launches)
+    ("zamba2-7b", 0, 2),                # two mamba layers; shared: attend
+    ("llama-3.2-vision-11b", 2, 0),     # a dense and a cross layer's self
+    ("seamless-m4t-large-v2", 4, 0),    # two encoder (bidirectional) + two
+]
+FAMILY_BIDIR = {"seamless-m4t-large-v2": 2}   # the encoder's K3 launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,k3,k4", FAMILY_PREFILLS)
+def test_family_smoke_prefill_launches_its_kernels(cuda, arch, k3, k4):
+    """A bf16 smoke prefill (B=2, S=64) of the hybrid, vlm and encdec
+    families on the card launches the tensor-core K3 and K4 as many times
+    as the layers that run them (K3 bidirectionally as many times as the
+    encoder's layers), and none of PR 12's kernels; its
+    last-position logits are within 2e-2 of the max abs logit of the same
+    prefill on the CPU (the kernels' plain versions)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import memory_stub
+    from repro_torch.models import model as model_lib
+    from repro_torch.utils.tree import tree_map
+
+    cfg = get_smoke_config(arch)
+    m = model_lib.build(cfg)
+    params = m.init(torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, 64)))
+    mem = (memory_stub(cfg, tokens, 64) if model_lib.needs_memory(cfg)
+           else None)
+    want, _ = m.prefill(params, tokens, mem)
+    def counts():
+        return (flash_attention.LAUNCHES, flash_attention.LAUNCHES_TC,
+                ssd_scan.LAUNCHES, ssd_scan.LAUNCHES_TC,
+                flash_attention.LAUNCHES_BIDIR,
+                flash_attention.LAUNCHES_TC_BIDIR)
+
+    before = counts()
+    with torch.no_grad():
+        got, _ = m.prefill(tree_map(lambda x: x.cuda(), params),
+                           tokens.cuda(), None if mem is None else mem.cuda())
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (
+        0, k3, 0, k4, 0, FAMILY_BIDIR.get(arch, 0))
+    got, want = got.float().cpu(), want.float()
+    assert float((got - want).abs().max() / want.abs().max()) < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", [a for a, _, _ in FAMILY_PREFILLS])
+def test_family_smoke_train_step_launches_k1_and_no_k3_k4(cuda, arch):
+    """A smoke OTA train step of the hybrid, vlm and encdec families on the
+    card (the vlm and encdec batches with the memory stub): one K1 launch,
+    no K3 or K4 launch (the encoder and the shared block through
+    ``attend``, the mamba layers through the plain scan), finite
+    metrics."""
+    from repro_torch.configs import get_smoke_config
+
+    before = (flash_attention.LAUNCHES, flash_attention.LAUNCHES_TC,
+              ssd_scan.LAUNCHES, ssd_scan.LAUNCHES_TC, ota_fused.LAUNCHES)
+    _, metrics = _smoke_train_step(get_smoke_config(arch), 0)
+    torch.cuda.synchronize()
+    after = (flash_attention.LAUNCHES, flash_attention.LAUNCHES_TC,
+             ssd_scan.LAUNCHES, ssd_scan.LAUNCHES_TC, ota_fused.LAUNCHES)
+    assert after[:4] == before[:4]
+    assert after[4] == before[4] + 1
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())

@@ -1,6 +1,8 @@
-"""The port's model substrate (dense, SSM and MoE families, serving) against
-the JAX package, at ``SMOKE_CONFIG`` of llama3.2-3b, mamba2-130m,
-granite-moe-1b-a400m and mixtral-8x22b.
+"""The port's model substrate (every family, serving) against the JAX
+package, at ``SMOKE_CONFIG`` of llama3.2-3b, mamba2-130m,
+granite-moe-1b-a400m, mixtral-8x22b, zamba2-7b, llama-3.2-vision-11b and
+seamless-m4t-large-v2 (the vlm and encdec families with a numpy-made
+frontend memory).
 
 Both packages run on the same numpy-made inputs with the JAX package's
 parameters carried across by ``repro_torch.interop``.  On the CPU the port's
@@ -37,7 +39,9 @@ from repro_torch.models import attention, layers, model, ssm, transformer
 from repro_torch.train import server
 
 ARCHS = ("llama3.2-3b", "mamba2-130m", "granite-moe-1b-a400m",
-         "mixtral-8x22b")
+         "mixtral-8x22b", "zamba2-7b", "llama-3.2-vision-11b",
+         "seamless-m4t-large-v2")
+KV_FIELDS = ("kv", "groups_kv", "cross_self_kv")   # caches with a capacity
 RTOL = 1e-5
 
 
@@ -98,8 +102,6 @@ def test_configs_and_plans_match_jax(arch):
     init = tm.init(torch.Generator().manual_seed(0), "cpu")
     assert jax.tree.map(lambda x: (tuple(x.shape), str(x.dtype)[6:]),
                         init) == shapes
-    with pytest.raises(ValueError, match="ROADMAP"):
-        get_config("zamba2-7b")
 
 
 def test_init_distributions():
@@ -283,21 +285,34 @@ def _tokens(vocab, b, s):
         np.int32)
 
 
+def _memory(cfg, b, s):
+    """The vlm/encdec frontend memory (B, cross_len, d_model), float32, or
+    None for the other families."""
+    if not model.needs_memory(cfg):
+        return None
+    return _rng_f32(17, b, transformer.cross_len(cfg, s), cfg.d_model,
+                    scale=0.5)
+
+
 def _serve_jax(jm, jp, vocab, b, s, steps):
     tokens = _tokens(vocab, b, s)
+    mem = _memory(jm.cfg, b, s)
+    jmem = None if mem is None else jnp.asarray(mem)
     cap = s + steps
 
-    jfwd, _ = jm.forward(jp, jnp.asarray(tokens))
-    jlog, jcache = jm.prefill(jp, jnp.asarray(tokens))
+    jfwd, _ = jm.forward(jp, jnp.asarray(tokens), jmem)
+    jlog, jcache = jm.prefill(jp, jnp.asarray(tokens), jmem)
     jpre = interop.cache_to_numpy(jax.tree.map(np.asarray, jcache))
-    if jm.cfg.family in ("dense", "moe"):
-        full = jm.init_cache(b, cap)
-        full = full._replace(kv=jax.tree.map(
-            lambda dst, src: jax.lax.dynamic_update_slice(
-                dst, src, (0,) * dst.ndim), full.kv, jcache.kv),
-            pos=jcache.pos)
-    else:
+    if jm.cfg.family in ("ssm", "hybrid"):
         full = jcache
+    else:
+        # the prompt's KV into a cache of ``cap`` slots
+        full = jm.init_cache(b, cap, 0 if mem is None else mem.shape[1])
+        full = full._replace(pos=jcache.pos, cross_kv=jcache.cross_kv, **{
+            f: jax.tree.map(lambda dst, src: jax.lax.dynamic_update_slice(
+                dst, src, (0,) * dst.ndim), getattr(full, f),
+                getattr(jcache, f))
+            for f in KV_FIELDS if getattr(jcache, f) is not None})
     step = jax.jit(jax_server.make_serve_step(
         jm, JaxInputShape("serve", seq_len=cap, global_batch=b,
                           kind="decode")))
@@ -315,16 +330,22 @@ def _serve_jax(jm, jp, vocab, b, s, steps):
 def _serve_port(tm, tp, b, s, steps):
     cap = s + steps
     ttok = torch.from_numpy(_tokens(tm.cfg.vocab, b, s)).long()
-    tfwd, _ = tm.forward(tp, ttok)
-    tlog, tcache = tm.prefill(tp, ttok)
+    mem = _memory(tm.cfg, b, s)
+    tmem = None if mem is None else torch.from_numpy(mem)
+    tfwd, _ = tm.forward(tp, ttok, tmem)
+    tlog, tcache = tm.prefill(tp, ttok, tmem)
     tpre = interop.cache_to_numpy(tcache)
-    if tm.cfg.family in ("dense", "moe"):
-        tfull = tm.init_cache(b, cap, device="cpu")
-        tfull.kv.k[:, :, :s] = tcache.kv.k
-        tfull.kv.v[:, :, :s] = tcache.kv.v
-        tfull = tfull._replace(pos=tcache.pos)
-    else:
+    if tm.cfg.family in ("ssm", "hybrid"):
         tfull = tcache
+    else:
+        tfull = tm.init_cache(b, cap, 0 if mem is None else mem.shape[1],
+                              device="cpu")
+        for f in KV_FIELDS:
+            src = getattr(tcache, f)
+            if src is not None:
+                for dst, part in zip(getattr(tfull, f), src):
+                    dst[..., :s, :, :] = part
+        tfull = tfull._replace(pos=tcache.pos, cross_kv=tcache.cross_kv)
     tstep = server.make_serve_step(
         tm, InputShape("serve", seq_len=cap, global_batch=b, kind="decode"))
     tok = torch.argmax(tlog[:, -1:, :], -1)
@@ -385,20 +406,14 @@ def test_forward_prefill_serve_bfloat16(arch):
         assert _rel(a, b) < 2e-2
 
 
-def test_unported_family_raises():
-    """The hybrid family (zamba2-7b) is the next to port: a config of it
-    raises naming ``ROADMAP.md``, as its id does."""
-    cfg = get_smoke_config("llama3.2-3b").with_(family="hybrid",
-                                                 shared_attn_every=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.build(cfg)
-    tm = model.build(get_smoke_config("llama3.2-3b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_cache(cfg, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.forward({}, cfg, torch.zeros(1, 4, dtype=torch.long))
-    with pytest.raises(ValueError, match="ROADMAP"):
-        get_config("zamba2-7b")
+def test_init_cache_for_shape_is_full_to_the_last_slot():
+    """``init_cache_for_shape`` (decode_32k semantics): the cache is full up
+    to ``seq_len - 1``, its K/V sized by the frontend memory's length."""
+    shape = InputShape("d", seq_len=32, global_batch=2, kind="decode")
     assert server.init_cache_for_shape(
-        tm, InputShape("d", seq_len=32, global_batch=2, kind="decode"),
+        model.build(get_smoke_config("llama3.2-3b")), shape,
         device="cpu").pos == 31
+    cache = server.init_cache_for_shape(
+        model.build(get_smoke_config("seamless-m4t-large-v2")), shape,
+        device="cpu")
+    assert cache.pos == 31 and cache.cross_kv[0].shape == (2, 2, 8, 4, 32)

@@ -29,7 +29,6 @@ Tolerances:
   package's own ``tests/test_trainer.py`` tolerances (1e-5 and 1e-4);
 * a resumed ``launch.train`` loop: bitwise the uninterrupted one.
 """
-import dataclasses
 import functools
 
 import jax
@@ -136,7 +135,9 @@ def _jax_batch(step, seq=SEQ, arch="llama3.2-3b"):
 
 
 def _port_batch(b):
-    return {k: _t(v).long() for k, v in b.items()}
+    """The JAX batch as the port's: int64 tokens and labels; the vlm and
+    encdec families' memory as it is."""
+    return {k: _t(v) if k == "memory" else _t(v).long() for k, v in b.items()}
 
 
 def test_transformer_loss_matches_jax():
@@ -347,6 +348,19 @@ def test_moe_and_ssm_train_steps_match_jax(arch, aggregator, microbatch):
     _check_train_steps(arch, aggregator, microbatch)
 
 
+@pytest.mark.parametrize("arch,microbatch",
+                         [("zamba2-7b", 1), ("llama-3.2-vision-11b", 1),
+                          ("seamless-m4t-large-v2", 2)])
+def test_hybrid_vlm_encdec_train_steps_match_jax(arch, microbatch):
+    """OTA steps of the hybrid family (the shared block's gradient summed
+    over its groups; the mamba layers through the plain scan), the vlm
+    family (cross attention over the JAX batch's memory stub) and the
+    encdec family (the bidirectional encoder through ``attend``; its
+    memory split into microbatches with the tokens) at
+    ``test_train_steps_match_jax``'s tolerances."""
+    _check_train_steps(arch, "ota", microbatch)
+
+
 def _check_train_steps(arch, aggregator, microbatch):
     _, mj, _, mp = _models(arch)
     tj, tp = _tcfgs(aggregator, microbatch)
@@ -460,20 +474,13 @@ def test_train_step_writes_into_its_state():
 
 
 def test_unported_families_and_backends_raise():
-    """The hybrid family (zamba2-7b) is not trained yet: the trainer names
-    ``ROADMAP.md``."""
-    hybrid = get_smoke_config("llama3.2-3b").with_(family="hybrid",
-                                                   shared_attn_every=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.make_loss_fn(model.Model(cfg=hybrid, plan={}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.init_state(model.Model(cfg=hybrid, plan={}),
-                           trainer.TrainConfig(), device="cpu")
+    """Every family trains (the hybrid one from an empty plan here, so the
+    step is built without a weight); an uplink backend the port has not
+    (JAX's ``"pallas"``) raises."""
+    hybrid = get_smoke_config("zamba2-7b")
+    trainer.make_loss_fn(model.Model(cfg=hybrid, plan={}))
     with pytest.raises(ValueError, match="unknown backend"):
         trainer.TrainConfig(ota_backend="pallas")
-    vlm = dataclasses.replace(get_smoke_config("llama3.2-3b"), family="vlm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_batch(vlm, InputShape("t", 8, 2, "train"), 0, device="cpu")
 
 
 # --------------------------------------------------------------------------
