@@ -180,5 +180,9 @@ def tree_add(a, b):
     return tree_map(torch.add, a, b)
 
 
+def tree_sub(a, b):
+    return tree_map(torch.sub, a, b)
+
+
 def tree_scale(tree, c):
     return tree_map(lambda x: x * c, tree)
