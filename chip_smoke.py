@@ -252,12 +252,26 @@ Phases, in order; any failure raises and exits non-zero:
               inversion as three 20-lane partitions, K=150 (150 K1
               launches each); each bound equal to the reference's (rtol
               1e-6), each avg_grad_sq held to the reference's and below its
-              bound where the reference's is.
+              bound where the reference's is;
+40. sharded serve — ``train.server.shard_for_serving`` on a one-rank nccl
+              ``("data", "model")`` mesh (1, 1): llama3.2-3b,
+              granite-moe-1b-a400m and mamba2-130m at full width, bf16 and
+              float32, prefill B=4 S=2048 and 4 greedy decode steps on the
+              same weights as the unsharded path (warm-up, sharded,
+              unsharded): logits and every cache field bitwise, K3/K4
+              launches a prefill 28 / 24 / 24; ms a prefill and a step,
+              peak GB; with four cards, llama3.2-3b over (1, 4) and (2, 2)
+              against the one-rank logits.
 
 ``python3 chip_smoke.py --agent-mesh-across-cards`` runs phases 1, 2 and
 31's mesh over every visible card alone, then the card test of the mesh
 over every card (a machine with several cards), and writes
-``chiprun_out/agent_mesh_cards.json``.
+``chiprun_out/agent_mesh_cards.json``.  ``python3 chip_smoke.py
+--sharded-serve-across-cards`` (four cards) runs phases 1, 2 and 40 (with
+llama3.2-3b over (1, 4) and (2, 2)), then deepseek-67b at full width over
+(1, 4) and cut to 4 layers against one card's unsharded run, then the card
+test of the sharded serve over every card, and writes
+``chiprun_out/sharded_serve_cards.json``.
 
 It prints the card line, then one ``{"kernels": [...]}`` line (K1 as its two
 bodies, ``ota_fused_wide`` and ``ota_fused_tall``), and as its last
@@ -1949,82 +1963,91 @@ def k4_bound(b, s, h, p, g, n, q, in_bytes, out_bytes):
                                  else "bytes"), flops, nbytes
 
 
+def k34_turns(torch, new, old, mod, iters_old=60):
+    """A tensor-core kernel and its f32-core one (forced through the
+    wrapper ``mod``) timed in turns (new, old, old, new): each one's
+    median of its two turns' medians, and the four."""
+    a = device_ms(torch, new)
+    with old_kernel(mod):
+        b = device_ms(torch, old, iters=iters_old, sleep_cycles=20_000_000)
+        c = device_ms(torch, old, iters=iters_old, sleep_cycles=20_000_000)
+    d = device_ms(torch, new)
+    return statistics.median([a, d]), statistics.median([b, c]), \
+        [a, b, c, d]
+
+
+def k3_times(torch, h, hkv, dh, seed, arch, s=SERVE_PROMPT, causal=True,
+             what="prefill", b=SERVE_BATCH):
+    """The tensor-core K3 at ``arch``'s ``what`` shape (bf16; B=4, S 2048
+    and causal unless given): held to its plain version (2e-2 and one bf16
+    ulp), then timed beside the f32-core kernel, the plain version and
+    SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention
+
+    q, k, v = (x.transpose(1, 2).contiguous() for x in
+               k3_inputs(torch, b, h, hkv, s, dh, torch.bfloat16, seed))
+    pos = torch.arange(s, dtype=torch.int32, device="cuda")
+    call = lambda: flash_attention.attend_bshd(q, k, v, q_pos=pos,  # noqa
+                                               k_pos=pos, causal=causal)
+    got = launched(torch, call, "flash_attention_wgmma")
+    want = plain_attention(q, k, v, q_pos=pos, k_pos=pos, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    check(ulp_excess(got, want) <= 0, f"K3 at {arch}'s {what} shape: "
+          f"more than one bf16 ulp from the plain version")
+    err = (got.float() - want.float()).abs().max().item()
+    del got, want
+    ms, old_ms, order = k34_turns(torch, call, call, flash_attention,
+                                  iters_old=20)
+    plain_ms = device_ms(torch, lambda: plain_attention(
+        q, k, v, q_pos=pos, k_pos=pos, causal=causal),
+        sleep_cycles=20_000_000)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True))
+    bound, by, flops, nbytes = k3_bound(b, h, hkv, s, dh, 2, causal)
+    row = {"arch": arch, "what": what, "shape": [b, h, hkv, s, dh],
+           "dtype": "bfloat16", "causal": causal, "ms": ms,
+           "ms_pr12_kernel": old_ms,
+           "turns_new_old_old_new": order, "max_abs_err": err,
+           "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library_call": f"F.scaled_dot_product_attention(is_causal="
+                           f"{causal}, enable_gqa=True)",
+           "bound_ms": bound, "bound_by": by, "flops": flops,
+           "bytes": nbytes, "achieved_tflops": flops / ms / 1e9,
+           "achieved_tflops_pr12_kernel": flops / old_ms / 1e9}
+    log(f"K3 at {arch}'s {what} (B={b}, H={h}, Hkv={hkv}, S={s}, "
+        f"Dh={dh}) {'causal' if causal else 'bidirectional'} bf16: "
+        f"wgmma {ms:.4f} ms "
+        f"({row['achieved_tflops']:.2f} TFLOP/s; bound {bound:.4f} ms, "
+        f"{by}, {bound / ms:.2%} of it; max abs err {err:.3e}) | f32-core "
+        f"kernel {old_ms:.4f} ms ({bound / old_ms:.2%}) | plain "
+        f"{plain_ms:.4f} ms | SDPA {lib_ms:.4f} ms | turns "
+        f"{[round(t, 4) for t in order]}")
+    return row
+
+
 def phase_k34_times(torch):
     """The tensor-core K3 and K4 at the serve shapes beside their PR 12
     kernels (forced through the wrapper on the same inputs), the plain
     versions and, for K3, SDPA; kernels timed in turns (new, old, old,
     new) and each kernel's number the median of its two turns' medians."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import flash_attention, ref, ssd_scan
+    from repro_torch.kernels import ref, ssd_scan
 
     t0 = phase("12. K3 and K4 times at the serve shapes (median of 60)")
 
     def turns(new, old, mod, iters_old=60):
-        a = device_ms(torch, new)
-        with old_kernel(mod):
-            b = device_ms(torch, old, iters=iters_old,
-                          sleep_cycles=20_000_000)
-            c = device_ms(torch, old, iters=iters_old,
-                          sleep_cycles=20_000_000)
-        d = device_ms(torch, new)
-        return statistics.median([a, d]), statistics.median([b, c]), \
-            [a, b, c, d]
+        return k34_turns(torch, new, old, mod, iters_old)
 
-    def k3_times(h, hkv, dh, seed, arch, s=SERVE_PROMPT, causal=True,
-                 what="prefill"):
-        """The tensor-core K3 at ``arch``'s ``what`` shape (B=4, bf16; S
-        2048 and causal unless given): held to its plain version (2e-2 and
-        one bf16 ulp), then timed beside PR 12's kernel, the plain version
-        and SDPA."""
-        b = SERVE_BATCH
-        q, k, v = (x.transpose(1, 2).contiguous() for x in
-                   k3_inputs(torch, b, h, hkv, s, dh, torch.bfloat16, seed))
-        pos = torch.arange(s, dtype=torch.int32, device="cuda")
-        call = lambda: flash_attention.attend_bshd(q, k, v, q_pos=pos,
-                                                   k_pos=pos, causal=causal)
-        got = launched(torch, call, "flash_attention_wgmma")
-        want = plain_attention(q, k, v, q_pos=pos, k_pos=pos, causal=causal)
-        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
-                                   rtol=2e-2)
-        check(ulp_excess(got, want) <= 0, f"K3 at {arch}'s {what} shape: "
-              f"more than one bf16 ulp from the plain version")
-        err = (got.float() - want.float()).abs().max().item()
-        del got, want
-        ms, old_ms, order = turns(call, call, flash_attention, iters_old=20)
-        plain_ms = device_ms(torch, lambda: plain_attention(
-            q, k, v, q_pos=pos, k_pos=pos, causal=causal),
-            sleep_cycles=20_000_000)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True))
-        bound, by, flops, nbytes = k3_bound(b, h, hkv, s, dh, 2, causal)
-        row = {"arch": arch, "what": what, "shape": [b, h, hkv, s, dh],
-               "dtype": "bfloat16", "causal": causal, "ms": ms,
-               "ms_pr12_kernel": old_ms,
-               "turns_new_old_old_new": order, "max_abs_err": err,
-               "plain_ms": plain_ms, "library_ms": lib_ms,
-               "library_call": f"F.scaled_dot_product_attention(is_causal="
-                               f"{causal}, enable_gqa=True)",
-               "bound_ms": bound, "bound_by": by, "flops": flops,
-               "bytes": nbytes, "achieved_tflops": flops / ms / 1e9,
-               "achieved_tflops_pr12_kernel": flops / old_ms / 1e9}
-        log(f"K3 at {arch}'s {what} (B={b}, H={h}, Hkv={hkv}, S={s}, "
-            f"Dh={dh}) {'causal' if causal else 'bidirectional'} bf16: "
-            f"wgmma {ms:.4f} ms "
-            f"({row['achieved_tflops']:.2f} TFLOP/s; bound {bound:.4f} ms, "
-            f"{by}, {bound / ms:.2%} of it; max abs err {err:.3e}) | PR 12 "
-            f"kernel {old_ms:.4f} ms ({bound / old_ms:.2%}) | plain "
-            f"{plain_ms:.4f} ms | SDPA {lib_ms:.4f} ms | turns "
-            f"{[round(t, 4) for t in order]}")
-        return row
-
-    k3 = k3_times(24, 8, 128, 5, "llama3.2-3b")
-    k3["granite"] = k3_times(16, 8, 64, 8, "granite-moe-1b-a400m")
-    k3[VISION] = k3_times(32, 8, 128, 9, VISION)
-    k3[SEAMLESS] = k3_times(16, 16, 64, 10, SEAMLESS, s=SERVE_PROMPT // 4,
-                            causal=False, what="encoder")
-    k3[SEAMLESS + " decoder"] = k3_times(16, 16, 64, 12, SEAMLESS,
+    k3 = k3_times(torch, 24, 8, 128, 5, "llama3.2-3b")
+    k3["granite"] = k3_times(torch, 16, 8, 64, 8, "granite-moe-1b-a400m")
+    k3[VISION] = k3_times(torch, 32, 8, 128, 9, VISION)
+    k3[SEAMLESS] = k3_times(torch, 16, 16, 64, 10, SEAMLESS,
+                            s=SERVE_PROMPT // 4, causal=False,
+                            what="encoder")
+    k3[SEAMLESS + " decoder"] = k3_times(torch, 16, 16, 64, 12, SEAMLESS,
                                          what="decoder")
 
     def k4_times(h, n, seed, arch):
@@ -4578,6 +4601,594 @@ def psum_rank(mesh, arch, n_steps):
     return psum_train(torch, mesh, arch, n_steps)
 
 
+# ---------------------------------------------------------------------------
+# phase 40: the tensor-parallel serve path on a ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+SHARD_SERVE = (   # (arch, bf16 prefill's K3/K4 kernel, float32's, launches)
+    ("llama3.2-3b", "flash_attention_wgmma", "flash_attention", 28),
+    (GRANITE, "flash_attention_wgmma", "flash_attention", 24),
+    ("mamba2-130m", "ssd_scan_tc", "ssd_scan", 24))
+SHARD_STEPS = 4
+SHARD_MESHES = ((1, 4), (2, 2))   # llama3.2-3b where there are four cards
+
+
+def cache_fields(cache):
+    """(name, tensor) of every tensor field of a cache, DTensors local."""
+    out = []
+    for name, value in cache._asdict().items():
+        if name == "pos" or value is None:
+            continue
+        for i, t in enumerate(value):
+            out.append((f"{name}.{i}", t.to_local() if hasattr(
+                t, "to_local") else t))
+    return out
+
+
+def caches_equal(torch, a, b):
+    fa, fb = cache_fields(a), cache_fields(b)
+    return a.pos == b.pos and [n for n, _ in fa] == [n for n, _ in fb] and \
+        all(torch.equal(x, y) for (_, x), (_, y) in zip(fa, fb))
+
+
+def timed(torch, fn):
+    s0, s1 = events(torch)
+    s0.record()
+    out = fn()
+    s1.record()
+    torch.cuda.synchronize()
+    return out, s0.elapsed_time(s1)
+
+
+def serve_pass(torch, m, prefill, step, init_full, prompt):
+    """One prefill and ``SHARD_STEPS`` greedy decode steps from a cache of
+    ``S + SHARD_STEPS`` slots (the prefill's KV copied in); the K3/K4
+    launches and CUDA-event ms of the prefill and of the steps."""
+    reset_counts()
+    (logits, cache), pre_ms = timed(torch, lambda: prefill(prompt))
+    counts = read_counts()
+    full = init_full(cache)
+
+    def steps():
+        nonlocal full
+        tok = torch.argmax(local_of(logits)[:, -1:, :], -1)
+        out = []
+        for _ in range(SHARD_STEPS):
+            tok, lg, full = step(full, tok)
+            tok = local_of(tok)
+            out.append(local_of(lg))
+        return out
+
+    step_logits, dec_ms = timed(torch, steps)
+    return dict(logits=local_of(logits), cache=cache, steps=step_logits,
+                final=full, counts=counts, prefill_ms=pre_ms,
+                decode_ms=dec_ms / SHARD_STEPS)
+
+
+def local_of(x):
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
+BREAKDOWN_STEPS = 3    # decode steps a variant a round of the breakdown
+BREAKDOWN_ROUNDS = 3   # rounds over the variants, in turns
+
+
+def step_breakdown(torch, m, params, srv, plain_step, sharded_step,
+                   plain_full, sharded_full, tok):
+    """Host ms of one bf16 decode step (the device is mostly idle in
+    decode), each from the same cache at the same position: the median
+    over ``BREAKDOWN_ROUNDS`` rounds, in turns, of the mean of
+    ``BREAKDOWN_STEPS`` steps, with the sharded path's pieces removed in
+    turn: the
+    unsharded step; the sharded step; it with its collectives made no-ops
+    (the identity at one rank, so every variant's logits are asserted
+    bitwise the sharded step's); the model inside the hints context on
+    local tensors, without the server's DTensor wrapping; that with no-op
+    collectives."""
+    import types
+
+    import torch.distributed as dist
+
+    from repro_torch.models import transformer
+    from repro_torch.utils import shard_hints
+
+    cfg = m.cfg
+    local_cache = {name: [local_of(t) for t in value]
+                   for name, value in sharded_full._asdict().items()
+                   if name != "pos" and value is not None}
+    local_full = sharded_full._replace(**{
+        k: type(getattr(sharded_full, k))(*v) for k, v in local_cache.items()})
+
+    def bare():
+        with srv.hints("decode"):
+            return transformer.decode(srv.local, cfg, local_full, tok)[0]
+
+    no_op = types.SimpleNamespace(
+        all_reduce=lambda x, op=None, group=None: None,
+        ReduceOp=dist.ReduceOp, get_world_size=dist.get_world_size)
+    variants = (
+        ("unsharded", lambda: plain_step(params, plain_full, tok)[1], False),
+        ("sharded", lambda: local_of(sharded_step(sharded_full, tok)[1]),
+         False),
+        ("sharded, no-op collectives",
+         lambda: local_of(sharded_step(sharded_full, tok)[1]), True),
+        ("model in hints, no DTensor wrapping", bare, False),
+        ("model in hints, no wrapping, no-op collectives", bare, True))
+    times, ref = {name: [] for name, _, _ in variants}, None
+    for rnd in range(BREAKDOWN_ROUNDS):
+        for name, fn, stub in variants:
+            real = (shard_hints.dist, shard_hints._gather_single)
+            if stub:
+                shard_hints.dist = no_op
+                shard_hints._gather_single = \
+                    lambda o, x, group=None: o.copy_(x)
+            try:
+                if rnd == 0:
+                    fn()                              # warm-up
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(BREAKDOWN_STEPS):
+                    got = fn()
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t) * 1e3
+                                   / BREAKDOWN_STEPS)
+            finally:
+                shard_hints.dist, shard_hints._gather_single = real
+            if name != "unsharded":
+                ref = got if ref is None else ref
+                check(torch.equal(got, ref), f"{cfg.arch_id}: the step "
+                                             f"breakdown's {name} logits "
+                                             f"differ")
+    return {name: statistics.median(ts) for name, ts in times.items()}
+
+
+def sharded_serve_one(torch, mesh, arch, dtype, kernel, n_launches,
+                      floor=False):
+    """Phase 40 for one config and dtype on this rank: the same weights
+    served unsharded (a warm-up pass, then a timed one) and through
+    ``shard_for_serving`` on the (1, 1) mesh, in turns; every logit and
+    cache field bitwise, K3/K4 launches as the unsharded prefill's.
+    ``floor``: also the bf16 prefill against the kernel's plain version
+    and that against a plain version that sums in another order (phase
+    10's noise floor)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.param import local_params
+    from repro_torch.train import server
+    from repro_torch.utils import shard_hints
+    from repro_torch.utils.tree import flatten_paths
+
+    cfg = get_config(arch).with_(dtype=dtype)
+    m = model_lib.build(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, prompt = model_and_prompt(torch, m, 0)
+    srv = server.shard_for_serving(m, params, mesh)
+    same_storage = all(a.data_ptr() == b.data_ptr() for a, b in zip(
+        flatten_paths(params).values(),
+        flatten_paths(local_params(srv.params)).values()))
+    check(same_storage, f"{arch} {dtype}: the sharded weights are not the "
+                        f"unsharded ones (one set of weights on one rank)")
+    b, s = SERVE_BATCH, SERVE_PROMPT
+    cap = s + SHARD_STEPS
+    shape = InputShape("serve", seq_len=cap, global_batch=b, kind="decode")
+    plain_step = server.make_serve_step(m, shape)
+
+    def sharded_full(cache):
+        if cfg.family == "ssm":
+            return cache
+        full = srv.init_cache(b, cap, device="cuda")
+        for dst, src in zip(full.kv, cache.kv):
+            dst.to_local()[:, :, :s] = src.to_local()
+        return full._replace(pos=cache.pos)
+
+    with torch.no_grad():
+        plain = lambda p: m.prefill(params, p)   # noqa: E731
+        plain_full = lambda c: widen_cache(m, c, cap)   # noqa: E731
+        step = lambda c, t: plain_step(params, c, t)   # noqa: E731
+        ref = serve_pass(torch, m, plain, step, plain_full, prompt)
+        sh = serve_pass(torch, m, srv.prefill, srv.make_serve_step(shape),
+                        sharded_full, prompt)
+        again = serve_pass(torch, m, plain, step, plain_full, prompt)
+        collectives = (shard_hints.ALL_REDUCES, shard_hints.ALL_GATHERS)
+        breakdown = None
+        if dtype == "bfloat16":
+            tok = torch.argmax(ref["logits"][:, -1:, :], -1)
+            breakdown = step_breakdown(
+                torch, m, params, srv, plain_step, srv.make_serve_step(shape),
+                plain_full(again["cache"]), sharded_full(sh["cache"]), tok)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for name, x in (("sharded", sh), ("unsharded, second pass", again)):
+        check(torch.equal(x["logits"], ref["logits"]),
+              f"{arch} {dtype}: {name} prefill logits not bitwise")
+        check(caches_equal(torch, x["cache"], ref["cache"]),
+              f"{arch} {dtype}: {name} prefill cache not bitwise")
+        check(all(torch.equal(a, c) for a, c in zip(x["steps"],
+                                                    ref["steps"])),
+              f"{arch} {dtype}: {name} decode logits not bitwise")
+        check(caches_equal(torch, x["final"], ref["final"]),
+              f"{arch} {dtype}: {name} final cache not bitwise")
+        check(x["counts"] == ref["counts"] and x["counts"][kernel]
+              == n_launches and sum(x["counts"][k] for k in K34)
+              == n_launches, f"{arch} {dtype}: {name} prefill K3/K4 "
+                             f"launches {x['counts']}, expected {n_launches}"
+                             f" of {kernel}")
+    check(bool(torch.isfinite(sh["logits"].float()).all()),
+          f"{arch} {dtype}: logits not finite")
+    noise = None
+    if floor:
+        noise = bf16_cross_check(torch, m, params, prompt, kernel,
+                                 sh["logits"])
+    return {"prefill_ms": sh["prefill_ms"], "decode_ms": sh["decode_ms"],
+            "bf16_floor": noise,
+            "plain_prefill_ms": again["prefill_ms"],
+            "plain_decode_ms": again["decode_ms"], "peak_gb": peak,
+            "step_breakdown_ms": breakdown, "collectives_at": collectives,
+            "launches": sh["counts"][kernel], "kernel": kernel,
+            "logits_cpu": sh["logits"].float().cpu(),
+            "steps_cpu": [x.float().cpu() for x in sh["steps"]],
+            "fed_tokens": torch.cat([torch.argmax(x[:, -1:, :], -1) for x in
+                                     [sh["logits"]] + sh["steps"][:-1]],
+                                    1).cpu()}
+
+
+def warm_mesh(torch, mesh):
+    """One collective on each axis' group: nccl sets a communicator up at
+    its first collective (hundreds of ms), which no timing should hold."""
+    import torch.distributed as dist
+
+    for name in mesh.mesh_dim_names:
+        dist.all_reduce(torch.zeros(1, device=mesh.device_type),
+                        group=mesh.get_group(name))
+    if mesh.device_type == "cuda":
+        torch.cuda.synchronize()
+    return mesh
+
+
+def sharded_serve_rank(mesh_unused):
+    """Phase 40 on one nccl rank (``launch.mesh.run_local``): a (1, 1)
+    ``("data", "model")`` mesh, each config and dtype."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.utils import shard_hints
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = warm_mesh(torch, mesh_lib.make_tiny_mesh(1, 1))
+    out = {}
+    several = torch.cuda.device_count() >= 4
+    for arch, k16, k32, n in SHARD_SERVE:
+        for dtype, kernel in (("bfloat16", k16), ("float32", k32)):
+            before = (shard_hints.ALL_REDUCES, shard_hints.ALL_GATHERS)
+            r = out[(arch, dtype)] = sharded_serve_one(
+                torch, mesh, arch, dtype, kernel, n, floor=several and (
+                    arch, dtype) == ("llama3.2-3b", "bfloat16"))
+            r["collectives"] = tuple(a - b for a, b in zip(
+                r.pop("collectives_at"), before))
+    return out
+
+
+def sharded_multi_rank(mesh_unused, data, model_, dtype, fed):
+    """Phase 40 over several cards: llama3.2-3b on a ``(data, model_)``
+    mesh, the prefill and ``SHARD_STEPS`` decode steps fed the one-rank
+    run's greedy tokens; the gathered logits on the CPU."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import server
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = warm_mesh(torch, mesh_lib.make_tiny_mesh(data, model_))
+    m = model_lib.build(get_config("llama3.2-3b").with_(dtype=dtype))
+    params, prompt = model_and_prompt(torch, m, 0)
+    srv = server.shard_for_serving(m, params, mesh)
+    del params
+    b, s = SERVE_BATCH, SERVE_PROMPT
+    cap = s + SHARD_STEPS
+    with torch.no_grad():
+        srv.prefill(prompt)     # warm-up: cuBLAS, the kernels' first calls
+        reset_counts()
+        (logits, cache), pre_ms = timed(torch, lambda: srv.prefill(prompt))
+        counts = read_counts()
+        full = srv.init_cache(b, cap, device="cuda")
+        for dst, src in zip(full.kv, cache.kv):
+            dst.to_local()[:, :, :s] = src.to_local()
+        full = full._replace(pos=cache.pos)
+        del cache
+        step = srv.make_serve_step(InputShape("serve", cap, b, "decode"))
+        fed = fed.cuda()
+        out = [logits.full_tensor().float().cpu()]
+        s0, s1 = events(torch)
+        s0.record()
+        for i in range(SHARD_STEPS):
+            _, lg, full = step(full, fed[:, i:i + 1])
+            out.append(lg.full_tensor().float().cpu())
+        s1.record()
+        torch.cuda.synchronize()
+    return {"logits": out, "prefill_ms": pre_ms,
+            "decode_ms": s0.elapsed_time(s1) / SHARD_STEPS,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "k3_launches": counts["flash_attention_wgmma"]
+            + counts["flash_attention"]}
+
+
+DEEPSEEK = "deepseek-67b"
+DEEPSEEK_CUT = 4               # layers of the one-card cross-check
+SHARDED_ACROSS_CARDS = "--sharded-serve-across-cards"
+
+
+def layerwise_params(torch, plan, dtype, seed, device, mesh=None,
+                     rules=None):
+    """Random weights of ``plan`` drawn leaf by leaf and, along a stacked
+    'layers' axis, layer by layer, each draw in float32 from
+    ``index_generator(seed, 1000 * leaf + layer)`` and then cast (the
+    JAX package's normal / ones / zeros inits).  With a ``DeviceMesh``
+    each rank keeps only its shards (DTensors under ``rules``) and never
+    holds a whole stacked leaf; a plan cut in depth draws the same first
+    layers."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.param import (
+        P, NamedSharding, local_shard, map_plan, spec_for,
+    )
+    from repro_torch.utils.device import index_generator
+
+    leaf_no = [0]
+
+    def one(d):
+        leaf = leaf_no[0]
+        leaf_no[0] += 1
+        dt = getattr(torch, d.dtype or dtype)
+        spec = P() if mesh is None else spec_for(d, rules, mesh)
+
+        def draw(shape, i, spec):
+            if d.init in ("ones", "zeros"):
+                x = (torch.ones if d.init == "ones" else torch.zeros)(
+                    shape, dtype=dt, device=device)
+            elif d.init == "normal":
+                g = index_generator(seed, 1000 * leaf + i, device)
+                x = (torch.randn(shape, generator=g, device=device)
+                     * d.stddev()).to(dt)
+            else:
+                raise ValueError(f"layerwise_params: init {d.init!r}")
+            return x if mesh is None else local_shard(x, spec, mesh)
+
+        if d.axes[:1] != ("layers",):
+            local = draw(d.shape, 0, spec)
+        else:
+            sub = P(*spec[1:])
+            first = draw(d.shape[1:], 0, sub)
+            local = first.new_empty((d.shape[0],) + tuple(first.shape))
+            local[0] = first
+            del first
+            for i in range(1, d.shape[0]):
+                local[i] = draw(d.shape[1:], i, sub)
+        if mesh is None:
+            return local
+        return DTensor.from_local(local, mesh, NamedSharding(
+            mesh, spec).placements, run_check=False)
+
+    return map_plan(one, plan)
+
+
+def sync_ms(torch, fn, device):
+    """``fn()`` and its milliseconds on the host clock, the device
+    synchronised before and after."""
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def deepseek_serve(torch, cfg, mesh, device, fed=None, batch=SERVE_BATCH,
+                   prompt_len=SERVE_PROMPT):
+    """``cfg`` served from ``layerwise_params`` (seed 0) over ``mesh``
+    (None: unsharded): the prefill and ``SHARD_STEPS`` decode steps, fed
+    ``fed`` (B, SHARD_STEPS) or the greedy tokens; every logit on the CPU,
+    ms, peak GB, K3 launches and the fed tokens."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.param import serve_rules
+    from repro_torch.train import server
+    from repro_torch.utils.device import index_generator
+
+    m = model_lib.build(cfg)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params, init_ms = sync_ms(torch, lambda: layerwise_params(
+        torch, m.plan, cfg.dtype, 0, device, mesh, serve_rules()), device)
+    prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), device=device,
+                           generator=index_generator(0, -1, device))
+    cap = prompt_len + SHARD_STEPS
+    shape = InputShape("serve", seq_len=cap, global_batch=batch,
+                       kind="decode")
+    with torch.no_grad():
+        if mesh is None:
+            m.prefill(params, prompt)                  # warm-up
+            reset_counts()
+            (logits, cache), pre_ms = sync_ms(
+                torch, lambda: m.prefill(params, prompt), device)
+            full = widen_cache(m, cache, cap) if device == "cuda" else None
+            if full is None:   # the CPU: widen_cache allocates on cuda
+                full = m.init_cache(batch, cap, device=device)
+                for dst, src in zip(full.kv, cache.kv):
+                    dst[:, :, :prompt_len] = src
+                full = full._replace(pos=cache.pos)
+            plain = server.make_serve_step(m, shape)
+
+            def step(c, t):
+                return plain(params, c, t)
+        else:
+            srv = server.shard_for_serving(m, params, mesh)
+            srv.prefill(prompt)                        # warm-up
+            reset_counts()
+            (logits, cache), pre_ms = sync_ms(
+                torch, lambda: srv.prefill(prompt), device)
+            full = srv.init_cache(batch, cap, device=device)
+            for dst, src in zip(full.kv, cache.kv):
+                dst.to_local()[:, :, :prompt_len] = src.to_local()
+            full = full._replace(pos=cache.pos)
+            step = srv.make_serve_step(shape)
+        k3 = read_counts()
+        del cache
+
+        def whole(x):
+            return (x.full_tensor() if hasattr(x, "full_tensor") else x
+                    ).float().cpu()
+
+        out = [whole(logits)]
+        toks = []
+        tok = torch.argmax(out[0][:, -1:, :], -1)
+
+        def steps():
+            nonlocal tok, full
+            for i in range(SHARD_STEPS):
+                t_in = (tok if fed is None else fed[:, i:i + 1]).to(device)
+                toks.append(t_in.cpu())
+                _, lg, full = step(full, t_in)
+                out.append(whole(lg))
+                tok = torch.argmax(out[-1][:, -1:, :], -1)
+
+        _, dec_ms = sync_ms(torch, steps, device)
+    return {"logits": out, "fed": torch.cat(toks, 1), "init_ms": init_ms,
+            "prefill_ms": pre_ms, "decode_ms": dec_ms / SHARD_STEPS,
+            "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if device == "cuda" else None),
+            "k3_launches": k3["flash_attention_wgmma"]
+            + k3["flash_attention"],
+            "n_layers": cfg.n_layers}
+
+
+def deepseek_rank(mesh_unused, cfg, device, full_depth=True):
+    """deepseek-67b over a (1, 4) mesh on this rank: at full depth (where
+    ``full_depth``), then cut to ``DEEPSEEK_CUT`` layers; rank 0 also
+    serves the cut model unsharded, fed the same tokens."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = warm_mesh(torch, mesh_lib.make_tiny_mesh(1, 4))
+    out = {}
+    if full_depth:
+        out["full"] = deepseek_serve(torch, cfg, mesh, device)
+        out["full"]["logits_finite"] = all(
+            bool(torch.isfinite(x).all()) for x in out["full"]["logits"])
+        out["full"]["logits"] = None
+    cut = cfg.with_(n_layers=DEEPSEEK_CUT)
+    out["cut"] = deepseek_serve(torch, cut, mesh, device)
+    if dist.get_rank() == 0:
+        out["cut_plain"] = deepseek_serve(torch, cut, None, device,
+                                          fed=out["cut"]["fed"])
+    return out
+
+
+def check_deepseek(torch, ranks):
+    """The sharded cut model's logits against the unsharded one's (2e-2 of
+    the max abs logit), every rank the same, the full-depth run finite."""
+    cut, plain = ranks[0]["cut"], ranks[0]["cut_plain"]
+    errs = [rel_err(a, b) for a, b in zip(cut["logits"], plain["logits"])]
+    check(max(errs) < 2e-2, f"{DEEPSEEK} cut to {DEEPSEEK_CUT} layers: "
+                            f"sharded against unsharded {errs}")
+    for r in ranks:
+        check(all(torch.equal(a, b) for a, b in zip(r["cut"]["logits"],
+                                                    cut["logits"])),
+              f"{DEEPSEEK}: the ranks' logits differ")
+        if "full" in r:
+            check(r["full"]["logits_finite"],
+                  f"{DEEPSEEK}: full-depth logits not finite")
+    return errs
+
+
+def phase_sharded_serve(torch):
+    """Phase 40: the tensor-parallel serve path (``train.server.
+    shard_for_serving``) at full width on a one-rank nccl ``("data",
+    "model")`` mesh (1, 1): llama3.2-3b, granite-moe-1b-a400m and
+    mamba2-130m, bf16 and float32, prefill B=4 S=2048 and 4 greedy decode
+    steps on the same weights as the unsharded path, in turns: logits and
+    every cache field bitwise, K3/K4 launches a prefill 28 / 24 / 24 as the
+    unsharded prefill's; ms a prefill and a step, peak GB.  Where there are
+    four cards, llama3.2-3b over (1, 4) and (2, 2) against the one-rank
+    logits: float32 within 1e-4 of the max abs logit, bf16 within 2e-2
+    (the row-parallel products' partial sums kept in float32 and rounded
+    once, ``shard_hints.row_parallel``), both asserted; bf16 also beside
+    phase 10's noise floor on the one rank (the prefill against K3's plain
+    version, and that against a plain version that sums in another
+    order).  On one rank, bf16, a decode step's host time with the sharded
+    path's pieces removed in turn (``step_breakdown``)."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    t0 = phase("40. the sharded serve path: dense, moe and ssm at full "
+               "width on a (1, 1) nccl mesh, bitwise the unsharded path")
+    torch.cuda.empty_cache()
+    res = mesh_lib.run_local(sharded_serve_rank, 1, device="cuda",
+                             timeout=600)[0]
+    rec = {}
+    for (arch, dtype), r in res.items():
+        log(f"{arch} {dtype}: sharded prefill {r['prefill_ms']:.2f} ms "
+            f"(unsharded {r['plain_prefill_ms']:.2f}), decode "
+            f"{r['decode_ms']:.2f} ms a step (unsharded "
+            f"{r['plain_decode_ms']:.2f}), peak {r['peak_gb']:.2f} GB; "
+            f"{r['launches']} {r['kernel']} launches a prefill; "
+            f"collectives {r['collectives']}; logits and every cache field "
+            f"bitwise the unsharded path")
+        if r["step_breakdown_ms"]:
+            log(f"{arch} {dtype}: a decode step's host ms, pieces removed in "
+                f"turn: " + "; ".join(f"{k} {v:.2f}" for k, v in
+                                      r["step_breakdown_ms"].items()))
+        rec[f"{arch} {dtype}"] = {k: v for k, v in r.items()
+                                  if not k.endswith("_cpu")
+                                  and k != "fed_tokens"}
+    multi = {}
+    if torch.cuda.device_count() >= 4:
+        floor = res[("llama3.2-3b", "bfloat16")]["bf16_floor"]
+        log(f"llama3.2-3b bfloat16, one rank: prefill against K3's plain "
+            f"version {floor['rel_err']:.3e}, beside a noise floor of "
+            f"{floor['noise_floor']:.3e} (plain against plain with "
+            f"{floor['floor_by']})")
+        for dtype in ("bfloat16", "float32"):
+            one = res[("llama3.2-3b", dtype)]
+            want = [one["logits_cpu"]] + one["steps_cpu"]
+            for data, model_ in SHARD_MESHES:
+                ranks = mesh_lib.run_local(
+                    sharded_multi_rank, 4, data, model_, dtype,
+                    one["fed_tokens"], device="cuda", timeout=600)
+                errs = [rel_err(g, w) for g, w in zip(ranks[0]["logits"],
+                                                      want)]
+                check(max(errs) < (1e-4 if dtype == "float32" else 2e-2),
+                      f"llama3.2-3b {dtype} ({data}, {model_}): {errs} "
+                      f"against one rank")
+                check(all(torch.equal(a, b) for r in ranks for a, b in
+                          zip(r["logits"], ranks[0]["logits"])),
+                      f"({data}, {model_}): the ranks' logits differ")
+                row = {"max_rel_err": max(errs), "rel_errs": errs, **{
+                    k: [r[k] for r in ranks] for k in (
+                        "prefill_ms", "decode_ms", "peak_gb",
+                        "k3_launches")}}
+                multi[f"llama3.2-3b {dtype} ({data}, {model_})"] = row
+                log(f"llama3.2-3b {dtype} on ({data}, {model_}): max rel err "
+                    f"{max(errs):.3e} against one rank; prefill "
+                    f"{fmt_ms(row['prefill_ms'])} ms, decode "
+                    f"{fmt_ms(row['decode_ms'])} ms a step, peak "
+                    f"{row['peak_gb']} GB, K3 {row['k3_launches']} a rank")
+    RECORD["sharded_serve"] = {"one_rank": rec, "multi": multi}
+    done("sharded serve", t0)
+    return rec
+
+
 def fmt_ms(xs):
     return "/".join(f"{x:.1f}" for x in xs)
 
@@ -4649,6 +5260,7 @@ def main():
     fig3_rows = phase_fig3(torch)
     fig45_rows, floor_k1 = phase_fig45(torch)
     theory_rows = phase_theory(torch)
+    sharded = phase_sharded_serve(torch)
     train_phase = {GRANITE: "33", "mamba2-130m": "34", ZAMBA: "36",
                    VISION: "36", SEAMLESS: "36"}
     RECORD["seconds"] = time.perf_counter() - t_all
@@ -4824,6 +5436,16 @@ def main():
                 "bound_by": g["bound_by"], "library_ms": g["library_ms"],
                 "shape": g["shape"],
                 **({"max_abs_err": g["max_abs_err"]} if new else {})}
+    # phase 40: the sharded prefill's launches on its one rank
+    for entry in kernels["kernels"]:
+        for key, r in sharded.items():
+            if r["kernel"] == entry["name"]:
+                entry[f"sharded prefill on a (1, 1) mesh, {key}"] = {
+                    "launches": r["launches"],
+                    "launches_from": "one sharded prefill, one rank "
+                                     "(phase 40)",
+                    "prefill_ms": r["prefill_ms"],
+                    "plain_prefill_ms": r["plain_prefill_ms"]}
     RECORD["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -4866,8 +5488,68 @@ def mesh_across_cards():
          "agent_mesh_over_every_card"], timeout=600).returncode
 
 
+def sharded_across_cards():
+    """Phases 1, 2 and 40 (llama3.2-3b over (1, 4) and (2, 2) against one
+    rank), then deepseek-67b at full width over (1, 4) (prefill B=4 S=2048,
+    4 decode steps: ms, peak GB a rank, finite logits) and cut to
+    ``DEEPSEEK_CUT`` layers against one card's unsharded run, K3 at the
+    ranks' local prefill shapes (as phase 12), then the card test of the
+    sharded serve over every card: the paths that need four cards, for a
+    machine with four."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+
+    smi = phase_card(torch)
+    phase_build()
+    w = torch.cuda.device_count()
+    check(w >= 4, f"{SHARDED_ACROSS_CARDS} needs four cards, found {w}")
+    phase_sharded_serve(torch)
+    t0 = phase(f"40b. {DEEPSEEK} at full width over a (1, 4) nccl mesh")
+    ranks = mesh_lib.run_local(deepseek_rank, 4, get_config(DEEPSEEK),
+                               "cuda", device="cuda", timeout=1200)
+    errs = check_deepseek(torch, ranks)
+    rec = {"cut_rel_err": errs,
+           "cut_plain": {k: v for k, v in ranks[0]["cut_plain"].items()
+                         if k not in ("logits", "fed")}}
+    for name in ("full", "cut"):
+        rec[name] = [{k: v for k, v in r[name].items()
+                      if k not in ("logits", "fed")} for r in ranks]
+        for r in rec[name]:
+            log(f"{DEEPSEEK} {name} ({r['n_layers']} layers) over (1, 4): "
+                f"init {r['init_ms']:.0f} ms, prefill {r['prefill_ms']:.2f} "
+                f"ms, decode {r['decode_ms']:.2f} ms a step, peak "
+                f"{r['peak_gb']:.2f} GB, K3 {r['k3_launches']} a prefill")
+    p = rec["cut_plain"]
+    log(f"{DEEPSEEK} cut, one card unsharded: prefill {p['prefill_ms']:.2f}"
+        f" ms, decode {p['decode_ms']:.2f} ms, peak {p['peak_gb']:.2f} GB; "
+        f"sharded against it {max(errs):.3e} of the max abs logit")
+    RECORD["deepseek"] = rec
+    done("deepseek", t0)
+    t0 = phase("40c. K3 at the ranks' local prefill shapes")
+    RECORD["k3_local"] = {
+        "llama3.2-3b (1, 4)": k3_times(torch, 6, 2, 128, 5, "llama3.2-3b "
+                                       "(1, 4) rank"),
+        "llama3.2-3b (2, 2)": k3_times(torch, 12, 4, 128, 5, "llama3.2-3b "
+                                       "(2, 2) rank", b=SERVE_BATCH // 2),
+        f"{DEEPSEEK} (1, 4)": k3_times(torch, 16, 2, 128, 5, f"{DEEPSEEK} "
+                                       f"(1, 4) rank")}
+    done("K3 at local shapes", t0)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "sharded_serve_cards.json").write_text(json.dumps(
+        {"card": smi, "world": w, **RECORD}, indent=1, default=str))
+    return subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
+         str(ROOT / "tests" / "test_torch_cuda.py"), "-k",
+         "sharded_serve_over_every_card"], timeout=600).returncode
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == [RESUME_CHILD]:
         sys.exit(resume_child())
+    if sys.argv[1:] == [SHARDED_ACROSS_CARDS]:
+        sys.exit(sharded_across_cards())
     sys.exit(mesh_across_cards() if sys.argv[1:] == [MESH_ACROSS_CARDS]
              else main())

@@ -14,8 +14,8 @@ The memory stub of the audio and vision families (``memory_stub``) comes
 from here too: a fixed random projection of the token prefix stands in
 for the modality frontends (out of scope, as in the JAX package); its
 projection is drawn from a seeded generator, and ``proj=`` injects the
-JAX package's.  The batch specs (``make_batch_specs``, a sharding rule)
-wait for the sharding slice (``ROADMAP.md``).
+JAX package's.  :func:`make_batch_specs` shards a batch's leading
+dimension over the mesh's data axes.
 """
 from __future__ import annotations
 
@@ -132,3 +132,21 @@ def make_batch(model_cfg: ModelConfig, shape: InputShape, step: int,
         batch["memory"] = memory_stub(model_cfg, batch["tokens"],
                                       shape.seq_len, proj=proj)
     return batch
+
+
+def make_batch_specs(model_cfg: ModelConfig, shape: InputShape, mesh,
+                     batch_axes=("pod", "data")):
+    """``param.NamedSharding`` s for a batch dict: the batch dimension over
+    the data axes (``.placements`` on a ``DeviceMesh``)."""
+    from repro_torch.models.param import P, NamedSharding, mesh_shape
+
+    axes = tuple(a for a in batch_axes if a in mesh_shape(mesh))
+    bspec = axes if len(axes) > 1 else (axes[0] if axes else None)
+
+    def spec(ndim):
+        return NamedSharding(mesh, P(bspec, *([None] * (ndim - 1))))
+
+    out = {"tokens": spec(2), "labels": spec(2)}
+    if needs_memory(model_cfg):
+        out["memory"] = spec(3)
+    return out

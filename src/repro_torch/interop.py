@@ -23,6 +23,10 @@ stays ``(obs_dim, hidden)`` and ``wq`` stays ``(d, h, dh)``, not
   tuples convert without importing it.
 * :func:`train_state_from_jax`: the trainer's state (params, AdamW moments,
   steps), so both packages' train steps start from the same values.
+* :func:`params_to_mesh`: the JAX package's parameters laid out as DTensors
+  on a ``DeviceMesh`` per the sharding rules (each rank keeps its shards);
+  :func:`cache_to_numpy` takes a sharded cache too (its DTensor fields
+  gathered, a collective every rank joins).
 """
 from __future__ import annotations
 
@@ -149,11 +153,28 @@ def _cache_parts(value) -> Dict[str, Any]:
     return {"k": k, "v": v}
 
 
+def params_to_mesh(tree: Any, plan: Any, rules: Any, mesh,
+                   device: DeviceLike = None) -> Any:
+    """Nested dict of numpy arrays (the same on every rank) -> DTensors on
+    the ``DeviceMesh`` laid out per ``rules`` (``models.param``), each
+    rank's slices on ``device``."""
+    from repro_torch.models.param import distribute_params
+
+    return distribute_params(params_from_jax(tree, device), plan, rules,
+                             mesh)
+
+
+def _whole(v):
+    """A DTensor gathered to its whole tensor (a collective); else ``v``."""
+    return v.full_tensor() if hasattr(v, "full_tensor") else v
+
+
 def cache_to_numpy(cache: Any) -> Dict[str, Any]:
-    """A cache (the port's or the JAX package's, leaves tensors or arrays)
-    -> ``{field: {subfield: numpy array} | None, "pos": int}``, so two
-    caches compare field by field (``cross_kv``'s parts as ``k`` and
-    ``v``).  The arrays are copies: decode's in-place KV writes leave
+    """A cache (the port's or the JAX package's, leaves tensors or arrays;
+    a sharded cache's DTensors gathered, so every rank of the mesh must
+    call it) -> ``{field: {subfield: numpy array} | None, "pos": int}``,
+    so two caches compare field by field (``cross_kv``'s parts as ``k``
+    and ``v``).  The arrays are copies: decode's in-place KV writes leave
     them as they were."""
     out: Dict[str, Any] = {}
     for name, value in cache._asdict().items():
@@ -162,7 +183,7 @@ def cache_to_numpy(cache: Any) -> Dict[str, Any]:
         elif value is None:
             out[name] = None
         else:
-            out[name] = {k: np.array(tensor_to_array(v)
+            out[name] = {k: np.array(tensor_to_array(_whole(v))
                                      if isinstance(v, torch.Tensor) else v)
                          for k, v in _cache_parts(value).items()}
     return out

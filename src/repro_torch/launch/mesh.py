@@ -1,8 +1,13 @@
-"""Device meshes: counterpart of ``repro/launch/mesh.py``'s
-``make_sweep_mesh`` and ``make_agent_mesh``.
+"""Device meshes: counterpart of ``repro/launch/mesh.py``.
 
-Two kinds:
+Three kinds:
 
+* the LLM meshes (``make_tiny_mesh``, ``make_production_mesh``): a
+  ``torch.distributed`` ``DeviceMesh`` named ``("data", "model")`` (or
+  ``("pod", "data", "model")``) over the initialised default group, one
+  rank a device, for the sharded serve path (``train.server.
+  shard_for_serving``); ``gloo`` on the CPU, ``nccl`` on the cards, as
+  below;
 * a :class:`Mesh` is a grid of ``torch.device`` s with named axes, the shape
   ``core/distribute.py`` lays a sweep partition's lanes and Monte-Carlo runs
   across (``mode="sharded"``).  Nothing here touches a device until a
@@ -20,9 +25,6 @@ Two kinds:
   :func:`run_local` spawns the ranks of a group on this host (the tests and
   ``chip_smoke.py`` use it); under ``torchrun`` initialise the group
   yourself and call :func:`make_agent_mesh` on every rank.
-
-The LLM meshes of the JAX module (``make_production_mesh``,
-``make_tiny_mesh``) are not ported (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -44,7 +46,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["AGENT_AXIS", "AgentMesh", "Mesh", "RankError",
-           "make_agent_mesh", "make_sweep_mesh", "run_local"]
+           "make_agent_mesh", "make_production_mesh", "make_sweep_mesh",
+           "make_tiny_mesh", "n_data_shards", "run_local"]
 
 AGENT_AXIS = "agents"
 # Collectives an AgentMesh issued in this process, counted where each is
@@ -74,6 +77,49 @@ class Mesh:
     @property
     def size(self) -> int:
         return int(self.devices.size)
+
+
+def _llm_mesh(shape: Tuple[int, ...], names: Tuple[str, ...]):
+    """A ``DeviceMesh`` of ``shape`` named ``names`` over every rank of
+    the initialised default group, on the backend's device type."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("an LLM mesh needs an initialised torch."
+                           "distributed group (launch.mesh.run_local, or "
+                           "init_process_group under torchrun)")
+    n = int(np.prod(shape))
+    if dist.get_world_size() != n:
+        raise ValueError(f"a {shape} mesh needs {n} ranks, the group has "
+                         f"{dist.get_world_size()}")
+    return init_device_mesh(_rank_device().type, shape, mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The JAX package's pod meshes: ``("data", "model")`` (16, 16) = 256
+    ranks; multi-pod ``("pod", "data", "model")`` (2, 16, 16) = 512.  The
+    group must hold exactly that many ranks."""
+    if multi_pod:
+        return _llm_mesh((2, 16, 16), ("pod", "data", "model"))
+    return _llm_mesh((16, 16), ("data", "model"))
+
+
+def make_tiny_mesh(data: int = 2, model: int = 2):
+    """A ``("data", "model")`` mesh of ``data x model`` ranks, the whole
+    default group (four ``gloo`` ranks in the tests; one ``nccl`` rank
+    a card)."""
+    return _llm_mesh((data, model), ("data", "model"))
+
+
+def n_data_shards(mesh) -> int:
+    """Number of OTA 'agents' = data-parallel replica groups."""
+    from repro_torch.models.param import mesh_shape
+
+    shape = mesh_shape(mesh)
+    n = 1
+    for axis in ("pod", "data"):
+        n *= shape.get(axis, 1)
+    return n
 
 
 def _grid(devices: Sequence[torch.device], shape) -> np.ndarray:

@@ -17,6 +17,14 @@ the same tensors; its ``pos`` is a Python int, so the ring-buffer slot
 arithmetic stays on the host.  ``cross_attention`` (the vlm and encdec
 families) attends over memory K/V that ``project_memory`` precomputes,
 through ``attend`` (materialised, as the JAX package), never K3.
+
+On a mesh (``utils/shard_hints.py``) self attention runs on this rank's
+heads: ``wq`` holds its q heads, ``wk``/``wv`` its kv heads (all of them
+where the model axis does not divide ``n_kv_heads``: :func:`_kv_for_heads`
+then picks the kv heads its q heads read), K3 (prefill) or ``attend``
+(decode) sees only those, and the row-parallel ``wo`` product is
+all-reduced over ``model``.  The cache holds what ``wk``/``wv`` give the
+rank, the layout ``server.cache_specs`` names.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.models.layers import apply_rope, rmsnorm, rmsnorm_plan
 from repro_torch.models.param import decl
+from repro_torch.utils import shard_hints
 
 
 def attn_plan(cfg: ModelConfig) -> Dict:
@@ -117,7 +126,10 @@ class KVCache(NamedTuple):
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype,
                device=None) -> KVCache:
-    shape = (batch, capacity, cfg.n_kv_heads, cfg.head_dim)
+    """Zeros; on a mesh this rank's kv heads (``batch`` is its own)."""
+    lay = shard_hints.layout(cfg)
+    hkv = cfg.n_kv_heads // (lay.model if lay and lay.kv_heads else 1)
+    shape = (batch, capacity, hkv, cfg.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -135,9 +147,33 @@ def _project_qkv(params, x: torch.Tensor):
         _proj(x, params["wv"])
 
 
-def _out_proj(params, o: torch.Tensor) -> torch.Tensor:
+def _out_proj(params, o: torch.Tensor,
+              lay: Optional[shard_hints.Layout] = None) -> torch.Tensor:
+    """``o @ wo``; row-parallel over ``model`` where ``lay`` shards the
+    heads (``wo`` holds this rank's rows)."""
     h, dh, d = params["wo"].shape
-    return o.flatten(-2) @ params["wo"].to(o.dtype).reshape(h * dh, d)
+    wo = params["wo"].to(o.dtype).reshape(h * dh, d)
+    if lay and lay.heads:
+        return shard_hints.row_parallel(o.flatten(-2), wo, lay)
+    return o.flatten(-2) @ wo
+
+
+def _kv_for_heads(k: torch.Tensor, cfg: ModelConfig,
+                  lay: Optional[shard_hints.Layout]) -> torch.Tensor:
+    """The kv heads (dim 2) this rank's q heads read.  Sharded kv heads
+    are already the rank's; replicated ones (the model axis divides
+    ``n_heads`` but not ``n_kv_heads``) are cut to those its q heads
+    ``[lo, hi)`` read, ``j // (H / Hkv)``: a whole number of groups, one
+    group, or each q head's own kv head where neither fits."""
+    if lay is None or not lay.heads or lay.kv_heads:
+        return k
+    g = cfg.n_heads // cfg.n_kv_heads
+    lo, hi = lay.span(cfg.n_heads)
+    if (hi - lo) % g == 0:
+        return k[:, :, lo // g:hi // g]
+    if g % (hi - lo) == 0:
+        return k[:, :, lo // g:lo // g + 1]
+    return torch.repeat_interleave(k, g, dim=2)[:, :, lo:hi]
 
 
 def self_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -147,19 +183,21 @@ def self_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
                    return_kv: bool = False):
     """Full-sequence self attention (prefill / encoder)."""
     s = x.shape[1]
+    lay = shard_hints.layout(cfg)
     h = rmsnorm(params["norm"], x, cfg.norm_eps)
     q, k, v = _project_qkv(params, h)
     pos = (torch.arange(s, dtype=torch.int32, device=x.device)
            if positions is None else positions)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
+    ka, va = _kv_for_heads(k, cfg, lay), _kv_for_heads(v, cfg, lay)
     if blockwise:
-        o = attend_blockwise(q, k, v, q_pos=pos, k_pos=pos, causal=causal,
+        o = attend_blockwise(q, ka, va, q_pos=pos, k_pos=pos, causal=causal,
                              window=window)
     else:
-        o = attend(q, k, v, q_pos=pos, k_pos=pos, causal=causal,
+        o = attend(q, ka, va, q_pos=pos, k_pos=pos, causal=causal,
                    window=window, expand_kv=True)
-    out = _out_proj(params, o)
+    out = _out_proj(params, o, lay)
     if return_kv:
         return out, (k, v)
     return out
@@ -199,6 +237,7 @@ def decode_self_attention(params, x: torch.Tensor, cache: KVCache, pos: int,
     into ``cache``'s tensors in place.
     """
     dev = x.device
+    lay = shard_hints.layout(cfg)
     h = rmsnorm(params["norm"], x, cfg.norm_eps)
     q, k, v = _project_qkv(params, h)
     p = torch.full((1,), pos, dtype=torch.int32, device=dev)
@@ -215,9 +254,10 @@ def decode_self_attention(params, x: torch.Tensor, cache: KVCache, pos: int,
     slots = torch.arange(cap, dtype=torch.int64, device=dev)
     k_pos = pos - torch.remainder(pos - slots, cap)
     eff_window = window if window is not None and window < cap else None
-    o = attend(q, cache.k, cache.v, q_pos=p, k_pos=k_pos, causal=True,
-               window=eff_window, k_valid=k_pos >= 0)
-    return _out_proj(params, o), cache
+    o = attend(q, _kv_for_heads(cache.k, cfg, lay),
+               _kv_for_heads(cache.v, cfg, lay), q_pos=p, k_pos=k_pos,
+               causal=True, window=eff_window, k_valid=k_pos >= 0)
+    return _out_proj(params, o, lay), cache
 
 
 def decode_cross_attention(params, x: torch.Tensor,

@@ -6,6 +6,13 @@ back), token embedding and (tied) unembedding, rotary embeddings on halves
 JAX package's layouts (``gate`` is ``(d_model, d_ff)``), so a product is
 ``x @ w``.  The LM losses (``lm_loss``, ``chunked_lm_loss``) are the
 trainer's.
+
+On a mesh (``utils/shard_hints.py``) the functions take this rank's
+shards: with the vocabulary sharded, ``embed`` looks up the rank's rows
+(tokens outside its range give zeros) and all-reduces, which is exact, and
+``unembed`` gathers the vocabulary, so a caller sees every logit; ``mlp``
+with a ``lay`` that shards ``d_ff`` has ``gate``/``up`` column-parallel and
+``down`` row-parallel (``shard_hints.row_parallel``).
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.param import decl
+from repro_torch.utils import shard_hints
 
 
 def rmsnorm_plan(d: int) -> Dict:
@@ -38,13 +46,31 @@ def embed_plan(cfg: ModelConfig) -> Dict:
     return p
 
 
-def embed(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return params["tok"][tokens].to(dtype)
+def embed(params, tokens: torch.Tensor, dtype,
+          lay: Optional[shard_hints.Layout] = None) -> torch.Tensor:
+    """Token rows in ``dtype``; vocabulary-parallel where ``lay`` shards
+    the vocabulary."""
+    tok = params["tok"]
+    if lay is None or not lay.vocab:
+        return tok[tokens].to(dtype)
+    lo = lay.model_rank * tok.shape[0]
+    ids = tokens - lo
+    mine = (ids >= 0) & (ids < tok.shape[0])
+    x = tok[torch.where(mine, ids, torch.zeros_like(ids))].to(dtype)
+    x = torch.where(mine[..., None], x, torch.zeros((), dtype=dtype,
+                                                    device=x.device))
+    return shard_hints.all_reduce(x)
 
 
-def unembed(params, x: torch.Tensor, tie: bool) -> torch.Tensor:
+def unembed(params, x: torch.Tensor, tie: bool,
+            lay: Optional[shard_hints.Layout] = None) -> torch.Tensor:
+    """Logits over the whole vocabulary (gathered over ``model`` where
+    ``lay`` shards it)."""
     w = params["tok"].T if tie else params["head"]
-    return x @ w.to(x.dtype)
+    logits = x @ w.to(x.dtype)
+    if lay is None or not lay.vocab:
+        return logits
+    return shard_hints.all_gather(logits, -1)
 
 
 def rope_frequencies(head_dim: int, theta: float,
@@ -76,11 +102,16 @@ def mlp_plan(d_model: int, d_ff: int) -> Dict:
     }
 
 
-def mlp(params, x: torch.Tensor, eps: float) -> torch.Tensor:
+def mlp(params, x: torch.Tensor, eps: float,
+        lay: Optional[shard_hints.Layout] = None) -> torch.Tensor:
+    """SwiGLU; where ``lay`` shards ``d_ff`` the weights are this rank's
+    ``d_ff`` shards, and the ``down`` product is row-parallel."""
     h = rmsnorm(params["norm"], x, eps)
     g = h @ params["gate"].to(x.dtype)
     u = h @ params["up"].to(x.dtype)
     act = F.silu(g.float()).to(x.dtype) * u
+    if lay and lay.d_ff:
+        return shard_hints.row_parallel(act, params["down"].to(x.dtype), lay)
     return act @ params["down"].to(x.dtype)
 
 

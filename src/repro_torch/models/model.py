@@ -6,18 +6,24 @@ in ``forward`` and ``prefill``, and ``init_cache`` sizes its K/V by
 ``mem_len``.
 ``Model.init`` draws the parameters from an explicit ``torch.Generator`` of
 the device it is given (``cuda`` unless the caller passes ``device="cpu"``).
-The JAX package's ``abstract_*`` stand-ins have no counterpart here.
+The abstract stand-ins (``Model.abstract``, :func:`abstract_inputs`,
+:func:`abstract_cache`) are tensors on the ``meta`` device, the torch
+meaning of JAX's ``ShapeDtypeStruct``: shapes and dtypes, no storage.
+Tokens are int64, the port's index type, where the JAX package's are
+int32.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models import transformer
-from repro_torch.models.param import init_params
+from repro_torch.models.param import (
+    Rules, abstract_params, init_params, partition_specs,
+)
 from repro_torch.utils.device import DeviceLike
 
 
@@ -32,6 +38,14 @@ class Model:
         config's dtype (norm scales and SSM scalars in float32)."""
         return init_params(self.plan, self.cfg.dtype, generator=generator,
                            device=device)
+
+    def abstract(self):
+        """The parameters as ``meta`` tensors (no storage)."""
+        return abstract_params(self.plan, self.cfg.dtype)
+
+    def specs(self, rules: Rules, mesh):
+        """Every leaf's partition spec under ``rules`` on ``mesh``."""
+        return partition_specs(self.plan, rules, mesh)
 
     def forward(self, params, tokens, memory=None, *, blockwise=False):
         return transformer.forward(params, self.cfg, tokens, memory,
@@ -64,3 +78,37 @@ def serve_capacity(cfg: ModelConfig, seq_len: int) -> int:
 
 def needs_memory(cfg: ModelConfig) -> bool:
     return cfg.family in ("vlm", "encdec")
+
+
+def abstract_inputs(cfg: ModelConfig, shape: InputShape, *,
+                    dtype: Optional[str] = None) -> Dict[str, torch.Tensor]:
+    """``meta`` stand-ins for one step of the given kind.
+
+    train:   {tokens, labels[, memory]}          (B, S) int64
+    prefill: {tokens[, memory]}
+    decode:  {token}  (B, 1) — cache/params come from their own specs
+    """
+    b, s = shape.global_batch, shape.seq_len
+    dt = getattr(torch, dtype or cfg.dtype)
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        return {"token": meta((b, 1), torch.int64)}
+    if shape.kind not in ("train", "prefill"):
+        raise ValueError(shape.kind)
+    out = {"tokens": meta((b, s), torch.int64)}
+    if shape.kind == "train":
+        out["labels"] = meta((b, s), torch.int64)
+    if needs_memory(cfg):
+        out["memory"] = meta((b, transformer.cross_len(cfg, s), cfg.d_model),
+                             dt)
+    return out
+
+
+def abstract_cache(cfg: ModelConfig, shape: InputShape):
+    """``meta`` stand-ins matching ``init_cache`` for the decode shapes."""
+    return transformer.init_cache(
+        cfg, shape.global_batch, serve_capacity(cfg, shape.seq_len),
+        transformer.cross_len(cfg, shape.seq_len), device="meta")

@@ -20,10 +20,24 @@ Every op here has a deterministic CUDA kernel under
 (its backward is ``index_add``) and ``topk``'s scatter; and none reads a
 value back to the host, so a layer makes no synchronisation.
 
-The JAX function's serve-time sharding hints (``hints.constrain`` on the
-buffer and the expert products, ``hints.has("moe_cap")``) have no meaning
-on one card and are left out; the sharding rules are still to port
-(``ROADMAP.md``).
+On a mesh (``utils/shard_hints.py``; the JAX function's serve-time hints
+``experts``, ``d_ff`` and ``moe_cap``) each rank routes its own tokens, the
+batch's shard, with the replicated router, identically on every rank of
+its ``model`` group.  Capacity and slot ranks stay the whole batch's, as
+GSPMD keeps them: the per-expert counts are gathered over the batch axes,
+capacity comes from the global token count, and each assignment's rank is
+its rank within the rank's tokens plus the counts of the batch shards
+before it (the token order of the unsharded stable sort), so the dispatch
+integers are the unsharded ones.  Under the ``moe_cap`` hint (serving)
+the buffer's capacity axis holds only this batch shard's slots, at most
+its own token count an expert, not the whole batch's.  The experts shard
+over ``model`` (their ``d_ff`` where the experts do not divide it); each
+rank builds and runs its experts' rows of the buffer (or its ``d_ff``
+slice of all of them), and the
+combine's float32 partial sums are all-reduced over ``model`` before the
+one rounding to the model dtype.  The load-balance loss is the whole
+batch's: the router's mean probabilities are averaged over the batch
+shards and the counts summed.
 
 OTA note: per-agent expert-gradient sparsity makes MoE the worst case for
 the uplink's SNR: the dense channel noise hits every expert's parameters
@@ -39,6 +53,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import rmsnorm, rmsnorm_plan
 from repro_torch.models.param import decl
+from repro_torch.utils import shard_hints
 
 
 def moe_plan(cfg: ModelConfig) -> Dict:
@@ -71,6 +86,17 @@ def route(params, x_flat: torch.Tensor, cfg: ModelConfig,
     """Top-k routing of (T, d) tokens.  Returns (expert_idx (T, k) int64,
     gates (T, k) in x's dtype, aux_loss float32 scalar).  The router jitter
     is drawn only from an explicit ``generator`` (JAX: ``key``)."""
+    gates_full, idx, gates = _router(params, x_flat, cfg, generator)
+    aux = _aux(gates_full.mean(dim=0),
+               _counts(idx.reshape(-1), cfg.moe.num_experts),
+               x_flat.shape[0], cfg)
+    return idx, gates.to(x_flat.dtype), aux
+
+
+def _router(params, x_flat: torch.Tensor, cfg: ModelConfig,
+            generator: Optional[torch.Generator]):
+    """(router probabilities (T, E) float32, top-k experts (T, k),
+    renormalised top-k gates float32)."""
     m = cfg.moe
     logits = x_flat.float() @ params["router"].float()
     if generator is not None and m.router_jitter > 0.0:
@@ -79,16 +105,18 @@ def route(params, x_flat: torch.Tensor, cfg: ModelConfig,
     gates_full = torch.softmax(logits, dim=-1)
     gates, idx = torch.topk(gates_full, m.top_k, dim=-1)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return gates_full, idx, gates
 
-    # Switch-style load-balance auxiliary loss.  ce counts assignments per
-    # expert times 1/(t*k) (JAX adds 1/(t*k) once per assignment, which
-    # rounds differently: within rtol 1e-6)
-    t = x_flat.shape[0]
-    me = gates_full.mean(dim=0)                                  # (E,)
-    ce = _counts(idx.reshape(-1), m.num_experts).float() \
-        * (1.0 / (t * m.top_k))
-    aux = m.num_experts * torch.sum(me * ce) * m.load_balance_coef
-    return idx, gates.to(x_flat.dtype), aux
+
+def _aux(me: torch.Tensor, counts: torch.Tensor, t: int,
+         cfg: ModelConfig) -> torch.Tensor:
+    """Switch-style load-balance loss from the mean router probabilities
+    ``me`` (E,) and the assignments per expert of ``t`` tokens.  ce counts
+    assignments per expert times 1/(t*k) (JAX adds 1/(t*k) once per
+    assignment, which rounds differently: within rtol 1e-6)."""
+    m = cfg.moe
+    ce = counts.float() * (1.0 / (t * m.top_k))
+    return m.num_experts * torch.sum(me * ce) * m.load_balance_coef
 
 
 def _counts(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
@@ -100,12 +128,16 @@ def _counts(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
         0, flat_e, torch.ones_like(flat_e))
 
 
-def dispatch(idx: torch.Tensor, n_experts: int, cap: int
+def dispatch(idx: torch.Tensor, n_experts: int, cap: int,
+             offset: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Each (token, slot) assignment's rank within its expert (in token
     order, by a stable sort on the expert id), whether it fits the
     capacity, and its buffer row (``e * cap + rank``, or the dump row
-    ``E * cap`` when dropped).  ``idx`` (T, k) -> three (T*k,) tensors."""
+    ``E * cap`` when dropped).  ``idx`` (T, k) -> three (T*k,) tensors.
+    ``offset`` (E,): the assignments to each expert that precede these
+    tokens in the whole batch (the batch shards before this one), added
+    to every rank."""
     flat_e = idx.reshape(-1)
     n_assign = flat_e.shape[0]
     sort_idx = torch.argsort(flat_e, stable=True)
@@ -115,6 +147,8 @@ def dispatch(idx: torch.Tensor, n_experts: int, cap: int
         - starts[flat_e[sort_idx]]
     # sort_idx is a permutation: each rank lands in its own place
     rank = torch.empty_like(rank_sorted).index_copy_(0, sort_idx, rank_sorted)
+    if offset is not None:
+        rank = rank + offset[flat_e]
     keep = rank < cap
     dest = torch.where(keep, flat_e * cap + rank,
                        torch.full_like(rank, n_experts * cap))
@@ -124,25 +158,57 @@ def dispatch(idx: torch.Tensor, n_experts: int, cap: int
 def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig,
             generator: Optional[torch.Generator] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """MoE feed-forward over (B, S, D).  Returns (out, aux_loss)."""
+    """MoE feed-forward over (B, S, D).  Returns (out, aux_loss).  On a
+    mesh ``x`` is this rank's batch shard and the expert weights its
+    shards (module docstring)."""
     b, s, d = x.shape
     m = cfg.moe
     e, k = m.num_experts, m.top_k
     dt = x.dtype
+    lay = shard_hints.layout(cfg)
     h = rmsnorm(params["norm"], x, cfg.norm_eps)
     x_flat = h.reshape(b * s, d)
     t = b * s
-    cap = _capacity(t, cfg)
-
-    idx, gates, aux = route(params, x_flat, cfg, generator)
-    _, keep, dest = dispatch(idx, e, cap)
-
-    # the kept assignments into the (E*cap + 1, d) buffer; dropped ones all
-    # go to the last row, which is cut off, so which of them lands there
-    # does not matter
     src = x_flat[:, None, :].expand(t, k, d).reshape(t * k, d)
-    buf = x_flat.new_zeros((e * cap + 1, d)).index_copy(0, dest, src)
-    buf = buf[:-1].reshape(e, cap, d)
+    if lay is None:
+        cap = _capacity(t, cfg)
+        idx, gates, aux = route(params, x_flat, cfg, generator)
+        _, keep, dest = dispatch(idx, e, cap)
+        # the kept assignments into the (E*cap + 1, d) buffer; dropped ones
+        # all go to the last row, which is cut off, so which of them lands
+        # there does not matter
+        buf = x_flat.new_zeros((e * cap + 1, d)).index_copy(0, dest, src)
+        buf = buf[:-1].reshape(e, cap, d)
+        mine, rows = keep, dest
+    else:
+        cap = _capacity(t * lay.n_batch, cfg)
+        gates_full, idx, gates = _router(params, x_flat, cfg, generator)
+        gates = gates.to(dt)
+        counts = shard_hints.all_gather(_counts(idx.reshape(-1), e)[None],
+                                        0, lay.batch_axes)   # (shards, E)
+        me = shard_hints.all_reduce(gates_full.mean(dim=0),
+                                    lay.batch_axes) / lay.n_batch
+        aux = _aux(me, counts.sum(0), t * lay.n_batch, cfg)
+        offset = counts[:lay.batch_rank].sum(0)
+        rank, keep, dest = dispatch(idx, e, cap, offset=offset)
+        flat_e = idx.reshape(-1)
+        if lay.moe_cap and lay.n_batch > 1:
+            # this batch shard's slots only (the moe_cap hint): its
+            # assignments' ranks less the shards' before it, at most its t
+            # tokens to an expert
+            slots, slot = min(cap, t), rank - offset[flat_e]
+        else:
+            slots, slot = cap, rank
+        # this rank's experts' rows (all of them where the experts are not
+        # sharded); dropped assignments and other ranks' experts go to the
+        # dump row, cut off
+        lo, hi = lay.span(e) if lay.experts else (0, e)
+        mine = keep & (flat_e >= lo) & (flat_e < hi)
+        rows = torch.where(mine, (flat_e - lo) * slots + slot,
+                           torch.full_like(slot, (hi - lo) * slots))
+        buf = x_flat.new_zeros(((hi - lo) * slots + 1, d)).index_copy(
+            0, rows, src)
+        buf = buf[:-1].reshape(hi - lo, slots, d)
 
     # per-expert SwiGLU: batched products over the experts axis
     g = torch.bmm(buf, params["gate"].to(dt))
@@ -150,14 +216,18 @@ def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig,
     act = F.silu(g.float()).to(dt) * u
     y = torch.bmm(act, params["down"].to(dt))
 
-    # gather back; dropped assignments contribute exactly zero.  The
-    # gate-weighted top-k slots are summed in slot order in float32 and
-    # rounded once to the model dtype, as XLA reduces a bf16 sum
-    safe = torch.where(keep, dest, torch.zeros_like(dest))
-    picked = torch.index_select(y.reshape(e * cap, d), 0, safe) \
-        * keep[:, None].to(dt)
+    # gather back; dropped assignments (and, on a mesh, other ranks'
+    # experts) contribute exactly zero.  The gate-weighted top-k slots are
+    # summed in slot order in float32 (the ranks' partial sums all-reduced
+    # over model) and rounded once to the model dtype, as XLA reduces a
+    # bf16 sum
+    safe = torch.where(mine, rows, torch.zeros_like(rows))
+    picked = torch.index_select(y.reshape(-1, d), 0, safe) \
+        * mine[:, None].to(dt)
     terms = (picked.reshape(t, k, d) * gates[..., None]).unbind(1)
     out = terms[0].float()
     for term in terms[1:]:
         out = out + term.float()
+    if lay is not None and (lay.experts or lay.moe_d_ff):
+        out = shard_hints.all_reduce(out)
     return out.to(dt).reshape(b, s, d), aux

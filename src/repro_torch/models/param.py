@@ -1,22 +1,36 @@
-"""Parameter plans: one declaration tree -> initialised tensors.
+"""Parameter plans: one declaration tree -> tensors, abstract shapes, specs.
 
-Counterpart of ``repro/models/param.py`` without sharding: a ``ParamDecl``
-names every dimension of a weight with a logical axis, and
-:func:`init_params` materialises a plan (nested dicts of decls) into nested
-dicts of tensors with the same keys, shapes and per-leaf dtypes (norm scales
-and SSM scalars stay float32).  The distributions are the JAX package's;
-the draws are not (torch cannot replay threefry), so parity tests carry the
-JAX package's parameters across with ``repro_torch.interop`` instead.
+Counterpart of ``repro/models/param.py``: a ``ParamDecl`` names every
+dimension of a weight with a logical axis, and :func:`init_params`
+materialises a plan (nested dicts of decls) into nested dicts of tensors
+with the same keys, shapes and per-leaf dtypes (norm scales and SSM scalars
+stay float32).  The distributions are the JAX package's; the draws are not
+(torch cannot replay threefry), so parity tests carry the JAX package's
+parameters across with ``repro_torch.interop`` instead.
+
+Sharding is a pure function of (plan, rules, mesh), as in the JAX package:
+each logical axis maps to zero or more mesh axes, and a mapping whose
+product does not divide the dimension is dropped (replicated).  A spec is a
+:class:`P`, a tuple with one entry per dimension (a mesh axis name, a tuple
+of them, or None; trailing Nones dropped), equal to JAX's ``PartitionSpec``
+entry for entry.  ``spec_for`` takes any mesh with a ``.shape`` dict or a
+``torch.distributed`` ``DeviceMesh``.  :class:`NamedSharding` turns a spec
+into DTensor placements on a ``DeviceMesh`` (``Shard(i)`` on every mesh
+axis that dimension ``i`` takes, in the spec's order; ``Replicate()``
+elsewhere), and :func:`distribute_params` lays a parameter tree out as
+DTensors, each rank keeping its own slice.  :func:`abstract_params` puts
+every leaf on the ``meta`` device: shapes and dtypes, no storage.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.utils.device import DeviceLike, resolve_device
+from repro_torch.utils.tree import tree_map
 
 Plan = Any      # nested dicts whose leaves are ParamDecl
 Params = Any    # the same nesting, leaves torch.Tensor
@@ -126,3 +140,157 @@ def param_count(params: Params) -> int:
     if isinstance(params, torch.Tensor):
         return params.numel()
     return sum(param_count(v) for v in params.values())
+
+
+def abstract_params(plan: Plan, dtype="float32") -> Params:
+    """Every leaf as an empty tensor on the ``meta`` device (JAX: a
+    ``ShapeDtypeStruct``): its shape and dtype, no storage."""
+    return map_plan(lambda d: torch.empty(
+        d.shape, dtype=_dtype(d.dtype or dtype), device="meta"), plan)
+
+
+# --------------------------------------------------------------------------
+# Sharding rules
+# --------------------------------------------------------------------------
+
+Rules = Mapping[str, Tuple[str, ...]]   # logical axis -> mesh axes
+
+
+class P(tuple):
+    """A partition spec: one entry per tensor dimension (a mesh axis name,
+    a tuple of names, or None), as JAX's ``PartitionSpec``."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self):
+        return f"P{tuple.__repr__(self)}"
+
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """Axis name -> size of a mesh with a ``.shape`` dict (JAX's, a fake
+    one) or of a ``DeviceMesh`` (its ``mesh_dim_names``)."""
+    if isinstance(mesh.shape, Mapping):
+        return dict(mesh.shape)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def _mesh_axis_size(shape: Mapping[str, int], names: Sequence[str]) -> int:
+    n = 1
+    for name in names:
+        n *= shape[name]
+    return n
+
+
+def spec_for(d: ParamDecl, rules: Rules, mesh) -> P:
+    """The spec of one decl under the rules, replicating any dimension
+    whose size the product of its mesh axes does not divide, and never
+    giving one mesh axis to two dimensions."""
+    shape = mesh_shape(mesh)
+    used: set = set()
+    parts = []
+    for dim, axis in zip(d.shape, d.axes):
+        entry = None
+        if axis is not None and axis in rules:
+            mesh_axes = tuple(a for a in rules[axis]
+                              if a in shape and a not in used)
+            if mesh_axes and dim % _mesh_axis_size(shape, mesh_axes) == 0:
+                entry = mesh_axes if len(mesh_axes) > 1 else mesh_axes[0]
+                used.update(mesh_axes)
+        parts.append(entry)
+    while parts and parts[-1] is None:
+        parts.pop()
+    return P(*parts)
+
+
+def partition_specs(plan: Plan, rules: Rules, mesh):
+    return map_plan(lambda d: spec_for(d, rules, mesh), plan)
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry (None -> ())."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (JAX's ``NamedSharding``); ``placements`` are its
+    DTensor placements, one per axis of the ``DeviceMesh``."""
+
+    mesh: Any
+    spec: P
+
+    @property
+    def placements(self) -> tuple:
+        from torch.distributed.tensor import Replicate, Shard
+
+        where = {a: i for i, e in enumerate(self.spec)
+                 for a in entry_axes(e)}
+        return tuple(Shard(where[a]) if a in where else Replicate()
+                     for a in self.mesh.mesh_dim_names)
+
+
+def named_shardings(plan: Plan, rules: Rules, mesh):
+    return map_plan(lambda d: NamedSharding(mesh, spec_for(d, rules, mesh)),
+                    plan)
+
+
+def local_shard(t: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
+    """This rank's slice of ``t`` (the same whole tensor on every rank)
+    under ``spec`` on the ``DeviceMesh``: each sharded dimension cut into
+    equal blocks over its mesh axes, the first axis the outer one.  A
+    tensor that no axis splits is returned as it is (no copy)."""
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    sizes = mesh_shape(mesh)
+    out = t
+    for dim, entry in enumerate(spec):
+        n, idx = 1, 0
+        for a in entry_axes(entry):
+            n, idx = n * sizes[a], idx * sizes[a] + coord[a]
+        if n > 1:
+            out = out.narrow(dim, idx * (t.shape[dim] // n),
+                             t.shape[dim] // n)
+    return out if out is t else out.contiguous()
+
+
+def distribute_tensor(t: torch.Tensor, sharding: NamedSharding):
+    """A DTensor of ``t`` (the same whole tensor on every rank) under
+    ``sharding``: each rank keeps its slice, with no communication."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local_shard(t, sharding.spec, sharding.mesh),
+                              sharding.mesh, sharding.placements,
+                              run_check=False)
+
+
+def distribute_params(params: Params, plan: Plan, rules: Rules, mesh):
+    """The parameter tree as DTensors on the ``DeviceMesh`` per the rules
+    (every rank passes the same whole parameters; each keeps its slice)."""
+    if isinstance(plan, ParamDecl):
+        return distribute_tensor(params, NamedSharding(
+            mesh, spec_for(plan, rules, mesh)))
+    return {k: distribute_params(params[k], v, rules, mesh)
+            for k, v in plan.items()}
+
+
+def local_params(params: Params) -> Params:
+    """A tree of DTensors (or tensors) -> this rank's plain tensors."""
+    return tree_map(lambda x: x.to_local() if hasattr(x, "to_local") else x,
+                    params)
+
+
+# Canonical rule sets.  'data' axes shard FSDP-style (ZeRO-3) in training;
+# serving keeps weights replicated across 'data' so decode needs no gathers.
+def train_rules(fsdp: bool = True) -> Dict[str, Tuple[str, ...]]:
+    r = serve_rules()
+    if fsdp:
+        r["d_model"] = ("data",)
+    return r
+
+
+def serve_rules() -> Dict[str, Tuple[str, ...]]:
+    return {axis: ("model",) for axis in (
+        "d_ff", "heads", "kv_heads", "vocab", "experts", "d_inner",
+        "ssm_heads")}

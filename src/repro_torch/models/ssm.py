@@ -11,6 +11,16 @@ decode form, plain torch.
 
 Projections are split per segment (z/x/B/C/dt) with the JAX package's
 layouts (``w_x`` is ``(d_model, d_inner)``).
+
+On a mesh (``utils/shard_hints.py``) the mixer runs on this rank's
+``d_inner`` channels and SSD heads: ``w_z``, ``w_x``, ``conv_x``,
+``gate_norm`` and ``w_out`` hold its channels, ``w_dt``, ``dt_bias``,
+``A_log`` and ``D`` its heads, and ``w_B``/``w_C`` (one group) are
+replicated, so K4 scans the rank's heads against the shared B and C.
+``gate_norm`` normalises over all of ``d_inner``: each rank's mean of
+squares over its equal share is all-reduced and divided by the ranks (the
+identity on one rank), and the ``w_out`` product is row-parallel
+(``shard_hints.row_parallel``).
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.param import decl
+from repro_torch.utils import shard_hints
 
 
 def dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -82,8 +93,13 @@ class SSMState(NamedTuple):
 
 
 def init_state(cfg: ModelConfig, batch: int, dtype, device=None) -> SSMState:
+    """Zeros; on a mesh this rank's channels and heads (``batch`` is its
+    own)."""
     s = cfg.ssm
     d_in, h, g, n = dims(cfg)
+    lay = shard_hints.layout(cfg)
+    if lay and lay.ssm_heads:
+        d_in, h = d_in // lay.model, h // lay.model
     w = s.conv_width
     return SSMState(
         ssm=torch.zeros(batch, g, h // g, s.headdim, n, dtype=torch.float32,
@@ -104,6 +120,20 @@ def _project(params, h: torch.Tensor):
     return z, xs, Bp, Cp, dt
 
 
+def _gate_norm(params, y: torch.Tensor, cfg: ModelConfig,
+               lay: Optional[shard_hints.Layout]) -> torch.Tensor:
+    """RMSNorm over all of ``d_inner``: ``layers.rmsnorm``, or across the
+    ranks' equal shares where ``lay`` shards it (the mean of the ranks'
+    means of squares, all-reduced)."""
+    if lay is None or not lay.d_inner:
+        return rmsnorm(params["gate_norm"], y, cfg.norm_eps)
+    y32 = y.float()
+    var = shard_hints.all_reduce(
+        torch.mean(torch.square(y32), dim=-1, keepdim=True)) / lay.model
+    out = y32 * torch.rsqrt(var + cfg.norm_eps)
+    return (out * params["gate_norm"]["scale"]).to(y.dtype)
+
+
 def _silu(x: torch.Tensor) -> torch.Tensor:
     """silu in float32, cast back."""
     return F.silu(x.float()).to(x.dtype)
@@ -121,7 +151,9 @@ def ssm_mixer(params, x: torch.Tensor, cfg: ModelConfig, *,
     ``plain_scan``."""
     b, s, _ = x.shape
     scfg = cfg.ssm
-    d_in, h_heads, g, n = dims(cfg)
+    _, _, g, n = dims(cfg)
+    d_in, h_heads = params["w_x"].shape[-1], params["w_dt"].shape[-1]
+    lay = shard_hints.layout(cfg)
     hid = rmsnorm(params["norm"], x, cfg.norm_eps)
     z, xs, Bp, Cp, dt = _project(params, hid)
 
@@ -145,8 +177,18 @@ def ssm_mixer(params, x: torch.Tensor, cfg: ModelConfig, *,
     y = y.reshape(b, s, d_in).to(x.dtype)
 
     y = y * _silu(z)
-    y = rmsnorm(params["gate_norm"], y, cfg.norm_eps)
-    return y @ params["w_out"].to(x.dtype)
+    y = _gate_norm(params, y, cfg, lay)
+    return _out(params, y, lay)
+
+
+def _out(params, y: torch.Tensor,
+         lay: Optional[shard_hints.Layout]) -> torch.Tensor:
+    """``y @ w_out``, row-parallel over ``model`` where ``lay`` shards
+    ``d_inner``."""
+    w = params["w_out"].to(y.dtype)
+    if lay and lay.d_inner:
+        return shard_hints.row_parallel(y, w, lay)
+    return y @ w
 
 
 def ssm_step(params, x: torch.Tensor, state: SSMState,
@@ -154,7 +196,9 @@ def ssm_step(params, x: torch.Tensor, state: SSMState,
     """One-token recurrent step: x (B, 1, D) -> (y (B, 1, D), state')."""
     b = x.shape[0]
     scfg = cfg.ssm
-    d_in, h_heads, g, n = dims(cfg)
+    _, _, g, n = dims(cfg)
+    d_in, h_heads = params["w_x"].shape[-1], params["w_dt"].shape[-1]
+    lay = shard_hints.layout(cfg)
     hid = rmsnorm(params["norm"], x, cfg.norm_eps)
     z, xs, Bp, Cp, dt = _project(params, hid)
 
@@ -183,6 +227,6 @@ def ssm_step(params, x: torch.Tensor, state: SSMState,
     y = y.reshape(b, 1, d_in).to(x.dtype)
 
     y = y * _silu(z)
-    y = rmsnorm(params["gate_norm"], y, cfg.norm_eps)
-    out = y @ params["w_out"].to(x.dtype)
-    return out, SSMState(ssm=new_ssm, conv_x=cx, conv_B=cb, conv_C=cc)
+    y = _gate_norm(params, y, cfg, lay)
+    return _out(params, y, lay), SSMState(ssm=new_ssm, conv_x=cx,
+                                          conv_B=cb, conv_C=cc)

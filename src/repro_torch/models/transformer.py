@@ -38,6 +38,14 @@ SSM and hybrid prefill keep the JAX package's behaviour: they run
 ``forward`` (``blockwise=False``: the hybrid's shared attention through
 ``attend``) and return the last-position logits with a zeroed capacity-1
 cache at position 0, not the state carried through the prompt.
+
+Inside a hints context (``utils/shard_hints.py``, entered by
+``train.server.shard_for_serving``) ``forward``, ``prefill``, ``decode``
+and ``init_cache`` of the dense, moe and ssm families run on this rank's
+shards: ``params`` are its local tensors, ``tokens`` its batch shard, and
+the layers issue their collectives; the logits come back whole over the
+vocabulary.  The hybrid, vlm and encdec families raise there: they are
+not yet sharded (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -54,7 +62,10 @@ from repro_torch.models.layers import (
     unembed,
 )
 from repro_torch.models.param import stack_plan
+from repro_torch.utils import shard_hints
 from repro_torch.utils.device import resolve_device
+
+SHARDED_FAMILIES = ("dense", "moe", "ssm")   # run inside a hints context
 
 STACK_AXES = ("layers", "sublayers")   # the plan axes a Python loop indexes
 
@@ -145,11 +156,22 @@ def layer(stacked, i: int):
     return {k: layer(v, i) for k, v in stacked.items()}
 
 
+def _layout(cfg: ModelConfig):
+    """The active mesh's layout of ``cfg`` (None outside a hints
+    context); a family that is not sharded yet raises inside one."""
+    lay = shard_hints.layout(cfg)
+    if lay is not None and cfg.family not in SHARDED_FAMILIES:
+        raise NotImplementedError(
+            f"the {cfg.family} family is not sharded yet: on a mesh the "
+            f"port serves {SHARDED_FAMILIES} (ROADMAP.md §1)")
+    return lay
+
+
 def _ffn(lp, x: torch.Tensor, cfg: ModelConfig):
     """The dense MLP or the MoE FFN of one layer: (residual delta, aux)."""
     if cfg.family == "moe":
         return moe_mod.moe_ffn(lp["moe"], x, cfg)
-    return mlp(lp["mlp"], x, cfg.norm_eps), None
+    return mlp(lp["mlp"], x, cfg.norm_eps, shard_hints.layout(cfg)), None
 
 
 def _cross_block(lp, x: torch.Tensor, kv, cfg: ModelConfig,
@@ -172,7 +194,8 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
                          "backward: a differentiable forward takes "
                          "blockwise=False")
     dt = _dtype(cfg)
-    x = embed(params["embed"], tokens, dt)
+    lay = _layout(cfg)
+    x = embed(params["embed"], tokens, dt, lay)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     fam = cfg.family
 
@@ -225,7 +248,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if return_hidden:
         return x, aux
-    return unembed(params["embed"], x, cfg.tie_embeddings), aux
+    return unembed(params["embed"], x, cfg.tie_embeddings, lay), aux
 
 
 def encode(params, cfg: ModelConfig, frames: torch.Tensor, *,
@@ -275,6 +298,7 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, mem_len: int = 0,
     clamping (``model.serve_capacity``).  ``device`` None means cuda."""
     dt = dtype or _dtype(cfg)
     device = resolve_device(device)
+    _layout(cfg)
     fam = cfg.family
 
     def kv(*lead):
@@ -322,7 +346,8 @@ def decode(params, cfg: ModelConfig, cache: Cache, token: torch.Tensor, *,
            window: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
     """serve_step: one new token per sequence. Returns (logits (B,1,V),
     cache')."""
-    x = embed(params["embed"], token, _dtype(cfg))
+    lay = _layout(cfg)
+    x = embed(params["embed"], token, _dtype(cfg), lay)
     pos = int(cache.pos)
     fam = cfg.family
 
@@ -387,7 +412,7 @@ def decode(params, cfg: ModelConfig, cache: Cache, token: torch.Tensor, *,
     else:
         raise ValueError(fam)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = unembed(params["embed"], x, cfg.tie_embeddings)
+    logits = unembed(params["embed"], x, cfg.tie_embeddings, lay)
     return logits, new._replace(pos=pos + 1)
 
 
@@ -405,7 +430,8 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
         return logits[:, -1:, :], init_cache(cfg, b, 1, 0,
                                              device=tokens.device)
     dt = _dtype(cfg)
-    x = embed(params["embed"], tokens, dt)
+    lay = _layout(cfg)
+    x = embed(params["embed"], tokens, dt, lay)
 
     def self_attn(lp, x, kvs):
         out, kv = attn.self_attention(lp["attn"], x, cfg, window=cfg.window,
@@ -459,4 +485,4 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     else:
         raise ValueError(fam)
     x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
-    return unembed(params["embed"], x, cfg.tie_embeddings), cache
+    return unembed(params["embed"], x, cfg.tie_embeddings, lay), cache

@@ -1,19 +1,44 @@
-"""Serving: batched greedy decode steps over a KV cache or SSM state.
+"""Serving: batched greedy decode steps over a KV cache or SSM state, on one
+device or tensor-parallel over a ``("data", "model")`` mesh.
 
-Counterpart of ``repro/train/server.py`` without sharding (``cache_specs``
-comes with the distribute slice).  Cache capacity honours the
+Counterpart of ``repro/train/server.py``.  Cache capacity honours the
 architecture's serving window: SWA archs use a ring buffer of ``window``
 slots; SSM archs carry O(1) recurrent state.
+
+``cache_specs`` builds the partition-spec tree for the cache by mirroring
+``transformer.init_cache``'s structure: batch over ('pod', 'data') when
+divisible, KV heads over 'model' when divisible, with a sequence-sharded
+entry for what remains (batch 1 long-context serving, or KV heads that do
+not divide 'model'), flash-decode style.
+
+:func:`shard_for_serving` is the sharded serve path on a ``DeviceMesh``
+(``launch.mesh.make_tiny_mesh``): the weights as DTensors under
+``serve_rules`` (each rank keeps its shards), the batch over the data
+axes, the cache laid out per ``cache_specs``, and every call run inside a
+hints context (``utils/shard_hints.py``) on the rank's own shards.  A
+layout whose cache ``cache_specs`` shards over the sequence raises
+``NotImplementedError``: the cross-rank softmax combine it needs is still
+to port (``ROADMAP.md``).  The families served on a mesh are the dense,
+moe and ssm ones.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import InputShape
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models import transformer
+from repro_torch.models.attention import KVCache
 from repro_torch.models.model import Model, serve_capacity
+from repro_torch.models.param import (
+    P, NamedSharding, distribute_params, local_params, mesh_shape,
+    serve_rules,
+)
+from repro_torch.models.ssm import SSMState
+from repro_torch.utils import shard_hints
+from repro_torch.utils.tree import flatten_paths
 
 
 @dataclass(frozen=True)
@@ -46,3 +71,290 @@ def init_cache_for_shape(model: Model, shape: InputShape, device=None):
     cache = model.init_cache(shape.global_batch, cap, mem_len, device=device)
     # decode_32k/long_500k semantics: the cache is already full up to seq_len-1
     return cache._replace(pos=shape.seq_len - 1)
+
+
+def abstract_cache_for_shape(model: Model, shape: InputShape):
+    """``init_cache_for_shape`` on the ``meta`` device (no storage)."""
+    return init_cache_for_shape(model, shape, device="meta")
+
+
+# --------------------------------------------------------------------------
+# Cache sharding
+# --------------------------------------------------------------------------
+
+def _axes_ok(mesh, axes: Tuple[str, ...], dim: int) -> bool:
+    shape = mesh_shape(mesh)
+    n = 1
+    for a in axes:
+        if a not in shape:
+            return False
+        n *= shape[a]
+    return dim % n == 0 and n > 1
+
+
+def _batch_entry(mesh, batch: int):
+    shape = mesh_shape(mesh)
+    for cand in (("pod", "data"), ("data",)):
+        axes = tuple(a for a in cand if a in shape)
+        if axes and _axes_ok(mesh, axes, batch):
+            return axes if len(axes) > 1 else axes[0]
+    return None
+
+
+def _cache_entries(cfg: ModelConfig, batch: int, cap: int, mesh):
+    """(batch entry, sequence entry, kv-head entry) of a cache of ``cap``
+    slots."""
+    b_entry = _batch_entry(mesh, batch)
+    kvh = "model" if _axes_ok(mesh, ("model",), max(cfg.n_kv_heads, 1)) \
+        else None
+    # The cache sequence dim picks up whatever axes remain unused: 'model'
+    # when the (few) KV heads can't split 16 ways, 'data' when batch=1
+    # (long-context serving) — flash-decode style sequence parallelism.
+    seq_axes = []
+    if b_entry is None:
+        seq_axes.append("data")
+    if kvh is None:
+        seq_axes.append("model")
+    seq_axes = tuple(a for a in seq_axes if a in mesh_shape(mesh))
+    seq_entry = None
+    if seq_axes and _axes_ok(mesh, seq_axes, cap):
+        seq_entry = seq_axes if len(seq_axes) > 1 else seq_axes[0]
+    return b_entry, seq_entry, kvh
+
+
+def _cache_specs(cfg: ModelConfig, batch: int, cap: int, mesh):
+    b_entry, seq_entry, kvh = _cache_entries(cfg, batch, cap, mesh)
+
+    def kv_spec(lead: int):
+        # (lead..., B, cap, Hkv, Dh)
+        lead_spec = (None,) * lead
+        return KVCache(k=P(*lead_spec, b_entry, seq_entry, kvh, None),
+                       v=P(*lead_spec, b_entry, seq_entry, kvh, None))
+
+    def ssm_spec(lead: int):
+        d_in = cfg.ssm.expand * cfg.d_model
+        din = "model" if _axes_ok(mesh, ("model",), d_in) else None
+        hg = d_in // cfg.ssm.headdim // cfg.ssm.n_groups
+        hco = "model" if _axes_ok(mesh, ("model",), hg) else None
+        lead_spec = (None,) * lead
+        return SSMState(ssm=P(*lead_spec, b_entry, None, hco, None, None),
+                        conv_x=P(*lead_spec, b_entry, None, din),
+                        conv_B=P(*lead_spec, b_entry, None, None),
+                        conv_C=P(*lead_spec, b_entry, None, None))
+
+    def cross_spec(lead: int):
+        s = P(*(None,) * lead, b_entry, None, kvh, None)
+        return (s, s)
+
+    pos = P()
+    fam = cfg.family
+    C = transformer.Cache
+    if fam in ("dense", "moe"):
+        return C(kv=kv_spec(1), pos=pos)
+    if fam == "ssm":
+        return C(ssm=ssm_spec(1), pos=pos)
+    if fam == "hybrid":
+        tail = cfg.n_layers % cfg.shared_attn_every
+        return C(groups_ssm=ssm_spec(2), groups_kv=kv_spec(1),
+                 tail_ssm=ssm_spec(1) if tail else None, pos=pos)
+    if fam == "vlm":
+        return C(groups_kv=kv_spec(2), cross_self_kv=kv_spec(1),
+                 cross_kv=cross_spec(1), pos=pos)
+    if fam == "encdec":
+        return C(kv=kv_spec(1), cross_kv=cross_spec(1), pos=pos)
+    raise ValueError(fam)
+
+
+def cache_specs(cfg: ModelConfig, shape: InputShape, mesh):
+    """Spec tree matching ``init_cache``'s structure for (cfg, shape)."""
+    return _cache_specs(cfg, shape.global_batch,
+                        serve_capacity(cfg, shape.seq_len), mesh)
+
+
+# --------------------------------------------------------------------------
+# The sharded serve path
+# --------------------------------------------------------------------------
+
+def _map_cache(fn, cache, per_field):
+    """``fn(tensor, x)`` over every tensor field of a cache, ``x`` from the
+    same field's entries of ``per_field`` (a dict by field name), ``pos``
+    kept."""
+    fields = {}
+    for name, value in cache._asdict().items():
+        if name == "pos" or value is None:
+            fields[name] = value
+            continue
+        parts = [fn(t, x) for t, x in zip(value, per_field[name])]
+        fields[name] = type(value)(*parts) if hasattr(value, "_fields") \
+            else tuple(parts)
+    return transformer.Cache(**fields)
+
+
+def _local(x):
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
+@dataclass(eq=False)
+class ShardedServer:
+    """The serve path of ``model`` on a ``DeviceMesh`` (see
+    :func:`shard_for_serving`).  ``params`` are DTensors, ``local`` this
+    rank's tensors of them.  Tokens go in as DTensors laid out by
+    ``data.make_batch_specs`` or as the whole batch (the same on every
+    rank; each rank takes its shard); logits, next tokens and caches come
+    back as DTensors (``.full_tensor()`` gathers one, a collective)."""
+
+    model: Model
+    mesh: Any
+    params: Any
+    local: Any
+    _layout: Optional[shard_hints.Layout] = None
+    _placements_of: dict = field(default_factory=dict)   # built once each
+
+    @property
+    def cfg(self) -> ModelConfig:
+        return self.model.cfg
+
+    def hints(self, kind: str):
+        """The hints context every call runs in."""
+        return shard_hints.hints(self.mesh, **shard_hints.attn_hints(
+            self.cfg, self.mesh, kind))
+
+    def layout(self) -> shard_hints.Layout:
+        """What this rank holds (built once)."""
+        if self._layout is None:
+            with self.hints("prefill"):
+                self._layout = shard_hints.layout(self.cfg)
+        return self._layout
+
+    def _placements(self, ndim: int) -> tuple:
+        """A tensor with its batch (dim 0) over the batch axes."""
+        if ndim not in self._placements_of:
+            axes = self.layout().batch_axes
+            entry = axes if len(axes) > 1 else (axes[0] if axes else None)
+            self._placements_of[ndim] = NamedSharding(
+                self.mesh, P(entry, *[None] * (ndim - 1))).placements
+        return self._placements_of[ndim]
+
+    def _wrap(self, local: torch.Tensor, placements):
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(local, self.mesh, placements,
+                                  run_check=False)
+
+    def _batch(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's batch shard of a DTensor or of the whole batch."""
+        if hasattr(x, "to_local"):
+            return x.to_local()
+        lay = self.layout()
+        if x.shape[0] % lay.n_batch:
+            raise ValueError(f"a batch of {x.shape[0]} does not divide over "
+                             f"the {lay.n_batch} shards of {lay.batch_axes}")
+        return x.chunk(lay.n_batch)[lay.batch_rank]
+
+    def _cache_placements(self, batch: int, capacity: int):
+        """The placements of each cache field per ``cache_specs`` (built
+        once per batch and capacity); raises where they shard the
+        sequence."""
+        key = (batch, capacity)
+        if key not in self._placements_of:
+            b_entry, seq_entry, _ = _cache_entries(self.cfg, batch, capacity,
+                                                   self.mesh)
+            if seq_entry is not None and self.cfg.family in ("dense", "moe"):
+                raise NotImplementedError(
+                    f"cache_specs shards this cache's sequence over "
+                    f"{seq_entry!r} (batch {batch}, {self.cfg.n_kv_heads} kv "
+                    f"heads on {mesh_shape(self.mesh)}): the flash-decode "
+                    f"combine it needs is still to port (ROADMAP.md §1)")
+            specs = _cache_specs(self.cfg, batch, capacity, self.mesh)
+            self._placements_of[key] = {
+                name: [NamedSharding(self.mesh, s).placements for s in spec]
+                for name, spec in specs._asdict().items()
+                if name != "pos" and spec is not None}
+        return self._placements_of[key]
+
+    def _wrap_cache(self, cache, batch: int):
+        placements = self._cache_placements(batch, self._capacity(cache))
+        return _map_cache(self._wrap, cache, placements)
+
+    @staticmethod
+    def _capacity(cache) -> int:
+        return 1 if cache.kv is None else cache.kv.k.shape[2]
+
+    def _logits(self, local: torch.Tensor):
+        return self._wrap(local, self._placements(local.ndim))
+
+    @torch.no_grad()
+    def forward(self, tokens, memory=None, *, blockwise=False):
+        """(logits DTensor (B, S, V), the rank's aux loss)."""
+        with self.hints("prefill"):
+            logits, aux = transformer.forward(
+                self.local, self.cfg, self._batch(tokens), memory,
+                blockwise=blockwise)
+        return self._logits(logits), aux
+
+    @torch.no_grad()
+    def prefill(self, tokens):
+        """(last-position logits DTensor (B, 1, V), cache of DTensors)."""
+        b = tokens.shape[0]
+        self._cache_placements(b, tokens.shape[1])
+        with self.hints("prefill"):
+            logits, cache = transformer.prefill(self.local, self.cfg,
+                                                self._batch(tokens))
+        return self._logits(logits), self._wrap_cache(cache, b)
+
+    def init_cache(self, batch: int, capacity: int, device=None):
+        """A zero cache of ``capacity`` slots for a batch of ``batch``, this
+        rank's shards as DTensors."""
+        self._cache_placements(batch, capacity)
+        lay = self.layout()
+        if batch % lay.n_batch:
+            raise ValueError(f"a batch of {batch} does not divide over the "
+                             f"{lay.n_batch} shards of {lay.batch_axes}")
+        with self.hints("decode"):
+            cache = transformer.init_cache(self.cfg, batch // lay.n_batch,
+                                           capacity, device=device)
+        return self._wrap_cache(cache, batch)
+
+    @torch.no_grad()
+    def decode(self, cache, token, *, window: Optional[int] = None):
+        """One token per sequence: (logits DTensor (B, 1, V), cache'); the
+        KV caches are written in place."""
+        b = token.shape[0]
+        local = _map_cache(lambda t, _: _local(t), cache,
+                           cache._asdict())
+        with self.hints("decode"):
+            logits, local = transformer.decode(
+                self.local, self.cfg, local, self._batch(token),
+                window=window)
+        return self._logits(logits), self._wrap_cache(local, b)
+
+    def make_serve_step(self, shape: InputShape):
+        """serve_step(cache, token) -> (next_token, logits, cache'), greedy
+        over the whole vocabulary, as :func:`make_serve_step`."""
+        window = self.cfg.window or self.cfg.serve_window
+        eff_window = window if (window and window < shape.seq_len) else None
+
+        @torch.no_grad()
+        def serve_step(cache, token):
+            logits, cache = self.decode(cache, token, window=eff_window)
+            nxt = torch.argmax(logits.to_local()[:, -1, :], dim=-1)[:, None]
+            return self._wrap(nxt, self._placements(2)), logits, cache
+
+        return serve_step
+
+
+def shard_for_serving(model: Model, params, mesh) -> ShardedServer:
+    """The serve path of ``model`` on the ``DeviceMesh``: ``params`` (the
+    same whole tensors on every rank, or DTensors already laid out) as
+    DTensors under ``serve_rules``, each rank keeping its shards.  Raises
+    for a family or a layout the port does not shard yet."""
+    if any(hasattr(v, "to_local") for v in flatten_paths(params).values()):
+        dparams = params
+    else:
+        dparams = distribute_params(params, model.plan, serve_rules(), mesh)
+    server = ShardedServer(model=model, mesh=mesh, params=dparams,
+                           local=local_params(dparams))
+    with server.hints("prefill"):
+        transformer._layout(model.cfg)   # raises for what is not sharded
+    server.layout()
+    return server

@@ -1,0 +1,281 @@
+"""Logical-axis sharding hints: the model on each rank's own shards.
+
+Counterpart of ``repro/utils/shard_hints.py``.  The JAX package's model code
+is mesh-agnostic and GSPMD partitions it; launchers activate hints that map
+*logical* activation axes ('heads', 'batch', ...) to mesh axes, and
+``hints.constrain`` pins activations to them.  The port is eager PyTorch,
+so the hints decide what each rank runs: inside a hints context every rank
+runs the model on its own shards of the parameters and of the batch, as
+the active map (:func:`attn_hints`'s dict) lays them out.  ``heads``,
+``d_ff``, ``experts``, ``d_inner`` and ``ssm_heads`` mapped to ``model``
+make the rank run its share of those axes; ``batch`` names the batch's
+mesh axes; ``moe_cap`` keeps the MoE dispatch buffer to this batch shard's
+slots.  The collectives sit where the JAX model re-constrains an output
+to ``("batch", "q_seq", None)`` after a contraction over a
+``model``-sharded axis: the partial sums are all-reduced over the
+``model`` group after ``wo`` (attention), ``down`` (the MLP), the
+experts' combine (MoE) and ``w_out`` (the SSM mixer).  The
+vocabulary-parallel embedding all-reduces its rows; the unembedding
+gathers the vocabulary; the SSM's ``gate_norm`` all-reduces its mean of
+squares; MoE routing gathers its per-expert counts over the batch axes so
+capacity and slot ranks are the whole batch's.
+
+The weights are laid out by ``param.serve_rules()`` (``distribute_params``):
+what a rank holds of the axes no hint names (``kv_heads``, ``vocab``, the
+experts' ``d_ff``) comes from them, and a hint that disagrees with the
+weights' layout raises (:class:`Layout`).
+
+Outside a hints context :func:`layout` is None and every model function
+runs exactly as it did before (bitwise).  Inside one every collective is
+issued, at width 1 too (where it is the identity), and counted here where
+it is issued (``ALL_REDUCES``, ``ALL_GATHERS``).  The ``q_seq`` hint
+(context parallelism where the heads do not divide the model axis) is not
+acted on (``ROADMAP.md``): there the attention weights are replicated and
+every rank of a ``model`` group runs all the heads.
+"""
+from __future__ import annotations
+
+from contextlib import contextmanager
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+_STATE: Dict = {"mesh": None, "map": {}}
+_LAYOUTS: Dict = {}     # (cfg, mesh, hint map) -> Layout
+
+# torch's newer name of all_gather_into_tensor, where it has one
+_gather_single = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+
+# Collectives issued inside a hints context, counted where each is issued.
+ALL_REDUCES = 0
+ALL_GATHERS = 0
+
+
+@contextmanager
+def hints(mesh, **logical_to_mesh):
+    """Activate hints, e.g. ``hints(mesh, **attn_hints(cfg, mesh,
+    "prefill"))``.  ``mesh`` is a ``DeviceMesh`` with a ``model`` axis and
+    the batch axes."""
+    prev = dict(_STATE)
+    _STATE["mesh"] = mesh
+    _STATE["map"] = {k: v for k, v in logical_to_mesh.items()
+                     if v is not None}
+    try:
+        yield
+    finally:
+        _STATE.update(prev)
+
+
+def active() -> bool:
+    return _STATE["mesh"] is not None
+
+
+def has(name: str) -> bool:
+    """Whether a logical axis name is mapped in the active hints."""
+    return name in _STATE["map"]
+
+
+def attn_hints(cfg, mesh, kind: str = "train") -> Dict[str, object]:
+    """The JAX package's choice of head sharding against context
+    parallelism for this arch on this mesh (the same dict).  ``kind``:
+    "train" | "prefill" | "decode"."""
+    from repro_torch.models.param import mesh_shape
+
+    shape = mesh_shape(mesh)
+    model_sz = shape.get("model", 1)
+    batch_axes = tuple(a for a in ("pod", "data") if a in shape)
+    out: Dict[str, object] = {"batch": batch_axes}
+    if cfg.n_heads and cfg.n_heads % model_sz == 0:
+        out["heads"] = "model"
+    elif cfg.n_heads:
+        out["q_seq"] = "model"
+    if cfg.d_ff and cfg.d_ff % model_sz == 0:
+        out["d_ff"] = "model"
+    if cfg.moe is not None:
+        if cfg.moe.num_experts % model_sz == 0:
+            out["experts"] = "model"
+        if kind != "train":
+            out["moe_cap"] = batch_axes
+    if cfg.ssm is not None:
+        d_in = cfg.ssm.expand * cfg.d_model
+        n_ssm_heads = d_in // cfg.ssm.headdim
+        if n_ssm_heads % model_sz == 0:
+            out["ssm_heads"] = "model"
+            if d_in % model_sz == 0:
+                out["d_inner"] = "model"
+    return out
+
+
+@dataclass(frozen=True)
+class Layout:
+    """What this rank runs of one config's model under the active hints.
+
+    ``model``/``model_rank``: the model axis' size and this rank's index
+    on it; ``batch_axes``, ``n_batch``, ``batch_rank``: the batch's mesh
+    axes (the ``batch`` hint), their product and this rank's linear index
+    over them (the first axis the outer one).  The flags say which logical
+    axes run sharded over ``model``: ``heads``, ``d_ff``, ``experts``,
+    ``d_inner`` and ``ssm_heads`` as the hints map them, ``kv_heads``,
+    ``vocab`` and ``moe_d_ff`` (the experts' ``d_ff``, sharded only where
+    the experts are not) as the weights hold them.  ``moe_cap``: the MoE
+    buffer holds this batch shard's slots only."""
+
+    model: int
+    model_rank: int
+    batch_axes: Tuple[str, ...]
+    n_batch: int
+    batch_rank: int
+    vocab: bool = False
+    heads: bool = False
+    kv_heads: bool = False
+    d_ff: bool = False
+    experts: bool = False
+    moe_d_ff: bool = False
+    d_inner: bool = False
+    ssm_heads: bool = False
+    moe_cap: bool = False
+
+    def span(self, n: int) -> Tuple[int, int]:
+        """This rank's ``[lo, hi)`` of ``n`` rows split over ``model``."""
+        per = n // self.model
+        return self.model_rank * per, (self.model_rank + 1) * per
+
+
+def _held(cfg, mesh) -> Dict[str, bool]:
+    """Which logical axes the weights shard over ``model`` under
+    ``serve_rules`` (``distribute_params``' layout)."""
+    from repro_torch.models import attention, layers, moe, ssm
+    from repro_torch.models.param import serve_rules, spec_for
+
+    rules = serve_rules()
+
+    def on(decl, dim):
+        spec = spec_for(decl, rules, mesh)
+        return len(spec) > dim and spec[dim] == "model"
+
+    held = {"vocab": on(layers.embed_plan(cfg)["tok"], 0)}
+    if cfg.n_heads:
+        a = attention.attn_plan(cfg)
+        held.update(heads=on(a["wq"], 1), kv_heads=on(a["wk"], 1))
+    if cfg.d_ff and cfg.family != "moe":
+        held["d_ff"] = on(layers.mlp_plan(cfg.d_model, cfg.d_ff)["gate"], 1)
+    if cfg.moe is not None:
+        g = moe.moe_plan(cfg)["gate"]
+        held.update(experts=on(g, 0), moe_d_ff=on(g, 2))
+    if cfg.ssm is not None:
+        s = ssm.ssm_plan(cfg)
+        held.update(d_inner=on(s["w_x"], 1), ssm_heads=on(s["w_dt"], 1))
+    return held
+
+
+def _build_layout(cfg, mesh, hint_map: Dict) -> Layout:
+    from repro_torch.models.param import mesh_shape
+
+    shape = mesh_shape(mesh)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    batch = hint_map.get("batch", ())
+    batch_axes = (batch,) if isinstance(batch, str) else tuple(batch)
+    if any(a not in shape or a == "model" for a in batch_axes):
+        raise ValueError(f"batch hint {batch!r}: not batch axes of the mesh "
+                         f"{shape}")
+    n_batch, batch_rank = 1, 0
+    for a in batch_axes:
+        n_batch, batch_rank = n_batch * shape[a], batch_rank * shape[a] \
+            + coord[a]
+
+    def hinted(name):
+        return hint_map.get(name) == "model"
+
+    held = _held(cfg, mesh)
+    flags = dict(held)
+    if cfg.n_heads:
+        flags["heads"] = hinted("heads")
+        if held["kv_heads"] and not held["heads"]:
+            raise NotImplementedError("kv heads sharded, q heads not")
+    if cfg.d_ff and cfg.family != "moe":
+        flags["d_ff"] = hinted("d_ff")
+    if cfg.moe is not None:
+        flags.update(experts=hinted("experts"),
+                     moe_d_ff=hinted("d_ff") and not hinted("experts"),
+                     moe_cap="moe_cap" in hint_map)
+    if cfg.ssm is not None:
+        if held["d_inner"] != held["ssm_heads"]:
+            raise NotImplementedError(
+                "the SSM's d_inner and its heads shard differently on this "
+                "mesh (the model axis divides one and not the other): not "
+                "ported (ROADMAP.md §1)")
+        if held["ssm_heads"] and cfg.ssm.n_groups != 1:
+            raise NotImplementedError("SSD heads sharded with n_groups > 1")
+        flags.update(d_inner=hinted("d_inner"),
+                     ssm_heads=hinted("ssm_heads"))
+    wrong = sorted(k for k in held if flags[k] != held[k])
+    if wrong:
+        raise ValueError(
+            f"the hints {hint_map} shard {[k for k in wrong if flags[k]]} "
+            f"and not {[k for k in wrong if not flags[k]]} over 'model', "
+            f"unlike the weights (serve_rules on {shape})")
+    return Layout(model=shape.get("model", 1),
+                  model_rank=coord.get("model", 0), batch_axes=batch_axes,
+                  n_batch=n_batch, batch_rank=batch_rank, **flags)
+
+
+def layout(cfg) -> Optional[Layout]:
+    """What this rank runs of ``cfg`` under the active hints (a
+    :class:`Layout`, built once per config, mesh and hint map), or None
+    outside a hints context."""
+    if not active():
+        return None
+    mesh, hint_map = _STATE["mesh"], _STATE["map"]
+    key = (cfg, mesh, tuple(sorted(hint_map.items())))
+    if key not in _LAYOUTS:
+        _LAYOUTS[key] = _build_layout(cfg, mesh, hint_map)
+    return _LAYOUTS[key]
+
+
+def _groups(axes) -> list:
+    mesh = _STATE["mesh"]
+    return [mesh.get_group(a) for a in axes]
+
+
+def all_reduce(x: torch.Tensor, axes=("model",)) -> torch.Tensor:
+    """Sum ``x`` over the ranks of the mesh ``axes`` in ``x``'s dtype (one
+    ``all_reduce`` an axis, each counted), in place; returns ``x``."""
+    global ALL_REDUCES
+    for g in _groups(axes):
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=g)
+        ALL_REDUCES += 1
+    return x
+
+
+def row_parallel(a: torch.Tensor, w: torch.Tensor,
+                 lay: Layout) -> torch.Tensor:
+    """``a @ w`` where ``w`` holds this rank's rows of the contraction,
+    all-reduced over ``model``.  On one rank the product is the unsharded
+    one (the all-reduce the identity); on several a bf16 or fp16 product's
+    partial sums are kept in float32 and rounded once, after the sum, as
+    one product rounds once."""
+    if lay.model == 1 or a.dtype == torch.float32:
+        return all_reduce(a @ w)
+    a2 = a.reshape(-1, a.shape[-1])
+    part = torch.mm(a2, w, out_dtype=torch.float32) if a.is_cuda \
+        else a2.float() @ w.float()
+    out = all_reduce(part).to(a.dtype)
+    return out.reshape(*a.shape[:-1], w.shape[-1])
+
+
+def all_gather(x: torch.Tensor, dim: int, axes=("model",)) -> torch.Tensor:
+    """Every rank's ``x`` over the mesh ``axes`` joined along ``dim`` in
+    mesh order (the first axis the outer one); one counted
+    ``all_gather`` an axis."""
+    global ALL_GATHERS
+    for g in reversed(_groups(axes)):
+        n = dist.get_world_size(g)
+        x = x.contiguous()
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        _gather_single(out, x, group=g)
+        ALL_GATHERS += 1
+        x = torch.cat(out.chunk(n), dim) if n > 1 else out
+    return x

@@ -1441,3 +1441,108 @@ def test_family_smoke_train_step_launches_k1_and_no_k3_k4(cuda, arch):
     assert after[:4] == before[:4]
     assert after[4] == before[4] + 1
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel serve path: a ("data", "model") mesh of nccl ranks
+# ---------------------------------------------------------------------------
+
+SHARDED_ARCHS = ("llama3.2-3b", "granite-moe-1b-a400m", "mamba2-130m")
+
+
+def _k34():
+    return (flash_attention.LAUNCHES, flash_attention.LAUNCHES_TC,
+            ssd_scan.LAUNCHES, ssd_scan.LAUNCHES_TC)
+
+
+def _sharded_smoke(am, data, model_, dtype):
+    """Smoke prefill (B=4, S=64) and 2 decode steps (into the prefill's
+    cache, a ring of 64 slots) of each arch on this rank's ``(data,
+    model_)`` mesh, on the same weights (seed 0) as the unsharded path run
+    here on the card; gathered results, K3/K4 launches of each path, and
+    the unsharded results."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import server
+    from repro_torch.utils.tree import tree_map
+
+    mesh = mesh_lib.make_tiny_mesh(data, model_)
+    out = {}
+    for arch in SHARDED_ARCHS:
+        cfg = get_smoke_config(arch).with_(dtype=dtype)
+        m = model_lib.build(cfg)
+        params = tree_map(lambda x: x.cuda(), m.init(
+            torch.Generator().manual_seed(0), "cpu"))
+        tokens = torch.from_numpy(np.random.default_rng(4).integers(
+            0, cfg.vocab, (4, 64))).cuda()
+        srv = server.shard_for_serving(m, params, mesh)
+        step = srv.make_serve_step(InputShape("s", 64, 4, "decode"))
+        plain_step = server.make_serve_step(m, InputShape("s", 64, 4,
+                                                          "decode"))
+        c0 = _k34()
+        logits, cache = srv.prefill(tokens)
+        c1 = _k34()
+        with torch.no_grad():
+            plain, pcache = m.prefill(params, tokens)
+        c2 = _k34()
+        tok = torch.argmax(plain[:, -1:], -1)
+        steps, plain_steps = [], []
+        for _ in range(2):
+            _, lg, cache = step(cache, tok)
+            _, plg, pcache = plain_step(params, pcache, tok)
+            steps.append(lg.full_tensor().float().cpu())
+            plain_steps.append(plg.float().cpu())
+            tok = torch.argmax(plg[:, -1:], -1)
+        out[arch] = dict(
+            logits=logits.full_tensor().float().cpu(),
+            plain=plain.float().cpu(), steps=steps, plain_steps=plain_steps,
+            k34=tuple(a - b for a, b in zip(c1, c0)),
+            k34_plain=tuple(a - b for a, b in zip(c2, c1)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sharded_serve_one_rank_is_bitwise_the_unsharded_path(cuda, dtype):
+    """A (1, 1) mesh of one nccl rank: the smoke prefill and decode steps
+    of the dense, moe and ssm families bitwise the unsharded path on the
+    same weights, with the same K3/K4 launches (every collective is the
+    identity at width 1)."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    res = mesh_lib.run_local(_sharded_smoke, 1, 1, 1, dtype, device="cuda",
+                             timeout=600)[0]
+    for arch, r in res.items():
+        assert torch.equal(r["logits"], r["plain"]), arch
+        for a, b in zip(r["steps"], r["plain_steps"]):
+            assert torch.equal(a, b), arch
+        assert r["k34"] == r["k34_plain"] and sum(r["k34"]) == 2, (
+            arch, r["k34"])
+
+
+@pytest.mark.cuda
+def test_sharded_serve_over_every_card(cuda):
+    """Four cards as (2, 2) and (4, 1) meshes: the smoke prefill and decode
+    steps in float32 within 1e-4 of the max abs logit of the unsharded
+    path on one card, every rank bitwise the others, K3/K4 launched on
+    every rank.  Skips below four cards."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    for data, model_ in ((2, 2), (4, 1)):
+        ranks = mesh_lib.run_local(_sharded_smoke, 4, data, model_,
+                                   "float32", device="cuda", timeout=600)
+        for arch in SHARDED_ARCHS:
+            r0 = ranks[0][arch]
+            want = r0["plain"]
+            err = float((r0["logits"] - want).abs().max()
+                        / want.abs().max())
+            assert err < 1e-4, (data, model_, arch, err)
+            for r in ranks:
+                assert torch.equal(r[arch]["logits"], r0["logits"])
+                for a, b in zip(r[arch]["steps"], r0["steps"]):
+                    assert torch.equal(a, b)
+                assert sum(r[arch]["k34"]) == 2, (arch, r[arch]["k34"])
