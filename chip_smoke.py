@@ -261,7 +261,18 @@ Phases, in order; any failure raises and exits non-zero:
               unsharded): logits and every cache field bitwise, K3/K4
               launches a prefill 28 / 24 / 24; ms a prefill and a step,
               peak GB; with four cards, llama3.2-3b over (1, 4) and (2, 2)
-              against the one-rank logits.
+              against the one-rank logits;
+41. sharded train — ``train.trainer.shard_for_training`` (FSDP over
+              data, tensor parallelism over model) on a one-rank nccl (1,
+              1) mesh: llama3.2-3b (cut to 8 layers), granite-moe-1b-a400m
+              and mamba2-130m at full width, bf16, B=8 S=256, 4 agents, 3
+              steps in turns with the plain step on the same weights and
+              draws: params, moments and metrics bitwise, one mapped K1
+              launch a step, the step's peak within 1.05x the plain's; ms
+              a step; then K1's mapped instance at llama3.2-3b's rank-0 row
+              of a (2, 2) layout: bitwise its plain version and the
+              unmapped (1, d) launch's noise at the same elements, timed
+              against the unmapped launch of the same row.
 
 ``python3 chip_smoke.py --agent-mesh-across-cards`` runs phases 1, 2 and
 31's mesh over every visible card alone, then the card test of the mesh
@@ -271,7 +282,15 @@ over every card (a machine with several cards), and writes
 llama3.2-3b over (1, 4) and (2, 2)), then deepseek-67b at full width over
 (1, 4) and cut to 4 layers against one card's unsharded run, then the card
 test of the sharded serve over every card, and writes
-``chiprun_out/sharded_serve_cards.json``.
+``chiprun_out/sharded_serve_cards.json``.  ``python3 chip_smoke.py
+--sharded-train-across-cards`` (four cards) runs phases 1 and 2, then
+llama3.2-3b at full width and depth through the sharded train step on one
+card's (1, 1) mesh and over (4, 1), (2, 2) and (1, 4), 3 steps each (ms a
+step, GB held and peak a rank, the collectives a step, every rank's
+metrics bitwise, loss, grad norm and update norm within 2e-2 of the one
+card's), then one more step a rank under the profiler (device busy time,
+the nccl kernels' part, the top kernels), and writes
+``chiprun_out/sharded_train_cards.json``.
 
 It prints the card line, then one ``{"kernels": [...]}`` line (K1 as its two
 bodies, ``ota_fused_wide`` and ``ota_fused_tall``), and as its last
@@ -1418,6 +1437,7 @@ def reset_counts():
     for mod, attr in counters().values():
         setattr(mod, attr, 0)
     ota_fused.LAUNCHES_WIDE = ota_fused.LAUNCHES_TALL = 0
+    ota_fused.LAUNCHES_MAPPED = 0
     flash_attention.LAUNCHES_BIDIR = flash_attention.LAUNCHES_TC_BIDIR = 0
 
 
@@ -5189,8 +5209,420 @@ def phase_sharded_serve(torch):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 41: the sharded train step on a ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+SHARD_TRAIN = (("llama3.2-3b", 8), (GRANITE, None), ("mamba2-130m", None))
+SHARD_TRAIN_STEPS = 3
+SHARD_TRAIN_PEAK = 1.05        # the sharded step's peak against the plain's
+SHARD_TRAIN_MESHES = ((4, 1), (2, 2), (1, 4))   # llama3.2-3b on four cards
+TRAIN_ACROSS_CARDS = "--sharded-train-across-cards"
+K1_MAP_WINDOW = 2 ** 22
+
+
+def shard_train_setup(torch, arch, n_layers):
+    """The model (bf16, full width, cut to ``n_layers`` where given), the
+    OTA train config (``TRAIN_AGENTS`` agents, bf16 wire) and the batches
+    (B = ``TRAIN_BATCH``, S = ``TRAIN_SEQ``) of phase 41."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import model as model_lib
+
+    cfg = get_config(arch).with_(dtype="bfloat16")
+    if n_layers:
+        cfg = cfg.with_(n_layers=n_layers)
+    m = model_lib.build(cfg)
+    tcfg = train_config("ota", SHARD_TRAIN_STEPS, lr=1e-4, warmup=2,
+                        wire_dtype="bfloat16")
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH), "cuda")
+    return m, tcfg, [data.batch(i) for i in range(SHARD_TRAIN_STEPS)]
+
+
+def local_state(state):
+    """A sharded train state's local tensors, as a plain state."""
+    from repro_torch.models.param import local_params
+
+    st = state.opt_state
+    return state._replace(params=local_params(state.params),
+                          opt_state=st._replace(mu=local_params(st.mu),
+                                                nu=local_params(st.nu)))
+
+
+class StepRun(NamedTuple):
+    state: object
+    metrics: dict
+    ms: float             # CUDA events around the step
+    host_ms: float        # the host's time until the step returned
+    peak_gb: float        # the step's peak above what was allocated before
+    k1: int               # K1 launches
+    k1_mapped: int        # of them with a counter map
+    collectives: dict     # ``shard_hints.counts()``: what the model issued
+
+
+def train_step_on_card(torch, step, state, batch):
+    """One train step, timed and counted (a ``StepRun``)."""
+    from repro_torch.kernels import ota_fused
+    from repro_torch.utils import shard_hints
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    shard_hints.reset_counts()
+    host = []
+
+    def run():
+        t = time.perf_counter()
+        out = step(state, batch)
+        host.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    (state, met), ms = timed(torch, run)
+    return StepRun(state, met, ms, host[0],
+                   (torch.cuda.max_memory_allocated() - base) / 1e9,
+                   read_counts()["ota_fused"], ota_fused.LAUNCHES_MAPPED,
+                   shard_hints.counts())
+
+
+def sharded_train_one(torch, mesh, arch, n_layers):
+    """Phase 41 for one config on this rank: the plain step and the sharded
+    step on a (1, 1) mesh from the same weights, in turns, the same
+    batches and draws; params, moments and metrics bitwise, one (mapped)
+    K1 launch a sharded step, ms and peak GB of each."""
+    from repro_torch.train import trainer
+
+    m, tcfg, batches = shard_train_setup(torch, arch, n_layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = trainer.init_state(m, tcfg, device="cuda")
+    sharded, step = trainer.shard_for_training(
+        m, tcfg, trainer.init_state(m, tcfg, device="cuda"), mesh)
+    plain_step = trainer.make_train_step(m, tcfg)
+    rec = {k: [] for k in ("plain_ms", "ms", "plain_peak_gb", "peak_gb",
+                           "metrics", "collectives")}
+    k1 = mapped = 0
+    for i, batch in enumerate(batches):
+        p = train_step_on_card(torch, plain_step, plain, batch)
+        plain = p.state
+        check(p.k1 == 1, f"{arch}: the plain step made {p.k1} K1 launches")
+        check(not any(p.collectives.values()),
+              f"{arch}: the plain step issued collectives {p.collectives}")
+        s = train_step_on_card(torch, step, sharded, batch)
+        sharded = s.state
+        check(s.k1 == 1 and s.k1_mapped == 1,
+              f"{arch}: the sharded step made {s.k1} K1 launches "
+              f"({s.k1_mapped} mapped), expected one mapped launch")
+        check(state_equal(torch, plain, local_state(sharded)),
+              f"{arch}: step {i}: the sharded state is not bitwise the "
+              f"plain step's")
+        check(all(torch.equal(p.metrics[k], s.metrics[k])
+                  for k in p.metrics),
+              f"{arch}: step {i}: metrics differ: {p.metrics} {s.metrics}")
+        k1, mapped = k1 + s.k1, mapped + s.k1_mapped
+        rec["plain_ms"].append(p.ms)
+        rec["ms"].append(s.ms)
+        rec["plain_peak_gb"].append(p.peak_gb)
+        rec["peak_gb"].append(s.peak_gb)
+        rec["metrics"].append({k: v.item() for k, v in s.metrics.items()})
+        rec["collectives"].append(s.collectives)
+    ratio = max(rec["peak_gb"]) / max(rec["plain_peak_gb"])
+    check(ratio <= SHARD_TRAIN_PEAK,
+          f"{arch}: the sharded step's peak {max(rec['peak_gb']):.2f} GB is "
+          f"{ratio:.3f} x the plain step's")
+    rec.update(peak_ratio=ratio, k1_launches=k1, k1_mapped=mapped,
+               n_layers=m.cfg.n_layers,
+               held_gb=torch.cuda.memory_allocated() / 1e9)
+    del plain, sharded, step, plain_step, p, s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+class Rank0Of22:
+    """Rank 0 of a ("data", "model") (2, 2) mesh, for the layout alone
+    (``models.param.shard_block`` reads these three)."""
+
+    shape = {"data": 2, "model": 2}
+    mesh_dim_names = ("data", "model")
+
+    @staticmethod
+    def get_coordinate():
+        return [0, 0]
+
+
+def k1_map_row(torch):
+    """K1's mapped instance at llama3.2-3b's (full width and depth) rank-0
+    row of a (2, 2) ``train_rules`` layout, the map built from the plan:
+    its noise bitwise the unmapped launch's over the whole (1, d) row at
+    the same elements and its plain version's, on windows (the first, one
+    across each of two segment joins, the last); agg with noise over a
+    random row (f32 and the bf16 wire) bitwise its plain version there;
+    then timed against the unmapped launch of the same row, its byte bound,
+    ``torch.mv`` and the plain version on a window."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ota
+    from repro_torch.kernels import ota_fused, ref
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.param import shard_block, spec_for, train_rules
+    from repro_torch.utils.tree import flatten_paths
+
+    mesh = Rank0Of22()
+    decls = flatten_paths(flatten_paths(model_lib.build(
+        get_config("llama3.2-3b")).plan))
+    cmap = ota.shard_counter_map(
+        [dc.shape for dc in decls.values()],
+        [shard_block(dc.shape, spec_for(dc, train_rules(), mesh), mesh)
+         for dc in decls.values()])
+    d = sum(v.numel() for v in (torch.empty(dc.shape, device="meta")
+                                for dc in decls.values()))
+    n, w = cmap.n, K1_MAP_WINDOW
+    table = cmap.table("cuda")
+    offs = cmap.host[:, 0].tolist()
+    joins = [o for o in offs[1:] if w // 2 <= o <= n - w // 2]
+    windows = [(0, w)] + [(o - w // 2, o + w // 2) for o in joins[:2]] + \
+        [(n - w, n)]
+    ones = torch.ones(1, device="cuda")
+    seed = 123457
+    kw = dict(sigma=float(ref.f32(1e-3) / TRAIN_AGENTS),
+              scale=1.0 / RAYLEIGH_MH, seed=seed, with_noise=True)
+    idx = [ref.counter_map_index(table, n, lo, hi) for lo, hi in windows]
+    whole = ota_fused.fused_aggregate(torch.zeros(1, d, device="cuda"), ones,
+                                      sigma=1.0, scale=1.0, seed=seed)
+    want_noise = [whole[i] for i in idx]
+    del whole
+    torch.cuda.empty_cache()
+    noise = ota_fused.fused_aggregate(torch.zeros(1, n, device="cuda"), ones,
+                                      sigma=1.0, scale=1.0, seed=seed,
+                                      counter_map=cmap)
+    for (lo, hi), i, wn in zip(windows, idx, want_noise):
+        check(torch.equal(noise[lo:hi], wn),
+              f"K1 mapped: noise of [{lo}, {hi}) not the unmapped (1, {d}) "
+              f"launch's at the same elements")
+        check(torch.equal(noise[lo:hi], ref.counter_noise_at(seed, i)),
+              f"K1 mapped: noise of [{lo}, {hi}) not its plain version's")
+    del noise, want_noise
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    row = torch.randn(1, n, device="cuda", generator=gen)
+    rows = {}
+    for wire in ("f32", "bf16"):
+        g = row.to(torch.bfloat16) if wire == "bf16" else row
+        out = ota_fused.fused_aggregate(g, ones, counter_map=cmap, **kw)
+        err = 0.0
+        for (lo, hi), i in zip(windows, idx):
+            want = ref.ota_fused_ref(g[:, lo:hi], ones,
+                                     ref.counter_noise_at(seed, i),
+                                     sigma=kw["sigma"], scale=kw["scale"])
+            check(torch.equal(out[lo:hi], want),
+                  f"K1 mapped {wire}: [{lo}, {hi}) not bitwise its plain "
+                  f"version")
+            err = max(err, (out[lo:hi] - want).abs().max().item())
+        del out
+        ms = device_ms(torch, lambda: ota_fused.fused_aggregate(
+            g, ones, counter_map=cmap, **kw), iters=K1_ROW_TIMES, warmup=1,
+            sleep_cycles=0)
+        unmapped = device_ms(torch, lambda: ota_fused.fused_aggregate(
+            g, ones, **kw), iters=K1_ROW_TIMES, warmup=1, sleep_cycles=0)
+        vec = ones.to(g.dtype)
+        lib = device_ms(torch, lambda: torch.mv(g.t(), vec),
+                        iters=K1_ROW_TIMES, warmup=1, sleep_cycles=0)
+        lo, hi = windows[-1]
+        plain = device_ms(torch, lambda: ref.ota_fused_ref(
+            g[:, lo:hi], ones, ref.counter_noise_at(seed, idx[-1]),
+            sigma=kw["sigma"], scale=kw["scale"]), iters=K1_ROW_TIMES,
+            warmup=1, sleep_cycles=0)
+        bound, by = k1_bound(1, n, 2 if wire == "bf16" else 4, "agg")
+        rows[wire] = {"A": 1, "P": n, "d": d, "segments": len(cmap),
+                      "wire": wire, "ms": ms, "unmapped_ms": unmapped,
+                      "bound_ms": bound, "bound_by": by, "library_ms": lib,
+                      "plain_ms_window": plain, "window": hi - lo,
+                      "max_abs_err": err}
+        log(f"K1 mapped agg (1, {n}) {wire} wire, llama3.2-3b's rank-0 row "
+            f"of (2, 2) ({len(cmap)} segments, d = {d}): {ms:.3f} ms "
+            f"against {unmapped:.3f} ms unmapped; byte bound {bound:.3f} ms "
+            f"({by}, {bound / ms:.1%} of it); torch.mv {lib:.3f} ms; plain "
+            f"version on a {hi - lo} window {plain:.3f} ms; "
+            f"{len(windows)} windows bitwise, noise bitwise the unmapped "
+            f"launch's")
+        del g
+    del row
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sharded_train_rank(mesh_unused):
+    """Phase 41 on one nccl rank (``launch.mesh.run_local``)."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = warm_mesh(torch, mesh_lib.make_tiny_mesh(1, 1))
+    out = {arch: sharded_train_one(torch, mesh, arch, n)
+           for arch, n in SHARD_TRAIN}
+    out["map"] = k1_map_row(torch)
+    return out
+
+
+def phase_sharded_train(torch):
+    """Phase 41: the sharded train step (``train.trainer.
+    shard_for_training``: FSDP over data, tensor parallelism over model,
+    each data shard one agent) on a one-rank nccl (1, 1) mesh at full
+    width, bf16, B=8 S=256, 4 agents: llama3.2-3b (cut to 8 layers, so
+    two states fit beside a step), granite-moe-1b-a400m and mamba2-130m,
+    3 steps in turns with the plain step on the same weights and draws:
+    params, moments and metrics bitwise, one mapped K1 launch a step, the
+    step's peak within 1.05x the plain step's; then K1's mapped instance
+    at a non-trivial map (``k1_map_row``)."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    t0 = phase("41. the sharded train step: dense, moe and ssm at full "
+               "width on a (1, 1) nccl mesh, bitwise the plain step")
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = mesh_lib.run_local(sharded_train_rank, 1, device="cuda",
+                             timeout=900)[0]
+    for arch, _ in SHARD_TRAIN:
+        r = res[arch]
+        log(f"{arch} ({r['n_layers']} layers): sharded step "
+            f"{fmt_ms(r['ms'])} ms (plain {fmt_ms(r['plain_ms'])}), step "
+            f"peak {max(r['peak_gb']):.2f} GB above the held "
+            f"{r['held_gb']:.2f} GB (plain {max(r['plain_peak_gb']):.2f}, "
+            f"{r['peak_ratio']:.4f}x); {r['k1_launches']} K1 launches "
+            f"({r['k1_mapped']} mapped); collectives a step "
+            f"{r['collectives'][-1]}; params, moments and metrics "
+            f"bitwise the plain step; loss "
+            f"{[round(m['loss'], 4) for m in r['metrics']]}")
+    RECORD["sharded_train"] = res
+    done("sharded train", t0)
+    return res
+
+
+def sharded_train_cards_rank(mesh_unused, dims):
+    """llama3.2-3b at full width and depth on a ``dims`` mesh of this
+    host's cards: the weights drawn whole on every rank (the same seed),
+    laid out, ``SHARD_TRAIN_STEPS`` sharded steps; ms a step, metrics,
+    K1 launches, the collectives each step issued, the host's time until
+    each step returned (the launches issued), GB held between steps
+    and peak GB a rank; then one more step under the profiler (``profile``:
+    this rank's device time in kernels and copies, its share of the median
+    step, the nccl kernels' part of it, the rest and the top kernels)."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.train import trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = warm_mesh(torch, mesh_lib.make_tiny_mesh(*dims))
+    m, tcfg, batches = shard_train_setup(torch, "llama3.2-3b", None)
+    state, step = trainer.shard_for_training(
+        m, tcfg, trainer.init_state(m, tcfg, device="cuda"), mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    ms, host_ms, metrics, collectives = [], [], [], []
+    for batch in batches:
+        r = train_step_on_card(torch, step, state, batch)
+        check(r.k1 == r.k1_mapped == 1,
+              f"{dims}: {r.k1} K1 launches ({r.k1_mapped} mapped), "
+              f"expected one mapped launch")
+        state = r.state
+        ms.append(r.ms)
+        host_ms.append(r.host_ms)
+        metrics.append({k: v.item() for k, v in r.metrics.items()})
+        collectives.append(r.collectives)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    kernels, _, _ = device_kernels(torch, lambda: step(state, batches[0]))
+    # the profiler also puts each collective's "nccl:..." annotation on the
+    # device's timeline, spanning its kernel: kernels and copies only here
+    kernels = [k for k in kernels if not k.key.startswith("nccl:")]
+    nccl = [k for k in kernels if "nccl" in k.key.lower()]
+    busy_us = sum(k.device_us for k in kernels)
+    nccl_us = sum(k.device_us for k in nccl)
+    ms_step = statistics.median(ms)
+    profile = {"busy_ms": busy_us / 1e3,
+               "busy_share": busy_us / (ms_step * 1e3),
+               "nccl_ms": nccl_us / 1e3,
+               "nccl_launches": sum(k.count for k in nccl),
+               "compute_ms": (busy_us - nccl_us) / 1e3,
+               "compute_share": (busy_us - nccl_us) / (ms_step * 1e3),
+               "top": [{"kernel": k.key[:80], "ms": k.device_us / 1e3,
+                        "calls": k.count} for k in kernels[:8]]}
+    return {"ms": ms, "host_ms": host_ms, "metrics": metrics,
+            "collectives": collectives, "held_gb": held, "peak_gb": peak,
+            "profile": profile}
+
+
+def sharded_train_across_cards():
+    """Phases 1 and 2, then llama3.2-3b at full width and depth trained
+    through the sharded step on one card's (1, 1) mesh and over four
+    cards at (4, 1), (2, 2) and (1, 4), the same weights, batches and
+    draws: every rank's metrics bitwise the same, loss, grad norm and
+    update norm within 2e-2 of the one card's; ms a step, GB held and peak
+    GB a rank, the collectives a step and a profiled step a rank."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    smi = phase_card(torch)
+    phase_build()
+    w = torch.cuda.device_count()
+    check(w >= 4, f"{TRAIN_ACROSS_CARDS} needs four cards, found {w}")
+    t0 = phase("41b. llama3.2-3b trained over (4, 1), (2, 2) and (1, 4)")
+    one = mesh_lib.run_local(sharded_train_cards_rank, 1, (1, 1),
+                             device="cuda", timeout=900)[0]
+    rec = {"(1, 1)": one}
+    log(f"llama3.2-3b (1, 1), one card: {fmt_ms(one['ms'])} ms a step, "
+        f"{one['held_gb']:.2f} GB held, peak {one['peak_gb']:.2f} GB")
+    log_train_profile("(1, 1)", 0, one)
+    for dims in SHARD_TRAIN_MESHES:
+        ranks = mesh_lib.run_local(sharded_train_cards_rank, 4, dims,
+                                   device="cuda", timeout=900)
+        check(all(r["metrics"] == ranks[0]["metrics"] for r in ranks),
+              f"{dims}: the ranks' metrics differ")
+        errs = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(
+            ranks[0]["metrics"], one["metrics"]))
+            for k in ("loss", "grad_norm", "update_norm")}
+        check(max(errs.values()) < 2e-2,
+              f"{dims}: against one card {errs}")
+        rec[str(dims)] = {"ranks": ranks, "rel_err_vs_one_card": errs}
+        log(f"llama3.2-3b {dims}: {fmt_ms(ranks[0]['ms'])} ms a step; held "
+            f"{fmt_ms([r['held_gb'] for r in ranks])} GB, peak "
+            f"{fmt_ms([r['peak_gb'] for r in ranks])} GB a rank; metrics "
+            f"bitwise across ranks; against one card {errs}")
+        for i, r in enumerate(ranks):
+            log_train_profile(str(dims), i, r)
+    done("sharded train over four cards", t0)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "sharded_train_cards.json").write_text(json.dumps(
+        {"card": smi, "world": w, **rec, **RECORD}, indent=1, default=str))
+    log(smi)
+    return 0
+
+
 def fmt_ms(xs):
     return "/".join(f"{x:.1f}" for x in xs)
+
+
+def log_train_profile(mesh, rank, r):
+    """One rank's collectives a step and its profiled step."""
+    p = r["profile"]
+    log(f"  {mesh} rank {rank}: collectives a step {r['collectives'][-1]}; "
+        f"the host returned from the step after {fmt_ms(r['host_ms'])} ms; "
+        f"profiled step: device busy {p['busy_ms']:.1f} ms "
+        f"({p['busy_share']:.1%} of the median step), nccl kernels "
+        f"{p['nccl_ms']:.1f} ms in {p['nccl_launches']} launches (their "
+        f"wait for the other ranks included), the rest "
+        f"{p['compute_ms']:.1f} ms ({p['compute_share']:.1%})"
+        + ("; top kernels:" if rank == 0 else ""))
+    if rank == 0:
+        for t in p["top"]:
+            log(f"    {t['ms']:8.2f} ms x{t['calls']:<5d} {t['kernel']}")
 
 
 def theta_hist_equal(torch, a, b):
@@ -5261,6 +5693,7 @@ def main():
     fig45_rows, floor_k1 = phase_fig45(torch)
     theory_rows = phase_theory(torch)
     sharded = phase_sharded_serve(torch)
+    sharded_train = phase_sharded_train(torch)
     train_phase = {GRANITE: "33", "mamba2-130m": "34", ZAMBA: "36",
                    VISION: "36", SEAMLESS: "36"}
     RECORD["seconds"] = time.perf_counter() - t_all
@@ -5339,6 +5772,14 @@ def main():
                           launches_from=f"{TRAIN_STEPS} OTA train steps, "
                                         f"llama3.2-3b (phase 27)"),
         "train_row_f32": train["k1_row"]["f32"],
+        "mapped_row": dict(
+            sharded_train["map"]["bf16"],
+            launches=sum(sharded_train[a]["k1_mapped"]
+                         for a, _ in SHARD_TRAIN),
+            launches_from=f"{SHARD_TRAIN_STEPS} sharded train steps of "
+                          f"each of {[a for a, _ in SHARD_TRAIN]} on a (1, "
+                          f"1) mesh (phase 41)"),
+        "mapped_row_f32": sharded_train["map"]["f32"],
         "train_rows_by_arch": {
             arch: dict(r["k1_row"]["bf16"], launches=r["k1_launches"],
                        launches_from=f"{FAMILY_TRAIN_STEPS} OTA train "
@@ -5551,5 +5992,7 @@ if __name__ == "__main__":
         sys.exit(resume_child())
     if sys.argv[1:] == [SHARDED_ACROSS_CARDS]:
         sys.exit(sharded_across_cards())
+    if sys.argv[1:] == [TRAIN_ACROSS_CARDS]:
+        sys.exit(sharded_train_across_cards())
     sys.exit(mesh_across_cards() if sys.argv[1:] == [MESH_ACROSS_CARDS]
              else main())

@@ -59,7 +59,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -756,7 +756,8 @@ def example_weights(gains: torch.Tensor, global_batch: int, *,
 
 
 def add_awgn(cfg: OTAConfig, seed: Seed, grad, n_agents: int, *,
-             backend: str = "auto"):
+             backend: str = "auto",
+             counter_map: Optional[ota_fused.CounterMap] = None):
     """The server tail of the channel-weighted loss: ``grad`` (a nested dict
     equal to ``(1/N) sum_i h_i g_i``) plus ``n_k / N``, times the debias
     normaliser (``N * update_scale`` when set, else ``1 / m_h`` under
@@ -767,7 +768,13 @@ def add_awgn(cfg: OTAConfig, seed: Seed, grad, n_agents: int, *,
     one K1 launch; ``"torch"`` (and ``"auto"`` for CPU tensors) is K1's
     plain version.  The noise is K1's counter stream keyed on ``seed``;
     there is no other stream.  Returns the same tree, each leaf in its
-    dtype."""
+    dtype.
+
+    On a mesh ``grad`` is this rank's shards of every leaf and
+    ``counter_map`` (:func:`shard_counter_map`) gives each element of
+    their row its position in the whole flattened gradient, so each
+    element takes the noise the unsharded step adds to it (one K1 launch,
+    its mapped instance, on the card)."""
     flat = flatten_paths(grad)
     dev = next(iter(flat.values())).device
     be = AggregateSpec(backend=backend).resolved_backend(dev)
@@ -786,9 +793,14 @@ def add_awgn(cfg: OTAConfig, seed: Seed, grad, n_agents: int, *,
     if be == "cuda":
         u = ota_fused.fused_aggregate(row, ones, sigma=sigma, scale=scale,
                                       seed=seed, with_noise=noisy,
-                                      wire_dtype=wire)
+                                      wire_dtype=wire,
+                                      counter_map=counter_map)
     else:
-        noise = ref.counter_noise(seed, row.shape[1], dev) if noisy else None
+        noise = None
+        if noisy:
+            noise = ref.counter_noise(seed, row.shape[1], dev) \
+                if counter_map is None \
+                else ref.counter_noise_at(seed, counter_map.counters(dev))
         u = ref.ota_fused_ref(row, ones, noise, sigma=sigma, scale=scale)
     del row
     out, off = {}, 0
@@ -796,3 +808,40 @@ def add_awgn(cfg: OTAConfig, seed: Seed, grad, n_agents: int, *,
         out[k] = u[off:off + g.numel()].reshape(g.shape).to(g.dtype)
         off += g.numel()
     return replace_paths(grad, out)
+
+
+def shard_counter_map(global_shapes: Sequence[Sequence[int]],
+                      blocks: Sequence[Tuple[Sequence[int], Sequence[int]]]
+                      ) -> ota_fused.CounterMap:
+    """The counter map of a row made of one block of each leaf: leaf ``i``
+    of the whole gradient has shape ``global_shapes[i]`` (the leaves in
+    the JAX package's order, so leaf ``i`` starts at the sum of the sizes
+    before it in the flat gradient) and this rank holds the block
+    ``blocks[i] = (offsets, local shape)`` of it.  Each segment's
+    dimensions are the block's, with the trailing ones it holds whole
+    merged (strides in the whole leaf), so a whole leaf is one segment
+    of one dimension and the map of a one-rank mesh draws each element
+    at its own index."""
+    segments, row, start = [], 0, 0
+    for shape, (offsets, local) in zip(global_shapes, blocks):
+        strides = [math.prod(shape[d + 1:]) for d in range(len(shape))]
+        base = start + sum(o * t for o, t in zip(offsets, strides))
+        dims: List[List[int]] = []        # [size, stride], outer first
+        for size, stride in zip(local, strides):
+            if size == 1:
+                continue
+            dims.append([size, stride])
+        merged: List[List[int]] = []
+        for size, stride in reversed(dims):
+            if merged and stride == merged[0][0] * merged[0][1]:
+                merged[0] = [size * merged[0][0], merged[0][1]]
+            else:
+                merged.insert(0, [size, stride])
+        if not merged:
+            merged = [[1, 1]]
+        count = math.prod(local)
+        segments.append((row, base, [m[0] for m in merged],
+                         [m[1] for m in merged]))
+        row += count
+        start += math.prod(shape)
+    return ota_fused.CounterMap(segments)

@@ -213,3 +213,20 @@ def train_state_from_jax(state: Any, device: DeviceLike = None):
                               device=dev),
             mu=moments(opt.mu), nu=moments(opt.nu)),
         step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32))
+
+
+def train_state_to_numpy(state: Any) -> Dict[str, Any]:
+    """A port ``TrainState`` (a sharded one's DTensors gathered, so every
+    rank of the mesh must call it) -> ``{"params": {path: array}, "mu":
+    .., "nu": .., "step": int, "opt_step": int}``, the arrays copies in
+    their tensors' dtypes (:func:`tensor_to_array`)."""
+    from repro_torch.utils.tree import flatten_paths
+
+    def arrays(flat):
+        return {k: np.array(tensor_to_array(_whole(v)))
+                for k, v in flat.items()}
+
+    opt = state.opt_state
+    return {"params": arrays(flatten_paths(state.params)),
+            "mu": arrays(opt.mu), "nu": arrays(opt.nu),
+            "step": int(state.step), "opt_step": int(opt.step)}

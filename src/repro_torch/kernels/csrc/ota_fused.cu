@@ -146,13 +146,14 @@ __device__ __forceinline__ uint32_t load_seed(const Args& a, int lane) {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// Noise, scale and the mode's update for element j of lane `lane`.
+// Noise, scale and the mode's update for element j of lane `lane`, the noise
+// drawn at counter `ctr`.
 template <int MODE, bool NOISE>
-__device__ __forceinline__ void finish(const Args& a, int lane, unsigned long long j,
-                                       float acc) {
+__device__ __forceinline__ void finish_at(const Args& a, int lane, unsigned long long j,
+                                          uint32_t ctr, float acc) {
   if (NOISE) {
     const float sigma = a.sigma_ptr ? a.sigma_ptr[lane] : a.sigma;
-    const float n = counter_normal(static_cast<uint32_t>(j), load_seed(a, lane));
+    const float n = counter_normal(ctr, load_seed(a, lane));
     acc = __fadd_rn(acc, __fmul_rn(sigma, n));
   }
   const float s0 = a.scale_ptr ? a.scale_ptr[lane] : a.scale;
@@ -179,6 +180,13 @@ __device__ __forceinline__ void finish(const Args& a, int lane, unsigned long lo
   }
 }
 
+// The unmapped epilogue: the noise counter is the element's own index.
+template <int MODE, bool NOISE>
+__device__ __forceinline__ void finish(const Args& a, int lane, unsigned long long j,
+                                       float acc) {
+  finish_at<MODE, NOISE>(a, lane, j, static_cast<uint32_t>(j), acc);
+}
+
 // ----- the wide body ----------------------------------------------------------
 
 // LANES = false is the wide kernel as it was before lanes: with a lane
@@ -199,6 +207,60 @@ __global__ void ota_fused_wide(Args a) {
     acc = __fadd_rn(acc, __fmul_rn(h[i], gi));
   }
   finish<MODE, NOISE>(a, lane, j, acc);
+}
+
+// ----- the wide body under a counter map ------------------------------------------
+
+// A counter map (kernels/ota_fused.py::CounterMap): one row of kMapCols int64
+// a segment, [offset in the row, base counter, sizes (kMapDims, the last
+// fastest), global strides (kMapDims)], the segments in row order.  Element
+// j of the row lies in the last segment whose offset is <= j; its local
+// index r = j - offset, taken row-major over the sizes as (i_0, .., i_3),
+// draws the noise of counter base + sum_d i_d * stride_d, modulo 2^32 (the
+// wrapper checks that no counter reaches 2^32, and a segment holds fewer
+// than 2^32 elements, so 32-bit arithmetic is exact).  The plain version is
+// kernels/ref.py::counter_map_index.
+constexpr int kMapDims = 4;
+constexpr int kMapCols = 2 + 2 * kMapDims;
+
+__device__ __forceinline__ uint32_t map_counter(const long long* __restrict__ m, int n_seg,
+                                                unsigned long long j) {
+  int lo = 0, hi = n_seg - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (static_cast<unsigned long long>(__ldg(m + mid * kMapCols)) <= j) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  const long long* seg = m + lo * kMapCols;
+  uint32_t r = static_cast<uint32_t>(j - static_cast<unsigned long long>(__ldg(seg)));
+  uint32_t c = static_cast<uint32_t>(__ldg(seg + 1));
+#pragma unroll
+  for (int d = kMapDims - 1; d >= 0; --d) {
+    const uint32_t size = static_cast<uint32_t>(__ldg(seg + 2 + d));
+    const uint32_t stride = static_cast<uint32_t>(__ldg(seg + 2 + kMapDims + d));
+    c += (r % size) * stride;
+    r /= size;
+  }
+  return c;
+}
+
+// Agg mode, one lane: the wide body's fold and epilogue, the noise at the
+// mapped counter (a sharded gradient's row of shards).
+template <typename T, bool NOISE>
+__global__ void ota_fused_wide_mapped(Args a, const long long* __restrict__ map, int n_seg) {
+  const unsigned long long j =
+      static_cast<unsigned long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= a.n_params) return;
+  const T* __restrict__ g = static_cast<const T*>(a.g);
+  float acc = 0.0f;
+  for (int i = 0; i < a.n_agents; ++i) {
+    const float gi = to_f32(g[static_cast<unsigned long long>(i) * a.n_params + j]);
+    acc = __fadd_rn(acc, __fmul_rn(a.h[i], gi));
+  }
+  finish_at<kModeAgg, NOISE>(a, 0, j, NOISE ? map_counter(map, n_seg, j) : 0u, acc);
 }
 
 // ----- mbarriers and asynchronous copies (the tall body) ------------------------
@@ -531,6 +593,46 @@ extern "C" int ota_fused_launch(int body, int mode, int wire_bf16, int with_nois
                      : launch_type<float>(body, mode, with_noise != 0, t, n_lanes, threads, st,
                                           a);
   if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1's agg mode on the wide body, one lane, with the noise of element j drawn
+// at the counter `map` gives it (n_seg segments; see map_counter).  The other
+// arguments are ota_fused_launch's.  Returns the cudaGetLastError() code after
+// the launch, or cudaErrorInvalidValue for an empty map or stack.
+extern "C" int ota_fused_mapped_launch(int wire_bf16, int with_noise, const void* g,
+                                       const float* h, int n_agents,
+                                       unsigned long long n_params, float* out, float sigma,
+                                       float scale, const long long* seed_ptr,
+                                       unsigned int seed_val, const float* rescale_ptr,
+                                       const long long* map, int n_seg, int threads,
+                                       void* stream) {
+  if (n_agents < 1 || n_params < 1 || n_seg < 1 || map == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.g = g;
+  a.h = h;
+  a.n_agents = n_agents;
+  a.n_params = n_params;
+  a.out0 = out;
+  a.sigma = sigma;
+  a.scale = scale;
+  a.seed_ptr = seed_ptr;
+  a.seed_val = seed_val;
+  a.rescale_ptr = rescale_ptr;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid = grid_for(n_params, threads);
+  if (wire_bf16) {
+    if (with_noise) {
+      ota_fused_wide_mapped<__nv_bfloat16, true><<<grid, threads, 0, st>>>(a, map, n_seg);
+    } else {
+      ota_fused_wide_mapped<__nv_bfloat16, false><<<grid, threads, 0, st>>>(a, map, n_seg);
+    }
+  } else if (with_noise) {
+    ota_fused_wide_mapped<float, true><<<grid, threads, 0, st>>>(a, map, n_seg);
+  } else {
+    ota_fused_wide_mapped<float, false><<<grid, threads, 0, st>>>(a, map, n_seg);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

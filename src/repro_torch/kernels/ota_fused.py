@@ -54,14 +54,26 @@ one-lane launch of the same body.  The lane-batched run
 "vmap")``) launches it once a round, with the lanes' sigma, scale, step
 size and seed as device arrays made once per run.
 
+Counter maps: ``fused_aggregate(..., counter_map=)`` draws the noise of
+element ``j`` of the row at a counter given by a :class:`CounterMap`, a
+table of segments (one a leaf shard of a sharded gradient: its offset in
+the row, its base counter and up to four local sizes with their global
+strides) in place of ``j`` itself, so a rank's row of shards takes the
+noise the unsharded gradient's row takes at the same elements.  It runs
+the wide body's mapped instance (agg mode, one lane); the map is checked
+on the host when it is made (its segments tile the row, every counter
+below 2^32), and a launch with no map is the unmapped one, bit for bit.
+
 ``LAUNCHES_WIDE`` and ``LAUNCHES_TALL`` count each body's kernel launches
 (one per call that reaches the card), so a run can show that its rounds
 went through the kernel, and which body.  ``LAUNCHES`` is always their sum:
 it counts K1 as one kernel for the callers that do not ask which body.
+``LAUNCHES_MAPPED`` counts the wide launches that took a counter map.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -71,6 +83,7 @@ from repro_torch.kernels import build, ref
 LAUNCHES = 0
 LAUNCHES_WIDE = 0
 LAUNCHES_TALL = 0
+LAUNCHES_MAPPED = 0
 
 BODIES = ("wide", "tall")
 TALL_MAX_PARAMS = 1984        # csrc/ota_fused.cu kTallMaxParams
@@ -99,6 +112,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ota_counter_bits_launch.argtypes = [
         ctypes.c_ulonglong, vp, ctypes.c_uint, vp, vp, i, vp]
     lib.ota_counter_bits_launch.restype = i
+    lib.ota_fused_mapped_launch.argtypes = (
+        [i, i, vp, vp, i, ctypes.c_ulonglong, vp, f, f, vp, ctypes.c_uint,
+         vp, vp, i, i, vp])
+    lib.ota_fused_mapped_launch.restype = i
     return lib
 
 
@@ -296,6 +313,61 @@ def _launch(mode: str, grads: torch.Tensor, gains: torch.Tensor,
     return tuple(outs)
 
 
+class CounterMap:
+    """K1's noise addressing for a row made of pieces of a larger one
+    (module docstring).  ``segments``: ``(offset in the row, base counter,
+    sizes, strides)`` per piece, ``sizes``/``strides`` up to
+    ``ref.MAP_DIMS`` each (row-major, the last fastest); the element at
+    ``offset + r``, ``r`` the row-major index ``(i_0, ..)`` of ``sizes``,
+    draws the noise of counter ``base + sum_d i_d * strides[d]``.  Raises
+    ``ValueError`` unless the segments, in order, tile ``[0, n)`` with no
+    gap or overlap and every counter is below 2^32.  The table goes to a
+    device once per device (``table``)."""
+
+    def __init__(self, segments: Sequence[Tuple[int, int, Sequence[int],
+                                                Sequence[int]]]):
+        rows, end = [], 0
+        for off, base, sizes, strides in segments:
+            if len(sizes) != len(strides) or not 0 < len(sizes) \
+                    <= ref.MAP_DIMS:
+                raise ValueError(f"a segment takes 1..{ref.MAP_DIMS} sizes "
+                                 f"with as many strides, got {sizes} and "
+                                 f"{strides}")
+            if off != end:
+                raise ValueError(f"counter map: a segment starts at {off}, "
+                                 f"the row is covered up to {end} (the "
+                                 f"segments overlap or leave a gap)")
+            if min(sizes) < 1 or min(strides) < 0 or base < 0:
+                raise ValueError(f"counter map: bad segment "
+                                 f"{(off, base, sizes, strides)}")
+            top = base + sum((n - 1) * t for n, t in zip(sizes, strides))
+            if top > ref.MASK32:
+                raise ValueError(f"counter map: counter {top} >= 2^32")
+            pad = ref.MAP_DIMS - len(sizes)
+            rows.append([off, base] + [1] * pad + list(sizes)
+                        + [0] * pad + list(strides))
+            end = off + math.prod(sizes)
+        if not rows:
+            raise ValueError("counter map: no segments")
+        self.n = end
+        self.host = torch.tensor(rows, dtype=torch.int64)
+        self._on: dict = {}
+
+    def __len__(self) -> int:
+        return self.host.shape[0]
+
+    def table(self, device) -> torch.Tensor:
+        """The ``(segments, ref.MAP_COLS)`` int64 table on ``device``."""
+        dev = torch.device(device)
+        if dev not in self._on:
+            self._on[dev] = self.host.to(dev)
+        return self._on[dev]
+
+    def counters(self, device) -> torch.Tensor:
+        """Each row element's counter (``ref.counter_map_index``)."""
+        return ref.counter_map_index(self.table(device), self.n)
+
+
 def _prep(grads: torch.Tensor, gains: torch.Tensor, wire_dtype):
     if grads.ndim != 2:
         raise ValueError(f"grads must be (n_agents, n_params), got "
@@ -307,10 +379,13 @@ def _prep(grads: torch.Tensor, gains: torch.Tensor, wire_dtype):
     return grads
 
 
-def _noise(with_noise: Optional[bool], seed: Seed, grads: torch.Tensor):
+def _noise(with_noise: Optional[bool], seed: Seed, grads: torch.Tensor,
+           counter_map: Optional[CounterMap] = None):
     """The plain version's noise realisation, or None."""
     if with_noise is False:
         return None
+    if counter_map is not None:
+        return ref.counter_noise_at(seed, counter_map.counters(grads.device))
     return ref.counter_noise(seed, grads.shape[-1], grads.device)
 
 
@@ -318,16 +393,65 @@ def fused_aggregate(grads: torch.Tensor, gains: torch.Tensor, *, sigma=0.0,
                     scale=1.0, seed: Seed = 0,
                     with_noise: Optional[bool] = None, wire_dtype=None,
                     rescale: Optional[torch.Tensor] = None,
+                    counter_map: Optional[CounterMap] = None,
                     threads: int = 256) -> torch.Tensor:
     """u = (sum_i h_i g_i + sigma*n) * scale, fused; returns (P,) float32.
-    ``rescale`` multiplies ``scale`` on the device (module docstring)."""
+    ``rescale`` multiplies ``scale`` on the device; ``counter_map`` (a
+    :class:`CounterMap` of P elements) addresses the noise (module
+    docstring)."""
     grads = _prep(grads, gains, wire_dtype)
+    if counter_map is not None and counter_map.n != grads.shape[1]:
+        raise ValueError(f"the counter map covers {counter_map.n} elements, "
+                         f"the row has {grads.shape[1]}")
     if not grads.is_cuda:
-        return ref.ota_fused_ref(grads, gains, _noise(with_noise, seed, grads),
+        return ref.ota_fused_ref(grads, gains,
+                                 _noise(with_noise, seed, grads, counter_map),
                                  sigma=sigma, scale=scale, rescale=rescale)
+    if counter_map is not None:
+        return _launch_mapped(grads, gains, counter_map,
+                              with_noise=with_noise is not False, seed=seed,
+                              sigma=sigma, scale=scale, rescale=rescale,
+                              threads=threads)
     (out,) = _launch("agg", grads, gains, (), with_noise=with_noise is not False,
                      seed=seed, sigma=sigma, scale=scale, rescale=rescale,
                      threads=threads)
+    return out
+
+
+def _launch_mapped(grads: torch.Tensor, gains: torch.Tensor,
+                   counter_map: CounterMap, *, with_noise: bool, seed: Seed,
+                   sigma, scale, rescale: Optional[torch.Tensor],
+                   threads: int) -> torch.Tensor:
+    """K1's wide body in agg mode, one lane, its noise at the map's
+    counters: validate, allocate, launch."""
+    global LAUNCHES, LAUNCHES_WIDE, LAUNCHES_MAPPED
+    dev = grads.device
+    if grads.dtype not in _WIRE_DTYPES or not grads.is_contiguous():
+        raise ValueError(f"grads must be contiguous float32 or bfloat16, got "
+                         f"{grads.dtype} (contiguous={grads.is_contiguous()})")
+    n_agents, n_params = grads.shape
+    if n_agents < 1 or not 0 < n_params <= _MAX_PARAMS:
+        raise ValueError(f"grads shape {tuple(grads.shape)} out of range "
+                         f"(1 <= A, 0 < P < 2^32)")
+    _check_threads(threads)
+    _check_vector("gains", gains, (n_agents,), dev)
+    _check_rescale(rescale, dev)
+    table = counter_map.table(dev)
+    out = torch.empty(n_params, dtype=torch.float32, device=dev)
+    seed_ptr, seed_val = _seed_args(seed, dev)
+    with torch.cuda.device(dev):
+        rc = _lib().ota_fused_mapped_launch(
+            int(grads.dtype == torch.bfloat16), int(with_noise),
+            grads.data_ptr(), gains.data_ptr(), n_agents, n_params,
+            out.data_ptr(), float(sigma), float(scale), seed_ptr, seed_val,
+            None if rescale is None else rescale.data_ptr(),
+            table.data_ptr(), len(counter_map), threads,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ota_fused mapped launch failed: cudaError {rc}")
+    LAUNCHES_WIDE += 1
+    LAUNCHES_MAPPED += 1
+    LAUNCHES += 1
     return out
 
 

@@ -42,6 +42,7 @@ modulo 2^32 in 16-bit halves so no intermediate leaves the int64 range.
 """
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -94,7 +95,14 @@ def counter_bits(seed: Seed, n: int, device=None, *,
         device = seed.device
     counter = torch.arange(start, start + n, dtype=torch.int64,
                            device=device)
-    base = _mix(counter, _seed_salt(seed, device))
+    return counter_bits_at(seed, counter)
+
+
+def counter_bits_at(seed: Seed, counter: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`counter_bits` at the given uint32 counters (an int64 tensor
+    of values in ``[0, 2^32)``), in their order."""
+    base = _mix(counter, _seed_salt(seed, counter.device))
     return _mix(base, SALT_U1) >> 8, _mix(base, SALT_U2) >> 8
 
 
@@ -110,8 +118,50 @@ def counter_noise(seed: Seed, n: int, device=None, *,
                   start: int = 0) -> torch.Tensor:
     """(n,) standard normals: counter PRNG on the absolute index ``start +
     i``, then Box-Muller, ``sqrt(-2 log f1) * cos(float32(2 pi) * f2)``."""
-    f1, f2 = uniforms(*counter_bits(seed, n, device, start=start))
+    return _box_muller(*counter_bits(seed, n, device, start=start))
+
+
+def _box_muller(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    f1, f2 = uniforms(b1, b2)
     return torch.sqrt(-2.0 * torch.log(f1)) * torch.cos(TWO_PI_F32 * f2)
+
+
+MAP_DIMS = 4       # a counter-map segment's dimensions (csrc/ota_fused.cu)
+MAP_COLS = 2 + 2 * MAP_DIMS
+
+
+def counter_map_index(table: torch.Tensor, n: int, lo: int = 0,
+                      hi: Optional[int] = None) -> torch.Tensor:
+    """The counter of each element of a row of ``n`` under a counter map
+    (the plain version of K1's mapped noise addressing): ``table`` is
+    ``(segments, MAP_COLS)`` int64, a row a segment ``[offset in the row,
+    base counter, sizes (MAP_DIMS, the last fastest), strides
+    (MAP_DIMS)]``; the element at ``offset + r`` with ``r`` the row-major
+    index ``(i_0, .., i_3)`` of the sizes takes ``base + sum_d i_d *
+    stride_d``.  Returns the ``(hi - lo,)`` int64 counters of the row's
+    elements ``[lo, hi)`` (default the whole row)."""
+    hi = n if hi is None else hi
+    out = torch.empty(hi - lo, dtype=torch.int64, device=table.device)
+    for seg in table.tolist():
+        off, base = seg[0], seg[1]
+        sizes, strides = seg[2:2 + MAP_DIMS], seg[2 + MAP_DIMS:]
+        a, b = max(lo, off), min(hi, off + math.prod(sizes))
+        if a >= b:
+            continue
+        r = torch.arange(a - off, b - off, dtype=torch.int64,
+                         device=table.device)
+        j = torch.full_like(r, base)
+        for size, stride in zip(reversed(sizes), reversed(strides)):
+            j = j + (r % size) * stride
+            r = r // size
+        out[a - lo:b - lo] = j
+    return out
+
+
+def counter_noise_at(seed: Seed, counter: torch.Tensor) -> torch.Tensor:
+    """Standard normals at the given counters (:func:`counter_noise`'s
+    stream, element for element)."""
+    return _box_muller(*counter_bits_at(seed, counter))
 
 
 def f32(x) -> torch.Tensor:

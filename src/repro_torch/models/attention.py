@@ -24,7 +24,11 @@ where the model axis does not divide ``n_kv_heads``: :func:`_kv_for_heads`
 then picks the kv heads its q heads read), K3 (prefill) or ``attend``
 (decode) sees only those, and the row-parallel ``wo`` product is
 all-reduced over ``model``.  The cache holds what ``wk``/``wv`` give the
-rank, the layout ``server.cache_specs`` names.
+rank, the layout ``server.cache_specs`` names.  Under autograd the
+column-parallel products take their input through ``shard_hints.copy_to``,
+and so do replicated kv heads before the cut to the rank's: each rank's
+gradient of ``wk``/``wv`` then covers every kv head, summed over
+``model``, not only those its q heads read.
 """
 from __future__ import annotations
 
@@ -147,6 +151,17 @@ def _project_qkv(params, x: torch.Tensor):
         _proj(x, params["wv"])
 
 
+def _project_qkv_sharded(params, h: torch.Tensor, lay: shard_hints.Layout):
+    """:func:`_project_qkv` on this rank's heads: the column-parallel
+    products (``wq``, and ``wk``/``wv`` where the kv heads are sharded)
+    take ``h`` through ``shard_hints.copy_to``; replicated ``wk``/``wv``
+    take ``h`` as it is (the rank computes all of those kv heads)."""
+    hp = shard_hints.copy_to(h)
+    hk = hp if lay.kv_heads else h
+    return _proj(hp, params["wq"]), _proj(hk, params["wk"]), \
+        _proj(hk, params["wv"])
+
+
 def _out_proj(params, o: torch.Tensor,
               lay: Optional[shard_hints.Layout] = None) -> torch.Tensor:
     """``o @ wo``; row-parallel over ``model`` where ``lay`` shards the
@@ -185,11 +200,18 @@ def self_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
     s = x.shape[1]
     lay = shard_hints.layout(cfg)
     h = rmsnorm(params["norm"], x, cfg.norm_eps)
-    q, k, v = _project_qkv(params, h)
+    if lay and lay.heads:
+        q, k, v = _project_qkv_sharded(params, h, lay)
+    else:
+        q, k, v = _project_qkv(params, h)
     pos = (torch.arange(s, dtype=torch.int32, device=x.device)
            if positions is None else positions)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
+    if lay and lay.heads and not lay.kv_heads:
+        # replicated kv heads, of which this rank reads its q heads' only:
+        # their gradient is summed over the model axis
+        k, v = shard_hints.copy_to(k), shard_hints.copy_to(v)
     ka, va = _kv_for_heads(k, cfg, lay), _kv_for_heads(v, cfg, lay)
     if blockwise:
         o = attend_blockwise(q, ka, va, q_pos=pos, k_pos=pos, causal=causal,

@@ -12,7 +12,9 @@ shards: with the vocabulary sharded, ``embed`` looks up the rank's rows
 (tokens outside its range give zeros) and all-reduces, which is exact, and
 ``unembed`` gathers the vocabulary, so a caller sees every logit; ``mlp``
 with a ``lay`` that shards ``d_ff`` has ``gate``/``up`` column-parallel and
-``down`` row-parallel (``shard_hints.row_parallel``).
+``down`` row-parallel (``shard_hints.row_parallel``).  Under autograd the
+column-parallel products take their input through ``shard_hints.copy_to``
+(its gradient summed over ``model``), as the unembedding does.
 """
 from __future__ import annotations
 
@@ -67,9 +69,9 @@ def unembed(params, x: torch.Tensor, tie: bool,
     """Logits over the whole vocabulary (gathered over ``model`` where
     ``lay`` shards it)."""
     w = params["tok"].T if tie else params["head"]
-    logits = x @ w.to(x.dtype)
     if lay is None or not lay.vocab:
-        return logits
+        return x @ w.to(x.dtype)
+    logits = shard_hints.copy_to(x) @ w.to(x.dtype)
     return shard_hints.all_gather(logits, -1)
 
 
@@ -107,6 +109,8 @@ def mlp(params, x: torch.Tensor, eps: float,
     """SwiGLU; where ``lay`` shards ``d_ff`` the weights are this rank's
     ``d_ff`` shards, and the ``down`` product is row-parallel."""
     h = rmsnorm(params["norm"], x, eps)
+    if lay and lay.d_ff:
+        h = shard_hints.copy_to(h)
     g = h @ params["gate"].to(x.dtype)
     u = h @ params["up"].to(x.dtype)
     act = F.silu(g.float()).to(x.dtype) * u

@@ -37,7 +37,13 @@ slice of all of them), and the
 combine's float32 partial sums are all-reduced over ``model`` before the
 one rounding to the model dtype.  The load-balance loss is the whole
 batch's: the router's mean probabilities are averaged over the batch
-shards and the counts summed.
+shards and the counts summed.  Under autograd (the sharded train step)
+the router runs on the replicated tokens, whose gradient is whole on
+every rank; the tokens dispatched to this rank's experts and the gates of
+the combine go through ``shard_hints.copy_to`` (their gradients summed
+over ``model``), and the mean probabilities' all-reduce over the batch
+shards sums in backward, as each shard's loss is its share of the global
+mean (the counts are integers, with no gradient).
 
 OTA note: per-agent expert-gradient sparsity makes MoE the worst case for
 the uplink's SNR: the dense channel noise hits every expert's parameters
@@ -169,7 +175,10 @@ def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig,
     h = rmsnorm(params["norm"], x, cfg.norm_eps)
     x_flat = h.reshape(b * s, d)
     t = b * s
-    src = x_flat[:, None, :].expand(t, k, d).reshape(t * k, d)
+
+    def assignments(xf):
+        return xf[:, None, :].expand(t, k, d).reshape(t * k, d)
+
     if lay is None:
         cap = _capacity(t, cfg)
         idx, gates, aux = route(params, x_flat, cfg, generator)
@@ -177,7 +186,8 @@ def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig,
         # the kept assignments into the (E*cap + 1, d) buffer; dropped ones
         # all go to the last row, which is cut off, so which of them lands
         # there does not matter
-        buf = x_flat.new_zeros((e * cap + 1, d)).index_copy(0, dest, src)
+        buf = x_flat.new_zeros((e * cap + 1, d)).index_copy(
+            0, dest, assignments(x_flat))
         buf = buf[:-1].reshape(e, cap, d)
         mine, rows = keep, dest
     else:
@@ -186,8 +196,10 @@ def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig,
         gates = gates.to(dt)
         counts = shard_hints.all_gather(_counts(idx.reshape(-1), e)[None],
                                         0, lay.batch_axes)   # (shards, E)
-        me = shard_hints.all_reduce(gates_full.mean(dim=0),
-                                    lay.batch_axes) / lay.n_batch
+        # the batch shards' losses are summed (each its share of the
+        # global mean), so the all-reduce over them sums in backward too
+        me = shard_hints.all_reduce(gates_full.mean(dim=0), lay.batch_axes,
+                                    backward="sum") / lay.n_batch
         aux = _aux(me, counts.sum(0), t * lay.n_batch, cfg)
         offset = counts[:lay.batch_rank].sum(0)
         rank, keep, dest = dispatch(idx, e, cap, offset=offset)
@@ -206,8 +218,13 @@ def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig,
         mine = keep & (flat_e >= lo) & (flat_e < hi)
         rows = torch.where(mine, (flat_e - lo) * slots + slot,
                            torch.full_like(slot, (hi - lo) * slots))
+        if lay.experts or lay.moe_d_ff:
+            # this rank's experts (or d_ff) see the tokens and the gates:
+            # their gradients are summed over the model axis
+            x_flat, gates = shard_hints.copy_to(x_flat), \
+                shard_hints.copy_to(gates)
         buf = x_flat.new_zeros(((hi - lo) * slots + 1, d)).index_copy(
-            0, rows, src)
+            0, rows, assignments(x_flat))
         buf = buf[:-1].reshape(hi - lo, slots, d)
 
     # per-expert SwiGLU: batched products over the experts axis

@@ -237,6 +237,34 @@ def named_shardings(plan: Plan, rules: Rules, mesh):
                     plan)
 
 
+def shard_block(shape: Sequence[int], spec: Sequence, mesh
+                ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """``(offsets, local shape)`` of this rank's block of a tensor of
+    ``shape`` under ``spec`` on the ``DeviceMesh`` (:func:`local_shard`'s
+    slice)."""
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    sizes = mesh_shape(mesh)
+    offsets, local = [], []
+    for dim, size in enumerate(shape):
+        n, idx = 1, 0
+        for a in entry_axes(spec[dim] if dim < len(spec) else None):
+            n, idx = n * sizes[a], idx * sizes[a] + coord[a]
+        offsets.append(idx * (size // n))
+        local.append(size // n)
+    return tuple(offsets), tuple(local)
+
+
+def held_once(spec: Sequence, mesh) -> bool:
+    """Whether this rank is the one that counts its block of a tensor laid
+    out by ``spec`` in a sum over the mesh (a global norm): its index is 0
+    on every mesh axis the spec does not shard over, so each distinct
+    block is counted once however many ranks hold it."""
+    used = {a for e in spec for a in entry_axes(e)}
+    return all(c == 0 for a, c in zip(mesh.mesh_dim_names,
+                                      mesh.get_coordinate())
+               if a not in used)
+
+
 def local_shard(t: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
     """This rank's slice of ``t`` (the same whole tensor on every rank)
     under ``spec`` on the ``DeviceMesh``: each sharded dimension cut into
@@ -273,6 +301,18 @@ def distribute_params(params: Params, plan: Plan, rules: Rules, mesh):
             mesh, spec_for(plan, rules, mesh)))
     return {k: distribute_params(params[k], v, rules, mesh)
             for k, v in plan.items()}
+
+
+def distribute_flat(flat: Mapping[str, torch.Tensor], plan: Plan,
+                    rules: Rules, mesh) -> Dict[str, Any]:
+    """A flat dict keyed by parameter path (the optimizer's moments,
+    ``utils.tree.flatten_paths``) as DTensors laid out as the parameters
+    at those paths."""
+    from repro_torch.utils.tree import flatten_paths
+
+    decls = flatten_paths(plan)
+    return {k: distribute_tensor(v, NamedSharding(
+        mesh, spec_for(decls[k], rules, mesh))) for k, v in flat.items()}
 
 
 def local_params(params: Params) -> Params:

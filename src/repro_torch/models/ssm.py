@@ -20,7 +20,11 @@ replicated, so K4 scans the rank's heads against the shared B and C.
 ``gate_norm`` normalises over all of ``d_inner``: each rank's mean of
 squares over its equal share is all-reduced and divided by the ranks (the
 identity on one rank), and the ``w_out`` product is row-parallel
-(``shard_hints.row_parallel``).
+(``shard_hints.row_parallel``).  Under autograd the column-parallel
+products take their input through ``shard_hints.copy_to``, and so do the
+shared B and C before the scan (each rank's gradient of ``w_B``, ``w_C``,
+``conv_B`` and ``conv_C`` then covers every head, summed over ``model``);
+the mean of squares' all-reduce sums in backward too.
 """
 from __future__ import annotations
 
@@ -110,12 +114,16 @@ def init_state(cfg: ModelConfig, batch: int, dtype, device=None) -> SSMState:
     )
 
 
-def _project(params, h: torch.Tensor):
+def _project(params, h: torch.Tensor, h_bc: Optional[torch.Tensor] = None):
+    """The five input projections; ``h_bc`` (default ``h``) feeds ``w_B``
+    and ``w_C`` (on a mesh ``h`` is the column-parallel products' input,
+    ``h_bc`` the replicated one)."""
     dt_ = h.dtype
+    h_bc = h if h_bc is None else h_bc
     z = h @ params["w_z"].to(dt_)
     xs = h @ params["w_x"].to(dt_)
-    Bp = h @ params["w_B"].to(dt_)
-    Cp = h @ params["w_C"].to(dt_)
+    Bp = h_bc @ params["w_B"].to(dt_)
+    Cp = h_bc @ params["w_C"].to(dt_)
     dt = h @ params["w_dt"].to(dt_)
     return z, xs, Bp, Cp, dt
 
@@ -129,7 +137,8 @@ def _gate_norm(params, y: torch.Tensor, cfg: ModelConfig,
         return rmsnorm(params["gate_norm"], y, cfg.norm_eps)
     y32 = y.float()
     var = shard_hints.all_reduce(
-        torch.mean(torch.square(y32), dim=-1, keepdim=True)) / lay.model
+        torch.mean(torch.square(y32), dim=-1, keepdim=True),
+        backward="sum") / lay.model
     out = y32 * torch.rsqrt(var + cfg.norm_eps)
     return (out * params["gate_norm"]["scale"]).to(y.dtype)
 
@@ -155,12 +164,18 @@ def ssm_mixer(params, x: torch.Tensor, cfg: ModelConfig, *,
     d_in, h_heads = params["w_x"].shape[-1], params["w_dt"].shape[-1]
     lay = shard_hints.layout(cfg)
     hid = rmsnorm(params["norm"], x, cfg.norm_eps)
-    z, xs, Bp, Cp, dt = _project(params, hid)
+    sharded = lay is not None and lay.d_inner
+    z, xs, Bp, Cp, dt = _project(
+        params, shard_hints.copy_to(hid) if sharded else hid, hid)
 
     xs, _ = _causal_conv(xs, params["conv_x"].to(x.dtype))
     Bp, _ = _causal_conv(Bp, params["conv_B"].to(x.dtype))
     Cp, _ = _causal_conv(Cp, params["conv_C"].to(x.dtype))
     xs, Bp, Cp = _silu(xs), _silu(Bp), _silu(Cp)
+    if sharded:
+        # the shared B and C meet this rank's heads only: their gradient
+        # is summed over the model axis
+        Bp, Cp = shard_hints.copy_to(Bp), shard_hints.copy_to(Cp)
 
     dt = _softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])

@@ -24,7 +24,7 @@ from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.utils.tree import Params, tree_global_norm, tree_keys
+from repro_torch.utils.tree import Params, tree_global_norm_sq, tree_keys
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 ScalarOrSchedule = Union[float, Schedule]
@@ -134,9 +134,12 @@ def apply_updates(params: Params, updates: Params) -> Params:
             for k, p in params.items()}
 
 
-def clip_by_global_norm(grads: Params,
-                        max_norm: float) -> Tuple[Params, torch.Tensor]:
-    norm = tree_global_norm(grads)
+def clip_by_global_norm(grads: Params, max_norm: float, counted=None,
+                        group=None) -> Tuple[Params, torch.Tensor]:
+    """``grads`` scaled to a global norm of at most ``max_norm``, and the
+    norm.  ``counted``/``group``: the mesh form of the norm, over a rank's
+    shards (``utils.tree.tree_global_norm_sq``)."""
+    norm = torch.sqrt(tree_global_norm_sq(grads, counted, group))
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return {k: (g.float() * scale).to(g.dtype)
             for k, g in grads.items()}, norm

@@ -243,13 +243,7 @@ class ShardedServer:
 
     def _batch(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's batch shard of a DTensor or of the whole batch."""
-        if hasattr(x, "to_local"):
-            return x.to_local()
-        lay = self.layout()
-        if x.shape[0] % lay.n_batch:
-            raise ValueError(f"a batch of {x.shape[0]} does not divide over "
-                             f"the {lay.n_batch} shards of {lay.batch_axes}")
-        return x.chunk(lay.n_batch)[lay.batch_rank]
+        return shard_hints.batch_shard(x, self.layout())
 
     def _cache_placements(self, batch: int, capacity: int):
         """The placements of each cache field per ``cache_specs`` (built

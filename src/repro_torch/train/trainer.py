@@ -58,6 +58,14 @@ rank's gain (one K1 launch at ``(1, d)``, sigma 0), sums the ranks' rows in
 one ``all_reduce`` (in the wire dtype when one is set, else the gradient's)
 and runs K1's server pass at ``(1, d)`` (the noise and the debias over the
 group size); clipping and AdamW follow as in :func:`make_train_step`.
+
+:func:`shard_for_training` is the tensor-parallel production step (JAX's
+``make_train_step`` as ``launch/dryrun.py`` lowers it on a ``("data",
+"model")`` mesh): the state laid out by ``train_rules(fsdp=True)``, each
+data shard one group of agents, the model on each rank's shards with
+autograd collectives (``utils/shard_hints.py``), K1 over the rank's row
+of shards with the unsharded step's noise, and the same function as
+:func:`make_train_step` (on one rank, bit for bit).
 """
 from __future__ import annotations
 
@@ -78,6 +86,7 @@ from repro_torch.optim.optimizers import (
     OptState, Optimizer, adamw, apply_updates, clip_by_global_norm,
     warmup_cosine,
 )
+from repro_torch.utils import shard_hints
 from repro_torch.utils.device import (
     DeviceLike, index_generator, make_generator,
 )
@@ -225,6 +234,58 @@ def _grads(loss: torch.Tensor, leaves: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def _step_draws(ota_cfg, tcfg: TrainConfig, step: int, n: int, dev,
+                draws: Optional[Draws]):
+    """Step ``step``'s ``n`` gains, then its K1 seed, from
+    ``index_generator(tcfg.seed, step)``, or ``draws`` injected; ``(None,
+    None)`` for the exact uplink."""
+    if ota_cfg is None:
+        return None, None
+    if draws is None:
+        gen = index_generator(tcfg.seed, step, dev)
+        return ota.sample_gains(ota_cfg, gen, n, dev), \
+            ota.sample_seed(gen, dev)
+    gains, seed = draws
+    return gains.to(device=dev, dtype=torch.float32), seed
+
+
+def _accumulate(loss_fn: Callable, tree_of: Callable, leaves, mbs,
+                weights, tcfg: TrainConfig, dev, scale: float = 1.0):
+    """The mean loss and mean gradients (of ``leaves``) over the agent-major
+    microbatches ``mbs``; ``tree_of()`` is the parameter tree a
+    microbatch's forward reads, ``scale`` multiplies each loss before
+    autograd (not the loss returned)."""
+    acc_dtype = (getattr(torch, tcfg.grad_accum_dtype)
+                 if tcfg.grad_accum_dtype else None)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    grads = None
+    for i in range(tcfg.microbatch):
+        loss = loss_fn(tree_of(), {k: v[i] for k, v in mbs.items()}, weights)
+        obj = loss if scale == 1.0 else loss * scale
+        g = {k: (x if acc_dtype is None else x.to(acc_dtype))
+             for k, x in _grads(obj, leaves).items()}
+        loss_sum = loss_sum + loss.detach()
+        grads = g if grads is None else tree_add(grads, g)
+        del loss, obj, g
+    inv = 1.0 / tcfg.microbatch
+    if tcfg.microbatch > 1:
+        grads = tree_scale(grads, inv)
+    return loss_sum * inv, grads
+
+
+def _metrics(loss, gnorm, gains, upd_sq, dev) -> Dict[str, torch.Tensor]:
+    gain_mean = (torch.mean(gains) if gains is not None
+                 else torch.ones((), device=dev))
+    return {
+        # the loss is channel-weighted; de-scale by the mean gain so the
+        # reported value estimates the plain CE
+        "loss": loss / torch.clamp(gain_mean, min=1e-6),
+        "grad_norm": gnorm,
+        "gain_mean": gain_mean,
+        "update_norm": torch.sqrt(upd_sq),
+    }
+
+
 def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
     """Returns ``train_step(state, batch, draws=None) -> (state',
     metrics)``; ``metrics`` holds device scalars ``loss`` (de-scaled by the
@@ -234,40 +295,19 @@ def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
     ota_cfg = tcfg.ota_config()
     loss_fn = make_loss_fn(model)
     n = tcfg.n_agents
-    acc_dtype = (getattr(torch, tcfg.grad_accum_dtype)
-                 if tcfg.grad_accum_dtype else None)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    draws: Optional[Draws] = None):
         flat = flatten_paths(state.params)
         dev = next(iter(flat.values())).device
-        gains = seed = None
-        if ota_cfg is not None:
-            if draws is None:
-                gen = index_generator(tcfg.seed, int(state.step), dev)
-                gains = ota.sample_gains(ota_cfg, gen, n, dev)
-                seed = ota.sample_seed(gen, dev)
-            else:
-                gains, seed = draws
-                gains = gains.to(device=dev, dtype=torch.float32)
-
+        gains, seed = _step_draws(ota_cfg, tcfg, int(state.step), n, dev,
+                                  draws)
         leaves = _autograd_leaves(flat, model.plan)
         tree = replace_paths(state.params, leaves)
-        mbs = _agent_major(batch, n, tcfg.microbatch)
-        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        grads = None
-        for i in range(tcfg.microbatch):
-            loss = loss_fn(tree, {k: v[i] for k, v in mbs.items()}, gains)
-            g = {k: (x if acc_dtype is None else x.to(acc_dtype))
-                 for k, x in _grads(loss, leaves).items()}
-            loss_sum = loss_sum + loss.detach()
-            grads = g if grads is None else tree_add(grads, g)
-            del loss, g
+        loss, grads = _accumulate(loss_fn, lambda: tree, leaves,
+                                  _agent_major(batch, n, tcfg.microbatch),
+                                  gains, tcfg, dev)
         del leaves, tree
-        inv = 1.0 / tcfg.microbatch
-        loss = loss_sum * inv
-        if tcfg.microbatch > 1:
-            grads = tree_scale(grads, inv)
 
         # --- the paper's uplink: server AWGN + optional m_h debias --------
         if ota_cfg is not None:
@@ -276,28 +316,18 @@ def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
 
         grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
         state, upd_sq = _adamw_into(opt, state, flat, grads)
-
-        gain_mean = (torch.mean(gains) if gains is not None
-                     else torch.ones((), device=dev))
-        metrics = {
-            # the loss is channel-weighted; de-scale by the mean gain so the
-            # reported value estimates the plain CE
-            "loss": loss / torch.clamp(gain_mean, min=1e-6),
-            "grad_norm": gnorm,
-            "gain_mean": gain_mean,
-            "update_norm": torch.sqrt(upd_sq),
-        }
-        return state, metrics
+        return state, _metrics(loss, gnorm, gains, upd_sq, dev)
 
     return train_step
 
 
 def _adamw_into(opt: Optimizer, state: TrainState,
-                flat: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor]
-                ) -> Tuple[TrainState, torch.Tensor]:
+                flat: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
+                counted=None) -> Tuple[TrainState, torch.Tensor]:
     """AdamW leaf by leaf in key order, written into the old state's
     tensors, so the step holds one leaf's new moments at a time; consumes
-    ``grads``.  Returns the next state and the update's squared norm."""
+    ``grads``.  Returns the next state and the update's squared norm (over
+    the keys in ``counted``, default all)."""
     mu, nu, new_flat, upd_sq = {}, {}, {}, None
     st = state.opt_state
     for k in sorted(flat):
@@ -306,13 +336,16 @@ def _adamw_into(opt: Optimizer, state: TrainState,
             OptState(step=st.step, mu={k: st.mu[k]}, nu={k: st.nu[k]}),
             {k: flat[k]})
         p_k = apply_updates({k: flat[k]}, upd)[k]
-        sq = fixed_sum(torch.square(upd[k].float()).reshape(-1), -1)
-        upd_sq = sq if upd_sq is None else upd_sq + sq
+        if counted is None or k in counted:
+            sq = fixed_sum(torch.square(upd[k].float()).reshape(-1), -1)
+            upd_sq = sq if upd_sq is None else upd_sq + sq
         for old, new in ((st.mu[k], st_k.mu[k]), (st.nu[k], st_k.nu[k]),
                          (flat[k], p_k)):
             old.copy_(new)
         mu[k], nu[k], new_flat[k] = st.mu[k], st.nu[k], flat[k]
         del upd, st_k, p_k
+    if upd_sq is None:
+        upd_sq = torch.zeros((), dtype=torch.float32, device=st.step.device)
     return TrainState(params=replace_paths(state.params, new_flat),
                       opt_state=OptState(step=st.step + 1, mu=mu, nu=nu),
                       step=state.step + 1), upd_sq
@@ -354,15 +387,8 @@ def make_psum_train_step(model: Model, tcfg: TrainConfig,
                    draws: Optional[Draws] = None):
         flat = flatten_paths(state.params)
         dev = mesh.device
-        gains = seed = None
-        if ota_cfg is not None:
-            if draws is None:
-                gen = index_generator(tcfg.seed, int(state.step), dev)
-                gains = ota.sample_gains(ota_cfg, gen, w, dev)
-                seed = ota.sample_seed(gen, dev)
-            else:
-                gains, seed = draws
-                gains = gains.to(device=dev, dtype=torch.float32)
+        gains, seed = _step_draws(ota_cfg, tcfg, int(state.step), w, dev,
+                                  draws)
 
         local = {k: _rank_slice(v, mesh)[None] for k, v in batch.items()}
         leaves = _autograd_leaves(flat, model.plan)
@@ -381,4 +407,218 @@ def make_psum_train_step(model: Model, tcfg: TrainConfig,
                    "update_norm": torch.sqrt(upd_sq)}
         return state, metrics
 
+    return train_step
+
+
+# --------------------------------------------------------------------------
+# The sharded train step: FSDP over data, tensor parallelism over model
+# --------------------------------------------------------------------------
+
+def _local(x):
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
+class _Gathered(list):
+    """A stacked leaf's layers (a list; nested for two stacked axes) whose
+    tensors are FSDP-gathered at their use: ``transformer.layer`` indexes
+    it once a layer, and each index gathers that layer's shards."""
+
+    def __init__(self, items, unshard):
+        super().__init__(items)
+        self._unshard = unshard
+
+    def __getitem__(self, i):
+        x = list.__getitem__(self, i)
+        return x if isinstance(x, list) else self._unshard(x)
+
+
+def _gathered(v, unshard):
+    """An autograd leaf as the model sees it: a tensor gathered now, a
+    stacked leaf's layers gathered at their use."""
+    if isinstance(v, list):
+        return _Gathered([_gathered(y, unshard) if isinstance(y, list)
+                          else y for y in v], unshard)
+    return unshard(v)
+
+
+@dataclass(eq=False)
+class ShardedTrainer:
+    """What :func:`shard_for_training` builds once: the mesh, the hints,
+    this rank's layout, each leaf's FSDP gather, the keys this rank counts
+    in a global norm and K1's counter map of its row."""
+
+    model: Model
+    tcfg: TrainConfig
+    mesh: Any
+    hint_map: Dict
+    layout: Any
+    unshard: Dict[str, Callable]
+    counted: frozenset
+    counter_map: Any
+
+    def hints(self):
+        return shard_hints.hints(self.mesh, **self.hint_map)
+
+
+def _leaf_unshard(spec, depth: int, batch_axes) -> Callable:
+    """The FSDP gather of one leaf's layer (its stacked axes indexed
+    away): along the dimension its spec shards over the batch axes, and
+    its gradient summed over the batch axes it is replicated on."""
+    from repro_torch.models.param import entry_axes
+
+    dim = next((i for i, e in enumerate(spec)
+                if set(entry_axes(e)) & set(batch_axes)), None)
+    if dim is None:
+        return lambda x: shard_hints.unshard(x, None, (), batch_axes)
+    axes = entry_axes(spec[dim])
+    rest = tuple(a for a in batch_axes if a not in axes)
+    return lambda x: shard_hints.unshard(x, dim - depth, axes, rest)
+
+
+def distribute_state(state: TrainState, plan, rules, mesh) -> TrainState:
+    """A train state of whole tensors (the same on every rank) as DTensors
+    on the ``DeviceMesh`` per ``rules``: the params and both moments laid
+    out alike, each rank keeping its shards; the steps stay as they
+    are."""
+    from repro_torch.models.param import distribute_flat, distribute_params
+
+    st = state.opt_state
+    return TrainState(
+        params=distribute_params(state.params, plan, rules, mesh),
+        opt_state=OptState(step=st.step,
+                           mu=distribute_flat(st.mu, plan, rules, mesh),
+                           nu=distribute_flat(st.nu, plan, rules, mesh)),
+        step=state.step)
+
+
+def shard_for_training(model: Model, tcfg: TrainConfig, state: TrainState,
+                       mesh) -> Tuple[TrainState, Callable]:
+    """The sharded train step of ``model`` on a ``("data", "model")``
+    ``DeviceMesh`` (JAX: ``launch/dryrun.py``'s ``build_train_lowering``,
+    ``make_train_step`` partitioned under ``train_rules(fsdp=True)``).
+
+    Returns ``(state, train_step)``: ``state`` (whole tensors, the same on
+    every rank, or DTensors already laid out) as DTensors under
+    ``train_rules(fsdp=True)``, the params and both moments alike, each
+    rank keeping its shards; ``train_step(state, batch, draws=None) ->
+    (state', metrics)`` computes :func:`make_train_step`'s function with
+    the same ``n_agents``, on every rank:
+
+    * ``batch``: the whole batch (each rank takes its shard over the data
+      axes) or DTensors laid out by ``data.make_batch_specs``;
+    * data rank ``r`` holds agents ``[r A, (r + 1) A)``, ``A = n_agents /
+      n_data_shards(mesh)``, in the agent-major layout inside its shard;
+      microbatching as in :func:`make_train_step`;
+    * step ``k`` draws the gains and the K1 seed from
+      ``index_generator(tcfg.seed, k)`` on every rank (``draws`` injects
+      them), so they are the unsharded step's;
+    * the forward runs inside ``hints(mesh, **attn_hints(cfg, mesh,
+      "train"))`` on the rank's shards, each leaf's ``data`` shards
+      gathered at its use (``shard_hints.unshard``, a reduce-scatter in
+      backward), and each rank's loss scaled by ``1 / n_data`` so that the
+      ranks' losses sum to the global-mean loss (the MoE load-balance
+      loss, the same on every data rank, included);
+    * the server AWGN over the rank's row of shards in one K1 launch (its
+      counter map: each element's noise is the unsharded step's at that
+      element), the global norm and the update norm over the mesh (each
+      distinct block counted once), AdamW on the local shards, written
+      into them;
+    * ``metrics``: ``loss`` the data ranks' mean, de-scaled by the gain
+      mean; ``grad_norm``, ``gain_mean``, ``update_norm`` over the mesh;
+      the same on every rank.
+
+    On a ``(1, 1)`` mesh the step is the unsharded one, bit for bit.
+    Raises ``NotImplementedError`` for the families not sharded yet and
+    ``ValueError`` for an ``n_agents`` that is not a multiple of the data
+    shards.  ``train_step.sharded`` is the :class:`ShardedTrainer` it
+    runs (its layout, counter map and the keys it counts in a norm)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import n_data_shards
+    from repro_torch.models.param import (
+        held_once, shard_block, spec_for, train_rules,
+    )
+
+    cfg = model.cfg
+    n_data = n_data_shards(mesh)
+    if tcfg.n_agents % n_data:
+        raise ValueError(f"n_agents = {tcfg.n_agents} is not a multiple of "
+                         f"the {n_data} data shards of the mesh")
+    rules = train_rules(fsdp=True)
+    hint_map = shard_hints.attn_hints(cfg, mesh, "train")
+    with shard_hints.hints(mesh, **hint_map):
+        lay = transformer._layout(cfg)    # raises for what is not sharded
+    decls = flatten_paths(flatten_paths(model.plan))
+    specs = {k: spec_for(d, rules, mesh) for k, d in decls.items()}
+    trainer = ShardedTrainer(
+        model=model, tcfg=tcfg, mesh=mesh, hint_map=hint_map, layout=lay,
+        unshard={k: _leaf_unshard(specs[k], _stack_depth(d), lay.batch_axes)
+                 for k, d in decls.items()},
+        counted=frozenset(k for k in decls if held_once(specs[k], mesh)),
+        counter_map=ota.shard_counter_map(
+            [decls[k].shape for k in decls],
+            [shard_block(decls[k].shape, specs[k], mesh) for k in decls]))
+    if not any(hasattr(v, "to_local")
+               for v in flatten_paths(state.params).values()):
+        state = distribute_state(state, model.plan, rules, mesh)
+    return state, _sharded_step(trainer, dist.group.WORLD)
+
+
+def _sharded_step(tr: ShardedTrainer, world) -> Callable:
+    import torch.distributed as dist
+
+    model, tcfg, lay = tr.model, tr.tcfg, tr.layout
+    opt = make_optimizer(tcfg)
+    ota_cfg = tcfg.ota_config()
+    loss_fn = make_loss_fn(model)
+    n = tcfg.n_agents
+    per = n // lay.n_batch
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   draws: Optional[Draws] = None):
+        flat = {k: _local(v) for k, v in flatten_paths(state.params).items()}
+        st = state.opt_state
+        local_state = TrainState(
+            params=state.params,
+            opt_state=OptState(step=st.step,
+                               mu={k: _local(v) for k, v in st.mu.items()},
+                               nu={k: _local(v) for k, v in st.nu.items()}),
+            step=state.step)
+        dev = next(iter(flat.values())).device
+        gains, seed = _step_draws(ota_cfg, tcfg, int(state.step), n, dev,
+                                  draws)
+        leaves = _autograd_leaves(flat, model.plan)
+        mbs = _agent_major({k: shard_hints.batch_shard(v, lay)
+                            for k, v in batch.items()}, per, tcfg.microbatch)
+        with tr.hints():
+            loss, grads = _accumulate(
+                loss_fn, lambda: replace_paths(state.params, {
+                    k: _gathered(v, tr.unshard[k])
+                    for k, v in leaves.items()}),
+                leaves, mbs,
+                None if gains is None else
+                gains[lay.batch_rank * per:(lay.batch_rank + 1) * per],
+                tcfg, dev,
+                # the data ranks' losses sum to the global-mean loss
+                scale=1.0 / lay.n_batch)
+            del leaves
+            loss = shard_hints.all_reduce(loss, lay.batch_axes)
+            if lay.n_batch > 1:
+                loss = loss / lay.n_batch
+
+        if ota_cfg is not None:
+            grads = ota.add_awgn(ota_cfg, seed, grads, n,
+                                 backend=tcfg.ota_backend,
+                                 counter_map=tr.counter_map)
+        grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm, tr.counted,
+                                           world)
+        new, upd_sq = _adamw_into(opt, local_state, flat, grads, tr.counted)
+        dist.all_reduce(upd_sq, op=dist.ReduceOp.SUM, group=world)
+        return TrainState(params=state.params,
+                          opt_state=OptState(step=new.opt_state.step,
+                                             mu=st.mu, nu=st.nu),
+                          step=new.step), _metrics(loss, gnorm, gains,
+                                                   upd_sq, dev)
+
+    train_step.sharded = tr
     return train_step

@@ -20,18 +20,42 @@ gathers the vocabulary; the SSM's ``gate_norm`` all-reduces its mean of
 squares; MoE routing gathers its per-expert counts over the batch axes so
 capacity and slot ranks are the whole batch's.
 
-The weights are laid out by ``param.serve_rules()`` (``distribute_params``):
-what a rank holds of the axes no hint names (``kv_heads``, ``vocab``, the
-experts' ``d_ff``) comes from them, and a hint that disagrees with the
-weights' layout raises (:class:`Layout`).
+The weights are laid out over ``model`` as ``param.serve_rules()`` lays
+them out (``distribute_params``; the sharded train step's
+``train_rules(fsdp=True)`` adds only ``d_model`` over ``data``, and no
+mesh axis is used twice in a spec, so its ``model`` entries are the
+same): what a rank holds of the axes no hint names (``kv_heads``,
+``vocab``, the experts' ``d_ff``) comes from them, and a hint that
+disagrees with the weights' layout raises (:class:`Layout`).  The model
+code sees the ``model`` axis only: the trainer gathers each leaf's
+``data`` shards at its use (:func:`unshard`), so beneath it the layers
+run the layout they run when serving.
+
+Autograd: every collective here is a ``torch.autograd.Function`` with
+Megatron's conjugate pair on the ``model`` axis, whose ranks compute the
+same loss once (the objective counts it once): the all-reduce after a
+row-parallel product, the embedding's and the MoE combine's is the
+identity in backward; :func:`copy_to`, the entry to a column-parallel
+region (and to any use of a replicated tensor by this rank's share of an
+axis only), is the identity in forward and an all-reduce in backward; the
+vocabulary gather slices this rank's columns in backward.  Where the
+forward sum feeds a share of an axis (``gate_norm``'s mean of squares) or
+ranks whose losses are summed (the batch axes: each data rank's loss is
+its share of the global mean), the backward of an all-reduce is an
+all-reduce (``backward="sum"``), and the backward of :func:`unshard`'s
+all-gather is a reduce-scatter.  A backward collective over ranks of one
+is skipped (the identity), so is :func:`unshard` on a ``data`` axis of
+one: no copy is made there.
 
 Outside a hints context :func:`layout` is None and every model function
 runs exactly as it did before (bitwise).  Inside one every collective is
 issued, at width 1 too (where it is the identity), and counted here where
-it is issued (``ALL_REDUCES``, ``ALL_GATHERS``).  The ``q_seq`` hint
-(context parallelism where the heads do not divide the model axis) is not
-acted on (``ROADMAP.md``): there the attention weights are replicated and
-every rank of a ``model`` group runs all the heads.
+it is issued (``ALL_REDUCES``, ``ALL_GATHERS``, ``REDUCE_SCATTERS``;
+:func:`counts` reads them, :func:`reset_counts` zeroes them).  The
+``q_seq`` hint (context parallelism where the heads do not divide the
+model axis) is not acted on (``ROADMAP.md``): there the attention
+weights are replicated and every rank of a ``model`` group runs all the
+heads.
 """
 from __future__ import annotations
 
@@ -52,6 +76,19 @@ _gather_single = getattr(dist, "all_gather_single", None) \
 # Collectives issued inside a hints context, counted where each is issued.
 ALL_REDUCES = 0
 ALL_GATHERS = 0
+REDUCE_SCATTERS = 0
+
+
+def reset_counts() -> None:
+    """Zero the collective counters."""
+    global ALL_REDUCES, ALL_GATHERS, REDUCE_SCATTERS
+    ALL_REDUCES = ALL_GATHERS = REDUCE_SCATTERS = 0
+
+
+def counts() -> Dict[str, int]:
+    """The collectives issued since the counters were last zeroed."""
+    return {"all_reduce": ALL_REDUCES, "all_gather": ALL_GATHERS,
+            "reduce_scatter": REDUCE_SCATTERS}
 
 
 @contextmanager
@@ -235,19 +272,207 @@ def layout(cfg) -> Optional[Layout]:
     return _LAYOUTS[key]
 
 
+def batch_shard(x: torch.Tensor, lay: Layout) -> torch.Tensor:
+    """This rank's shard of a DTensor laid out over the batch axes, or of
+    the whole batch (the same on every rank): its block of rows over
+    ``lay``'s batch axes."""
+    if hasattr(x, "to_local"):
+        return x.to_local()
+    if x.shape[0] % lay.n_batch:
+        raise ValueError(f"a batch of {x.shape[0]} does not divide over "
+                         f"the {lay.n_batch} shards of {lay.batch_axes}")
+    return x.chunk(lay.n_batch)[lay.batch_rank]
+
+
 def _groups(axes) -> list:
     mesh = _STATE["mesh"]
     return [mesh.get_group(a) for a in axes]
 
 
-def all_reduce(x: torch.Tensor, axes=("model",)) -> torch.Tensor:
-    """Sum ``x`` over the ranks of the mesh ``axes`` in ``x``'s dtype (one
-    ``all_reduce`` an axis, each counted), in place; returns ``x``."""
+def _width(axes) -> int:
+    """The number of ranks over the mesh ``axes``."""
+    from repro_torch.models.param import mesh_shape
+
+    shape = mesh_shape(_STATE["mesh"])
+    n = 1
+    for a in axes:
+        n *= shape[a]
+    return n
+
+
+def _reduce(x: torch.Tensor, groups) -> torch.Tensor:
+    """Sum ``x`` in place over each group (one counted ``all_reduce``
+    each); returns ``x``."""
     global ALL_REDUCES
-    for g in _groups(axes):
+    for g in groups:
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=g)
         ALL_REDUCES += 1
     return x
+
+
+def _gather(x: torch.Tensor, dim: int, groups) -> torch.Tensor:
+    """Every rank's ``x`` over the groups joined along ``dim``, the first
+    group the outer one (one counted ``all_gather`` a group)."""
+    global ALL_GATHERS
+    for g in reversed(groups):
+        n = dist.get_world_size(g)
+        x = x.contiguous()
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        _gather_single(out, x, group=g)
+        ALL_GATHERS += 1
+        x = torch.cat(out.chunk(n), dim) if n > 1 else out
+    return x
+
+
+def _scatter(x: torch.Tensor, dim: int, groups) -> torch.Tensor:
+    """Sum ``x`` over the groups and keep this rank's block along ``dim``
+    (the first group the outer one): one counted ``reduce_scatter`` a
+    group, the adjoint of :func:`_gather`."""
+    global REDUCE_SCATTERS
+    x = torch.movedim(x, dim, 0)
+    for g in groups:
+        n = dist.get_world_size(g)
+        src = x.contiguous()
+        out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+        dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=g)
+        REDUCE_SCATTERS += 1
+        x = out
+    return torch.movedim(x, 0, dim)
+
+
+def _block(x: torch.Tensor, dim: int, axes) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` over the mesh ``axes``
+    (the first axis the outer one), as :func:`_gather` joins them."""
+    from repro_torch.models.param import mesh_shape
+
+    mesh = _STATE["mesh"]
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    shape = mesh_shape(mesh)
+    n, idx = 1, 0
+    for a in axes:
+        n, idx = n * shape[a], idx * shape[a] + coord[a]
+    return x.chunk(n, dim)[idx]
+
+
+def _needs_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum over ``axes`` in place; backward the identity or, with
+    ``bwd_sum``, the same sum (skipped over ranks of one)."""
+
+    @staticmethod
+    def forward(ctx, x, axes, bwd_sum):
+        ctx.axes, ctx.bwd_sum = axes, bwd_sum
+        _reduce(x, _groups(axes))
+        ctx.mark_dirty(x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.bwd_sum and _width(ctx.axes) > 1:
+            g = _reduce(g.clone(), _groups(ctx.axes))
+        return g, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    """The identity; backward a sum over ``axes`` (skipped over ranks of
+    one)."""
+
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.axes = axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if _width(ctx.axes) > 1:
+            g = _reduce(g.clone(), _groups(ctx.axes))
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather over ``axes`` along ``dim``; backward this rank's block
+    (``bwd="slice"``, the gradient downstream being the same on every
+    rank) or a reduce-scatter (``bwd="scatter"``, the ranks' gradients
+    summed)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axes, bwd):
+        ctx.dim, ctx.axes, ctx.bwd = dim, axes, bwd
+        return _gather(x, dim, _groups(axes))
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.bwd == "slice":
+            g = _block(g, ctx.dim, ctx.axes).contiguous()
+        elif _width(ctx.axes) > 1:
+            g = _scatter(g, ctx.dim, _groups(ctx.axes))
+        return g, None, None, None
+
+
+def all_reduce(x: torch.Tensor, axes=("model",),
+               backward: str = "identity") -> torch.Tensor:
+    """Sum ``x`` over the ranks of the mesh ``axes`` in ``x``'s dtype (one
+    ``all_reduce`` an axis, each counted), in place; returns ``x``.  Under
+    autograd the backward is ``backward``: ``"identity"`` (the sum feeds
+    what every rank computes alike) or ``"sum"`` (module docstring)."""
+    if backward not in ("identity", "sum"):
+        raise ValueError(f"backward must be 'identity' or 'sum', got "
+                         f"{backward!r}")
+    axes = tuple(axes)
+    if _needs_grad(x):
+        return _AllReduce.apply(x, axes, backward == "sum")
+    return _reduce(x, _groups(axes))
+
+
+def copy_to(x: torch.Tensor, axes=("model",)) -> torch.Tensor:
+    """The entry of a replicated ``x`` to this rank's share of an axis
+    sharded over ``axes``: the identity, whose backward sums the ranks'
+    partial gradients (Megatron's ``f``).  Outside autograd, or over ranks
+    of one, ``x`` itself (the graph is then the unsharded one)."""
+    if not _needs_grad(x) or _width(axes) == 1:
+        return x
+    return _CopyTo.apply(x, tuple(axes))
+
+
+def unshard(x: torch.Tensor, dim: Optional[int], axes=("data",),
+            sum_axes=()) -> torch.Tensor:
+    """FSDP's gather of a leaf at its use: this rank's shard ``x``, sharded
+    over ``axes`` along ``dim`` (None: held whole), joined over them; its
+    backward reduce-scatters the gradient over ``axes`` (all-reduces it
+    where ``dim`` is None), and sums it over ``sum_axes`` (the batch axes
+    the leaf is replicated over).  Over ranks of one nothing is issued and
+    ``x`` is used as it is."""
+    axes, sum_axes = tuple(axes), tuple(sum_axes)
+    if dim is None:
+        sum_axes, axes = axes + sum_axes, ()
+    if axes and _width(axes) > 1:
+        x = _Gather.apply(x, dim, axes, "scatter") if _needs_grad(x) \
+            else _gather(x, dim, _groups(axes))
+    if sum_axes and _width(sum_axes) > 1:
+        x = copy_to(x, sum_axes)
+    return x
+
+
+class _MixedMM(torch.autograd.Function):
+    """``a @ w`` of bf16 or fp16 operands with float32 output (one
+    rounding, after the sum over ranks); the backward in the operands'
+    dtype, as autograd of one ``a @ w`` takes it."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        if a.is_cuda:
+            return torch.mm(a, w, out_dtype=torch.float32)
+        return a.float() @ w.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return g @ w.T, a.T @ g
 
 
 def row_parallel(a: torch.Tensor, w: torch.Tensor,
@@ -256,12 +481,15 @@ def row_parallel(a: torch.Tensor, w: torch.Tensor,
     all-reduced over ``model``.  On one rank the product is the unsharded
     one (the all-reduce the identity); on several a bf16 or fp16 product's
     partial sums are kept in float32 and rounded once, after the sum, as
-    one product rounds once."""
+    one product rounds once.  The all-reduce's backward is the identity."""
     if lay.model == 1 or a.dtype == torch.float32:
         return all_reduce(a @ w)
     a2 = a.reshape(-1, a.shape[-1])
-    part = torch.mm(a2, w, out_dtype=torch.float32) if a.is_cuda \
-        else a2.float() @ w.float()
+    if _needs_grad(a2) or _needs_grad(w):
+        part = _MixedMM.apply(a2, w)
+    else:
+        part = torch.mm(a2, w, out_dtype=torch.float32) if a.is_cuda \
+            else a2.float() @ w.float()
     out = all_reduce(part).to(a.dtype)
     return out.reshape(*a.shape[:-1], w.shape[-1])
 
@@ -269,13 +497,10 @@ def row_parallel(a: torch.Tensor, w: torch.Tensor,
 def all_gather(x: torch.Tensor, dim: int, axes=("model",)) -> torch.Tensor:
     """Every rank's ``x`` over the mesh ``axes`` joined along ``dim`` in
     mesh order (the first axis the outer one); one counted
-    ``all_gather`` an axis."""
-    global ALL_GATHERS
-    for g in reversed(_groups(axes)):
-        n = dist.get_world_size(g)
-        x = x.contiguous()
-        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
-        _gather_single(out, x, group=g)
-        ALL_GATHERS += 1
-        x = torch.cat(out.chunk(n), dim) if n > 1 else out
-    return x
+    ``all_gather`` an axis.  Under autograd the backward keeps this
+    rank's block of the gradient (the vocabulary gather's: the gradient
+    downstream is the same on every rank)."""
+    axes = tuple(axes)
+    if _needs_grad(x):
+        return _Gather.apply(x, dim, axes, "slice")
+    return _gather(x, dim, _groups(axes))

@@ -80,13 +80,30 @@ def flat_norm_sq(flat: torch.Tensor, sizes: List[int]) -> torch.Tensor:
     return total
 
 
-def tree_global_norm_sq(tree: Params) -> torch.Tensor:
+def tree_global_norm_sq(tree: Params, counted=None,
+                        group=None) -> torch.Tensor:
     """sum of squared leaves in float32, leaf by leaf in key order, each
-    leaf's squares summed by :func:`fixed_sum`."""
+    leaf's squares summed by :func:`fixed_sum`.
+
+    The mesh form (``tree`` a rank's shards): only the keys in ``counted``
+    (default all) are summed, so a block that several ranks hold is
+    counted on one of them (``models.param.held_once``), then one
+    ``all_reduce`` over ``group`` (a ``torch.distributed`` group) sums the
+    ranks' totals.  With every key counted over a group of one it is the
+    plain form, bit for bit."""
+    import torch.distributed as dist
+
     total = None
     for k in tree_keys(tree):
+        if counted is not None and k not in counted:
+            continue
         s = fixed_sum(torch.square(tree[k].float()).reshape(-1), -1)
         total = s if total is None else total + s
+    if total is None:
+        x = tree[tree_keys(tree)[0]]
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+    if group is not None:
+        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
     return total
 
 
