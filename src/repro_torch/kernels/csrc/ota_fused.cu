@@ -216,9 +216,10 @@ __global__ void ota_fused_wide(Args a) {
 // fastest), global strides (kMapDims)], the segments in row order.  Element
 // j of the row lies in the last segment whose offset is <= j; its local
 // index r = j - offset, taken row-major over the sizes as (i_0, .., i_3),
-// draws the noise of counter base + sum_d i_d * stride_d, modulo 2^32 (the
-// wrapper checks that no counter reaches 2^32, and a segment holds fewer
-// than 2^32 elements, so 32-bit arithmetic is exact).  The plain version is
+// draws the noise of counter base + sum_d i_d * stride_d, modulo 2^32, as the
+// JAX package's uint32 counter wraps (the wrapper checks that a segment's
+// sizes, strides and element count fit 32 bits, so 32-bit arithmetic gives
+// the sum modulo 2^32 exactly).  The plain version is
 // kernels/ref.py::counter_map_index.
 constexpr int kMapDims = 4;
 constexpr int kMapCols = 2 + 2 * kMapDims;

@@ -61,8 +61,13 @@ the row, its base counter and up to four local sizes with their global
 strides) in place of ``j`` itself, so a rank's row of shards takes the
 noise the unsharded gradient's row takes at the same elements.  It runs
 the wide body's mapped instance (agg mode, one lane); the map is checked
-on the host when it is made (its segments tile the row, every counter
-below 2^32), and a launch with no map is the unmapped one, bit for bit.
+on the host when it is made (its segments tile the row, each segment's
+sizes and strides fit 32 bits), and a launch with no map is the unmapped
+one, bit for bit.  A counter is taken modulo 2^32, as the JAX package's
+uint32 counter wraps (``start.astype(uint32) + pos`` in its
+``_counter_noise``): element ``j >= 2^32`` of a gradient of more than
+2^32 elements (zamba2-7b at full depth, 6.75e9) draws the noise of
+``j mod 2^32`` there, and so it does here on the rank holding it.
 
 ``LAUNCHES_WIDE`` and ``LAUNCHES_TALL`` count each body's kernel launches
 (one per call that reaches the card), so a run can show that its rounds
@@ -319,10 +324,12 @@ class CounterMap:
     sizes, strides)`` per piece, ``sizes``/``strides`` up to
     ``ref.MAP_DIMS`` each (row-major, the last fastest); the element at
     ``offset + r``, ``r`` the row-major index ``(i_0, ..)`` of ``sizes``,
-    draws the noise of counter ``base + sum_d i_d * strides[d]``.  Raises
-    ``ValueError`` unless the segments, in order, tile ``[0, n)`` with no
-    gap or overlap and every counter is below 2^32.  The table goes to a
-    device once per device (``table``)."""
+    draws the noise of counter ``base + sum_d i_d * strides[d]`` modulo
+    2^32 (module docstring).  Raises ``ValueError`` unless the segments, in
+    order, tile ``[0, n)`` with no gap or overlap, and each segment's
+    sizes, strides and element count are below 2^32 (the kernel's 32-bit
+    arithmetic).  The table goes to a device once per device
+    (``table``)."""
 
     def __init__(self, segments: Sequence[Tuple[int, int, Sequence[int],
                                                 Sequence[int]]]):
@@ -340,9 +347,10 @@ class CounterMap:
             if min(sizes) < 1 or min(strides) < 0 or base < 0:
                 raise ValueError(f"counter map: bad segment "
                                  f"{(off, base, sizes, strides)}")
-            top = base + sum((n - 1) * t for n, t in zip(sizes, strides))
-            if top > ref.MASK32:
-                raise ValueError(f"counter map: counter {top} >= 2^32")
+            wide = max(list(strides) + [math.prod(sizes)])
+            if wide > ref.MASK32:
+                raise ValueError(f"counter map: a segment of {sizes} with "
+                                 f"strides {strides}: {wide} >= 2^32")
             pad = ref.MAP_DIMS - len(sizes)
             rows.append([off, base] + [1] * pad + list(sizes)
                         + [0] * pad + list(strides))

@@ -138,7 +138,8 @@ def counter_map_index(table: torch.Tensor, n: int, lo: int = 0,
     base counter, sizes (MAP_DIMS, the last fastest), strides
     (MAP_DIMS)]``; the element at ``offset + r`` with ``r`` the row-major
     index ``(i_0, .., i_3)`` of the sizes takes ``base + sum_d i_d *
-    stride_d``.  Returns the ``(hi - lo,)`` int64 counters of the row's
+    stride_d`` modulo 2^32 (the uint32 counter wraps, as the JAX
+    package's).  Returns the ``(hi - lo,)`` int64 counters of the row's
     elements ``[lo, hi)`` (default the whole row)."""
     hi = n if hi is None else hi
     out = torch.empty(hi - lo, dtype=torch.int64, device=table.device)
@@ -154,7 +155,7 @@ def counter_map_index(table: torch.Tensor, n: int, lo: int = 0,
         for size, stride in zip(reversed(sizes), reversed(strides)):
             j = j + (r % size) * stride
             r = r // size
-        out[a - lo:b - lo] = j
+        out[a - lo:b - lo] = j & MASK32
     return out
 
 

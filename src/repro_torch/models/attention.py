@@ -18,17 +18,19 @@ arithmetic stays on the host.  ``cross_attention`` (the vlm and encdec
 families) attends over memory K/V that ``project_memory`` precomputes,
 through ``attend`` (materialised, as the JAX package), never K3.
 
-On a mesh (``utils/shard_hints.py``) self attention runs on this rank's
-heads: ``wq`` holds its q heads, ``wk``/``wv`` its kv heads (all of them
-where the model axis does not divide ``n_kv_heads``: :func:`_kv_for_heads`
-then picks the kv heads its q heads read), K3 (prefill) or ``attend``
-(decode) sees only those, and the row-parallel ``wo`` product is
-all-reduced over ``model``.  The cache holds what ``wk``/``wv`` give the
-rank, the layout ``server.cache_specs`` names.  Under autograd the
-column-parallel products take their input through ``shard_hints.copy_to``,
-and so do replicated kv heads before the cut to the rank's: each rank's
-gradient of ``wk``/``wv`` then covers every kv head, summed over
-``model``, not only those its q heads read.
+On a mesh (``utils/shard_hints.py``) self and cross attention run on this
+rank's heads: ``wq`` holds its q heads, ``wk``/``wv`` its kv heads (all of
+them where the model axis does not divide ``n_kv_heads``:
+:func:`_kv_for_heads` then picks the kv heads its q heads read), K3
+(prefill) or ``attend`` sees only those, and the row-parallel ``wo``
+product is all-reduced over ``model``.  The self-attention cache and the
+projected memory (``project_memory``, the cross cache) hold what
+``wk``/``wv`` give the rank (:func:`held_kv_heads`), the layout
+``server.cache_specs`` names.  Under autograd the column-parallel products
+take their input through ``shard_hints.copy_to`` (the memory too, where
+the kv heads are sharded), and so do replicated kv heads before the cut to
+the rank's: each rank's gradient of ``wk``/``wv`` then covers every kv
+head, summed over ``model``, not only those its q heads read.
 """
 from __future__ import annotations
 
@@ -128,12 +130,17 @@ class KVCache(NamedTuple):
         return self.k.shape[-3]
 
 
+def held_kv_heads(cfg: ModelConfig) -> int:
+    """The kv heads this rank's ``wk``/``wv`` hold: all of them, or on a
+    mesh that shards them its share."""
+    lay = shard_hints.layout(cfg)
+    return cfg.n_kv_heads // (lay.model if lay and lay.kv_heads else 1)
+
+
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype,
                device=None) -> KVCache:
     """Zeros; on a mesh this rank's kv heads (``batch`` is its own)."""
-    lay = shard_hints.layout(cfg)
-    hkv = cfg.n_kv_heads // (lay.model if lay and lay.kv_heads else 1)
-    shape = (batch, capacity, hkv, cfg.head_dim)
+    shape = (batch, capacity, held_kv_heads(cfg), cfg.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -229,22 +236,37 @@ def cross_attention(params, x: torch.Tensor,
                     memory_kv: Tuple[torch.Tensor, torch.Tensor],
                     cfg: ModelConfig) -> torch.Tensor:
     """Cross attention over precomputed memory K/V (no mask, no rope); the
-    grouped form for one-token decode, the expanded one otherwise."""
+    grouped form for one-token decode, the expanded one otherwise.  On a
+    mesh ``memory_kv`` holds the rank's kv heads (``project_memory``), of
+    which its q heads read theirs."""
     sq = x.shape[1]
-    q = _proj(rmsnorm(params["norm"], x, cfg.norm_eps), params["wq"])
+    lay = shard_hints.layout(cfg)
+    h = rmsnorm(params["norm"], x, cfg.norm_eps)
+    if lay and lay.heads:
+        h = shard_hints.copy_to(h)
+    q = _proj(h, params["wq"])
     k, v = memory_kv
+    if lay and lay.heads and not lay.kv_heads:
+        k, v = shard_hints.copy_to(k), shard_hints.copy_to(v)
+    k, v = _kv_for_heads(k, cfg, lay), _kv_for_heads(v, cfg, lay)
     dev = x.device
     o = attend(q, k, v,
                q_pos=torch.zeros(sq, dtype=torch.int32, device=dev),
                k_pos=torch.zeros(k.shape[1], dtype=torch.int32, device=dev),
                causal=False, expand_kv=sq > 1)
-    return _out_proj(params, o)
+    return _out_proj(params, o, lay)
 
 
-def project_memory(params, memory: torch.Tensor
+def project_memory(params, memory: torch.Tensor,
+                   cfg: Optional[ModelConfig] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-attention K/V (B, M, Hkv, Dh) of encoder/frontend output (B, M,
-    D), in its dtype."""
+    D), in its dtype: on a mesh (``cfg``'s layout) the rank's held kv
+    heads, the memory entering a column-parallel product where they are
+    sharded."""
+    lay = None if cfg is None else shard_hints.layout(cfg)
+    if lay and lay.kv_heads:
+        memory = shard_hints.copy_to(memory)
     return _proj(memory, params["wk"]), _proj(memory, params["wv"])
 
 

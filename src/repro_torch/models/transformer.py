@@ -40,12 +40,15 @@ SSM and hybrid prefill keep the JAX package's behaviour: they run
 cache at position 0, not the state carried through the prompt.
 
 Inside a hints context (``utils/shard_hints.py``, entered by
-``train.server.shard_for_serving``) ``forward``, ``prefill``, ``decode``
-and ``init_cache`` of the dense, moe and ssm families run on this rank's
-shards: ``params`` are its local tensors, ``tokens`` its batch shard, and
-the layers issue their collectives; the logits come back whole over the
-vocabulary.  The hybrid, vlm and encdec families raise there: they are
-not yet sharded (``ROADMAP.md``).
+``train.server.shard_for_serving`` and ``train.trainer.
+shard_for_training``) ``forward``, ``prefill``, ``decode`` and
+``init_cache`` of every family run on this rank's shards: ``params`` are
+its local tensors, ``tokens`` and ``memory`` its batch shard, and the
+layers issue their collectives (every MLP through :func:`_ffn`, so each
+``down`` product is all-reduced; the cross blocks' and the encoder's
+attention on the rank's heads; the hybrid's shared block, stored once,
+at each of its uses); the logits come back whole over the vocabulary.
+The caches hold the rank's kv heads, ``cross_kv`` included.
 """
 from __future__ import annotations
 
@@ -64,8 +67,6 @@ from repro_torch.models.layers import (
 from repro_torch.models.param import stack_plan
 from repro_torch.utils import shard_hints
 from repro_torch.utils.device import resolve_device
-
-SHARDED_FAMILIES = ("dense", "moe", "ssm")   # run inside a hints context
 
 STACK_AXES = ("layers", "sublayers")   # the plan axes a Python loop indexes
 
@@ -156,17 +157,6 @@ def layer(stacked, i: int):
     return {k: layer(v, i) for k, v in stacked.items()}
 
 
-def _layout(cfg: ModelConfig):
-    """The active mesh's layout of ``cfg`` (None outside a hints
-    context); a family that is not sharded yet raises inside one."""
-    lay = shard_hints.layout(cfg)
-    if lay is not None and cfg.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family is not sharded yet: on a mesh the "
-            f"port serves {SHARDED_FAMILIES} (ROADMAP.md §1)")
-    return lay
-
-
 def _ffn(lp, x: torch.Tensor, cfg: ModelConfig):
     """The dense MLP or the MoE FFN of one layer: (residual delta, aux)."""
     if cfg.family == "moe":
@@ -180,7 +170,7 @@ def _cross_block(lp, x: torch.Tensor, kv, cfg: ModelConfig,
     x = x + attn.self_attention(lp["attn"], x, cfg, window=cfg.window,
                                 blockwise=blockwise)
     x = x + attn.cross_attention(lp["cross"], x, kv, cfg)
-    return x + mlp(lp["mlp"], x, cfg.norm_eps)
+    return x + _ffn(lp, x, cfg)[0]
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -194,7 +184,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
                          "backward: a differentiable forward takes "
                          "blockwise=False")
     dt = _dtype(cfg)
-    lay = _layout(cfg)
+    lay = shard_hints.layout(cfg)
     x = embed(params["embed"], tokens, dt, lay)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     fam = cfg.family
@@ -233,16 +223,16 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             for j in range(per):
                 x, _ = block(layer(gp, j), x, aux)
             cl = layer(params["cross_layers"], g)
-            x = _cross_block(cl, x, attn.project_memory(cl["cross"], mem),
-                             cfg, blockwise)
+            x = _cross_block(cl, x, attn.project_memory(cl["cross"], mem,
+                                                        cfg), cfg, blockwise)
     elif fam == "encdec":
         if memory is None:
             raise ValueError("encdec needs frame embeddings (memory)")
         enc = encode(params, cfg, memory, blockwise=blockwise)
         for i in range(cfg.n_layers):
             lp = layer(params["layers"], i)
-            x = _cross_block(lp, x, attn.project_memory(lp["cross"], enc),
-                             cfg, blockwise)
+            x = _cross_block(lp, x, attn.project_memory(lp["cross"], enc,
+                                                        cfg), cfg, blockwise)
     else:
         raise ValueError(fam)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -260,7 +250,7 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor, *,
         lp = layer(params["enc_layers"], i)
         x = x + attn.self_attention(lp["attn"], x, cfg, causal=False,
                                     blockwise=blockwise)
-        x = x + mlp(lp["mlp"], x, cfg.norm_eps)
+        x = x + _ffn(lp, x, cfg)[0]
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -298,7 +288,6 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, mem_len: int = 0,
     clamping (``model.serve_capacity``).  ``device`` None means cuda."""
     dt = dtype or _dtype(cfg)
     device = resolve_device(device)
-    _layout(cfg)
     fam = cfg.family
 
     def kv(*lead):
@@ -310,7 +299,7 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, mem_len: int = 0,
         return ssm_mod.SSMState(*(x.new_zeros(lead + x.shape) for x in s))
 
     def cross(n):
-        shape = (n, batch, mem_len, cfg.n_kv_heads, cfg.head_dim)
+        shape = (n, batch, mem_len, attn.held_kv_heads(cfg), cfg.head_dim)
         return (torch.zeros(shape, dtype=dt, device=device),
                 torch.zeros(shape, dtype=dt, device=device))
 
@@ -346,7 +335,7 @@ def decode(params, cfg: ModelConfig, cache: Cache, token: torch.Tensor, *,
            window: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
     """serve_step: one new token per sequence. Returns (logits (B,1,V),
     cache')."""
-    lay = _layout(cfg)
+    lay = shard_hints.layout(cfg)
     x = embed(params["embed"], token, _dtype(cfg), lay)
     pos = int(cache.pos)
     fam = cfg.family
@@ -369,7 +358,7 @@ def decode(params, cfg: ModelConfig, cache: Cache, token: torch.Tensor, *,
     def cross(lp, x, kv, ckv):
         x = self_attn(lp, x, kv)
         x = x + attn.decode_cross_attention(lp["cross"], x, ckv, cfg)
-        return x + mlp(lp["mlp"], x, cfg.norm_eps)
+        return x + _ffn(lp, x, cfg)[0]
 
     new = cache
     if fam in ("dense", "moe"):
@@ -389,7 +378,7 @@ def decode(params, cfg: ModelConfig, cache: Cache, token: torch.Tensor, *,
                           x)
             groups.append(s2)
             x = self_attn(shared, x, _kv_at(cache.groups_kv, g))
-            x = x + mlp(shared["mlp"], x, cfg.norm_eps)
+            x = x + _ffn(shared, x, cfg)[0]
         tail = cache.tail_ssm
         if tail is not None:
             x, tail = mamba(params["mamba_tail"], tail, x)
@@ -401,7 +390,7 @@ def decode(params, cfg: ModelConfig, cache: Cache, token: torch.Tensor, *,
             for j in range(per):
                 lp = layer(gp, j)
                 x = self_attn(lp, x, _kv_at(cache.groups_kv, g, j))
-                x = x + mlp(lp["mlp"], x, cfg.norm_eps)
+                x = x + _ffn(lp, x, cfg)[0]
             x = cross(layer(params["cross_layers"], g), x,
                       _kv_at(cache.cross_self_kv, g),
                       tuple(t[g] for t in cache.cross_kv))
@@ -430,7 +419,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
         return logits[:, -1:, :], init_cache(cfg, b, 1, 0,
                                              device=tokens.device)
     dt = _dtype(cfg)
-    lay = _layout(cfg)
+    lay = shard_hints.layout(cfg)
     x = embed(params["embed"], tokens, dt, lay)
 
     def self_attn(lp, x, kvs):
@@ -441,10 +430,10 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
 
     def cross(lp, x, kvs, ckvs, mem):
         x = self_attn(lp, x, kvs)
-        ckv = attn.project_memory(lp["cross"], mem)
+        ckv = attn.project_memory(lp["cross"], mem, cfg)
         ckvs.append(ckv)
         x = x + attn.cross_attention(lp["cross"], x, ckv, cfg)
-        return x + mlp(lp["mlp"], x, cfg.norm_eps)
+        return x + _ffn(lp, x, cfg)[0]
 
     def stacked(kvs):
         return tuple(torch.stack(t) for t in zip(*kvs))
@@ -467,7 +456,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
             for j in range(per):
                 lp = layer(gp, j)
                 x = self_attn(lp, x, gkvs)
-                x = x + mlp(lp["mlp"], x, cfg.norm_eps)
+                x = x + _ffn(lp, x, cfg)[0]
             pkvs.append(attn.KVCache(*stacked(gkvs)))
             x = cross(layer(params["cross_layers"], g), x, kvs, ckvs, mem)
         cache = Cache(groups_kv=attn.KVCache(*stacked(pkvs)),

@@ -15,11 +15,14 @@ not divide 'model'), flash-decode style.
 (``launch.mesh.make_tiny_mesh``): the weights as DTensors under
 ``serve_rules`` (each rank keeps its shards), the batch over the data
 axes, the cache laid out per ``cache_specs``, and every call run inside a
-hints context (``utils/shard_hints.py``) on the rank's own shards.  A
-layout whose cache ``cache_specs`` shards over the sequence raises
-``NotImplementedError``: the cross-rank softmax combine it needs is still
-to port (``ROADMAP.md``).  The families served on a mesh are the dense,
-moe and ssm ones.
+hints context (``utils/shard_hints.py``) on the rank's own shards; the
+vlm and encdec families' ``memory`` goes in whole or laid out by
+``data.make_batch_specs``, each rank taking its batch shard.  Every family
+is served on a mesh.  A layout whose KV cache (``kv``, ``groups_kv``,
+``cross_self_kv``) ``cache_specs`` shards over the sequence raises
+``NotImplementedError`` for every family with one: the cross-rank softmax
+combine it needs is still to port (``ROADMAP.md``).  ``cross_kv`` is never
+sharded over the sequence.
 """
 from __future__ import annotations
 
@@ -247,13 +250,13 @@ class ShardedServer:
 
     def _cache_placements(self, batch: int, capacity: int):
         """The placements of each cache field per ``cache_specs`` (built
-        once per batch and capacity); raises where they shard the
-        sequence."""
+        once per batch and capacity); raises where they shard a KV cache's
+        sequence (every family but ssm has one)."""
         key = (batch, capacity)
         if key not in self._placements_of:
             b_entry, seq_entry, _ = _cache_entries(self.cfg, batch, capacity,
                                                    self.mesh)
-            if seq_entry is not None and self.cfg.family in ("dense", "moe"):
+            if seq_entry is not None and self.cfg.family != "ssm":
                 raise NotImplementedError(
                     f"cache_specs shards this cache's sequence over "
                     f"{seq_entry!r} (batch {batch}, {self.cfg.n_kv_heads} kv "
@@ -272,33 +275,46 @@ class ShardedServer:
 
     @staticmethod
     def _capacity(cache) -> int:
-        return 1 if cache.kv is None else cache.kv.k.shape[2]
+        """The slots of the cache's KV fields (1 where it has none)."""
+        kv = next((f for f in (cache.kv, cache.groups_kv, cache.cross_self_kv)
+                   if f is not None), None)
+        return 1 if kv is None else kv.k.shape[-3]
+
+    def _memory(self, memory):
+        return None if memory is None else self._batch(memory)
 
     def _logits(self, local: torch.Tensor):
         return self._wrap(local, self._placements(local.ndim))
 
     @torch.no_grad()
     def forward(self, tokens, memory=None, *, blockwise=False):
-        """(logits DTensor (B, S, V), the rank's aux loss)."""
+        """(logits DTensor (B, S, V), the rank's aux loss); ``memory`` (the
+        vlm and encdec families') whole or a DTensor, as ``tokens``."""
         with self.hints("prefill"):
             logits, aux = transformer.forward(
-                self.local, self.cfg, self._batch(tokens), memory,
-                blockwise=blockwise)
+                self.local, self.cfg, self._batch(tokens),
+                self._memory(memory), blockwise=blockwise)
         return self._logits(logits), aux
 
     @torch.no_grad()
-    def prefill(self, tokens):
-        """(last-position logits DTensor (B, 1, V), cache of DTensors)."""
+    def prefill(self, tokens, memory=None):
+        """(last-position logits DTensor (B, 1, V), cache of DTensors);
+        ``memory`` as :meth:`forward`'s."""
         b = tokens.shape[0]
-        self._cache_placements(b, tokens.shape[1])
+        # the SSM and hybrid prefills return a cache of one slot
+        self._cache_placements(b, 1 if self.cfg.family in ("ssm", "hybrid")
+                               else tokens.shape[1])
         with self.hints("prefill"):
             logits, cache = transformer.prefill(self.local, self.cfg,
-                                                self._batch(tokens))
+                                                self._batch(tokens),
+                                                self._memory(memory))
         return self._logits(logits), self._wrap_cache(cache, b)
 
-    def init_cache(self, batch: int, capacity: int, device=None):
-        """A zero cache of ``capacity`` slots for a batch of ``batch``, this
-        rank's shards as DTensors."""
+    def init_cache(self, batch: int, capacity: int, mem_len: int = 0,
+                   device=None):
+        """A zero cache of ``capacity`` slots (and ``mem_len`` memory
+        positions in ``cross_kv``) for a batch of ``batch``, this rank's
+        shards as DTensors."""
         self._cache_placements(batch, capacity)
         lay = self.layout()
         if batch % lay.n_batch:
@@ -306,7 +322,7 @@ class ShardedServer:
                              f"{lay.n_batch} shards of {lay.batch_axes}")
         with self.hints("decode"):
             cache = transformer.init_cache(self.cfg, batch // lay.n_batch,
-                                           capacity, device=device)
+                                           capacity, mem_len, device=device)
         return self._wrap_cache(cache, batch)
 
     @torch.no_grad()
@@ -341,14 +357,12 @@ def shard_for_serving(model: Model, params, mesh) -> ShardedServer:
     """The serve path of ``model`` on the ``DeviceMesh``: ``params`` (the
     same whole tensors on every rank, or DTensors already laid out) as
     DTensors under ``serve_rules``, each rank keeping its shards.  Raises
-    for a family or a layout the port does not shard yet."""
+    for a layout the port does not shard yet (``shard_hints.Layout``)."""
     if any(hasattr(v, "to_local") for v in flatten_paths(params).values()):
         dparams = params
     else:
         dparams = distribute_params(params, model.plan, serve_rules(), mesh)
     server = ShardedServer(model=model, mesh=mesh, params=dparams,
                            local=local_params(dparams))
-    with server.hints("prefill"):
-        transformer._layout(model.cfg)   # raises for what is not sharded
-    server.layout()
+    server.layout()      # raises for what is not sharded
     return server

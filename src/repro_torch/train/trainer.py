@@ -459,6 +459,36 @@ class ShardedTrainer:
     def hints(self):
         return shard_hints.hints(self.mesh, **self.hint_map)
 
+    def loss_and_grads(self, params, flat: Dict[str, torch.Tensor],
+                       batch: Dict[str, torch.Tensor],
+                       gains: Optional[torch.Tensor]):
+        """The data ranks' mean loss and this rank's gradient shards (each
+        leaf's local block, before the uplink) of ``params`` (the state's
+        tree), ``flat`` its local tensors by path, at ``batch`` (whole or
+        DTensors) under the step's ``gains`` (None: the exact mean)."""
+        lay, tcfg = self.layout, self.tcfg
+        per = tcfg.n_agents // lay.n_batch
+        dev = next(iter(flat.values())).device
+        leaves = _autograd_leaves(flat, self.model.plan)
+        mbs = _agent_major({k: shard_hints.batch_shard(v, lay)
+                            for k, v in batch.items()}, per, tcfg.microbatch)
+        with self.hints():
+            loss, grads = _accumulate(
+                make_loss_fn(self.model), lambda: replace_paths(params, {
+                    k: _gathered(v, self.unshard[k])
+                    for k, v in leaves.items()}),
+                leaves, mbs,
+                None if gains is None else
+                gains[lay.batch_rank * per:(lay.batch_rank + 1) * per],
+                tcfg, dev,
+                # the data ranks' losses sum to the global-mean loss
+                scale=1.0 / lay.n_batch)
+            del leaves
+            loss = shard_hints.all_reduce(loss, lay.batch_axes)
+            if lay.n_batch > 1:
+                loss = loss / lay.n_batch
+        return loss, grads
+
 
 def _leaf_unshard(spec, depth: int, batch_axes) -> Callable:
     """The FSDP gather of one leaf's layer (its stacked axes indexed
@@ -528,9 +558,12 @@ def shard_for_training(model: Model, tcfg: TrainConfig, state: TrainState,
       the same on every rank.
 
     On a ``(1, 1)`` mesh the step is the unsharded one, bit for bit.
-    Raises ``NotImplementedError`` for the families not sharded yet and
-    ``ValueError`` for an ``n_agents`` that is not a multiple of the data
-    shards.  ``train_step.sharded`` is the :class:`ShardedTrainer` it
+    Every family is sharded; the hybrid's ``shared`` leaves are gathered
+    once a microbatch and used at each group, so autograd sums their uses'
+    gradients before the one reduce-scatter.  Raises
+    ``NotImplementedError`` for a layout not ported
+    (``shard_hints.Layout``) and ``ValueError`` for an ``n_agents`` that
+    is not a multiple of the data shards.  ``train_step.sharded`` is the :class:`ShardedTrainer` it
     runs (its layout, counter map and the keys it counts in a norm)."""
     import torch.distributed as dist
 
@@ -547,7 +580,7 @@ def shard_for_training(model: Model, tcfg: TrainConfig, state: TrainState,
     rules = train_rules(fsdp=True)
     hint_map = shard_hints.attn_hints(cfg, mesh, "train")
     with shard_hints.hints(mesh, **hint_map):
-        lay = transformer._layout(cfg)    # raises for what is not sharded
+        lay = shard_hints.layout(cfg)     # raises for what is not sharded
     decls = flatten_paths(flatten_paths(model.plan))
     specs = {k: spec_for(d, rules, mesh) for k, d in decls.items()}
     trainer = ShardedTrainer(
@@ -567,12 +600,10 @@ def shard_for_training(model: Model, tcfg: TrainConfig, state: TrainState,
 def _sharded_step(tr: ShardedTrainer, world) -> Callable:
     import torch.distributed as dist
 
-    model, tcfg, lay = tr.model, tr.tcfg, tr.layout
+    tcfg = tr.tcfg
     opt = make_optimizer(tcfg)
     ota_cfg = tcfg.ota_config()
-    loss_fn = make_loss_fn(model)
     n = tcfg.n_agents
-    per = n // lay.n_batch
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    draws: Optional[Draws] = None):
@@ -587,25 +618,7 @@ def _sharded_step(tr: ShardedTrainer, world) -> Callable:
         dev = next(iter(flat.values())).device
         gains, seed = _step_draws(ota_cfg, tcfg, int(state.step), n, dev,
                                   draws)
-        leaves = _autograd_leaves(flat, model.plan)
-        mbs = _agent_major({k: shard_hints.batch_shard(v, lay)
-                            for k, v in batch.items()}, per, tcfg.microbatch)
-        with tr.hints():
-            loss, grads = _accumulate(
-                loss_fn, lambda: replace_paths(state.params, {
-                    k: _gathered(v, tr.unshard[k])
-                    for k, v in leaves.items()}),
-                leaves, mbs,
-                None if gains is None else
-                gains[lay.batch_rank * per:(lay.batch_rank + 1) * per],
-                tcfg, dev,
-                # the data ranks' losses sum to the global-mean loss
-                scale=1.0 / lay.n_batch)
-            del leaves
-            loss = shard_hints.all_reduce(loss, lay.batch_axes)
-            if lay.n_batch > 1:
-                loss = loss / lay.n_batch
-
+        loss, grads = tr.loss_and_grads(state.params, flat, batch, gains)
         if ota_cfg is not None:
             grads = ota.add_awgn(ota_cfg, seed, grads, n,
                                  backend=tcfg.ota_backend,

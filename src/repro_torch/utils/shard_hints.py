@@ -13,8 +13,8 @@ mesh axes; ``moe_cap`` keeps the MoE dispatch buffer to this batch shard's
 slots.  The collectives sit where the JAX model re-constrains an output
 to ``("batch", "q_seq", None)`` after a contraction over a
 ``model``-sharded axis: the partial sums are all-reduced over the
-``model`` group after ``wo`` (attention), ``down`` (the MLP), the
-experts' combine (MoE) and ``w_out`` (the SSM mixer).  The
+``model`` group after ``wo`` (self and cross attention), ``down`` (the
+MLP), the experts' combine (MoE) and ``w_out`` (the SSM mixer).  The
 vocabulary-parallel embedding all-reduces its rows; the unembedding
 gathers the vocabulary; the SSM's ``gate_norm`` all-reduces its mean of
 squares; MoE routing gathers its per-expert counts over the batch axes so
@@ -26,8 +26,11 @@ them out (``distribute_params``; the sharded train step's
 mesh axis is used twice in a spec, so its ``model`` entries are the
 same): what a rank holds of the axes no hint names (``kv_heads``,
 ``vocab``, the experts' ``d_ff``) comes from them, and a hint that
-disagrees with the weights' layout raises (:class:`Layout`).  The model
-code sees the ``model`` axis only: the trainer gathers each leaf's
+disagrees with the weights' layout raises (:class:`Layout`).  Every
+family runs on one layout: the cross blocks, the encoder and the hybrid's
+shared block take ``attn_plan`` and ``mlp_plan`` as the decoder layers do,
+so :func:`_held` reads them all.  The model code sees the ``model`` axis
+only: the trainer gathers each leaf's
 ``data`` shards at its use (:func:`unshard`), so beneath it the layers
 run the layout they run when serving.
 

@@ -1546,3 +1546,118 @@ def test_sharded_serve_over_every_card(cuda):
                 for a, b in zip(r[arch]["steps"], r0["steps"]):
                     assert torch.equal(a, b)
                 assert sum(r[arch]["k34"]) == 2, (arch, r[arch]["k34"])
+
+
+def _family_sharded_smoke(am, dtype):
+    """Smoke zamba2-7b (5 layers: two groups and a tail) and
+    llama-3.2-vision-11b on a one-rank (1, 1) mesh against the unsharded
+    path on the same weights (seed 0): the prefill (B=4, S=64, vision with
+    its patch memory) and 2 decode steps, their K3/K4 launches, then 2
+    train steps (4 agents, OTA) of the sharded step against the plain one
+    from the same state and batches, with their K1 launches."""
+    from repro_torch import interop
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import make_batch, memory_stub
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import server, trainer
+    from repro_torch.utils.tree import tree_map
+
+    mesh = mesh_lib.make_tiny_mesh(1, 1)
+    out = {}
+    for arch, n_layers in (("zamba2-7b", 5), ("llama-3.2-vision-11b", None)):
+        cfg = get_smoke_config(arch).with_(dtype=dtype)
+        if n_layers:
+            cfg = cfg.with_(n_layers=n_layers)
+        m = model_lib.build(cfg)
+        params = tree_map(lambda x: x.cuda(), m.init(
+            torch.Generator().manual_seed(0), "cpu"))
+        tokens = torch.from_numpy(np.random.default_rng(4).integers(
+            0, cfg.vocab, (4, 64))).cuda()
+        mem = (memory_stub(cfg, tokens, 64) if model_lib.needs_memory(cfg)
+               else None)
+        srv = server.shard_for_serving(m, params, mesh)
+        c0 = _k34()
+        logits, cache = srv.prefill(tokens, mem)
+        c1 = _k34()
+        with torch.no_grad():
+            plain, pcache = m.prefill(params, tokens, mem)
+        c2 = _k34()
+        same = [torch.equal(logits.to_local(), plain)]
+        if cfg.family != "hybrid":     # a cache of 64 + 2 slots
+            full = srv.init_cache(4, 66, mem.shape[1], device="cuda")
+            pfull = m.init_cache(4, 66, mem.shape[1], device="cuda")
+            for f in ("groups_kv", "cross_self_kv"):
+                for dst, pdst, src, psrc in zip(getattr(full, f),
+                                                getattr(pfull, f),
+                                                getattr(cache, f),
+                                                getattr(pcache, f)):
+                    dst.to_local()[..., :64, :, :] = src.to_local()
+                    pdst[..., :64, :, :] = psrc
+            cache = full._replace(pos=cache.pos, cross_kv=cache.cross_kv)
+            pcache = pfull._replace(pos=pcache.pos, cross_kv=pcache.cross_kv)
+        shape = InputShape("s", 66, 4, "decode")
+        step, plain_step = srv.make_serve_step(shape), \
+            server.make_serve_step(m, shape)
+        tok = torch.argmax(plain[:, -1:], -1)
+        for _ in range(2):
+            _, lg, cache = step(cache, tok)
+            _, plg, pcache = plain_step(params, pcache, tok)
+            same.append(torch.equal(lg.to_local(), plg))
+            tok = torch.argmax(plg[:, -1:], -1)
+        a, b = (interop.cache_to_numpy(c) for c in (cache, pcache))
+        same.append(all(a[f] == b[f] if f == "pos" or a[f] is None else
+                        all(np.array_equal(a[f][k], b[f][k]) for k in a[f])
+                        for f in a))
+        tcfg = trainer.TrainConfig(n_agents=4, total_steps=10, warmup=2,
+                                   lr=1e-3)
+        pstate = trainer.init_state(m, tcfg, torch.Generator(
+            device="cuda").manual_seed(1))
+        sstate, sstep = trainer.shard_for_training(
+            m, tcfg, trainer.init_state(m, tcfg, torch.Generator(
+                device="cuda").manual_seed(1)), mesh)
+        pstep = trainer.make_train_step(m, tcfg)
+        k1 = []
+        for i in range(2):
+            batch = make_batch(cfg, InputShape("t", 32, 8, "train"), i,
+                               device="cuda")
+            before = (ota_fused.LAUNCHES, ota_fused.LAUNCHES_MAPPED)
+            sstate, ms = sstep(sstate, batch)
+            mid = (ota_fused.LAUNCHES, ota_fused.LAUNCHES_MAPPED)
+            pstate, mp = pstep(pstate, batch)
+            k1.append((mid[0] - before[0], mid[1] - before[1],
+                       ota_fused.LAUNCHES - mid[0]))
+            na, nb = (interop.train_state_to_numpy(x) for x in (pstate,
+                                                                sstate))
+            same.append(all(
+                np.array_equal(na[g][k].view(np.uint8),
+                               nb[g][k].view(np.uint8))
+                for g in ("params", "mu", "nu") for k in na[g])
+                and all(torch.equal(mp[k], ms[k]) for k in mp))
+        out[arch] = dict(same=same, k1=k1,
+                         k34=tuple(x - y for x, y in zip(c1, c0)),
+                         k34_plain=tuple(x - y for x, y in zip(c2, c1)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_family_sharded_serve_and_train_one_rank_bitwise(cuda, dtype):
+    """The hybrid and vlm families on a (1, 1) mesh of one nccl rank:
+    prefill, decode steps, every cache field and two train steps bitwise
+    the unsharded path; the prefill's K3/K4 launches the unsharded one's
+    (zamba2: one K4 a mamba layer, 5; vision: one K3 a layer, 2); one
+    mapped K1 launch a sharded step, one unmapped a plain step."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    res = mesh_lib.run_local(_family_sharded_smoke, 1, dtype, device="cuda",
+                             timeout=600)[0]
+    for arch, want in (("zamba2-7b", 5), ("llama-3.2-vision-11b", 2)):
+        r = res[arch]
+        assert all(r["same"]), (arch, r["same"])
+        assert r["k34"] == r["k34_plain"] and sum(r["k34"]) == want, (
+            arch, r["k34"])
+        kernel = r["k34"][2:] if arch == "zamba2-7b" else r["k34"][:2]
+        assert sum(kernel) == want, (arch, r["k34"])
+        assert r["k1"] == [(1, 1, 1)] * 2, (arch, r["k1"])
