@@ -261,7 +261,13 @@ Phases, in order; any failure raises and exits non-zero:
               unsharded): logits and every cache field bitwise, K3/K4
               launches a prefill 28 / 24 / 24; ms a prefill and a step,
               peak GB; with four cards, llama3.2-3b over (1, 4) and (2, 2)
-              against the one-rank logits;
+              against the one-rank logits; then the split-slot decode
+              (one llama3.2-3b attention layer at full width, batch 1,
+              ``long_500k``'s 8192-slot ring at position 524287, bf16 and
+              float32): ``decode_partials`` over 2 and 4 slot shards plus
+              ``combine_partials`` against the unsharded
+              ``decode_self_attention`` (float32 rtol 1e-5, bf16 2e-2 of
+              the max abs value), the combine's ms beside the layer's;
 41. sharded train — ``train.trainer.shard_for_training`` (FSDP over
               data, tensor parallelism over model) on a one-rank nccl (1,
               1) mesh: llama3.2-3b (cut to 8 layers), granite-moe-1b-a400m
@@ -279,10 +285,15 @@ Phases, in order; any failure raises and exits non-zero:
 over every card (a machine with several cards), and writes
 ``chiprun_out/agent_mesh_cards.json``.  ``python3 chip_smoke.py
 --sharded-serve-across-cards`` (four cards) runs phases 1, 2 and 40 (with
-llama3.2-3b over (1, 4) and (2, 2)), then deepseek-67b at full width over
-(1, 4) and cut to 4 layers against one card's unsharded run, then the card
-test of the sharded serve over every card, and writes
-``chiprun_out/sharded_serve_cards.json``.  ``python3 chip_smoke.py
+llama3.2-3b over (1, 4) and (2, 2)), then 40e (llama3.2-3b at full width
+and depth, batch 1, in ``long_500k``'s 8192-slot cache sequence-sharded
+over (4, 1) and (2, 2), float32 and bf16: a prompt of 8192 through K3,
+4 steps that wrap the ring into rank 0's slots, against one card fed the
+same tokens; ms a step, collectives a step, cache GB a rank), then
+deepseek-67b at full width over (1, 4) and cut to 4 layers against one
+card's unsharded run, vision over (1, 4) and (2, 2), K3 and K4 at the
+ranks' local shapes, then the card test of the sharded serve over every
+card, and writes ``chiprun_out/sharded_serve_cards.json``.  ``python3 chip_smoke.py
 --sharded-train-across-cards`` (four cards) runs phases 1 and 2, then
 llama3.2-3b at full width and depth through the sharded train step on one
 card's (1, 1) mesh and over (4, 1), (2, 2) and (1, 4), 3 steps each (ms a
@@ -4767,20 +4778,32 @@ def step_breakdown(torch, m, params, srv, plain_step, sharded_step,
 
 
 def widen_sharded(srv, cache, capacity, device="cuda"):
-    """:func:`widen_cache` of a ``ShardedServer``'s prefill cache (its
-    DTensors' local tensors copied into a cache of ``capacity`` slots from
-    ``srv.init_cache``)."""
+    """:func:`widen_cache` of a ``ShardedServer``'s prefill cache into a
+    cache of ``capacity`` slots from ``srv.init_cache``, placed by global
+    slot: the local tensors copied where neither cache's sequence is
+    sharded, else each rank gathers the prompt's cache and keeps its block
+    of the wide one (``server.cache_specs``)."""
+    from repro_torch.models.param import local_shard
+    from repro_torch.train import server
+
     if srv.cfg.family in ("ssm", "hybrid"):
         return cache
     fields = [f for f in KV_FIELDS if getattr(cache, f) is not None]
-    k = local_of(getattr(cache, fields[0]).k)
-    b, s = k.shape[-4], k.shape[-3]
+    b, s = getattr(cache, fields[0]).k.shape[-4:-2]      # the whole cache's
     mem_len = 0 if cache.cross_kv is None else cache.cross_kv[0].shape[2]
-    full = srv.init_cache(b * srv.layout().n_batch, capacity, mem_len,
-                          device=device)
+    full = srv.init_cache(b, capacity, mem_len, device=device)
+    by_slot = srv.slot_span(b, s) or srv.slot_span(b, capacity)
+    specs = server._cache_specs(srv.cfg, b, capacity, srv.mesh)
     for f in fields:
-        for dst, src in zip(getattr(full, f), getattr(cache, f)):
-            local_of(dst)[..., :s, :, :] = local_of(src)
+        for dst, src, spec in zip(getattr(full, f), getattr(cache, f),
+                                  getattr(specs, f)):
+            if by_slot is None:
+                local_of(dst)[..., :s, :, :] = local_of(src)
+                continue
+            whole = src.full_tensor()
+            wide = whole.new_zeros(dst.shape)
+            wide[..., :s, :, :] = whole
+            local_of(dst).copy_(local_shard(wide, spec, srv.mesh))
     return full._replace(pos=cache.pos, cross_kv=cache.cross_kv)
 
 
@@ -5218,6 +5241,17 @@ def phase_sharded_serve(torch):
         rec[f"{arch} {dtype}"] = {k: v for k, v in r.items()
                                   if not k.endswith("_cpu")
                                   and k != "fed_tokens"}
+    split = {}
+    for dtype in ("float32", "bfloat16"):
+        split[dtype] = r = split_slot_decode(torch, dtype)
+        log(f"llama3.2-3b {dtype} split-slot decode, one attention layer, "
+            f"{r['capacity']} slots at position {r['pos']}: unsharded "
+            f"{r['unsharded_ms']:.4f} ms; " + "; ".join(
+                f"{n} shards max abs err {r[f'{n} shards']['max_abs_err']:.3e}"
+                f" (of {r[f'{n} shards']['max_abs']:.3e}), split layer "
+                f"{r[f'{n} shards']['split_ms']:.4f} ms, combine "
+                f"{r[f'{n} shards']['combine_ms']:.4f} ms"
+                for n in SPLIT_SHARDS))
     multi = {}
     if torch.cuda.device_count() >= 4:
         floor = res[("llama3.2-3b", "bfloat16")]["bf16_floor"]
@@ -5250,8 +5284,291 @@ def phase_sharded_serve(torch):
                     f"{fmt_ms(row['prefill_ms'])} ms, decode "
                     f"{fmt_ms(row['decode_ms'])} ms a step, peak "
                     f"{row['peak_gb']} GB, K3 {row['k3_launches']} a rank")
-    RECORD["sharded_serve"] = {"one_rank": rec, "multi": multi}
+    RECORD["sharded_serve"] = {"one_rank": rec, "multi": multi,
+                               "split_slot": split}
     done("sharded serve", t0)
+    return rec
+
+
+SPLIT_SHARDS = (2, 4)    # phase 40's slot shards of one long_500k cache
+SPLIT_SPIN = 20_000_000  # a spin past the host's enqueue of a whole layer
+
+
+def split_slot_decode(torch, dtype):
+    """Phase 40's split-slot decode: one attention layer of llama3.2-3b at
+    full width (random weights from seed 0) and ``long_500k``'s cache
+    (batch 1, ``serve_capacity`` = 8192 slots of random K/V, a ring), the
+    token at ``long_500k``'s last position (524287, past the wrap).  The
+    unsharded ``decode_self_attention`` output against ``decode_partials``
+    over n = 2 and 4 slot shards of the same cache, merged by
+    ``combine_partials`` (no collective: the shards are stacked in one
+    process), then ``wo``: float32 within rtol 1e-5 (atol 1e-5 of the max
+    abs value), bf16 within 2e-2 of it (asserted); CUDA-event medians of
+    the unsharded layer, of the split layer (its projections, rope, the
+    shards' partials, the combine and ``wo``) and of the combine alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import LONG_500K
+    from repro_torch.models import attention
+    from repro_torch.models.model import serve_capacity
+    from repro_torch.models.param import init_params
+
+    cfg = get_config("llama3.2-3b").with_(dtype=dtype)
+    dt = getattr(torch, dtype)
+    cap, pos = serve_capacity(cfg, LONG_500K.seq_len), LONG_500K.seq_len - 1
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = init_params(attention.attn_plan(cfg), dtype, generator=gen,
+                    device="cuda")
+    x = torch.randn(1, 1, cfg.d_model, generator=gen, device="cuda").to(dt)
+    shape = (1, cap, cfg.n_kv_heads, cfg.head_dim)
+    kv = attention.KVCache(*(torch.randn(shape, generator=gen,
+                                         device="cuda").to(dt)
+                             for _ in range(2)))
+    rec = {"capacity": cap, "pos": pos}
+    with torch.no_grad():
+        want = attention.decode_self_attention(p, x, kv, pos, cfg)[0]
+        rec["unsharded_ms"] = device_ms(torch, lambda: (
+            attention.decode_self_attention(p, x, kv, pos, cfg)),
+            sleep_cycles=SPLIT_SPIN)
+        top = want.float().abs().max().item()
+        for n in SPLIT_SHARDS:
+            split = split_decode_in_process(torch, n)
+            got = split(p, x, kv, pos, cfg)[0]
+            err = (got.float() - want.float()).abs().max().item()
+            if dtype == "float32":
+                ok = bool(((got - want).abs() <= 1e-5 * top
+                           + 1e-5 * want.abs()).all())
+            else:
+                ok = err < 2e-2 * top
+            check(ok, f"split-slot decode {dtype}, {n} shards: max abs err "
+                      f"{err:.3e} of max abs {top:.3e}")
+            q_pos, q, _, _ = attention.decode_qkv(p, x, pos, cfg)
+            parts = slot_partials(torch, q, q_pos, kv, pos, n)
+            rec[f"{n} shards"] = {
+                "max_abs_err": err, "max_abs": top,
+                "split_ms": device_ms(torch, lambda: split(p, x, kv, pos,
+                                                           cfg),
+                                      sleep_cycles=SPLIT_SPIN),
+                "combine_ms": device_ms(torch, lambda: (
+                    attention.combine_partials(*parts, dt)),
+                    sleep_cycles=SPLIT_SPIN)}
+    return rec
+
+
+LONG_MESHES = ((4, 1), (2, 2))   # batch 1 in long_500k's cache, four cards
+LONG_STEPS = 4
+
+
+def slot_partials(torch, q, q_pos, cache, pos, n, window=None):
+    """``attention.decode_partials`` of q over ``n`` slot shards of a whole
+    ring ``cache`` (its K/V of ``pos`` written), stacked (n, ...)."""
+    from repro_torch.models import attention
+
+    c = cache.capacity
+    k_pos = attention.slot_positions(pos, 0, c, c, q.device)
+    per = c // n
+    parts = [attention.decode_partials(
+        q, cache.k[:, i * per:(i + 1) * per],
+        cache.v[:, i * per:(i + 1) * per], q_pos=q_pos,
+        k_pos=k_pos[i * per:(i + 1) * per],
+        window=window if window is not None and window < c else None,
+        k_valid=k_pos[i * per:(i + 1) * per] >= 0) for i in range(n)]
+    return [torch.stack(t) for t in zip(*parts)]
+
+
+def split_decode_in_process(torch, n):
+    """``attention.decode_self_attention`` computed as ``n`` sequence
+    shards would compute it, in one process: the rank's projections, rope
+    and write, :func:`slot_partials` and ``combine_partials`` without
+    collectives, then ``wo`` (phase 40's split-slot decode; a replacement
+    for the unsharded function in the bf16 floor of
+    :func:`long_context_cards`)."""
+    from repro_torch.models import attention
+
+    def decode(params, x, cache, pos, cfg, *, window=None, slots=None):
+        q_pos, q, k, v = attention.decode_qkv(params, x, pos, cfg)
+        c = cache.capacity
+        cache.k[:, pos % c:pos % c + 1] = k
+        cache.v[:, pos % c:pos % c + 1] = v
+        o = attention.combine_partials(*slot_partials(
+            torch, q, q_pos, cache, pos, n, window), q.dtype)
+        return attention._out_proj(params, o), cache
+
+    return decode
+
+
+def long_context_rank(mesh_unused, dims, dtype, fed, split=0):
+    """llama3.2-3b at full width and depth, batch 1, served in
+    ``long_500k``'s cache (``serve_capacity`` = 8192 slots) over a ``dims``
+    mesh of this host's cards (None: unsharded on this rank's card; with
+    ``split``, its decode attention computed over that many slot shards in
+    one process, :func:`split_decode_in_process`): a prompt of 8192 tokens
+    through K3, which fills the ring, then ``LONG_STEPS`` steps of
+    ``make_serve_step(long_500k)`` at positions 8192.. (the ring wraps into
+    slots 0.., rank 0's), fed ``fed`` (None: greedy).  Every logit on the
+    CPU, ms, the collectives of each step, the cache GB this rank holds,
+    its slot span and K3's launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import LONG_500K
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.model import serve_capacity
+    from repro_torch.train import server
+    from repro_torch.utils import shard_hints
+    from repro_torch.utils.device import index_generator
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if split:
+        from repro_torch.models import attention
+
+        attention.decode_self_attention = split_decode_in_process(torch,
+                                                                  split)
+    cfg = get_config("llama3.2-3b").with_(dtype=dtype)
+    m = model_lib.build(cfg)
+    cap = serve_capacity(cfg, LONG_500K.seq_len)
+    params = m.init(torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda")
+    prompt = torch.randint(0, cfg.vocab, (1, cap), device="cuda",
+                           generator=index_generator(0, -1, "cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        if dims is None:
+            plain = server.make_serve_step(m, LONG_500K)
+            span = None
+
+            def prefill():
+                return m.prefill(params, prompt)
+
+            def step(c, t):
+                return plain(params, c, t)
+        else:
+            mesh = warm_mesh(torch, mesh_lib.make_tiny_mesh(*dims))
+            srv = server.shard_for_serving(m, params, mesh)
+            del params
+            span = srv.slot_span(1, cap)
+            step = srv.make_serve_step(LONG_500K)
+
+            def prefill():
+                return srv.prefill(prompt)
+
+        prefill()                                   # warm-up
+        reset_counts()
+        (logits, cache), pre_ms = sync_ms(torch, prefill, "cuda")
+        k3 = read_counts()
+        check(cache.pos == cap, f"prefill of {cap} left pos {cache.pos}")
+        cache_gb = sum(local_of(t).numel() * local_of(t).element_size()
+                       for t in cache.kv) / 1e9
+
+        def whole(x):
+            return local_of(x).float().cpu()        # replicated logits
+
+        out, toks, ms, coll = [whole(logits)], [], [], []
+        tok = torch.argmax(out[0][:, -1:, :], -1)
+        # warm-up: the first step, whose write the timed one repeats
+        step(cache, (tok if fed is None else fed[:, :1]).cuda())
+        for i in range(LONG_STEPS):
+            t_in = (tok if fed is None else fed[:, i:i + 1]).cuda()
+            toks.append(t_in.cpu())
+            c0 = shard_hints.counts()
+            (_, lg, cache), t = sync_ms(torch, lambda: step(cache, t_in),
+                                        "cuda")
+            c1 = shard_hints.counts()
+            coll.append(tuple(c1[k] - c0[k] for k in ("all_reduce",
+                                                      "all_gather")))
+            ms.append(t)
+            out.append(whole(lg))
+            tok = torch.argmax(out[-1][:, -1:, :], -1)
+    return {"logits": out, "fed": torch.cat(toks, 1), "prefill_ms": pre_ms,
+            "step_ms": ms, "collectives": coll, "cache_gb": cache_gb,
+            "span": None if span is None else tuple(span),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "k3_launches": k3["flash_attention_wgmma"]
+            + k3["flash_attention"]}
+
+
+def long_context_cards(torch):
+    """Phase 40e: llama3.2-3b batch 1 in ``long_500k``'s cache over
+    ``LONG_MESHES`` of four cards, float32 and bf16, against one card's
+    unsharded run fed the same tokens (:func:`long_context_rank`): every
+    rank bitwise the others, float32 logits within 1e-4 of one card's max
+    abs logit, 28 K3 launches a prefill, the ring wrapped into rank 0's
+    slots, the cache a rank 1/4 of the whole, 113 all-reduces and 1
+    all-gather a step (asserted); bf16 logged beside its floor, one card
+    with the decode attention merged over 4 slot shards in one process (at
+    28 layers of random bf16 weights any other rounding of the attention,
+    the exact float32 one included, lands about 2e-2 from ``attend``'s);
+    ms a step, collectives a step, cache GB a rank."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    t0 = phase("40e. llama3.2-3b batch 1 in long_500k's cache (8192 slots) "
+               f"over {LONG_MESHES[0]} and {LONG_MESHES[1]}")
+    rec = {}
+    for dtype in ("float32", "bfloat16"):
+        one = mesh_lib.run_local(long_context_rank, 1, None, dtype, None,
+                                 device="cuda", timeout=900)[0]
+        rec[f"one_card {dtype}"] = {k: v for k, v in one.items()
+                                    if k not in ("logits", "fed")}
+        log(f"llama3.2-3b {dtype} batch 1, one card: prefill of 8192 "
+            f"{one['prefill_ms']:.2f} ms, steps {fmt_ms(one['step_ms'])} "
+            f"ms, cache {one['cache_gb']:.3f} GB, peak "
+            f"{one['peak_gb']:.2f} GB, K3 {one['k3_launches']}")
+        floor = None
+        if dtype == "bfloat16":
+            split = mesh_lib.run_local(long_context_rank, 1, None, dtype,
+                                       one["fed"], 4, device="cuda",
+                                       timeout=900)[0]
+            floor = [rel_err(g, w) for g, w in zip(split["logits"],
+                                                   one["logits"])]
+            rec[f"one_card {dtype}"]["floor_rel_errs"] = floor
+            log(f"llama3.2-3b {dtype} batch 1, one card, the attention "
+                f"merged over 4 slot shards in one process: rel err "
+                f"{[f'{e:.3e}' for e in floor]} (prefill, steps), the floor")
+        for dims in LONG_MESHES:
+            ranks = mesh_lib.run_local(long_context_rank, 4, dims, dtype,
+                                       one["fed"], device="cuda",
+                                       timeout=900)
+            errs = [rel_err(g, w) for g, w in zip(ranks[0]["logits"],
+                                                  one["logits"])]
+            check(all(torch.equal(a, b) for r in ranks for a, b in
+                      zip(r["logits"], ranks[0]["logits"])),
+                  f"batch 1 {dtype} {dims}: the ranks' logits differ")
+            check(all(bool(torch.isfinite(x).all()) for x in
+                      ranks[0]["logits"]), f"batch 1 {dtype} {dims}: "
+                                           f"logits not finite")
+            # float32 is held to one card; bf16 is logged beside its floor
+            if dtype == "float32":
+                check(max(errs) < 1e-4, f"batch 1 {dtype} {dims}: {errs} "
+                                        f"against one card")
+            check(all(r["k3_launches"] == 28 for r in ranks),
+                  f"batch 1 {dtype} {dims}: K3 launches "
+                  f"{[r['k3_launches'] for r in ranks]}, expected 28")
+            # a step: the embedding's all-reduce; a layer: wo's, down's and
+            # the combine's max and sum over the one sequence axis; the
+            # vocabulary gather
+            check(all(r["collectives"] == [(1 + 4 * 28, 1)] * LONG_STEPS
+                      for r in ranks), f"batch 1 {dtype} {dims}: "
+                                       f"collectives {ranks[0]['collectives']}")
+            check(ranks[0]["span"][0] == 0 and all(
+                abs(r["cache_gb"] * 4 - one["cache_gb"]) < 1e-6
+                for r in ranks), f"batch 1 {dtype} {dims}: spans "
+                                 f"{[r['span'] for r in ranks]}, cache GB "
+                                 f"{[r['cache_gb'] for r in ranks]}")
+            rows = [{k: v for k, v in r.items() if k not in ("logits",
+                                                             "fed")}
+                    for r in ranks]
+            rec[f"{dims} {dtype}"] = {"rel_errs": errs, "ranks": rows}
+            log(f"llama3.2-3b {dtype} batch 1 over {dims}: rel err against "
+                f"one card {[f'{e:.3e}' for e in errs]} (prefill, steps)"
+                f"{'' if floor is None else ' beside the floor'}; "
+                f"prefill {fmt_ms([r['prefill_ms'] for r in rows])} ms; "
+                f"steps (rank 0) {fmt_ms(rows[0]['step_ms'])} ms; "
+                f"collectives a step {rows[0]['collectives'][-1]}; cache "
+                f"{rows[0]['cache_gb']:.3f} GB a rank (spans "
+                f"{[r['span'][:2] for r in rows]}); peak "
+                f"{fmt_ms([r['peak_gb'] for r in rows])} GB")
+    RECORD["long_context_cards"] = rec
+    done("batch 1 in long_500k's cache over four cards", t0)
     return rec
 
 
@@ -6121,7 +6438,9 @@ def vision_serve_rank(mesh_unused, dims, dtype, fed):
 
 def sharded_across_cards(only=()):
     """Phases 1 and 2, then, of ``only`` (default all three): phase 40
-    (llama3.2-3b over (1, 4) and (2, 2) against one rank); deepseek-67b at
+    (llama3.2-3b over (1, 4) and (2, 2) against one rank) and 40e
+    (llama3.2-3b batch 1 in ``long_500k``'s sequence-sharded cache over (4,
+    1) and (2, 2), :func:`long_context_cards`); deepseek-67b at
     full width over (1, 4) (prefill B=4 S=2048, 4 decode steps: ms, peak
     GB a rank, finite logits) and cut to ``DEEPSEEK_CUT`` layers against
     one card's unsharded run; llama-3.2-vision-11b at full width and depth
@@ -6146,6 +6465,7 @@ def sharded_across_cards(only=()):
     check(w >= 4, f"{SHARDED_ACROSS_CARDS} needs four cards, found {w}")
     if "llama3.2-3b" in only:
         phase_sharded_serve(torch)
+        long_context_cards(torch)
     if DEEPSEEK in only:
         t0 = phase(f"40b. {DEEPSEEK} at full width over a (1, 4) nccl mesh")
         ranks = mesh_lib.run_local(deepseek_rank, 4, get_config(DEEPSEEK),

@@ -31,6 +31,15 @@ take their input through ``shard_hints.copy_to`` (the memory too, where
 the kv heads are sharded), and so do replicated kv heads before the cut to
 the rank's: each rank's gradient of ``wk``/``wv`` then covers every kv
 head, summed over ``model``, not only those its q heads read.
+
+Where ``server.cache_specs`` shards the cache's sequence, a rank holds a
+:class:`SlotSpan` of its slots and decode is flash-decode style:
+:func:`decode_partials` attends over the rank's slots and keeps each row's
+max, sum and unnormalised output in float32, and :func:`combine_partials`
+merges the ranks' (or, without mesh axes, a stack of shards' in one
+process) by the global max, so the result is the whole cache's softmax.
+The JAX decode step runs the materialised ``attend`` over the whole cache
+(GSPMD partitions it); no kernel is involved either way.
 """
 from __future__ import annotations
 
@@ -270,37 +279,136 @@ def project_memory(params, memory: torch.Tensor,
     return _proj(memory, params["wk"]), _proj(memory, params["wv"])
 
 
+def decode_qkv(params, x: torch.Tensor, pos: int, cfg: ModelConfig):
+    """The new token's position (1,) int32 and its q, k, v (rope applied)
+    for one decode step of x (B, 1, D)."""
+    h = rmsnorm(params["norm"], x, cfg.norm_eps)
+    q, k, v = _project_qkv(params, h)
+    p = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    return p, apply_rope(q, p, cfg.rope_theta), apply_rope(
+        k, p, cfg.rope_theta), v
+
+
+def slot_positions(pos: int, lo: int, hi: int, cap: int,
+                   device=None) -> torch.Tensor:
+    """The absolute position held by each slot ``[lo, hi)`` of a ring of
+    ``cap`` slots once ``pos`` is written: the largest p <= pos with p mod
+    cap == s, ``pos - ((pos - s) mod cap)`` (negative: not written yet)."""
+    idx = torch.arange(lo, hi, dtype=torch.int64, device=device)
+    return pos - torch.remainder(pos - idx, cap)
+
+
+class SlotSpan(NamedTuple):
+    """This rank's slots ``[lo, hi)`` of a KV cache of ``cap`` slots whose
+    sequence is split over the mesh ``axes`` (those of more than one rank;
+    ``server.cache_specs``' sequence entry, the first axis the outer
+    one)."""
+
+    lo: int
+    hi: int
+    cap: int
+    axes: Tuple[str, ...]
+
+
+def decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    q_pos: torch.Tensor, k_pos: torch.Tensor,
+                    causal: bool = True, window: Optional[int] = None,
+                    k_valid: Optional[torch.Tensor] = None):
+    """Attention of q (B, Sq, H, Dh) over some slots of a cache, k/v (B, c,
+    Hkv, Dh) at positions ``k_pos`` (c,), left unnormalised: each row's
+    float32 max ``m`` and sum ``l`` (B, Sq, H, 1) and output ``o`` (B, Sq,
+    H, Dh) float32, ``o = sum_k exp(s_k - m) v_k``, ``l = sum_k exp(s_k -
+    m)``.  ``attend``'s grouped form and casts: float32 scores and
+    exponents, the probabilities in q's dtype before the PV product.  A row
+    that sees none of these slots has ``m = NEG_INF`` (:func:`
+    combine_partials` weighs it by 0)."""
+    b, sq, h, dh = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    bias = _mask_bias(q_pos, k_pos, causal=causal, window=window,
+                      k_valid=k_valid)
+    qr = q.reshape(b, sq, hkv, g, dh)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qr, k).float() * _scale(dh) \
+        + bias
+    m = scores.amax(-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(q.dtype), v).float()
+
+    def rows(t):      # (B, Hkv, g, Sq, 1) -> (B, Sq, H, 1)
+        return t.permute(0, 3, 1, 2, 4).reshape(b, sq, h, 1)
+
+    return rows(m), rows(l), o.reshape(b, sq, h, dh)
+
+
+def combine_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                     dtype: torch.dtype, axes=None) -> torch.Tensor:
+    """The flash-decode combine of :func:`decode_partials`' shards into the
+    attention output, in ``dtype``.  Without ``axes`` the shards are a
+    leading axis of ``m``, ``l`` and ``o`` (n, ...); with mesh ``axes``
+    each rank holds its own and the merge is collectives over them
+    (counted in ``shard_hints``): one all-reduce (max) of ``m`` an axis,
+    then one all-reduce (sum) of the rescaled ``[o, l]``, packed, an axis.
+    Every shard is rescaled by ``exp(m_r - m)`` with the global max ``m``
+    before anything is summed, and only the sum is normalised: a shard
+    that sees none of its slots (``m_r = NEG_INF``) adds exactly 0."""
+    if axes is None:
+        w = torch.exp(m - m.amax(0))
+        return ((o * w).sum(0) / (l * w).sum(0)).to(dtype)
+    w = torch.exp(m - shard_hints.all_max(m.clone(), axes))
+    packed = shard_hints.all_reduce(torch.cat([o * w, l * w], -1), axes)
+    return (packed[..., :-1] / packed[..., -1:]).to(dtype)
+
+
 def decode_self_attention(params, x: torch.Tensor, cache: KVCache, pos: int,
                           cfg: ModelConfig, *,
-                          window: Optional[int] = None):
+                          window: Optional[int] = None,
+                          slots: Optional[SlotSpan] = None):
     """One decode step against a (possibly ring-buffered) KV cache.
 
     Capacity == full context  -> plain causal cache (slot = pos).
     Capacity W < full context -> ring buffer (slot = pos mod W), giving
     sliding-window attention with O(W) memory.  The new K and V are written
     into ``cache``'s tensors in place.
+
+    ``slots``: ``cache`` holds this rank's slots ``[lo, hi)`` of a cache of
+    ``slots.cap`` (sequence-sharded over ``slots.axes``); the ring, the
+    window and the valid slots are the whole cache's, only the owner of
+    ``pos mod cap`` writes, and the ranks' partial softmaxes are merged by
+    :func:`combine_partials`.  Where the sequence is over ``model`` and
+    the q heads are too, the rank gathers every q head over ``model`` (its
+    cache holds every kv head), merges, and keeps its own heads for
+    ``wo``'s row-parallel product.
     """
-    dev = x.device
     lay = shard_hints.layout(cfg)
-    h = rmsnorm(params["norm"], x, cfg.norm_eps)
-    q, k, v = _project_qkv(params, h)
-    p = torch.full((1,), pos, dtype=torch.int32, device=dev)
-    q = apply_rope(q, p, cfg.rope_theta)
-    k = apply_rope(k, p, cfg.rope_theta)
-
-    cap = cache.capacity
-    slot = pos % cap
-    cache.k[:, slot:slot + 1] = k
-    cache.v[:, slot:slot + 1] = v
-
-    # Absolute position stored in each slot s: the largest p <= pos with
-    # p mod cap == s  ->  p = pos - ((pos - s) mod cap).
-    slots = torch.arange(cap, dtype=torch.int64, device=dev)
-    k_pos = pos - torch.remainder(pos - slots, cap)
+    p, q, k, v = decode_qkv(params, x, pos, cfg)
+    c = cache.capacity
+    lo, cap = (0, c) if slots is None else (slots.lo, slots.cap)
+    if slots is not None and slots.hi - lo != c:
+        raise ValueError(f"a cache of {c} slots holds slots {slots}")
+    slot = pos % cap - lo
+    if 0 <= slot < c:
+        cache.k[:, slot:slot + 1] = k
+        cache.v[:, slot:slot + 1] = v
+    k_pos = slot_positions(pos, lo, lo + c, cap, x.device)
     eff_window = window if window is not None and window < cap else None
-    o = attend(q, _kv_for_heads(cache.k, cfg, lay),
-               _kv_for_heads(cache.v, cfg, lay), q_pos=p, k_pos=k_pos,
-               causal=True, window=eff_window, k_valid=k_pos >= 0)
+    if slots is None:
+        o = attend(q, _kv_for_heads(cache.k, cfg, lay),
+                   _kv_for_heads(cache.v, cfg, lay), q_pos=p, k_pos=k_pos,
+                   causal=True, window=eff_window, k_valid=k_pos >= 0)
+        return _out_proj(params, o, lay), cache
+    every_head = lay is not None and lay.heads and "model" in slots.axes
+    if every_head:
+        q, ck, cv = shard_hints.all_gather(q, 2), cache.k, cache.v
+    else:
+        ck, cv = _kv_for_heads(cache.k, cfg, lay), \
+            _kv_for_heads(cache.v, cfg, lay)
+    o = combine_partials(*decode_partials(
+        q, ck, cv, q_pos=p, k_pos=k_pos, window=eff_window,
+        k_valid=k_pos >= 0), q.dtype, slots.axes)
+    if every_head:
+        h_lo, h_hi = lay.span(cfg.n_heads)
+        o = o[:, :, h_lo:h_hi]
     return _out_proj(params, o, lay), cache
 
 

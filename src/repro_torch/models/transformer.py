@@ -48,7 +48,10 @@ layers issue their collectives (every MLP through :func:`_ffn`, so each
 ``down`` product is all-reduced; the cross blocks' and the encoder's
 attention on the rank's heads; the hybrid's shared block, stored once,
 at each of its uses); the logits come back whole over the vocabulary.
-The caches hold the rank's kv heads, ``cross_kv`` included.
+The caches hold the rank's kv heads, ``cross_kv`` included, and, where
+``server.cache_specs`` shards the sequence, the rank's slots of the
+self-attention caches: ``decode``'s ``slots`` reach every family's self
+attention (the hybrid's shared block and the vlm groups included).
 """
 from __future__ import annotations
 
@@ -332,9 +335,12 @@ def _stack_states(states) -> ssm_mod.SSMState:
 
 
 def decode(params, cfg: ModelConfig, cache: Cache, token: torch.Tensor, *,
-           window: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+           window: Optional[int] = None,
+           slots: Optional[attn.SlotSpan] = None) -> Tuple[torch.Tensor, Cache]:
     """serve_step: one new token per sequence. Returns (logits (B,1,V),
-    cache')."""
+    cache').  ``slots``: the self-attention caches (``kv``, ``groups_kv``,
+    ``cross_self_kv``) hold this rank's span of a sequence-sharded cache
+    (``attention.decode_self_attention``); ``cross_kv`` is whole."""
     lay = shard_hints.layout(cfg)
     x = embed(params["embed"], token, _dtype(cfg), lay)
     pos = int(cache.pos)
@@ -342,7 +348,7 @@ def decode(params, cfg: ModelConfig, cache: Cache, token: torch.Tensor, *,
 
     def self_attn(lp, x, kv):
         dx, _ = attn.decode_self_attention(lp["attn"], x, kv, pos, cfg,
-                                           window=window)
+                                           window=window, slots=slots)
         return x + dx
 
     def mamba(stacked, states, x):

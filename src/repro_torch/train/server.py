@@ -18,11 +18,25 @@ axes, the cache laid out per ``cache_specs``, and every call run inside a
 hints context (``utils/shard_hints.py``) on the rank's own shards; the
 vlm and encdec families' ``memory`` goes in whole or laid out by
 ``data.make_batch_specs``, each rank taking its batch shard.  Every family
-is served on a mesh.  A layout whose KV cache (``kv``, ``groups_kv``,
-``cross_self_kv``) ``cache_specs`` shards over the sequence raises
-``NotImplementedError`` for every family with one: the cross-rank softmax
-combine it needs is still to port (``ROADMAP.md``).  ``cross_kv`` is never
-sharded over the sequence.
+is served on a mesh.  A batch that does not divide the batch axes (batch
+1, ``long_500k``) is replicated over them, as the JAX package's
+``constrain`` leaves it: every data rank runs the whole batch, under a
+layout with no batch axes (so MoE routing counts its tokens once).
+
+Where ``cache_specs`` shards a KV cache's sequence (``kv``, ``groups_kv``,
+``cross_self_kv``: over ``data`` where the batch does not divide it, over
+``model`` where ``model`` does not divide the kv heads, over ``("data",
+"model")`` where both hold), each rank of those axes holds slots ``[r
+cap/n, (r+1) cap/n)`` in mesh order (:meth:`ShardedServer.slot_span`).
+The prefill computes the whole prompt and keeps the rank's slots;
+``decode`` gives every family's self attention that span: the ring,
+window and valid slots are the whole cache's, only the owner of ``pos mod
+cap`` writes the new K/V, and the flash-decode combine
+(``attention.combine_partials``) merges the ranks' partial softmaxes
+with one all-reduce (max) and one all-reduce (sum) over each sequence axis
+of more than one rank; where the sequence is over ``model`` and the q
+heads are too, each rank first gathers every q head over ``model``.
+``cross_kv`` is never sharded over the sequence.
 """
 from __future__ import annotations
 
@@ -33,11 +47,11 @@ import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models import transformer
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import KVCache, SlotSpan
 from repro_torch.models.model import Model, serve_capacity
 from repro_torch.models.param import (
-    P, NamedSharding, distribute_params, local_params, mesh_shape,
-    serve_rules,
+    P, NamedSharding, distribute_params, entry_axes, local_params,
+    mesh_shape, serve_rules,
 )
 from repro_torch.models.ssm import SSMState
 from repro_torch.utils import shard_hints
@@ -178,6 +192,9 @@ def cache_specs(cfg: ModelConfig, shape: InputShape, mesh):
 # The sharded serve path
 # --------------------------------------------------------------------------
 
+_KV_FIELDS = ("kv", "groups_kv", "cross_self_kv")   # the self-attention KV
+
+
 def _map_cache(fn, cache, per_field):
     """``fn(tensor, x)`` over every tensor field of a cache, ``x`` from the
     same field's entries of ``per_field`` (a dict by field name), ``pos``
@@ -197,46 +214,74 @@ def _local(x):
     return x.to_local() if hasattr(x, "to_local") else x
 
 
+def _serve_batch_axes(mesh, batch: int) -> Tuple[str, ...]:
+    """The mesh axes a serve call's batch of ``batch`` runs over: the batch
+    hint's (``pod``, ``data``) where they divide it, else the cache's batch
+    entry (``data`` alone on a multi-pod mesh), else none: the batch is
+    replicated over them, as the JAX package's ``constrain`` leaves a
+    dimension it cannot divide unconstrained."""
+    shape = mesh_shape(mesh)
+    axes = tuple(a for a in ("pod", "data") if a in shape)
+    n = 1
+    for a in axes:
+        n *= shape[a]
+    return axes if batch % n == 0 else entry_axes(_batch_entry(mesh, batch))
+
+
 @dataclass(eq=False)
 class ShardedServer:
     """The serve path of ``model`` on a ``DeviceMesh`` (see
     :func:`shard_for_serving`).  ``params`` are DTensors, ``local`` this
     rank's tensors of them.  Tokens go in as DTensors laid out by
     ``data.make_batch_specs`` or as the whole batch (the same on every
-    rank; each rank takes its shard); logits, next tokens and caches come
-    back as DTensors (``.full_tensor()`` gathers one, a collective)."""
+    rank; each rank takes its shard, or all of it where the batch does not
+    divide the batch axes); logits, next tokens and caches come back as
+    DTensors (``.full_tensor()`` gathers one, a collective)."""
 
     model: Model
     mesh: Any
     params: Any
     local: Any
-    _layout: Optional[shard_hints.Layout] = None
+    _layouts: dict = field(default_factory=dict)       # by batch axes
     _placements_of: dict = field(default_factory=dict)   # built once each
 
     @property
     def cfg(self) -> ModelConfig:
         return self.model.cfg
 
-    def hints(self, kind: str):
-        """The hints context every call runs in."""
-        return shard_hints.hints(self.mesh, **shard_hints.attn_hints(
-            self.cfg, self.mesh, kind))
+    def _batch_axes(self, batch: Optional[int]) -> Tuple[str, ...]:
+        if batch is None:
+            return shard_hints.attn_hints(self.cfg, self.mesh)["batch"]
+        return _serve_batch_axes(self.mesh, batch)
 
-    def layout(self) -> shard_hints.Layout:
-        """What this rank holds (built once)."""
-        if self._layout is None:
-            with self.hints("prefill"):
-                self._layout = shard_hints.layout(self.cfg)
-        return self._layout
+    def hints(self, kind: str, batch: Optional[int] = None):
+        """The hints context every call runs in: for a batch of ``batch``
+        (None: one the batch axes divide), the batch (and the MoE buffer)
+        over :func:`_serve_batch_axes`."""
+        hint_map = shard_hints.attn_hints(self.cfg, self.mesh, kind)
+        hint_map["batch"] = axes = self._batch_axes(batch)
+        if "moe_cap" in hint_map:
+            hint_map["moe_cap"] = axes
+        return shard_hints.hints(self.mesh, **hint_map)
 
-    def _placements(self, ndim: int) -> tuple:
-        """A tensor with its batch (dim 0) over the batch axes."""
-        if ndim not in self._placements_of:
-            axes = self.layout().batch_axes
+    def layout(self, batch: Optional[int] = None) -> shard_hints.Layout:
+        """What this rank holds for a batch of ``batch`` (built once per
+        batch axes)."""
+        axes = self._batch_axes(batch)
+        if axes not in self._layouts:
+            with self.hints("prefill", batch):
+                self._layouts[axes] = shard_hints.layout(self.cfg)
+        return self._layouts[axes]
+
+    def _placements(self, ndim: int, batch: int) -> tuple:
+        """A tensor with its batch (dim 0) over the batch axes (replicated
+        where the batch does not divide them)."""
+        axes = self._batch_axes(batch)
+        if (ndim, axes) not in self._placements_of:
             entry = axes if len(axes) > 1 else (axes[0] if axes else None)
-            self._placements_of[ndim] = NamedSharding(
+            self._placements_of[(ndim, axes)] = NamedSharding(
                 self.mesh, P(entry, *[None] * (ndim - 1))).placements
-        return self._placements_of[ndim]
+        return self._placements_of[(ndim, axes)]
 
     def _wrap(self, local: torch.Tensor, placements):
         from torch.distributed.tensor import DTensor
@@ -244,24 +289,15 @@ class ShardedServer:
         return DTensor.from_local(local, self.mesh, placements,
                                   run_check=False)
 
-    def _batch(self, x: torch.Tensor) -> torch.Tensor:
+    def _batch(self, x: torch.Tensor, batch: int) -> torch.Tensor:
         """This rank's batch shard of a DTensor or of the whole batch."""
-        return shard_hints.batch_shard(x, self.layout())
+        return shard_hints.batch_shard(x, self.layout(batch))
 
     def _cache_placements(self, batch: int, capacity: int):
         """The placements of each cache field per ``cache_specs`` (built
-        once per batch and capacity); raises where they shard a KV cache's
-        sequence (every family but ssm has one)."""
+        once per batch and capacity)."""
         key = (batch, capacity)
         if key not in self._placements_of:
-            b_entry, seq_entry, _ = _cache_entries(self.cfg, batch, capacity,
-                                                   self.mesh)
-            if seq_entry is not None and self.cfg.family != "ssm":
-                raise NotImplementedError(
-                    f"cache_specs shards this cache's sequence over "
-                    f"{seq_entry!r} (batch {batch}, {self.cfg.n_kv_heads} kv "
-                    f"heads on {mesh_shape(self.mesh)}): the flash-decode "
-                    f"combine it needs is still to port (ROADMAP.md §1)")
             specs = _cache_specs(self.cfg, batch, capacity, self.mesh)
             self._placements_of[key] = {
                 name: [NamedSharding(self.mesh, s).placements for s in spec]
@@ -269,74 +305,113 @@ class ShardedServer:
                 if name != "pos" and spec is not None}
         return self._placements_of[key]
 
-    def _wrap_cache(self, cache, batch: int):
-        placements = self._cache_placements(batch, self._capacity(cache))
+    def slot_span(self, batch: int, capacity: int) -> Optional[SlotSpan]:
+        """This rank's slots of a KV cache of ``capacity`` slots for a
+        batch of ``batch`` where ``cache_specs`` shards its sequence (None
+        where it does not, or the family has no KV cache): the ranks of
+        the sequence axes in mesh order, the first axis the outer one."""
+        _, seq_entry, _ = _cache_entries(self.cfg, batch, capacity,
+                                         self.mesh)
+        if seq_entry is None or self.cfg.family == "ssm":
+            return None
+        shape = mesh_shape(self.mesh)
+        coord = dict(zip(self.mesh.mesh_dim_names,
+                         self.mesh.get_coordinate()))
+        n, idx = 1, 0
+        for a in entry_axes(seq_entry):
+            n, idx = n * shape[a], idx * shape[a] + coord[a]
+        per = capacity // n
+        return SlotSpan(lo=idx * per, hi=(idx + 1) * per, cap=capacity,
+                        axes=tuple(a for a in entry_axes(seq_entry)
+                                   if shape[a] > 1))
+
+    def _wrap_cache(self, cache, batch: int, capacity: int):
+        """The rank's cache fields as DTensors of a cache of ``capacity``
+        slots."""
+        placements = self._cache_placements(batch, capacity)
         return _map_cache(self._wrap, cache, placements)
+
+    def _keep_slots(self, cache, span: Optional[SlotSpan]):
+        """The slots ``span`` of a cache's self-attention KV fields (the
+        rank computed all of them), copied; ``cross_kv`` and SSM states
+        kept."""
+        if span is None:
+            return cache
+        return cache._replace(**{
+            f: KVCache(*(t[..., span.lo:span.hi, :, :].clone()
+                         for t in getattr(cache, f)))
+            for f in _KV_FIELDS if getattr(cache, f) is not None})
 
     @staticmethod
     def _capacity(cache) -> int:
-        """The slots of the cache's KV fields (1 where it has none)."""
-        kv = next((f for f in (cache.kv, cache.groups_kv, cache.cross_self_kv)
-                   if f is not None), None)
+        """The slots of the cache's KV fields (1 where it has none); of a
+        cache of DTensors, the whole cache's."""
+        kv = next((getattr(cache, f) for f in _KV_FIELDS
+                   if getattr(cache, f) is not None), None)
         return 1 if kv is None else kv.k.shape[-3]
 
-    def _memory(self, memory):
-        return None if memory is None else self._batch(memory)
+    def _memory(self, memory, batch: int):
+        return None if memory is None else self._batch(memory, batch)
 
-    def _logits(self, local: torch.Tensor):
-        return self._wrap(local, self._placements(local.ndim))
+    def _logits(self, local: torch.Tensor, batch: int):
+        return self._wrap(local, self._placements(local.ndim, batch))
 
     @torch.no_grad()
     def forward(self, tokens, memory=None, *, blockwise=False):
         """(logits DTensor (B, S, V), the rank's aux loss); ``memory`` (the
         vlm and encdec families') whole or a DTensor, as ``tokens``."""
-        with self.hints("prefill"):
+        b = tokens.shape[0]
+        with self.hints("prefill", b):
             logits, aux = transformer.forward(
-                self.local, self.cfg, self._batch(tokens),
-                self._memory(memory), blockwise=blockwise)
-        return self._logits(logits), aux
+                self.local, self.cfg, self._batch(tokens, b),
+                self._memory(memory, b), blockwise=blockwise)
+        return self._logits(logits, b), aux
 
     @torch.no_grad()
     def prefill(self, tokens, memory=None):
         """(last-position logits DTensor (B, 1, V), cache of DTensors);
-        ``memory`` as :meth:`forward`'s."""
+        ``memory`` as :meth:`forward`'s.  Where the cache's sequence is
+        sharded every rank of the sequence axes computes the whole prompt
+        and keeps its slots."""
         b = tokens.shape[0]
         # the SSM and hybrid prefills return a cache of one slot
-        self._cache_placements(b, 1 if self.cfg.family in ("ssm", "hybrid")
-                               else tokens.shape[1])
-        with self.hints("prefill"):
+        cap = 1 if self.cfg.family in ("ssm", "hybrid") else tokens.shape[1]
+        with self.hints("prefill", b):
             logits, cache = transformer.prefill(self.local, self.cfg,
-                                                self._batch(tokens),
-                                                self._memory(memory))
-        return self._logits(logits), self._wrap_cache(cache, b)
+                                                self._batch(tokens, b),
+                                                self._memory(memory, b))
+        cache = self._keep_slots(cache, self.slot_span(b, cap))
+        return self._logits(logits, b), self._wrap_cache(cache, b, cap)
 
     def init_cache(self, batch: int, capacity: int, mem_len: int = 0,
                    device=None):
         """A zero cache of ``capacity`` slots (and ``mem_len`` memory
         positions in ``cross_kv``) for a batch of ``batch``, this rank's
-        shards as DTensors."""
-        self._cache_placements(batch, capacity)
-        lay = self.layout()
-        if batch % lay.n_batch:
-            raise ValueError(f"a batch of {batch} does not divide over the "
-                             f"{lay.n_batch} shards of {lay.batch_axes}")
-        with self.hints("decode"):
-            cache = transformer.init_cache(self.cfg, batch // lay.n_batch,
-                                           capacity, mem_len, device=device)
-        return self._wrap_cache(cache, batch)
+        shards as DTensors: its batch shard (all of it where the batch
+        does not divide the batch axes), kv heads and slots."""
+        lay = self.layout(batch)
+        span = self.slot_span(batch, capacity)
+        with self.hints("decode", batch):
+            cache = transformer.init_cache(
+                self.cfg, batch // lay.n_batch,
+                capacity if span is None else span.hi - span.lo, mem_len,
+                device=device)
+        return self._wrap_cache(cache, batch, capacity)
 
     @torch.no_grad()
     def decode(self, cache, token, *, window: Optional[int] = None):
         """One token per sequence: (logits DTensor (B, 1, V), cache'); the
-        KV caches are written in place."""
-        b = token.shape[0]
+        KV caches are written in place, a sequence-sharded one by the
+        owner of the new slot, its ranks' softmaxes merged by the
+        flash-decode combine (``attention.combine_partials``)."""
+        b, cap = token.shape[0], self._capacity(cache)
         local = _map_cache(lambda t, _: _local(t), cache,
                            cache._asdict())
-        with self.hints("decode"):
+        with self.hints("decode", b):
             logits, local = transformer.decode(
-                self.local, self.cfg, local, self._batch(token),
-                window=window)
-        return self._logits(logits), self._wrap_cache(local, b)
+                self.local, self.cfg, local, self._batch(token, b),
+                window=window, slots=self.slot_span(b, cap))
+        return self._logits(logits, b), self._wrap_cache(local, b, cap)
 
     def make_serve_step(self, shape: InputShape):
         """serve_step(cache, token) -> (next_token, logits, cache'), greedy
@@ -348,7 +423,8 @@ class ShardedServer:
         def serve_step(cache, token):
             logits, cache = self.decode(cache, token, window=eff_window)
             nxt = torch.argmax(logits.to_local()[:, -1, :], dim=-1)[:, None]
-            return self._wrap(nxt, self._placements(2)), logits, cache
+            return self._wrap(nxt, self._placements(2, token.shape[0])), \
+                logits, cache
 
         return serve_step
 

@@ -50,15 +50,29 @@ all-gather is a reduce-scatter.  A backward collective over ranks of one
 is skipped (the identity), so is :func:`unshard` on a ``data`` axis of
 one: no copy is made there.
 
+The serve path runs a batch that does not divide the batch axes (batch
+1, ``long_500k``) under a ``batch`` hint of no axes (``train.server``):
+the batch is replicated over them, ``n_batch`` is 1, and MoE routing
+counts the whole batch's tokens once, as JAX's ``constrain`` leaves such
+a dimension unconstrained.  Where ``server.cache_specs`` then shards the
+KV cache's sequence over ``data``, over ``model`` (the kv heads do not
+divide it) or over both, decode is flash-decode style
+(``attention.combine_partials``): each rank attends over its slots, and
+the partial softmaxes are merged by one all-reduce (max, :func:`all_max`)
+of the rows' maxima and one all-reduce (sum) of the rescaled outputs and
+sums, packed, over each sequence axis of more than one rank; where that
+axis is ``model`` and the q heads are sharded, every q head is first
+gathered over ``model`` (:func:`all_gather`, one token).
+
 Outside a hints context :func:`layout` is None and every model function
 runs exactly as it did before (bitwise).  Inside one every collective is
-issued, at width 1 too (where it is the identity), and counted here where
-it is issued (``ALL_REDUCES``, ``ALL_GATHERS``, ``REDUCE_SCATTERS``;
-:func:`counts` reads them, :func:`reset_counts` zeroes them).  The
-``q_seq`` hint (context parallelism where the heads do not divide the
-model axis) is not acted on (``ROADMAP.md``): there the attention
-weights are replicated and every rank of a ``model`` group runs all the
-heads.
+issued, at width 1 too (where it is the identity; the combine's skip the
+sequence axes of one rank), and counted here where it is issued
+(``ALL_REDUCES``, ``ALL_GATHERS``, ``REDUCE_SCATTERS``; :func:`counts`
+reads them, :func:`reset_counts` zeroes them).  The ``q_seq`` hint
+(context parallelism where the heads do not divide the model axis) is not
+acted on (``ROADMAP.md``): there the attention weights are replicated and
+every rank of a ``model`` group runs all the heads.
 """
 from __future__ import annotations
 
@@ -278,7 +292,10 @@ def layout(cfg) -> Optional[Layout]:
 def batch_shard(x: torch.Tensor, lay: Layout) -> torch.Tensor:
     """This rank's shard of a DTensor laid out over the batch axes, or of
     the whole batch (the same on every rank): its block of rows over
-    ``lay``'s batch axes."""
+    ``lay``'s batch axes.  A serve call whose batch does not divide the
+    batch axes runs under a layout with none (``train.server``), so the
+    whole batch comes back; a layout whose axes do not divide the batch
+    raises."""
     if hasattr(x, "to_local"):
         return x.to_local()
     if x.shape[0] % lay.n_batch:
@@ -303,12 +320,13 @@ def _width(axes) -> int:
     return n
 
 
-def _reduce(x: torch.Tensor, groups) -> torch.Tensor:
-    """Sum ``x`` in place over each group (one counted ``all_reduce``
-    each); returns ``x``."""
+def _reduce(x: torch.Tensor, groups, op: str = "sum") -> torch.Tensor:
+    """Sum (``op="max"``: the elementwise max of) ``x`` in place over each
+    group (one counted ``all_reduce`` each); returns ``x``."""
     global ALL_REDUCES
+    red = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
     for g in groups:
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=g)
+        dist.all_reduce(x, op=red, group=g)
         ALL_REDUCES += 1
     return x
 
@@ -428,6 +446,15 @@ def all_reduce(x: torch.Tensor, axes=("model",),
     if _needs_grad(x):
         return _AllReduce.apply(x, axes, backward == "sum")
     return _reduce(x, _groups(axes))
+
+
+def all_max(x: torch.Tensor, axes) -> torch.Tensor:
+    """The elementwise max of ``x`` over the ranks of the mesh ``axes``
+    (one counted ``all_reduce`` an axis), in place; returns ``x``.  No
+    autograd: the decode-time softmax combine is its one use."""
+    if _needs_grad(x):
+        raise ValueError("all_max has no backward")
+    return _reduce(x, _groups(tuple(axes)), op="max")
 
 
 def copy_to(x: torch.Tensor, axes=("model",)) -> torch.Tensor:

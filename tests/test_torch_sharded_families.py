@@ -40,8 +40,15 @@ the references, the (1, 1) cases.
 * the weights' layout and the hints agree for the three configs on (2,
   2), (4, 1) and (1, 4), leaf by leaf, the cross blocks', the encoder's
   and the shared block's included;
-* a KV cache sharded over the sequence raises ``NotImplementedError``
-  naming ``ROADMAP.md`` for each family;
+* the sequence-sharded KV cache at batch 1 (a prompt of 16 with its
+  memory, the cache widened by global slot to 20, 4 fixed tokens fed;
+  zamba2 decodes from a zero cache of 20 slots, as its prefill returns
+  one slot): zamba2 on (2, 2) (``groups_kv`` over ``data``), vision on
+  (1, 4) (``groups_kv`` and ``cross_self_kv`` over ``model``, every q head
+  gathered) and seamless on (4, 1) (``kv`` over ``data``), against JAX's
+  unsharded prefill, cache, steps and greedy tokens at rtol 1e-5; the
+  rank's slots, and the combine's collectives a step beside the batch-4
+  serve's on the same mesh (whose cache is not sequence-sharded);
 * the (1, 1) mesh is bitwise the unsharded serve and train step.
 """
 import functools
@@ -109,6 +116,20 @@ def _mesh(dims):
     return mesh_lib.make_tiny_mesh(*dims)
 
 
+B1_S, B1_STEPS = 16, 4        # batch 1: a prompt of 16, 20 slots
+B1_MESH = {ZAMBA: (2, 2), VISION: (1, 4), SEAMLESS: (4, 1)}
+
+
+def _b1_inputs(cfg):
+    """Batch 1: (prompt (1, B1_S), fed tokens (1, B1_STEPS), memory (1,
+    M, d_model) float32 or None), numpy."""
+    rng = np.random.default_rng(31)
+    mem = _memory(cfg, B1_S)
+    return (rng.integers(0, cfg.vocab, (1, B1_S)),
+            rng.integers(0, cfg.vocab, (1, B1_STEPS)),
+            None if mem is None else mem[:1])
+
+
 def _tcfg():
     return trainer.TrainConfig(ota_backend="torch", n_agents=N_AGENTS,
                                **TCFG)
@@ -150,6 +171,8 @@ def _jax_job(arch, parts):
     out = {}
     if "train" in parts:
         out["train"] = _jax_train(jm, jp)
+    if "b1" in parts:
+        out["b1"] = _jax_b1(jm, jp)
     if "serve" not in parts:
         return out
     tokens = jnp.asarray(_tokens(jc.vocab).astype(np.int32))
@@ -159,15 +182,8 @@ def _jax_job(arch, parts):
     fwd, _ = jm.forward(jp, tokens, jmem)
     log, cache = jm.prefill(jp, tokens, jmem)
     pre = interop.cache_to_numpy(jax.tree.map(np.asarray, cache))
-    if jc.family == "hybrid":
-        full = cache
-    else:
-        full = jm.init_cache(B, cap, mem.shape[1])
-        full = full._replace(pos=cache.pos, cross_kv=cache.cross_kv, **{
-            f: jax.tree.map(lambda dst, src: jax.lax.dynamic_update_slice(
-                dst, src, (0,) * dst.ndim), getattr(full, f),
-                getattr(cache, f))
-            for f in KV_FIELDS if getattr(cache, f) is not None})
+    full = cache if jc.family == "hybrid" else _jax_widen(
+        jm, cache, B, cap, mem.shape[1])
     step = jax.jit(jax_server.make_serve_step(
         jm, JaxInputShape("serve", seq_len=cap, global_batch=B,
                           kind="decode")))
@@ -183,6 +199,49 @@ def _jax_job(arch, parts):
                         toks=np.concatenate(toks, 1).astype(np.int64),
                         final=interop.cache_to_numpy(jax.tree.map(
                             np.asarray, full)))
+    return out
+
+
+def _jax_widen(jm, cache, batch, cap, mem_len):
+    """The prefill's KV in the first slots of a zero cache of ``cap``."""
+    import jax
+
+    full = jm.init_cache(batch, cap, mem_len)
+    return full._replace(pos=cache.pos, cross_kv=cache.cross_kv, **{
+        f: jax.tree.map(lambda dst, src: jax.lax.dynamic_update_slice(
+            dst, src, (0,) * dst.ndim), getattr(full, f), getattr(cache, f))
+        for f in KV_FIELDS if getattr(cache, f) is not None})
+
+
+def _jax_b1(jm, jp):
+    """JAX's unsharded batch-1 serve (:func:`_b1_inputs`): the prefill's
+    logits and cache, each step's logits and greedy token fed the fixed
+    tokens, the final cache; the hybrid decodes from a zero cache."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs.base import InputShape as JaxInputShape
+    from repro.train import server as jax_server
+
+    prompt, fed, mem = _b1_inputs(jm.cfg)
+    cap = B1_S + B1_STEPS
+    log, cache = jm.prefill(jp, jnp.asarray(prompt.astype(np.int32)),
+                            None if mem is None else jnp.asarray(mem))
+    out = {"pre": np.asarray(log, np.float32),
+           "pre_cache": interop.cache_to_numpy(jax.tree.map(np.asarray,
+                                                            cache)),
+           "steps": [], "next": []}
+    full = jm.init_cache(1, cap) if jm.cfg.family == "hybrid" else \
+        _jax_widen(jm, cache, 1, cap, mem.shape[1])
+    step = jax.jit(jax_server.make_serve_step(
+        jm, JaxInputShape("serve", seq_len=cap, global_batch=1,
+                          kind="decode")))
+    for i in range(B1_STEPS):
+        tok, lg, full = step(jp, full, jnp.asarray(
+            fed[:, i:i + 1].astype(np.int32)))
+        out["steps"].append(np.asarray(lg, np.float32))
+        out["next"].append(np.asarray(tok).astype(np.int64))
+    out["final"] = interop.cache_to_numpy(jax.tree.map(np.asarray, full))
     return out
 
 
@@ -220,8 +279,9 @@ def _jax_train(jm, jp):
 
 # zamba2's serve and train step in processes of their own (XLA compiling
 # its train step is this module's longest wait)
-JOBS = ((ZAMBA, ("serve",)), (ZAMBA, ("train",)),
-        (VISION, ("serve", "train")), (SEAMLESS, ("serve", "train")))
+JOBS = ((ZAMBA, ("serve", "b1")), (ZAMBA, ("train",)),
+        (VISION, ("serve", "b1", "train")),
+        (SEAMLESS, ("serve", "b1", "train")))
 
 
 @functools.lru_cache(maxsize=None)
@@ -280,9 +340,70 @@ def _serve_on_mesh(srv, cfg, toks):
                                      device="cpu"), cache, S)
     step = srv.make_serve_step(InputShape("serve", seq_len=S + STEPS,
                                           global_batch=B, kind="decode"))
-    out["steps"], out["next"] = [], []
+    out["steps"], out["next"], out["collectives"] = [], [], []
     for i in range(STEPS):
+        c0 = shard_hints.counts()
         nxt, lg, full = step(full, toks[:, i:i + 1])
+        out["collectives"].append(_since(c0))
+        out["steps"].append(_np(lg.full_tensor()))
+        out["next"].append(nxt.full_tensor().numpy())
+    out["final"] = interop.cache_to_numpy(full)
+    return out
+
+
+def _since(c0):
+    """(all-reduces, all-gathers) issued since the counts ``c0``."""
+    c1 = shard_hints.counts()
+    return (c1["all_reduce"] - c0["all_reduce"],
+            c1["all_gather"] - c0["all_gather"])
+
+
+def _widen_sharded(srv, full, cache, s, batch, cap):
+    """The prefill's KV fields (DTensors) placed by global slot into the
+    first ``s`` slots of ``full`` (``srv.init_cache``'s, ``cap`` slots),
+    its ``cross_kv`` and position kept: each rank gathers the prompt's
+    cache and keeps its block of the wide one."""
+    specs = server.cache_specs(srv.cfg, InputShape("w", cap, batch,
+                                                   "decode"), srv.mesh)
+    for f in KV_FIELDS:
+        if getattr(cache, f) is None:
+            continue
+        for dst, src, spec in zip(getattr(full, f), getattr(cache, f),
+                                  getattr(specs, f)):
+            whole = src.full_tensor()
+            wide = whole.new_zeros(dst.shape)
+            wide[..., :s, :, :] = whole
+            dst.to_local().copy_(param.local_shard(wide, spec, srv.mesh))
+    return full._replace(pos=cache.pos, cross_kv=cache.cross_kv)
+
+
+def _b1_case(arch):
+    """Batch 1 on ``B1_MESH[arch]`` (:func:`_jax_b1`'s serve): gathered
+    logits, next tokens and caches, the collectives of each step, the
+    rank's slots of the decode cache and the local ``kv`` shape."""
+    m = model_lib.build(_port_cfg(arch))
+    srv = server.shard_for_serving(m, m.init(
+        torch.Generator().manual_seed(0), "cpu"), _mesh(B1_MESH[arch]))
+    prompt, fed, mem = _b1_inputs(m.cfg)
+    fed = torch.from_numpy(fed)
+    cap = B1_S + B1_STEPS
+    pre, cache = srv.prefill(torch.from_numpy(prompt), None if mem is None
+                             else torch.from_numpy(mem))
+    out = {"pre": _np(pre.full_tensor()),
+           "pre_cache": interop.cache_to_numpy(cache),
+           "span": srv.slot_span(1, cap), "steps": [], "next": [],
+           "collectives": []}
+    full = srv.init_cache(1, cap, device="cpu") if m.cfg.family == \
+        "hybrid" else _widen_sharded(srv, srv.init_cache(
+            1, cap, mem.shape[1], device="cpu"), cache, B1_S, 1, cap)
+    kv = next(getattr(full, f) for f in KV_FIELDS
+              if getattr(full, f) is not None)
+    out["local_kv"] = tuple(kv.k.to_local().shape)
+    step = srv.make_serve_step(InputShape("serve", cap, 1, "decode"))
+    for i in range(B1_STEPS):
+        c0 = shard_hints.counts()
+        nxt, lg, full = step(full, fed[:, i:i + 1])
+        out["collectives"].append(_since(c0))
         out["steps"].append(_np(lg.full_tensor()))
         out["next"].append(nxt.full_tensor().numpy())
     out["final"] = interop.cache_to_numpy(full)
@@ -421,28 +542,6 @@ def _cross_block_collectives():
     return out
 
 
-def _sequence_errors():
-    """A KV cache that ``cache_specs`` shards over the sequence, for each
-    family: the error raised (None if none was)."""
-    out = {}
-    for arch, dims, what in ((ZAMBA, (4, 1), "init_cache"),
-                             (VISION, (1, 4), "prefill"),
-                             (SEAMLESS, (4, 1), "init_cache")):
-        m = model_lib.build(_port_cfg(arch))
-        srv = server.shard_for_serving(
-            m, m.init(torch.Generator().manual_seed(0), "cpu"), _mesh(dims))
-        tokens, mem = _inputs(m.cfg, 16)
-        try:
-            if what == "prefill":      # 2 kv heads on 4 ranks, 16 slots
-                srv.prefill(tokens, mem)
-            else:                      # a batch of 1 on 4 data shards
-                srv.init_cache(1, 16, device="cpu")
-            out[arch] = None
-        except NotImplementedError as exc:
-            out[arch] = str(exc)
-    return out
-
-
 def _serve_case(arch, dims, ref):
     m = model_lib.build(_port_cfg(arch))
     srv = server.shard_for_serving(m, interop.params_from_jax(
@@ -490,7 +589,7 @@ def _ranks(agent_mesh, path):
     out = {"bf16": {a: _bf16_case(a) for a in ARCHS},
            "shared_grad": _shared_grad_case(),
            "cross_collectives": _cross_block_collectives(),
-           "seq_errors": _sequence_errors()}
+           "b1": {a: _b1_case(a) for a in ARCHS}}
     refs = _wait_for(path)
     out["serve"] = {(a, d): _serve_case(a, d, refs[a]["serve"])
                     for a in ARCHS for d in MESHES}
@@ -731,12 +830,58 @@ def test_cross_block_collectives(ranks, mesh):
         assert r["cross_collectives"][mesh] == (3, 0, 0)
 
 
+def _attention_layers(cfg):
+    """The self-attention layers one decode step runs."""
+    if cfg.family == "hybrid":
+        return transformer.hybrid_groups(cfg)[0]
+    return cfg.n_layers
+
+
 def test_sequence_sharded_cache_raises_for_each_family(ranks):
-    for r in ranks:
+    """Each family's batch-1 cache is sequence-sharded (it raised before
+    the combine existed): the rank holds slots ``[r cap/n, (r+1) cap/n)``,
+    and a decode step issues the batch-4 serve's collectives on the same
+    mesh plus, a self-attention layer, one all-reduce max and one sum a
+    sequence axis and a gather of q where that axis is ``model``."""
+    cap = B1_S + B1_STEPS
+    for rank, r in enumerate(ranks):
         for arch in ARCHS:
-            err = r["seq_errors"][arch]
-            assert err is not None and "ROADMAP.md" in err, arch
-            assert "shards this cache's sequence" in err, arch
+            dims = B1_MESH[arch]
+            got, cfg = r["b1"][arch], _port_cfg(arch)
+            span = got["span"]
+            assert span is not None, arch
+            axes = ("model",) if cfg.n_kv_heads % dims[1] else ("data",)
+            idx = rank if axes == ("model",) else rank // dims[1]
+            per = cap // (dims[1] if axes == ("model",) else dims[0])
+            assert span == (idx * per, (idx + 1) * per, cap, axes), arch
+            assert got["local_kv"][-3] == per and \
+                got["local_kv"][-4] == 1, arch
+            n = _attention_layers(cfg)
+            base = r["serve"][(arch, dims)]["collectives"][0]
+            want = (base[0] + 2 * n, base[1] + n * (axes == ("model",)))
+            assert got["collectives"] == [want] * B1_STEPS, arch
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_batch_1_sequence_sharded_serve_matches_jax(ranks, arch):
+    """Batch 1 with the cache's sequence sharded (``B1_MESH``): the
+    prefill and its cache, each step's logits and greedy token and the
+    final cache against JAX's unsharded path (rtol 1e-5), every rank
+    bitwise the others."""
+    ref = _references()[arch]["b1"]
+    r0 = ranks[0]["b1"][arch]
+    for r in ranks:
+        got = r["b1"][arch]
+        _close(got["pre"], ref["pre"])
+        _close_cache(got["pre_cache"], ref["pre_cache"])
+        for a, b in zip(got["steps"], ref["steps"]):
+            _close(a, b)
+        _close_cache(got["final"], ref["final"])
+        np.testing.assert_array_equal(np.concatenate(got["next"], 1),
+                                      np.concatenate(ref["next"], 1))
+        for a, b in zip(got["steps"] + got["next"],
+                        r0["steps"] + r0["next"]):
+            assert np.array_equal(a, b), arch
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -37,15 +37,35 @@ computed once per arch and dtype in this process, and their parameters
   bitwise across the ranks of a ``model`` group, and the dispatch integers
   (``keep``, ``dest``) of the batch shards, joined, equal to JAX's global
   dispatch (read through a spy on its ``jnp.where``);
-* a cache that ``cache_specs`` shards over the sequence raises
-  ``NotImplementedError``; a batch that does not divide raises; so does a
-  production mesh on a group of another size; ``n_data_shards``;
+* the sequence-sharded cache (``SEQ_CASES``; params from the port's
+  init, the same numpy weights in both packages, fixed tokens fed, the
+  JAX references computed here while the ranks run): smoke llama at
+  batch 1 on (2, 2) and (4, 1) (the sequence over ``data``) and on (1, 4)
+  (over ``model``, a capacity 4 divides, every q head gathered), the
+  ``gqa-12-3`` variant at batch 1 on (2, 2) (over ``("data", "model")``),
+  a ``serve_window = 8`` ring decoding 12 tokens from an empty cache (the
+  slots wrap; early on a shard sees no valid slot), granite at batch 1
+  (MoE on a replicated batch), mamba2 at batch 1 (a replicated state),
+  ``long_500k`` lowered as JAX lowers it (``init_cache_for_shape`` at
+  ``pos = S - 1``, one ``serve_step``) and a batch of 3 on (2, 2)
+  (replicated batch and cache): the prefill and its cache, each step's
+  logits and greedy token and the final cache against JAX's unsharded
+  path, float32 at rtol 1e-5 (atol 1e-5 max|want|), bf16 within 2e-2 of
+  the max abs logit; every rank bitwise the others; the combine's
+  collectives a layer (one all-reduce max and one sum a sequence axis,
+  one gather of q over ``model`` where it is a sequence axis), and none
+  added where the cache is not sequence-sharded;
+* the layouts that raised before this path existed (a sequence-sharded
+  prefill and cache, batch 1, batch 3) now run; a production mesh on a
+  group of another size raises; ``n_data_shards``;
 * outside a hints context no collective is issued and the model is
   bitwise this process's, which never entered one;
 * a one-rank (1, 1) mesh, the card's layout: forward, prefill and decode
   bitwise the unsharded path on the same weights, float32 and bfloat16.
 """
 import functools
+from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple
 
 import numpy as np
 import pytest
@@ -90,6 +110,72 @@ def _variant(cfg, over):
 def _tokens(vocab, s=S):
     return np.random.default_rng(13).integers(0, vocab, (B, S)).astype(
         np.int64)[:, :s]
+
+
+class SeqCase(NamedTuple):
+    """A sequence-sharded (or replicated-batch) serve case: ``arch`` with
+    ``over`` (``VARIANTS``' form), a batch of ``batch``; ``how``: "prefill"
+    (a prompt of ``prompt``, its cache widened to ``prompt + steps``
+    slots, the SSM decoding from its prefill's), "empty" (decode from a
+    zero cache of ``serve_capacity(cfg, SEQ_RING_LEN)`` slots at 0) or
+    "long_500k" (its shape's cache at ``pos = S - 1``); ``steps`` tokens
+    fed; on ``meshes``."""
+
+    arch: str
+    over: dict
+    dtype: str
+    batch: int
+    prompt: int
+    steps: int
+    how: str
+    meshes: tuple
+
+
+SEQ_RING_LEN = 16          # the ring case's shape: 8 slots, 16 positions
+SEQ_CASES = {
+    "llama": SeqCase("llama3.2-3b", {}, "float32", 1, 16, 4, "prefill",
+                     ((2, 2), (4, 1), (1, 4))),
+    "llama-bf16": SeqCase("llama3.2-3b", {}, "bfloat16", 1, 16, 4,
+                          "prefill", ((2, 2), (4, 1))),
+    "gqa-12-3": SeqCase("llama3.2-3b", VARIANTS["gqa-12-3"][1], "float32",
+                        1, 16, 4, "prefill", ((2, 2),)),
+    "ring": SeqCase("llama3.2-3b", {"serve_window": 8}, "float32", 1, 0, 12,
+                    "empty", ((2, 2), (4, 1))),
+    "granite": SeqCase("granite-moe-1b-a400m", {}, "float32", 1, 16, 4,
+                       "prefill", ((2, 2),)),
+    "mamba2": SeqCase("mamba2-130m", {}, "float32", 1, 16, 4, "prefill",
+                      ((4, 1),)),
+    "long_500k": SeqCase("llama3.2-3b", {}, "float32", 1, 0, 1,
+                         "long_500k", ((2, 2), (4, 1))),
+    "batch-3": SeqCase("llama3.2-3b", {}, "float32", 3, 15, 4, "prefill",
+                       ((2, 2),)),
+}
+
+
+def _seq_cfg(get_config, name):
+    case = SEQ_CASES[name]
+    return _variant(get_config(case.arch).with_(dtype=case.dtype),
+                    case.over)
+
+
+def _seq_inputs(name, vocab):
+    """(prompt (batch, prompt), fed tokens (batch, steps)), int64."""
+    case = SEQ_CASES[name]
+    rng = np.random.default_rng(29)
+    return (rng.integers(0, vocab, (case.batch, case.prompt)),
+            rng.integers(0, vocab, (case.batch, case.steps)))
+
+
+def _seq_shape(name, cls):
+    """The serve step's input shape (``cls``: either package's
+    ``InputShape``) and the cache's capacity."""
+    case = SEQ_CASES[name]
+    if case.how == "long_500k":
+        return cls("long_500k", 524_288, case.batch, "decode"), 8192
+    if case.how == "empty":
+        return cls("ring", SEQ_RING_LEN, case.batch, "decode"), 8
+    cap = case.prompt + case.steps
+    return cls("serve", cap, case.batch, "decode"), cap
 
 
 def _moe_x():
@@ -189,6 +275,68 @@ def _jax_moe(cf):
                 dest=np.asarray(dest))
 
 
+@functools.lru_cache(maxsize=None)
+def _seq_params(name):
+    """The port's init of a ``SEQ_CASES`` config (seed 0), as numpy."""
+    cfg = _seq_cfg(get_smoke_config, name)
+    return interop.params_to_jax(model.build(cfg).init(
+        torch.Generator().manual_seed(0), "cpu"))
+
+
+def _seq_reference(name):
+    """The JAX package's unsharded serve of a ``SEQ_CASES`` case: the
+    prefill's logits and cache (None for "empty" and "long_500k"), each
+    step's logits and greedy token, the final cache."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_smoke_config as jax_smoke_config
+    from repro.configs.base import InputShape as JaxInputShape
+    from repro.models import model as jax_model
+    from repro.train import server as jax_server
+
+    case = SEQ_CASES[name]
+    jm = jax_model.build(_seq_cfg(jax_smoke_config, name))
+    jp = jax.tree.map(jnp.asarray, _seq_params(name))
+    prompt, fed = _seq_inputs(name, jm.cfg.vocab)
+    shape, cap = _seq_shape(name, JaxInputShape)
+    out = {"pre": None, "pre_cache": None}
+    if case.how == "long_500k":
+        full = jax_server.init_cache_for_shape(jm, shape)
+    elif case.how == "empty":
+        full = jm.init_cache(case.batch, cap)
+    else:
+        log, cache = jm.prefill(jp, jnp.asarray(prompt.astype(np.int32)))
+        out["pre"] = np.asarray(log, np.float32)
+        out["pre_cache"] = interop.cache_to_numpy(jax.tree.map(np.asarray,
+                                                               cache))
+        full = cache if jm.cfg.family == "ssm" else jm.init_cache(
+            case.batch, cap)._replace(pos=cache.pos, kv=jax.tree.map(
+                lambda dst, src: jax.lax.dynamic_update_slice(
+                    dst, src, (0,) * dst.ndim), jm.init_cache(
+                        case.batch, cap).kv, cache.kv))
+    step = jax.jit(jax_server.make_serve_step(jm, shape))
+    out["steps"], out["next"] = [], []
+    for i in range(case.steps):
+        tok, lg, full = step(jp, full, jnp.asarray(
+            fed[:, i:i + 1].astype(np.int32)))
+        out["steps"].append(np.asarray(lg, np.float32))
+        out["next"].append(np.asarray(tok).astype(np.int64))
+    out["final"] = interop.cache_to_numpy(jax.tree.map(np.asarray, full))
+    if case.how == "long_500k":
+        # XLA's compiled rope frequencies are an ulp off the eager ones
+        # (the port's): at position 524287 the K written there turns by up
+        # to 0.02 rad, so that cache is held to the port's unsharded step
+        cfg = _seq_cfg(get_smoke_config, name)
+        tm, tshape = model.build(cfg), _seq_shape(name, InputShape)[0]
+        cache = server.init_cache_for_shape(tm, tshape, device="cpu")
+        _, _, cache = server.make_serve_step(tm, tshape)(
+            interop.params_from_jax(_seq_params(name), "cpu"), cache,
+            torch.from_numpy(fed))
+        out["final"] = interop.cache_to_numpy(cache)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the ranks
 # ---------------------------------------------------------------------------
@@ -233,6 +381,66 @@ def _serve_on_mesh(srv, ref, cfg, s=S):
     out["final"] = interop.cache_to_numpy(full)
     out["local_kv"] = None if cfg.family == "ssm" else tuple(
         full.kv.k.to_local().shape)
+    return out
+
+
+def _widen_sharded(srv, full, cache, s, batch, cap):
+    """The prefill's KV fields (DTensors) placed by global slot into the
+    first ``s`` slots of ``full`` (``srv.init_cache``'s, ``cap`` slots):
+    each rank gathers the prompt's cache and keeps its block of the wide
+    one (its slots, batch rows and kv heads)."""
+    specs = server.cache_specs(srv.cfg, InputShape("w", cap, batch,
+                                                   "decode"), srv.mesh)
+    for f in ("kv", "groups_kv", "cross_self_kv"):
+        if getattr(cache, f) is None:
+            continue
+        for dst, src, spec in zip(getattr(full, f), getattr(cache, f),
+                                  getattr(specs, f)):
+            whole = src.full_tensor()
+            wide = whole.new_zeros(dst.shape)
+            wide[..., :s, :, :] = whole
+            dst.to_local().copy_(param.local_shard(wide, spec, srv.mesh))
+    return full._replace(pos=cache.pos, cross_kv=cache.cross_kv)
+
+
+def _seq_on_mesh(name, dims):
+    """A ``SEQ_CASES`` case on a ``dims`` mesh: the gathered prefill,
+    each step's logits and next token, the caches, the collectives of
+    each step and the rank's slot span of the decode cache."""
+    case = SEQ_CASES[name]
+    cfg = _seq_cfg(get_smoke_config, name)
+    srv = server.shard_for_serving(model.build(cfg), interop.params_from_jax(
+        _seq_params(name), "cpu"), mesh_lib.make_tiny_mesh(*dims))
+    prompt, fed = (torch.from_numpy(x) for x in _seq_inputs(name,
+                                                            cfg.vocab))
+    shape, cap = _seq_shape(name, InputShape)
+    out = {"pre": None, "pre_cache": None, "span": srv.slot_span(
+        case.batch, cap), "layout": srv.layout(case.batch)}
+    if case.how == "long_500k":
+        full = srv.init_cache(case.batch, cap, device="cpu")._replace(
+            pos=shape.seq_len - 1)
+    elif case.how == "empty":
+        full = srv.init_cache(case.batch, cap, device="cpu")
+    else:
+        pre, cache = srv.prefill(prompt)
+        out["pre"] = _np(pre.full_tensor())
+        out["pre_cache"] = interop.cache_to_numpy(cache)
+        out["pre_span"] = srv.slot_span(case.batch, case.prompt)
+        full = cache if cfg.family == "ssm" else _widen_sharded(
+            srv, srv.init_cache(case.batch, cap, device="cpu"), cache,
+            case.prompt, case.batch, cap)
+    step = srv.make_serve_step(shape)
+    out["steps"], out["next"], out["collectives"] = [], [], []
+    for i in range(case.steps):
+        c0 = _counts()
+        nxt, lg, full = step(full, fed[:, i:i + 1])
+        c1 = _counts()
+        out["collectives"].append((c1[0] - c0[0], c1[1] - c0[1]))
+        out["steps"].append(_np(lg.full_tensor()))
+        out["next"].append(nxt.full_tensor().numpy())
+    out["final"] = interop.cache_to_numpy(full)
+    if cfg.family != "ssm":
+        out["local_kv"] = tuple(full.kv.k.to_local().shape)
     return out
 
 
@@ -337,28 +545,24 @@ def _rank_cases(am, refs, moe_refs, odd_refs):
             ref["params"], "cpu"), mesh)
         res.setdefault("odd", {})[name] = dict(
             _serve_on_mesh(vsrv, ref, cfg, S_ODD), layout=vsrv.layout())
+    # what raised before the sequence-sharded cache: a prefill and a cache
+    # sequence-sharded over model, batch 1 and batch 3 over four data ranks
     errors = {}
+    mesh4 = mesh_lib.make_tiny_mesh(4, 1)
+    srv4 = server.shard_for_serving(tm, params, mesh4)
     for what, fn in (
             ("prefill", lambda: srv.prefill(torch.from_numpy(
                 _tokens(tm.cfg.vocab)))),
-            ("init_cache", lambda: srv.init_cache(B, 64, device="cpu"))):
+            ("init_cache", lambda: srv.init_cache(B, 64, device="cpu")),
+            ("batch_1", lambda: srv4.prefill(torch.from_numpy(
+                _tokens(tm.cfg.vocab)[:1]))),
+            ("batch_3", lambda: srv4.forward(torch.from_numpy(
+                _tokens(tm.cfg.vocab)[:3])))):
         try:
             fn()
             errors[what] = None
-        except NotImplementedError as exc:
+        except (NotImplementedError, ValueError) as exc:
             errors[what] = str(exc)
-    mesh = mesh_lib.make_tiny_mesh(4, 1)
-    srv = server.shard_for_serving(tm, params, mesh)
-    try:
-        srv.prefill(torch.from_numpy(_tokens(tm.cfg.vocab)[:1]))
-        errors["batch_1"] = None
-    except NotImplementedError as exc:
-        errors["batch_1"] = str(exc)
-    try:
-        srv.forward(torch.from_numpy(_tokens(tm.cfg.vocab)[:3]))
-        errors["batch_3"] = None
-    except ValueError as exc:
-        errors["batch_3"] = str(exc)
     for multi_pod in (False, True):
         try:
             mesh_lib.make_production_mesh(multi_pod=multi_pod)
@@ -366,6 +570,9 @@ def _rank_cases(am, refs, moe_refs, odd_refs):
         except ValueError as exc:
             errors[f"production_{multi_pod}"] = str(exc)
     res["errors"] = errors
+
+    res["seq"] = {(name, dims): _seq_on_mesh(name, dims)
+                  for name, case in SEQ_CASES.items() for dims in case.meshes}
 
     # outside a hints context: no collective, the plain path
     c0 = _counts()
@@ -433,10 +640,23 @@ def odd_refs():
             for name, (arch, _) in VARIANTS.items()}
 
 
+@functools.lru_cache(maxsize=None)
+def _seq_refs():
+    return {name: _seq_reference(name) for name in SEQ_CASES}
+
+
 @pytest.fixture(scope="module")
 def ranks(refs, moe_refs, odd_refs):
-    return mesh_lib.run_local(_rank_cases, 4, refs, moe_refs, odd_refs,
-                              device="cpu", timeout=600)
+    """The four ranks' results; the ``SEQ_CASES`` references, which the
+    ranks do not need, are computed here while they run."""
+    with ThreadPoolExecutor(1) as ex:
+        four = ex.submit(mesh_lib.run_local, _rank_cases, 4, refs, moe_refs,
+                         odd_refs, device="cpu", timeout=600)
+        try:
+            _seq_refs()
+        finally:
+            out = four.result()
+    return out
 
 
 def _rel(got, want):
@@ -560,14 +780,95 @@ def test_mixed_gqa_forward_on_1x4(ranks, refs):
 
 
 def test_sequence_sharded_cache_and_bad_batch_raise(ranks):
+    """What raised before the sequence-sharded cache runs now (its parity
+    is ``test_sequence_sharded_serve_matches_jax``'s); a production mesh
+    on a group of another size still raises."""
     for r in ranks:
         err = r["errors"]
-        for what in ("prefill", "init_cache", "batch_1"):
-            assert err[what] is not None and "ROADMAP.md" in err[what], what
-        assert "does not divide" in err["batch_3"]
+        for what in ("prefill", "init_cache", "batch_1", "batch_3"):
+            assert err[what] is None, (what, err[what])
         assert "needs 256 ranks, the group has 4" in err["production_False"]
         assert "needs 512 ranks" in err["production_True"]
         assert r["n_data"] == {(2, 2): 2, (4, 1): 4}
+
+
+SEQ_IDS = [(name, dims) for name, case in SEQ_CASES.items()
+           for dims in case.meshes]
+
+
+def _seq_id(key):
+    return f"{key[0]}-{key[1][0]}x{key[1][1]}"
+
+
+@pytest.mark.parametrize("key", SEQ_IDS, ids=_seq_id)
+def test_sequence_sharded_serve_matches_jax(ranks, key):
+    """Each ``SEQ_CASES`` case against JAX's unsharded path: the prefill
+    and its cache, every step's logits and greedy token (float32) and the
+    final cache, every rank bitwise the others."""
+    name, _ = key
+    case, ref = SEQ_CASES[name], _seq_refs()[name]
+    for r in ranks:
+        got = r["seq"][key]
+        if ref["pre"] is not None:
+            _close(got["pre"], ref["pre"], case.dtype)
+            _close_cache(got["pre_cache"], ref["pre_cache"], case.dtype)
+        assert len(got["steps"]) == case.steps
+        for a, b in zip(got["steps"], ref["steps"]):
+            _close(a, b, case.dtype)
+        _close_cache(got["final"], ref["final"], case.dtype)
+        if case.dtype == "float32":
+            np.testing.assert_array_equal(np.concatenate(got["next"], 1),
+                                          np.concatenate(ref["next"], 1))
+        r0 = ranks[0]["seq"][key]
+        for a, b in zip(got["steps"] + got["next"], r0["steps"] + r0["next"]):
+            assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("key", SEQ_IDS, ids=_seq_id)
+def test_sequence_sharded_slots_and_combine_collectives(ranks, key):
+    """Each rank holds slots ``[r cap/n, (r+1) cap/n)`` in mesh order
+    (``data`` the outer axis) and the batch's rows (all of them where the
+    batch does not divide ``data``); a decode step issues the unsharded
+    path's collectives (the embedding's all-reduce, one after ``wo`` and
+    one after the MLP or MoE combine a layer, the unembedding's gather)
+    plus, a layer, one all-reduce max and one sum a sequence axis of more
+    than one rank and one gather of q where ``model`` is one; nothing
+    where the cache is not sequence-sharded."""
+    name, dims = key
+    case = SEQ_CASES[name]
+    cfg = _seq_cfg(get_smoke_config, name)
+    _, cap = _seq_shape(name, InputShape)
+    n = cfg.n_layers
+    # cache_specs' rule: the sequence takes data where the batch does not
+    # divide it, model where the kv heads do not; if the capacity divides
+    sizes = dict(zip(("data", "model"), dims))
+    seq = [a for a, free in (
+        ("data", dims[0] == 1 or case.batch % dims[0] != 0),
+        ("model", dims[1] == 1 or cfg.n_kv_heads % dims[1] != 0)) if free]
+    n_seq = int(np.prod([sizes[a] for a in seq]))
+    sharded = cfg.family != "ssm" and n_seq > 1 and cap % n_seq == 0
+    for rank, r in enumerate(ranks):
+        got = r["seq"][key]
+        coord = dict(zip(("data", "model"), divmod(rank, dims[1])))
+        assert got["layout"].n_batch == (
+            dims[0] if case.batch % dims[0] == 0 else 1)
+        if cfg.family != "ssm":
+            assert got["local_kv"][1] == case.batch // got["layout"].n_batch
+        axes = ()
+        if not sharded:
+            assert got["span"] is None
+        else:
+            idx = 0
+            for a in seq:
+                idx = idx * sizes[a] + coord[a]
+            per = cap // n_seq
+            axes = tuple(a for a in seq if sizes[a] > 1)
+            assert got["span"] == (idx * per, (idx + 1) * per, cap, axes)
+            assert got["local_kv"][2] == per
+        base = (1 + 2 * n, 1)
+        want = (base[0] + 2 * len(axes) * n,
+                base[1] + int("model" in axes) * n)
+        assert got["collectives"] == [want] * case.steps, (rank, want)
 
 
 @pytest.mark.parametrize("case", sorted(MOE_CF))
@@ -664,3 +965,42 @@ def test_hints_that_disagree_with_the_weights_raise(ranks):
             err = r["bad_hints"][mesh]
             assert err is not None and "unlike the weights" in err, mesh
             assert "'heads'" in err
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("pos,window", [(5, None), (21, 6)],
+                         ids=["early", "ring-window"])
+@pytest.mark.parametrize("n", (1, 2, 4))
+def test_combine_partials_matches_attend(n, pos, window, dtype):
+    """``decode_partials`` over ``n`` slot shards of a 16-slot ring,
+    merged by ``combine_partials``, against ``attend`` over the whole
+    cache (float32 rtol 1e-5, bf16 within 2e-2 of the max abs value).  At
+    position 5 slots 6-15 are not written yet, and in the ring at 21 the
+    window of 6 sees slots 0-5 only: at n = 2 and 4 some shards see no
+    valid slot (their max is NEG_INF) and must add nothing."""
+    from repro_torch.kernels import ref as kref
+    from repro_torch.models import attention
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(41)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(dt) for s in ((2, 1, 4, 16), (2, 16, 2, 16),
+                                 (2, 16, 2, 16)))
+    cap = 16
+    q_pos = torch.tensor([pos], dtype=torch.int32)
+    k_pos = attention.slot_positions(pos, 0, cap, cap)
+    valid = k_pos >= 0
+    want = attention.attend(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=True,
+                            window=window, k_valid=valid).float().numpy()
+    per = cap // n
+    parts = [attention.decode_partials(
+        q, k[:, i * per:(i + 1) * per], v[:, i * per:(i + 1) * per],
+        q_pos=q_pos, k_pos=k_pos[i * per:(i + 1) * per], window=window,
+        k_valid=valid[i * per:(i + 1) * per]) for i in range(n)]
+    m, l, o = (torch.stack(t) for t in zip(*parts))
+    assert m.dtype == l.dtype == o.dtype == torch.float32
+    blind = (m == kref.NEG_INF).flatten(1).all(1)
+    assert bool(blind.any()) == (n > 1)
+    got = attention.combine_partials(m, l, o, dt)
+    assert got.dtype == dt
+    _close(got.float().numpy(), want, dtype)
