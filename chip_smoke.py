@@ -278,7 +278,34 @@ Phases, in order; any failure raises and exits non-zero:
               a step; then K1's mapped instance at llama3.2-3b's rank-0 row
               of a (2, 2) layout: bitwise its plain version and the
               unmapped (1, d) launch's noise at the same elements, timed
-              against the unmapped launch of the same row.
+              against the unmapped launch of the same row;
+42. power control held — ``benchmarks/fig_power_control.py`` (N=8 M=4
+              K=120 on the reference's tabular MDP): seven policies over
+              Rayleigh as the reference's five partitions of 20 lanes each
+              (the three truncation targets as lanes of one), 120 K1
+              launches a partition; each avg_grad_sq held to
+              ``perf/power_control_reference.json``'s; the effective
+              moments, theorem, bound and floor equal to its (rtol 1e-6);
+              ``holds`` where its holds, ``floor_moves``; mean(h) within 5
+              standard errors of m_h;
+43. zoo held — ``benchmarks/fig_env_zoo.py`` (N=4 M=4 T=10 K=120): seven
+              families under the exact and the Rayleigh uplink and three
+              wind lanes, 17 scenarios in the reference's 14 partitions of
+              20 lanes a scenario; 120 K1 launches a Rayleigh partition and
+              none an exact one; each final reward (last 10 rounds) and
+              avg_grad_sq held to ``perf/env_zoo_reference.json``'s; the
+              l_bar row equal to its (rtol 1e-6);
+44. participation held — ``benchmarks/fig_participation.py`` at N = 10^4
+              in blocks of 64 (M=1 T=3 K=5): the Bernoulli rates 0.25 and
+              0.5 as lanes of one partition a staleness setting (none,
+              (4, 0.8)), 20 runs each, telemetry on; 2 or 3 K1 launches a
+              block + 1 a batched round (315, 472); avg_grad_sq, the
+              realised rate, drift and mean age held to
+              ``perf/participation_reference.json``'s; each rate within 5
+              standard errors; the full-participation baseline bitwise the
+              participation-off sweep; the round-service driver (rate 0.5,
+              exp(1) stragglers closed at deadline 2, 8 rounds): its rate
+              within 5 standard errors of ``expected_count``.
 
 ``python3 chip_smoke.py --agent-mesh-across-cards`` runs phases 1, 2 and
 31's mesh over every visible card alone, then the card test of the mesh
@@ -2866,28 +2893,47 @@ def hold_row(port_runs, ref_runs, what):
     return held_line(what, h, rm, rse, stat)
 
 
-def sweep_partition(torch, env, pol, s, seed, runs, expect_k1, what):
-    """One scenario as one ``sweep(mode="vmap")`` partition of ``runs``
-    lanes on the card: its K1 launches checked (``expect_k1``, all of one
-    body), its history finite; returns the result, per-run avg_grad_sq and
-    last-20 rewards, launches and ms per batched round."""
+def checked_sweep(torch, env, pol, scens, seed, runs, expect_k1, what,
+                  telemetry=None):
+    """The scenarios of one partition as one ``sweep(mode="vmap")`` call
+    of ``runs`` lanes a scenario on the card: one partition, its K1
+    launches checked (``expect_k1``, all of one body), its history finite;
+    returns the result, launches, the body and ms per batched round."""
     import numpy as np
 
     from repro_torch.core import sweep
 
     reset_counts()
-    res = sweep.sweep(env, pol, [s], seed, runs, mode="vmap", device="cuda")
+    res = sweep.sweep(env, pol, scens, seed, runs, mode="vmap",
+                      telemetry=telemetry, device="cuda")
     launches, bodies = read_counts()["ota_fused"], k1_body_counts()
+    check(res.n_partitions == 1, f"{what}: split into {res.n_partitions} "
+                                 f"partitions")
     check(launches == expect_k1 and sum(bool(c) for c in bodies.values())
           <= 1, f"{what}: {launches} K1 launches ({bodies}), expected "
                 f"{expect_k1} of one body")
-    hist = res.history
-    check(all(np.isfinite(np.asarray(x, np.float64)).all() for x in hist),
-          f"{what}: history not finite")
-    per_g = np.asarray(hist.grad_sq[0], np.float64).mean(axis=1)
-    per_r = np.asarray(hist.rewards[0], np.float64)[:, -FIG12_TAIL:].mean(
-        axis=1)
-    ms = res.partitions[0].wall_time_us / 1e3 / s.n_rounds
+    check(all(np.isfinite(np.asarray(x, np.float64)).all()
+              for x in res.history), f"{what}: history not finite")
+    body = next((b for b, c in bodies.items() if c), None)
+    ms = res.partitions[0].wall_time_us / 1e3 / scens[0].n_rounds
+    return res, launches, body, ms
+
+
+def per_run_values(h, tail):
+    """A scenario's per-run avg_grad_sq and last-``tail``-round reward."""
+    import numpy as np
+
+    return (np.asarray(h.grad_sq, np.float64).mean(axis=1),
+            np.asarray(h.rewards, np.float64)[:, -tail:].mean(axis=1))
+
+
+def sweep_partition(torch, env, pol, s, seed, runs, expect_k1, what):
+    """One scenario as one partition of ``runs`` lanes on the card
+    (:func:`checked_sweep`); returns the result, per-run avg_grad_sq and
+    last-20 rewards, launches and ms per batched round."""
+    res, launches, _, ms = checked_sweep(torch, env, pol, [s], seed, runs,
+                                         expect_k1, what)
+    per_g, per_r = per_run_values(res.history.lane(0), FIG12_TAIL)
     return res, per_g, per_r, launches, ms
 
 
@@ -4620,6 +4666,385 @@ def phase_theory(torch):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phases 42-44: the benchmarks beyond the paper (power control, the
+# environment zoo, participation at N = 10^4) held to the JAX package's
+# runs on a CPU (perf/beyond_reference.py)
+# ---------------------------------------------------------------------------
+
+PC_ROUNDS, PC_SEED = 120, 1    # fig_power_control.run: K=120, run_sweep(seed=1)
+ZOO_REF_ROUNDS, ZOO_SEED = 120, 1   # fig_env_zoo.run: jax.random.key(1)
+PART_SEED = 7                  # fig_participation.py: jax.random.key(7)
+
+
+def partition_sweeps(torch, env, pol, scens, seed, runs, expect_k1, what,
+                     telemetry=None):
+    """Each structural partition of ``scens`` as one :func:`checked_sweep`
+    (every scenario on the seeds of ``fedpg.run_seeds(seed, runs)``, as in
+    one sweep of the whole list), its K1 launches checked against
+    ``expect_k1(partition)``.  Returns each scenario's History (numpy,
+    ``(runs, K)`` leaves) in ``scens``' order, each scenario's partition
+    index, and one row a partition."""
+    from repro_torch.core import sweep
+
+    hist, where, rows = [None] * len(scens), [None] * len(scens), []
+    for j, part in enumerate(sweep.partition_scenarios(scens)):
+        tags = [s.tag for s in part.scenarios]
+        res, launches, body, ms = checked_sweep(
+            torch, env, pol, part.scenarios, seed, runs, expect_k1(part),
+            f"{what} {tags}", telemetry)
+        for k, i in enumerate(part.indices):
+            hist[i], where[i] = res.history.lane(k), j
+        rows.append({"partition": j, "tags": tags,
+                     "lanes": len(tags) * runs, "k1_launches": launches,
+                     "k1_body": body, "ms_per_round": ms,
+                     "seconds": res.partitions[0].wall_time_us / 1e6})
+        log(f"{what} partition {j} {tags}: {len(tags) * runs} lanes, "
+            f"{launches} K1 launches, {ms:.3f} ms a batched round")
+    return hist, where, rows
+
+
+def phase_power_control_held(torch):
+    """``benchmarks/fig_power_control.py`` held to ``perf/
+    power_control_reference.json``: the seven policy rows on the
+    reference's tabular MDP, each partition 20 lanes a scenario."""
+    import math
+
+    import numpy as np
+
+    from repro_torch import figures
+    from repro_torch.rl.policy import TabularSoftmaxPolicy
+
+    name = "power_control_reference.json"
+    ref = reference(name)
+    st = ref["setting"]
+    check_setting(ref, name, n_rounds=PC_ROUNDS, runs=FIG_RUNS, seed=PC_SEED,
+                  n_agents=figures.PC_AGENTS, batch_m=figures.PC_BATCH,
+                  noise_sigma=figures.PC_NOISE_SIGMA,
+                  noise_sigma2=figures.PC_NOISE_SIGMA2)
+    t0 = phase(f"42. power control (benchmarks/fig_power_control.py: "
+               f"N={figures.PC_AGENTS} M={figures.PC_BATCH} "
+               f"T={st['horizon']} K={PC_ROUNDS}, {FIG_RUNS} lanes a "
+               f"scenario)")
+    mdp = figures.tabular_mdp(ref["mdp"], st["gamma"], st["horizon"],
+                              device="cuda")
+    pol = TabularSoftmaxPolicy(st["n_states"], st["n_actions"])
+    scens = figures.power_control_scenarios(PC_ROUNDS, mdp)
+    closed = figures.power_control_rows(scens)
+    for c, w in zip(closed, ref["rows"]):
+        check(c["tag"] == w["tag"] and c["which"] == w["which"]
+              and all(math.isclose(c[k], w[k], rel_tol=1e-6) for k in (
+                  "alpha", "m_h_eff", "sigma_h2_eff", "bound", "floor")),
+              f"power control row {c} against the reference's {w}")
+    hist, where, parts = partition_sweeps(
+        torch, mdp, pol, scens, PC_SEED, FIG_RUNS, lambda p: PC_ROUNDS,
+        "power control")
+    check(len(parts) == ref["n_partitions"]
+          and where == [w["partition"] for w in ref["rows"]],
+          f"power control: partitions {where}, the reference's "
+          f"{[w['partition'] for w in ref['rows']]}")
+    rows, floors = [], {}
+    for s, c, w, h in zip(scens, closed, ref["rows"], hist):
+        per_g, _ = per_run_values(h, FIG12_TAIL)
+        held = hold_row(per_g, w["per_run_avg_grad_sq"],
+                        f"{s.tag} avg_grad_sq")
+        empirical = float(per_g.mean())
+        holds = empirical <= c["bound"]
+        if w["holds"]:
+            check(holds, f"power control {s.tag}: {empirical} above its "
+                         f"bound {c['bound']}, which the reference's holds")
+        # mean(h) as phase 18 holds it: 5 standard errors of the mean of
+        # N K runs gains plus 4 float32 ulps of m_h
+        mean_h = float(np.asarray(h.gain_mean, np.float64).mean())
+        n_gains = s.n_agents * s.n_rounds * FIG_RUNS
+        se = (c["sigma_h2_eff"] / n_gains) ** 0.5
+        allow = 5 * se + 4 * 2 ** -23 * c["m_h_eff"]
+        check(abs(mean_h - c["m_h_eff"]) <= allow,
+              f"power control {s.tag}: mean(h)={mean_h} vs m_h="
+              f"{c['m_h_eff']} (allowed {allow})")
+        # the variance of a round's mean gain over the K runs rounds
+        # against figures.round_gain_variance, within 5 standard errors
+        # of a sample variance (from the sample's fourth central moment);
+        # const_recv's h = c (1 / c) is 1 or 1 - 2^-24 in float32, so
+        # there every round's mean lies within 4 float32 ulps of m_h
+        gm = np.asarray(h.gain_mean, np.float64).reshape(-1)
+        var_gm = float(gm.var(ddof=1))
+        want_var = figures.round_gain_variance(s, c)
+        if want_var == 0.0:
+            z_var = None
+            dev = float(np.abs(gm - c["m_h_eff"]).max())
+            check(dev <= 4 * 2 ** -23 * c["m_h_eff"],
+                  f"power control {s.tag}: a round's mean gain {dev} from "
+                  f"m_h, which holds every gain at its target")
+        else:
+            m4 = float(np.mean((gm - gm.mean()) ** 4))
+            z_var = (var_gm - want_var) / ((m4 - var_gm ** 2)
+                                           / gm.size) ** 0.5
+            check(abs(z_var) < 5,
+                  f"power control {s.tag}: Var(round mean gain)={var_gm} "
+                  f"vs {want_var} (z {z_var:+.2f})")
+        floors[s.tag] = c["floor"]
+        rows.append({**c, "ref_bound": w["bound"], "empirical": empirical,
+                     "holds": holds, "ref_holds": w["holds"],
+                     "mean_h": mean_h, "mean_h_se": se,
+                     "round_gain_var": var_gm, "round_gain_var_want": want_var,
+                     "round_gain_var_z": z_var, "avg_grad_sq": held,
+                     "partition": where[len(rows)]})
+        log(f"{s.tag}: {c['which']} bound {c['bound']:.4f} floor "
+            f"{c['floor']:.5f} (reference {w['floor']:.5f}), holds {holds}; "
+            f"mean(h) {mean_h:.6f} m_h {c['m_h_eff']:.6f} (|diff| "
+            f"{abs(mean_h - c['m_h_eff']):.2e}, se {se:.2e}); Var(round "
+            f"mean gain) {var_gm:.4e} vs {want_var:.4e}"
+            + ("" if z_var is None else f" (z {z_var:+.2f})"))
+    moves = figures.floor_moves(floors)
+    log(f"floor_moves: {moves} (reference {ref['floor_moves']}); "
+        f"{len(parts)} partitions (reference {ref['n_partitions']})")
+    check(moves, "power control: the floors do not fall const < trunc < "
+                 "unit")
+    RECORD["power_control_held"] = {"rows": rows, "partitions": parts,
+                                    "floor_moves": moves}
+    done("power control held", t0)
+    return parts
+
+
+def phase_zoo_held(torch):
+    """``benchmarks/fig_env_zoo.py`` held to ``perf/env_zoo_reference.
+    json``: 17 scenarios in the reference's partitions, 20 lanes a
+    scenario, on the reference's garnet."""
+    import math
+
+    from repro_torch import figures
+
+    name = "env_zoo_reference.json"
+    ref = reference(name)
+    check_setting(ref, name, n_rounds=ZOO_REF_ROUNDS, runs=FIG_RUNS,
+                  seed=ZOO_SEED, n_agents=figures.ZOO_AGENTS,
+                  batch_m=figures.ZOO_BATCH, horizon=figures.ZOO_HORIZON,
+                  alpha=figures.ZOO_ALPHA,
+                  noise_sigma=figures.ZOO_NOISE_SIGMA,
+                  final_reward_tail=figures.ZOO_TAIL)
+    t0 = phase(f"43. the environment zoo (benchmarks/fig_env_zoo.py: "
+               f"N={figures.ZOO_AGENTS} M={figures.ZOO_BATCH} "
+               f"T={figures.ZOO_HORIZON} K={ZOO_REF_ROUNDS}, {FIG_RUNS} "
+               f"lanes a scenario)")
+    scens = figures.env_zoo_scenarios(
+        ZOO_REF_ROUNDS, figures.garnet_mdp(ref["garnet"], device="cuda"))
+    check([s.tag for s in scens] == [r["tag"] for r in ref["rows"]],
+          "the zoo's scenarios are not the reference's")
+    hist, where, parts = partition_sweeps(
+        torch, None, None, scens, ZOO_SEED, FIG_RUNS,
+        lambda p: 0 if p.proto.channel is None else ZOO_REF_ROUNDS, "zoo")
+    check(len(parts) == ref["n_partitions"] < len(scens)
+          and where == [w["partition"] for w in ref["rows"]],
+          f"zoo: partitions {where}, the reference's "
+          f"{[w['partition'] for w in ref['rows']]}")
+    rows = []
+    for s, w, h, j in zip(scens, ref["rows"], hist, where):
+        per_g, per_r = per_run_values(h, figures.ZOO_TAIL)
+        rows.append({
+            "tag": s.tag, "partition": j,
+            "final_reward": hold_row(per_r, w["per_run_final_reward"],
+                                     f"{s.tag} final reward"),
+            "avg_grad_sq": hold_row(per_g, w["per_run_avg_grad_sq"],
+                                    f"{s.tag} avg_grad_sq")})
+    lbar, want = figures.lbar_row(), ref["lbar"]
+    check(lbar["pass"] and want["pass"]
+          and all(math.isclose(lbar[k], want[k], rel_tol=1e-6)
+                  for k in ("l_bar_T10", "l_bar_T20", "V")),
+          f"l_bar row {lbar} against the reference's {want}")
+    log(f"{len(parts)} partitions for {len(scens)} scenarios (reference "
+        f"{ref['n_partitions']}); l_bar T={figures.ZOO_HORIZON} "
+        f"{lbar['l_bar_T10']:.4f}, T=20 {lbar['l_bar_T20']:.4f}, V "
+        f"{lbar['V']:.1f}: {lbar['pass']}")
+    RECORD["zoo_held"] = {"rows": rows, "partitions": parts, "lbar": lbar}
+    done("zoo held", t0)
+    return parts
+
+
+def run_means(tel, name):
+    """Each run's NaN-aware mean of probe ``name`` over its rounds (None
+    for a run with no finite value; None where the sweep has no field)."""
+    import numpy as np
+
+    arr = getattr(tel, name)
+    if arr is None:
+        return None
+    out = []
+    for x in np.asarray(arr, np.float64):
+        x = x[np.isfinite(x)]
+        out.append(float(x.mean()) if x.size else None)
+    return out
+
+
+def age_against_closed_form(rates, ages, ref_rates, ref_ages, max_age,
+                            n_rounds, what):
+    """Each run's mean replayed age less ``figures.expected_replay_age`` at
+    that run's realised rate: the port's mean difference within 4 of its
+    standard errors of 0, the reference's logged beside it."""
+    import numpy as np
+
+    from repro_torch import figures
+
+    def gap(rates, ages):
+        d = np.array([a - figures.expected_replay_age(r, max_age, n_rounds)
+                      for r, a in zip(rates, ages)])
+        mean, se = float(d.mean()), float(d.std(ddof=1) / d.size ** 0.5)
+        return {"gap": mean, "se": se, "z": mean / se}
+
+    port, ref = gap(rates, ages), gap(ref_rates, ref_ages)
+    log(f"{what} mean age against its closed form at the realised rate: "
+        f"port {port['gap']:+.5f} (z {port['z']:+.2f}), reference "
+        f"{ref['gap']:+.5f} (z {ref['z']:+.2f})")
+    check(abs(port["z"]) < 4, f"{what}: the mean replayed age is "
+                              f"{port['gap']} from its closed form "
+                              f"(z {port['z']:+.2f})")
+    return {"port": port, "reference": ref}
+
+
+def histories_bitwise(a, b):
+    """Two scenario Histories (numpy) bit for bit, telemetry included."""
+    import numpy as np
+
+    def same(x, y):
+        if x is None or y is None:
+            return x is None and y is None
+        x, y = np.asarray(x), np.asarray(y)
+        return x.shape == y.shape and x.tobytes() == y.tobytes()
+
+    tel = (a.telemetry is None) == (b.telemetry is None) and (
+        a.telemetry is None or all(
+            same(x, y) for x, y in zip(a.telemetry, b.telemetry)))
+    return tel and all(same(x, y) for x, y in zip(a, b))
+
+
+def phase_participation_held(torch):
+    """``benchmarks/fig_participation.py`` at N = 10^4 held to ``perf/
+    participation_reference.json``: the rate x staleness sweeps as 20
+    runs a lane, the baseline against the participation-off sweep, and
+    the round-service driver."""
+    import numpy as np
+
+    from repro_torch import figures
+    from repro_torch.core import ota as ota_lib
+    from repro_torch.rl.envs import make_env
+    from repro_torch.service import RoundService
+    from repro_torch.service import participation as svc_part
+    from repro_torch.telemetry.probes import TelemetryConfig
+
+    name = "participation_reference.json"
+    ref = reference(name)
+    runs, n, k = FIG_RUNS, figures.PART_AGENTS, figures.PART_ROUNDS
+    check_setting(ref, name, n_rounds=k, runs=FIG_RUNS, seed=PART_SEED,
+                  n_agents=n, agent_blocks=figures.PART_BLOCKS,
+                  rates=list(figures.PART_RATES),
+                  driver_rounds=figures.PART_DRIVER_ROUNDS)
+    t0 = phase(f"44. participation at N = 10^4 (benchmarks/"
+               f"fig_participation.py: blocks of {figures.PART_BLOCKS}, M=1 "
+               f"T=3 K={k}, {runs} runs a lane)")
+    env = make_env("landmark")
+    pol = env.default_policy()
+    n_blocks = ota_lib.blocked_layout(n, figures.PART_BLOCKS)[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    rows, parts = [], {}
+    for (stale, scens), w in zip(figures.participation_grids(),
+                                 ref["sweeps"]):
+        age = 0 if stale is None else stale.max_age
+        per_round = (2 if stale is None else 3) * n_blocks + 1
+        hist, _, p = partition_sweeps(
+            torch, env, pol, scens, PART_SEED, runs,
+            lambda _: per_round * k, f"stale {age}",
+            telemetry=TelemetryConfig())
+        check(len(p) == w["n_partitions"], f"stale {age}: {len(p)} "
+              f"partitions, the reference's {w['n_partitions']}")
+        parts[f"stale{age}"] = p[0]
+        for s, h, wr in zip(scens, hist, w["rows"]):
+            rate = s.participation.rate
+            what = f"rate {rate:g} stale {age}"
+            check(wr["rate"] == rate and wr["max_age"] == age,
+                  f"{what}: the reference's row is rate {wr['rate']} stale "
+                  f"{wr['max_age']}")
+            per_g, _ = per_run_values(h, FIG12_TAIL)
+            row = {"rate": rate, "max_age": age, "avg_grad_sq": hold_row(
+                per_g, wr["per_run_avg_grad_sq"], f"{what} avg_grad_sq")}
+            for probe in ("participation_rate", "participation_drift",
+                          "staleness_mean"):
+                got = run_means(h.telemetry, probe)
+                want = wr[f"per_run_{probe}"]
+                check((got is None) == (want is None),
+                      f"{what}: {probe} {got}, the reference's {want}")
+                if want is not None:
+                    row[probe] = hold_row(got, want, f"{what} {probe}")
+            realised = row["participation_rate"]["mean"]
+            row["rate_se"] = rate_within(realised, rate, n * k * runs, what)
+            if stale is not None:
+                row["age_closed_form"] = age_against_closed_form(
+                    run_means(h.telemetry, "participation_rate"),
+                    run_means(h.telemetry, "staleness_mean"),
+                    wr["per_run_participation_rate"],
+                    wr["per_run_staleness_mean"], age, k, what)
+            rows.append(row)
+
+    base = figures.participation_baseline()
+    off = [dataclasses.replace(s, participation=None) for s in base]
+    plain = (2 * n_blocks + 1) * k
+    hb, _, pb = partition_sweeps(torch, env, pol, base, PART_SEED, runs,
+                                 lambda _: plain, "baseline",
+                                 telemetry=TelemetryConfig())
+    ho, _, po = partition_sweeps(torch, env, pol, off, PART_SEED, runs,
+                                 lambda _: plain, "participation off",
+                                 telemetry=TelemetryConfig())
+    check(histories_bitwise(hb[0], ho[0]), "the full-participation "
+          "baseline is not bitwise the participation-off sweep")
+    per_g, _ = per_run_values(hb[0], FIG12_TAIL)
+    baseline = hold_row(per_g, ref["baseline"]["per_run_avg_grad_sq"],
+                        "baseline avg_grad_sq")
+    log("baseline: bitwise the participation-off sweep (rewards, grad_sq, "
+        "gain_mean, telemetry)")
+    parts["baseline"] = pb[0]
+    parts["participation_off"] = po[0]
+    sweep_peak = (torch.cuda.max_memory_allocated() - resident) / 1e6
+
+    kw = figures.participation_driver()
+    cfg = kw.pop("cfg")
+    rounds = kw["service"].max_rounds
+    reset_counts()
+    t1 = time.perf_counter()
+    records = RoundService(env, pol, cfg, PART_SEED, device="cuda",
+                           **kw).run()
+    driver_s = time.perf_counter() - t1
+    launches = read_counts()["ota_fused"]
+    check(launches == (3 * n_blocks + 1) * rounds,
+          f"driver: {launches} K1 launches, expected "
+          f"{(3 * n_blocks + 1) * rounds}")
+    expect = svc_part.expected_count(kw["participation"], n) / n
+    rate = float(np.mean([r["participation_rate"] for r in records]))
+    se = rate_within(rate, expect, n * rounds, "driver")
+    last, ref_last = records[-1], ref["driver"]["last"]
+    log(f"driver: {len(records)} commits of {rounds} rounds in "
+        f"{driver_s:.1f} s, {launches} K1 launches; rate {rate:.5f} "
+        f"(expected {expect:.5f} with stragglers, se {se:.1e}); last commit "
+        f"rate {last['participation_rate']:.5f} drift "
+        f"{last['participation_drift']:.3g} staleness_hist "
+        f"{last['staleness_hist']} (reference "
+        f"{ref_last['participation_rate']:.5f}, "
+        f"{ref_last['participation_drift']:.3g}, "
+        f"{ref_last['staleness_hist']})")
+    peak = (torch.cuda.max_memory_allocated() - resident) / 1e6
+    log(f"peak memory above the resident {resident / 1e6:.1f} MB: sweeps "
+        f"{sweep_peak:.1f} MB, with the driver {peak:.1f} MB")
+    RECORD["participation_held"] = {
+        "rows": rows, "partitions": parts, "baseline": baseline,
+        "baseline_bitwise_off": True, "sweep_peak_mb": sweep_peak,
+        "peak_mb": peak, "driver": {
+            "records": records, "rate": rate, "expected": expect, "se": se,
+            "k1_launches": launches, "seconds": driver_s,
+            "reference_last": ref_last}}
+    done("participation held", t0)
+    return parts, launches / rounds
+
+
 def psum_rank(mesh, arch, n_steps):
     """One rank of phase 33's psum step (``launch.mesh.run_local``)."""
     import torch
@@ -6132,7 +6557,7 @@ def main():
         print("chip_smoke: no CUDA device visible; nothing was run",
               file=sys.stderr)
         return 1
-    import repro_torch  # noqa: F401  (fails outside a checkout)
+    from repro_torch import figures  # fails outside a checkout
 
     t_all = time.perf_counter()
     smi = phase_card(torch)
@@ -6179,6 +6604,9 @@ def main():
     theory_rows = phase_theory(torch)
     sharded = phase_sharded_serve(torch)
     sharded_train = phase_sharded_train(torch)
+    pc_parts = phase_power_control_held(torch)
+    zoo_parts = phase_zoo_held(torch)
+    part_parts, driver_k1 = phase_participation_held(torch)
     train_phase = {GRANITE: "33", "mamba2-130m": "34", ZAMBA: "36",
                    VISION: "36", SEAMLESS: "36"}
     RECORD["seconds"] = time.perf_counter() - t_all
@@ -6236,7 +6664,17 @@ def main():
         "Lemma-3 floor, a draw (10, 165)":
             floor_k1 / (4 * FLOOR_CLAIM_DRAWS),
         **{f"Theorem {r['theorem']} {r['tag']} partition, {FIG_RUNS} lanes "
-           f"(8, 6)": r["k1_launches"] / THEORY_ROUNDS for r in theory_rows}}
+           f"(8, 6)": r["k1_launches"] / THEORY_ROUNDS for r in theory_rows},
+        **{f"power control partition {r['tags']}, {r['lanes']} lanes (8, 6)":
+           r["k1_launches"] / PC_ROUNDS for r in pc_parts},
+        **{f"zoo partition {r['tags']}, {r['lanes']} lanes":
+           r["k1_launches"] / ZOO_REF_ROUNDS for r in zoo_parts},
+        **{f"participation {key}, {r['lanes']} lanes, streamed in "
+           f"{LARGE_SERVICE_BLOCKS}s (10^4, 165)":
+           r["k1_launches"] / figures.PART_ROUNDS
+           for key, r in part_parts.items()},
+        "participation driver, streamed in 64s, staleness (10^4, 165)":
+            driver_k1}
     kernels = {"kernels": [{
         "name": "ota_fused_wide", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ota_fused.cu",

@@ -20,6 +20,21 @@ its source and builds the same scenarios from the port's classes, so
 * :func:`theory_scenarios`, :func:`theory_bounds` —
   ``benchmarks/theory_table.py``: the Theorem 1/2 bounds beside the
   simulated ``avg_grad_sq`` on a tabular MDP.
+* :func:`power_control_scenarios`, :func:`power_control_rows`,
+  :func:`round_gain_variance`, :func:`floor_moves` —
+  ``benchmarks/fig_power_control.py``: seven power policies over Rayleigh
+  on a tabular MDP, each row's effective moments, applicable bound and
+  variance floor, and the variance of a round's mean gain they imply.
+* :func:`env_zoo_scenarios`, :func:`lbar_row` —
+  ``benchmarks/fig_env_zoo.py``: seven environment families under the
+  exact and the Rayleigh uplink, three wind lanes, and the Assumption-1
+  envelope at the configured horizon.
+* :func:`participation_grids`, :func:`participation_baseline`,
+  :func:`participation_driver`, :func:`expected_replay_age` —
+  ``benchmarks/fig_participation.py``: the Bernoulli rate x staleness
+  sweeps at N = 10^4 streamed in blocks of 64, the full-participation
+  baseline, the round-service driver's setting, and the mean replayed
+  age a rate implies.
 * :func:`hold` — the test that holds the port's per-run values to the
   reference's mean: a z in combined standard errors, ``|z| < HOLD_Z``.
 
@@ -29,7 +44,7 @@ bitwise the reference's: the runs are compared in distribution.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,12 +58,22 @@ from repro_torch.core.channel import (
 from repro_torch.core.fedpg import FedPGConfig
 from repro_torch.core.ota import OTAConfig
 from repro_torch.core.power_control import (
-    TruncatedInversion, make_controlled_channel,
+    ConstantReceived, FullInversion, HeterogeneousBudget, TruncatedInversion,
+    make_controlled_channel,
 )
-from repro_torch.core.sweep import Scenario
+from repro_torch.core.sweep import Scenario, grid
 from repro_torch.rl.env import LandmarkNav, TabularMDP
+from repro_torch.rl.envs import (
+    CliffWalk, LQRTask, MultiLandmarkNav, WindyLandmarkNav,
+    make_heterogeneous_env,
+)
+from repro_torch.service import (
+    FaultConfig, ParticipationConfig, ServiceConfig, StalenessConfig,
+    StragglerModel,
+)
 from repro_torch.rl.policy import MLPPolicy
 from repro_torch.rl.sampler import rollout_batch
+from repro_torch.telemetry.probes import TelemetryConfig
 from repro_torch.utils.device import DeviceLike, make_generator, resolve_device
 from repro_torch.utils.tree import Params, tree_global_norm_sq, tree_sub
 
@@ -304,6 +329,226 @@ def theory_bounds(scenarios: Sequence[Scenario], n_rounds: int
         rows.append({"tag": name, "theorem": thm, "alpha": s.alpha,
                      "bound": bound})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Beyond the paper: power control, the environment zoo, participation
+# ---------------------------------------------------------------------------
+
+PC_AGENTS, PC_BATCH = 8, 4     # fig_power_control.py's N_AGENTS, BATCH_M
+PC_NOISE_SIGMA, PC_NOISE_SIGMA2 = 1e-3, 1e-6
+
+
+def power_control_policies():
+    """``fig_power_control.py:41-52``: the (tag, policy) rows; None is no
+    power control (h = c)."""
+    return [
+        ("unit", None),
+        ("trunc_inv_t0.8", TruncatedInversion(target=0.8)),
+        ("trunc_inv_t1.0", TruncatedInversion(target=1.0)),
+        ("trunc_inv_t1.2", TruncatedInversion(target=1.2)),
+        ("full_inv", FullInversion(target=1.0)),
+        ("const_recv", ConstantReceived(target=1.0)),
+        ("hetero_budget", HeterogeneousBudget(p_min=0.5, p_max=1.5)),
+    ]
+
+
+def power_control_scenarios(n_rounds: int, mdp, *,
+                            n_agents: int = PC_AGENTS,
+                            batch_m: int = PC_BATCH) -> List[Scenario]:
+    """``fig_power_control.py:54-66``: each policy over Rayleigh, alpha =
+    min(1e-2, the step-size limit at the controlled channel's mean), noise
+    sigma 1e-3, debias on, the MDP's horizon and gamma."""
+    base = RayleighChannel()
+    out = []
+    for tag, pol in power_control_policies():
+        ch = base if pol is None else make_controlled_channel(
+            base, pol, n_agents=n_agents)
+        out.append(Scenario(
+            channel=ch, noise_sigma=PC_NOISE_SIGMA,
+            alpha=min(1e-2, THEORY_CONSTANTS.max_stepsize(float(ch.mean))),
+            n_agents=n_agents, batch_m=batch_m, horizon=mdp.horizon,
+            gamma=mdp.gamma, n_rounds=n_rounds, debias=True, tag=tag))
+    return out
+
+
+def power_control_rows(scenarios: Sequence[Scenario]
+                       ) -> List[Dict[str, Any]]:
+    """``fig_power_control.py:80-92``: each scenario's effective moments,
+    the tighter applicable theorem and its bound after the scenario's K
+    rounds, and that theorem's K -> inf floor, with Delta_J = 1 / (1 -
+    gamma)."""
+    c = THEORY_CONSTANTS
+    rows = []
+    for s in scenarios:
+        m_h, v_h = s.effective_moments()
+        which, bound = theory.applicable_bound(
+            K=s.n_rounds, n_agents=s.n_agents, batch_m=s.batch_m,
+            alpha=s.alpha, m_h=m_h, sigma_h2=v_h,
+            noise_sigma2=PC_NOISE_SIGMA2,
+            delta_J=1.0 / (1 - c.gamma), V=c.V())
+        floor = (theory.theorem1_floor if which == "theorem1"
+                 else theory.theorem2_floor)(
+            n_agents=s.n_agents, batch_m=s.batch_m, m_h=m_h, sigma_h2=v_h,
+            noise_sigma2=PC_NOISE_SIGMA2, V=c.V())
+        rows.append({"tag": s.tag, "alpha": s.alpha, "m_h_eff": m_h,
+                     "sigma_h2_eff": v_h, "which": which, "bound": bound,
+                     "floor": floor})
+    return rows
+
+
+def round_gain_variance(s: Scenario, row: Dict[str, Any]) -> float:
+    """The variance of one round's mean gain over the scenario's N agents,
+    each agent's h drawn independently: sigma_h^2 / N where the agents are
+    alike.  ``HeterogeneousBudget``'s sigma_h^2 is the mixture's over a
+    random agent, so the spread of its agents' means, Var_i(b_i) m_c^2,
+    leaves it first: the round mean sees only mean_i(b_i^2) Var(c) / N."""
+    v = row["sigma_h2_eff"]
+    pol = getattr(s.channel, "policy", None)
+    if isinstance(pol, HeterogeneousBudget):
+        b = np.linspace(pol.p_min, pol.p_max, s.n_agents)
+        v -= float(b.var()) * float(s.channel.base.mean) ** 2
+    return v / s.n_agents
+
+
+def floor_moves(floors: Dict[str, float]) -> bool:
+    """``fig_power_control.py:101-109``: phase-aware inversion's floor below
+    truncated inversion's, below no power control's."""
+    return floors["const_recv"] < floors["trunc_inv_t1.0"] < floors["unit"]
+
+
+ZOO_AGENTS, ZOO_BATCH, ZOO_HORIZON = 4, 4, 10   # fig_env_zoo.py:38
+ZOO_ALPHA, ZOO_NOISE_SIGMA = 1e-3, 1e-3
+ZOO_WINDS = (0.0, 0.05, 0.1)
+ZOO_TAIL = 10                  # fig_env_zoo.py:82: final_reward(i, tail=10)
+
+
+def garnet_mdp(arrays, device: DeviceLike = None) -> TabularMDP:
+    """The zoo's garnet from its ``P``, ``l``, ``rho`` arrays (the
+    reference's ``garnet(jax.random.key(0), 6, 3, 2)``, carried as numpy:
+    the port's generator draws other tables), at ``garnet``'s gamma 0.9
+    and horizon 5."""
+    return tabular_mdp(arrays, gamma=0.9, horizon=5, device=device)
+
+
+def env_zoo_families(n_agents: int, garnet_env: TabularMDP):
+    """``fig_env_zoo.py:41-54``: the (tag, env) rows, one a family."""
+    return [
+        ("landmark", LandmarkNav()),
+        ("windy", WindyLandmarkNav(wind=0.05, gust_sigma=0.02)),
+        ("multi", MultiLandmarkNav(n_landmarks=3)),
+        ("cliff", CliffWalk(width=5, height=3, slip=0.1)),
+        ("lqr", LQRTask()),
+        ("garnet", garnet_env),
+        ("hetero_windy", make_heterogeneous_env(
+            [WindyLandmarkNav(wind=0.02 * i) for i in range(n_agents)])),
+    ]
+
+
+def env_zoo_scenarios(n_rounds: int, garnet_env: TabularMDP, *,
+                      n_agents: int = ZOO_AGENTS, batch_m: int = ZOO_BATCH,
+                      horizon: int = ZOO_HORIZON) -> List[Scenario]:
+    """``fig_env_zoo.py:56-71``: each family under the exact uplink
+    (``<tag>_exact``) and Rayleigh at noise 1e-3 (``<tag>_rayleigh``), then
+    the three ``windlane_<w>`` scenarios."""
+    base = dict(n_agents=n_agents, batch_m=batch_m, horizon=horizon,
+                n_rounds=n_rounds, alpha=ZOO_ALPHA, debias=True)
+    out = []
+    for tag, env in env_zoo_families(n_agents, garnet_env):
+        out.append(Scenario(env=env, channel=None, tag=f"{tag}_exact",
+                            **base))
+        out.append(Scenario(env=env, channel=RayleighChannel(),
+                            noise_sigma=ZOO_NOISE_SIGMA,
+                            tag=f"{tag}_rayleigh", **base))
+    out.extend(Scenario(env=WindyLandmarkNav(wind=w),
+                        channel=RayleighChannel(),
+                        noise_sigma=ZOO_NOISE_SIGMA, tag=f"windlane_{w:g}",
+                        **base)
+               for w in ZOO_WINDS)
+    return out
+
+
+def lbar_row() -> Dict[str, Any]:
+    """``fig_env_zoo.py:92-101``: the landmark envelope at the configured
+    horizon against the fixed-T=20 one, and V from the former."""
+    env = LandmarkNav()
+    consts = theory.constants_for_env(env, horizon=ZOO_HORIZON, gamma=0.99,
+                                      G=math.sqrt(2.0), F=0.5)
+    stale = env.l_bar
+    return {"l_bar_T10": consts.l_bar, "l_bar_T20": stale, "V": consts.V(),
+            "pass": bool(consts.l_bar == env.l_bar_for(ZOO_HORIZON)
+                         != stale)}
+
+
+PART_AGENTS = 10_000           # fig_participation.py:42-45
+PART_BLOCKS = 64
+PART_RATES = (0.25, 0.5)
+PART_STALE = (None, StalenessConfig(max_age=4, decay=0.8))
+PART_ROUNDS = 5                # fig_participation.py:54, not --quick
+PART_DRIVER_ROUNDS = 8
+
+
+def participation_common(n_rounds: int = PART_ROUNDS, *,
+                         n_agents: int = PART_AGENTS,
+                         agent_blocks: int = PART_BLOCKS) -> Dict[str, Any]:
+    """``fig_participation.py:55-57``: the axes every grid shares."""
+    return dict(channel=[RayleighChannel()], noise_sigma=1e-3, debias=True,
+                n_agents=n_agents, batch_m=1, horizon=3, n_rounds=n_rounds,
+                agent_blocks=agent_blocks)
+
+
+def participation_grids(n_rounds: int = PART_ROUNDS, **kw
+                        ) -> List[Tuple[Optional[StalenessConfig],
+                                        List[Scenario]]]:
+    """``fig_participation.py:62-65``: one grid a staleness setting, the
+    Bernoulli rates as its axis (``kw``: :func:`participation_common`'s)."""
+    return [(stale, grid(staleness=stale,
+                         participation=[ParticipationConfig(rate=r)
+                                        for r in PART_RATES],
+                         **participation_common(n_rounds, **kw)))
+            for stale in PART_STALE]
+
+
+def expected_replay_age(rate: float, max_age: int, n_rounds: int) -> float:
+    """The run mean of the ``staleness_mean`` probe a Bernoulli-``rate``
+    fleet expects over ``n_rounds`` rounds: round 0 replays nothing (0);
+    at round r an agent that sat out is replayed from its last round r - a
+    for a <= min(r, max_age), which it reached with weight rate (1 -
+    rate)^(a - 1), so the round's mean age is that weight's mean of a."""
+    ages = [0.0]
+    for r in range(1, n_rounds):
+        w = [rate * (1 - rate) ** (a - 1) for a in range(1, min(r, max_age)
+                                                         + 1)]
+        ages.append(sum(a * x for a, x in enumerate(w, 1)) / sum(w))
+    return sum(ages) / n_rounds
+
+
+def participation_baseline(n_rounds: int = PART_ROUNDS, **kw
+                           ) -> List[Scenario]:
+    """``fig_participation.py:85``: full participation, which
+    normalises to the plain streamed round."""
+    return grid(participation=[ParticipationConfig(kind="full")],
+                **participation_common(n_rounds, **kw))
+
+
+def participation_driver(max_rounds: int = PART_DRIVER_ROUNDS, *,
+                         n_agents: int = PART_AGENTS,
+                         agent_blocks: int = PART_BLOCKS) -> Dict[str, Any]:
+    """``fig_participation.py:98-108``: the round-service driver's
+    ``RoundService`` keyword arguments beyond env, policy and seed (rate
+    0.5 with exp(1) stragglers closed at deadline 2, staleness (4, 0.8),
+    two rounds a commit)."""
+    part = ParticipationConfig(rate=0.5, faults=FaultConfig(
+        stragglers=StragglerModel(dist="exp", mean=1.0), deadline=2.0))
+    return dict(
+        cfg=FedPGConfig(n_agents=n_agents, batch_m=1, horizon=3,
+                        n_rounds=1),
+        participation=part, staleness=StalenessConfig(max_age=4, decay=0.8),
+        ota=OTAConfig(channel=RayleighChannel(), noise_sigma=1e-3,
+                      debias=True),
+        telemetry=TelemetryConfig(), agent_blocks=agent_blocks,
+        service=ServiceConfig(rounds_per_commit=2, max_rounds=max_rounds,
+                              round_deadline_s=600.0))
 
 
 # ---------------------------------------------------------------------------
