@@ -305,7 +305,19 @@ Phases, in order; any failure raises and exits non-zero:
               standard errors; the full-participation baseline bitwise the
               participation-off sweep; the round-service driver (rate 0.5,
               exp(1) stragglers closed at deadline 2, 8 rounds): its rate
-              within 5 standard errors of ``expected_count``.
+              within 5 standard errors of ``expected_count``;
+45. dry run — ``launch/dryrun.py`` against the card: (a) phase 41's
+              llama3.2-3b sharded train step (8 layers, B=8 S=256, 4
+              agents, bf16 wire) on a (1, 1) nccl mesh against its dry run
+              on a fake (1, 1) group (a spawned process): argument bytes and
+              FLOPs equal (both sides count a kernel by its formula times
+              its launches), one abstract K1 launch, the step's peak within
+              ``DRYRUN_MEM_BAND`` of MemTracker's, ms a step against the
+              roofline and the MFU; (b) the bf16 prefills of phase 10's cell:
+              28 K3 and 24 K4 abstract launches as on the card, FLOPs equal;
+              (c) ``DRYRUN_POD`` through the CLI on a fake 256-rank pod,
+              started on the host's cores at the top of the run: each must
+              succeed (bytes a rank, dominant term, trace seconds).
 
 ``python3 chip_smoke.py --agent-mesh-across-cards`` runs phases 1, 2 and
 31's mesh over every visible card alone, then the card test of the mesh
@@ -328,7 +340,9 @@ step, GB held and peak a rank, the collectives a step, every rank's
 metrics bitwise, loss, grad norm and update norm within 2e-2 of the one
 card's), then one more step a rank under the profiler (device busy time,
 the nccl kernels' part, the top kernels), and writes
-``chiprun_out/sharded_train_cards.json``.
+``chiprun_out/sharded_train_cards.json``.  ``python3 chip_smoke.py
+--dryrun-against-card`` runs phases 1, 2 and 45 alone and writes
+``chiprun_out/dryrun_against_card.json``.
 
 It prints the card line, then one ``{"kernels": [...]}`` line (K1 as its two
 bodies, ``ota_fused_wide`` and ``ota_fused_tall``), and as its last
@@ -6550,6 +6564,309 @@ def max_rel_dev(torch, a, b):
                for x, y in pairs)
 
 
+# ---------------------------------------------------------------------------
+# Phase 45: the dry run against the card
+# ---------------------------------------------------------------------------
+
+# (c): pod-scale dry runs through the CLI, one process each, started at the
+# top of the run so they trace on the host's cores while the card works
+DRYRUN_POD = (("llama3.2-3b", "train_4k"), ("deepseek-67b", "train_4k"),
+              ("mixtral-8x22b", "prefill_32k"),
+              ("seamless-m4t-large-v2", "decode_32k"))
+DRYRUN_OUT = ROOT / "chiprun_out" / "dryrun_torch"
+DRYRUN_POD_WAIT = 600          # s phase 45 waits for (c) at most
+# the card's step peak over MemTracker's: 1.0001 on an H100 80GB HBM3 at
+# 700 W (the caching allocator's 512-byte blocks); the band is set from it
+DRYRUN_MEM_BAND = (0.99, 1.01)
+DRYRUN_PREFILL = (("llama3.2-3b", "flash_attention_wgmma", 28),
+                  ("mamba2-130m", "ssd_scan_tc", 24))
+DRYRUN_ALONE = "--dryrun-against-card"
+POD_PROCS = []
+
+
+def start_pod_dryruns():
+    """Start phase 45(c): ``python -m repro_torch.launch.dryrun --arch A
+    --shape S`` for each of ``DRYRUN_POD``, each its own process (its own
+    fake group of 256 ranks) at a lower priority than the phases' host
+    work, writing to ``chiprun_out/dryrun_torch``."""
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for arch, shape in DRYRUN_POD:
+        logf = open(DRYRUN_OUT / f"{arch}_{shape}.log", "w")
+        POD_PROCS.append((arch, shape, logf, time.perf_counter(),
+                          subprocess.Popen(
+                              [sys.executable, "-m",
+                               "repro_torch.launch.dryrun", "--arch", arch,
+                               "--shape", shape, "--out", str(DRYRUN_OUT)],
+                              cwd=ROOT, env=env, stdout=logf,
+                              stderr=subprocess.STDOUT,
+                              # below the phases' own host work
+                              preexec_fn=lambda: os.nice(10))))
+
+
+def stop_pod_dryruns():
+    """Kill what is left of phase 45(c)'s processes."""
+    for _, _, logf, _, proc in POD_PROCS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        logf.close()
+
+
+def dry_train_shape():
+    from repro_torch.configs.base import InputShape
+
+    return InputShape(name="train_b8_s256", seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, kind="train")
+
+
+def dry_prefill_shape():
+    from repro_torch.configs.base import InputShape
+
+    return InputShape(name="prefill_b4_s2048", seq_len=SERVE_PROMPT,
+                      global_batch=SERVE_BATCH, kind="prefill")
+
+
+def dryrun_child(path):
+    """Phase 45's dry runs of (a) and (b) on a fake (1, 1) group, in their
+    own process (its fake group never meets the card's nccl group)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    arch, n_layers = SHARD_TRAIN[0]
+    cfg = get_config(arch).with_(dtype="bfloat16", n_layers=n_layers)
+    out = {"train": dryrun.run_one(
+        arch, dry_train_shape(), mesh_shape="1x1", cfg=cfg, out_dir="",
+        train_kw=dict(n_agents=TRAIN_AGENTS, lr=1e-4, warmup=2,
+                      wire_dtype="bfloat16"))}
+    for arch, _, _ in DRYRUN_PREFILL:
+        out[arch] = dryrun.run_one(
+            arch, dry_prefill_shape(), mesh_shape="1x1", out_dir="",
+            cfg=get_config(arch).with_(dtype="bfloat16"))
+    Path(path).write_text(json.dumps(out))
+    return 0
+
+
+def card_flops(torch, fn):
+    """``fn()`` under ``FlopCounterMode``: (result, aten FLOPs)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        out = fn()
+    torch.cuda.synchronize()
+    return out, fc.get_total_flops()
+
+
+def dryrun_card_rank(mesh_unused):
+    """Phase 45's card side on one nccl rank: (a) the sharded train step of
+    phase 41 (llama3.2-3b at 8 layers) counted, then timed; (b) the sharded
+    prefills of phase 10's cell, counted."""
+    import torch
+
+    from repro_torch.kernels import ota_fused
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import server, trainer
+    from repro_torch.utils.roofline import k1_cost, k3_cost, k4_cost
+    from repro_torch.utils.tree import tree_bytes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = warm_mesh(torch, mesh_lib.make_tiny_mesh(1, 1))
+    arch, n_layers = SHARD_TRAIN[0]
+    m, tcfg, batches = shard_train_setup(torch, arch, n_layers)
+    state, step = trainer.shard_for_training(
+        m, tcfg, trainer.init_state(m, tcfg, device="cuda"), mesh)
+    st = state.opt_state
+    out = {"arg_bytes": tree_bytes(state.params)
+           + tree_bytes((st.mu, st.nu, st.step)),
+           "batch_bytes": tree_bytes(batches[0])}
+    state = train_step_on_card(torch, step, state, batches[0]).state  # warm
+    reset_counts()
+    state, aten = card_flops(torch, lambda: step(state, batches[1])[0])
+    mapped = ota_fused.LAUNCHES_MAPPED
+    # K1's row: every local element of the gradient, one unit-gain agent
+    row = sum(v.to_local().numel() for v in st.mu.values())
+    k1_f, _ = k1_cost(row, 1, wire_bytes=2, with_noise=True, mode="agg",
+                      map_bytes=step.sharded.counter_map.host.numel() * 8)
+    s = train_step_on_card(torch, step, state, batches[2])
+    out["train"] = {"aten_flops": aten, "k1_mapped": mapped,
+                    "k1_launches": read_counts()["ota_fused"],
+                    "k1_flops": k1_f, "ms": s.ms, "host_ms": s.host_ms,
+                    "peak_bytes": s.peak_gb * 1e9,
+                    "timed_k1_mapped": s.k1_mapped}
+    del state, step, s, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, kernel, _ in DRYRUN_PREFILL:
+        from repro_torch.configs import get_config
+
+        m = model_lib.build(get_config(arch).with_(dtype="bfloat16"))
+        params, prompt = model_and_prompt(torch, m, 45)
+        srv = server.shard_for_serving(m, params, mesh)
+        srv.prefill(prompt)                                   # warm
+        reset_counts()
+        _, aten = card_flops(torch, lambda: srv.prefill(prompt))
+        cfg = m.cfg
+        if kernel.startswith("flash"):
+            per = k3_cost(SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads,
+                          SERVE_PROMPT, SERVE_PROMPT, cfg.head_dim, 2,
+                          causal=True, window=cfg.window)[0]
+        else:
+            d_in = cfg.ssm.expand * cfg.d_model
+            per = k4_cost(SERVE_BATCH, SERVE_PROMPT, d_in // cfg.ssm.headdim,
+                          cfg.ssm.headdim, cfg.ssm.n_groups, cfg.ssm.state,
+                          cfg.ssm.chunk, 2, tensor_cores=True)[0]
+        out[arch] = {"aten_flops": aten, "launches": read_counts(),
+                     "kernel_flops_each": per}
+        del m, params, prompt, srv
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_alone():
+    """Phases 1, 2 and 45 alone (``--dryrun-against-card``)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible; nothing was run",
+              file=sys.stderr)
+        return 1
+    smi = phase_card(torch)
+    start_pod_dryruns()
+    try:
+        phase_build()
+        res = phase_dryrun(torch, smi)
+    finally:
+        stop_pod_dryruns()
+    out = ROOT / "chiprun_out"
+    (out / "dryrun_against_card.json").write_text(json.dumps(
+        res, indent=1, default=str))
+    return 0
+
+
+def phase_dryrun(torch, smi):
+    """Phase 45: the dry run (``launch/dryrun.py``) against the card.  (a)
+    llama3.2-3b's sharded train step of phase 41 (bf16, 8 layers, B=8
+    S=256, 4 agents, bf16 wire) on a one-rank nccl (1, 1) mesh against its
+    dry run on a fake (1, 1) group: argument bytes equal, FLOPs equal
+    (aten count plus each kernel's formula times its launches on both
+    sides), one abstract K1 launch for the one mapped launch, the card's
+    step peak within ``DRYRUN_MEM_BAND`` of MemTracker's; the measured ms a
+    step beside the roofline's and the MFU; (b) the bf16 prefills of
+    phase 10's cell (llama3.2-3b, mamba2-130m, B=4 S=2048): abstract K3/K4
+    launches equal the card's (28, 24), FLOPs equal; (c) the pod-scale dry
+    runs started at the top of the run (``DRYRUN_POD``) must each have
+    succeeded: bytes a rank, dominant term, trace seconds."""
+    import multiprocessing as mp
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    t0 = phase("45. dry run against the card")
+    path = DRYRUN_OUT / "phase45_dry.json"
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    child = mp.get_context("spawn").Process(target=dryrun_child,
+                                            args=(str(path),))
+    child.start()
+    try:
+        card = mesh_lib.run_local(dryrun_card_rank, 1, device="cuda",
+                                  timeout=600)[0]
+    finally:
+        child.join(timeout=300)
+        if child.is_alive():
+            child.kill()
+    check(child.exitcode == 0, f"the dry-run process exited "
+                               f"{child.exitcode}")
+    dry = json.loads(path.read_text())
+    res = {"card": card, "dry": dry, "nvidia_smi": smi}
+
+    # (a) the train step
+    d, c = dry["train"], card["train"]
+    dry_args = (d["memory"]["argument_bytes"]["params"]
+                + d["memory"]["argument_bytes"]["opt_state"])
+    check(dry_args == card["arg_bytes"],
+          f"argument bytes: dry run {dry_args}, card {card['arg_bytes']}")
+    want = c["aten_flops"] + c["k1_flops"] * c["k1_mapped"]
+    check(d["flops"]["total"] == want,
+          f"train FLOPs: dry run {d['flops']['total']}, card {want} "
+          f"(aten {c['aten_flops']} + K1 {c['k1_flops']} x "
+          f"{c['k1_mapped']})")
+    check(d["launches"]["by_name"] == {"ota_fused_mapped": 1}
+          and c["k1_mapped"] == 1 == c["k1_launches"],
+          f"K1: dry run {d['launches']}, card {c['k1_mapped']} mapped of "
+          f"{c['k1_launches']}")
+    mem_ratio = c["peak_bytes"] / d["memory"]["step_peak"]
+    check(DRYRUN_MEM_BAND[0] <= mem_ratio <= DRYRUN_MEM_BAND[1],
+          f"the card's step peak {c['peak_bytes'] / 1e9:.4f} GB is "
+          f"{mem_ratio:.4f} x MemTracker's "
+          f"{d['memory']['step_peak'] / 1e9:.4f} GB")
+    r = d["roofline"]
+    mfu = r["model_flops"] / (c["ms"] * 1e-3 * 989e12)
+    log(f"(a) llama3.2-3b sharded train step, 8 layers, (1, 1): argument "
+        f"bytes {dry_args} equal; FLOPs {d['flops']['total']:.6g} equal "
+        f"(aten {c['aten_flops']:.6g} + K1 {c['k1_flops']:.6g}); 1 abstract "
+        f"K1 launch = 1 mapped; step peak {c['peak_bytes'] / 1e9:.4f} GB on "
+        f"the card against MemTracker's "
+        f"{d['memory']['step_peak'] / 1e9:.4f} GB ({mem_ratio:.5f}x); "
+        f"{c['ms']:.2f} ms a step (host {c['host_ms']:.2f}) against the "
+        f"roofline's {r['step_time_s'] * 1e3:.3f} ms ({r['dominant']}), MFU "
+        f"{mfu:.4f} of 989 TFLOP/s; dry run traced in {d['t_trace_s']:.1f} "
+        f"s [{smi}]")
+    res["train_mfu"] = mfu
+    res["train_mem_ratio"] = mem_ratio
+
+    # (b) the prefills
+    for arch, kernel, n in DRYRUN_PREFILL:
+        d, c = dry[arch], card[arch]
+        got = c["launches"][kernel]
+        check(d["launches"]["by_name"] == {kernel: n} and got == n,
+              f"{arch} prefill: dry run {d['launches']['by_name']}, card "
+              f"{got} {kernel}, expected {n}")
+        want = c["aten_flops"] + c["kernel_flops_each"] * got
+        check(d["flops"]["total"] == want,
+              f"{arch} prefill FLOPs: dry run {d['flops']['total']}, card "
+              f"{want}")
+        log(f"(b) {arch} prefill B={SERVE_BATCH} S={SERVE_PROMPT}: {n} "
+            f"{kernel} launches on both sides; FLOPs "
+            f"{d['flops']['total']:.6g} equal; roofline "
+            f"{d['roofline']['step_time_s'] * 1e3:.3f} ms "
+            f"({d['roofline']['dominant']}) [{smi}]")
+
+    res["ab_seconds"] = time.perf_counter() - t0
+    log(f"(a) and (b): {res['ab_seconds']:.1f} s")
+
+    # (c) the pod-scale dry runs
+    pod = {}
+    for arch, shape, logf, t_start, proc in POD_PROCS:
+        left = DRYRUN_POD_WAIT - (time.perf_counter() - t0)
+        try:
+            rc = proc.wait(timeout=max(left, 1))
+        except subprocess.TimeoutExpired:
+            rc = None
+        logf.flush()
+        check(rc == 0, f"(c) {arch} x {shape}: the dry run "
+                       f"{'timed out' if rc is None else f'exited {rc}'}: "
+                       f"{(DRYRUN_OUT / f'{arch}_{shape}.log').read_text()[-2000:]}")
+        rec = json.loads((DRYRUN_OUT / f"{arch}_{shape}_pod16x16.json")
+                         .read_text())
+        pod[f"{arch} {shape}"] = rec
+        log(f"(c) {arch} x {shape} x pod16x16: "
+            f"{rec['memory']['total'] / 1e9:.3f} GB a rank (arguments "
+            f"{rec['memory']['argument_total'] / 1e9:.3f}), dominant "
+            f"{rec['roofline']['dominant']} (compute "
+            f"{rec['roofline']['compute_s'] * 1e3:.2f} ms, memory "
+            f"{rec['roofline']['memory_s'] * 1e3:.2f}, collectives "
+            f"{rec['roofline']['collective_s'] * 1e3:.2f}), traced in "
+            f"{rec['t_trace_s']:.1f} s ({time.perf_counter() - t_start:.1f} "
+            f"s since its start) on the host [{smi}]")
+    res["pod"] = {k: {"memory": v["memory"], "roofline": v["roofline"],
+                      "t_trace_s": v["t_trace_s"]} for k, v in pod.items()}
+    RECORD["dryrun"] = res
+    done("dry run", t0)
+    return res
+
+
 def main():
     import torch
 
@@ -6561,6 +6878,15 @@ def main():
 
     t_all = time.perf_counter()
     smi = phase_card(torch)
+    start_pod_dryruns()     # phase 45(c), on the host beside the card
+    try:
+        return run_phases(torch, figures, t_all, smi)
+    finally:
+        stop_pod_dryruns()
+
+
+def run_phases(torch, figures, t_all, smi):
+    """Phases 2 to 45 and the closing lines (``main``)."""
     phase_build()
     k1_err = phase_k1(torch)
     launches, main_res = phase_main(torch)
@@ -6607,6 +6933,7 @@ def main():
     pc_parts = phase_power_control_held(torch)
     zoo_parts = phase_zoo_held(torch)
     part_parts, driver_k1 = phase_participation_held(torch)
+    phase_dryrun(torch, smi)
     train_phase = {GRANITE: "33", "mamba2-130m": "34", ZAMBA: "36",
                    VISION: "36", SEAMLESS: "36"}
     RECORD["seconds"] = time.perf_counter() - t_all
@@ -7005,6 +7332,8 @@ def sharded_across_cards(only=()):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == [DRYRUN_ALONE]:
+        sys.exit(dryrun_alone())
     if sys.argv[1:] == [RESUME_CHILD]:
         sys.exit(resume_child())
     if sys.argv[1:2] == [SHARDED_ACROSS_CARDS]:

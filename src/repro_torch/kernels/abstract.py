@@ -1,0 +1,75 @@
+"""Abstract launches: the kernels' wrappers on fake tensors.
+
+A dry run (``launch/dryrun.py``) traces the card's path on ``FakeTensor``s
+that stand on ``cuda``: every wrapper checks its operands, picks its kernel
+and body and allocates its outputs as for a real launch, and only the
+ctypes launch itself is replaced.  With fake operands the wrapper loads no
+library, makes no card current and calls nothing; it calls
+:func:`record`, which counts one abstract launch of the kernel (here, apart
+from the wrappers' ``LAUNCHES*``, which count real launches only) with the
+FLOPs and bytes of its formula (``utils/roofline.py``), and returns the
+outputs it allocated.  FlopCounterMode cannot see a ctypes launch, so a
+dry run adds these formulas to its aten count.
+
+A ``meta`` tensor carries no device a kernel could run on and no plain
+version should see: every wrapper refuses one (:func:`refuse_meta`).  A
+fake tensor on the CPU would take a plain version, which a dry run must
+never trace: the wrappers refuse that too.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch._subclasses.fake_tensor import FakeTensor
+
+# the kernel (K1..K4) of each launch name
+KERNEL_OF = {
+    "ota_fused": "K1", "ota_fused_mapped": "K1", "ota_channel": "K2",
+    "flash_attention": "K3", "flash_attention_wgmma": "K3",
+    "ssd_scan": "K4", "ssd_scan_tc": "K4",
+}
+
+LAUNCHES: Dict[str, int] = {}     # abstract launches by launch name
+FLOPS: Dict[str, float] = {}      # their formula FLOPs
+BYTES: Dict[str, float] = {}      # their formula bytes
+
+
+def is_abstract(*xs) -> bool:
+    """Whether any of the operands is a fake tensor (a dry run)."""
+    return any(isinstance(x, FakeTensor) for x in xs)
+
+
+def refuse_meta(name: str, *xs) -> None:
+    """Raise for a ``meta`` operand, or for a fake one that would take the
+    plain version (not on ``cuda``): a dry run traces the card's path on
+    fake ``cuda`` tensors (``launch/dryrun.py``)."""
+    for x in xs:
+        if isinstance(x, torch.Tensor) and (
+                x.is_meta or (isinstance(x, FakeTensor) and not x.is_cuda)):
+            raise ValueError(
+                f"{name} got a {'meta' if x.is_meta else 'fake CPU'} tensor: "
+                f"a kernel runs on a cuda tensor, its plain version on a "
+                f"real CPU tensor, and a dry run traces fake cuda tensors "
+                f"(launch.dryrun)")
+
+
+def record(name: str, flops: float, nbytes: float) -> None:
+    """Count one abstract launch of ``name`` with its formula's cost."""
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    FLOPS[name] = FLOPS.get(name, 0.0) + float(flops)
+    BYTES[name] = BYTES.get(name, 0.0) + float(nbytes)
+
+
+def reset() -> None:
+    LAUNCHES.clear()
+    FLOPS.clear()
+    BYTES.clear()
+
+
+def by_kernel(table: Dict[str, float]) -> Dict[str, float]:
+    """A table by launch name summed by kernel (K1..K4)."""
+    out: Dict[str, float] = {}
+    for name, v in table.items():
+        out[KERNEL_OF[name]] = out.get(KERNEL_OF[name], 0) + v
+    return out

@@ -28,7 +28,10 @@ differentiates takes ``models.attention.attend`` (``blockwise=False``, as
 the trainers' forward does).  ``LAUNCHES`` counts the f32 kernel's
 launches, ``LAUNCHES_TC`` the tensor-core kernel's; ``LAUNCHES_BIDIR`` and
 ``LAUNCHES_TC_BIDIR`` count those of them that were bidirectional
-(``causal=False``), as an encoder's are.
+(``causal=False``), as an encoder's are.  On fake ``cuda`` operands (a dry
+run) the launch is abstract (``kernels/abstract.py``): checked and
+dispatched alike, recorded with ``utils.roofline.k3_cost``, not launched;
+a ``meta`` operand raises.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import abstract, build, ref
 
 LAUNCHES = 0
 LAUNCHES_TC = 0
@@ -130,6 +133,13 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tc = takes_tensor_cores(q, k, v, out)
     name = "flash_attention_wgmma" if tc else "flash_attention"
     lead = [] if tc else [int(q.dtype == torch.bfloat16)]
+    if abstract.is_abstract(q, k, v, out):
+        from repro_torch.utils.roofline import k3_cost
+
+        abstract.record(name, *k3_cost(b, h, hkv, sq, sk, dh,
+                                       q.element_size(), causal=causal,
+                                       window=window))
+        return
     strides = [s for x in (q, k, v, out) for s in
                (_tma_strides(x) if tc else x.stride()[:3])]
     with torch.cuda.device(dev):   # the launch goes to the current device
@@ -163,6 +173,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None) -> torch.Tensor:
     """q (B, H, Sq, Dh), k/v (B, Hkv, Sk, Dh) -> (B, H, Sq, Dh) in q's
     dtype; positions ``arange``.  Any Sq and Sk (the tails are masked)."""
+    abstract.refuse_meta("flash_attention", q, k, v)
     if not q.is_cuda:
         _check_window(window)
         return ref.flash_attention_plain(q, k, v, causal=causal, window=window)
@@ -177,6 +188,7 @@ def attend_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 window: Optional[int] = None) -> torch.Tensor:
     """The model's layout: q (B, Sq, H, Dh), k/v (B, Sk, Hkv, Dh), positions
     (Sq,) and (Sk,) -> (B, Sq, H, Dh) in q's dtype."""
+    abstract.refuse_meta("attend_bshd", q, k, v)
     if not q.is_cuda:
         _check_window(window)
         return ref.flash_attention_plain(

@@ -11,7 +11,9 @@ The kernel is ``csrc/ota_channel.cu``; its plain version is
 
 Dispatch is by the device of ``v``: a CPU tensor takes the plain version, a
 CUDA tensor is checked and launched on PyTorch's current stream, or the call
-raises.  ``LAUNCHES`` counts kernel launches.
+raises.  ``LAUNCHES`` counts kernel launches.  On a fake ``cuda`` tensor
+(a dry run) the launch is abstract (``kernels/abstract.py``): recorded
+with ``utils.roofline.k2_cost``, not launched; a ``meta`` tensor raises.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import abstract, build, ref
 
 LAUNCHES = 0
 
@@ -46,7 +48,7 @@ def ota_channel_apply(v: torch.Tensor, *, sigma: float, n_agents: int,
     """Fused ``(v + sigma*AWGN) / (N*m_h)`` over an arbitrary-shape float32
     or bfloat16 tensor; the result has v's shape and dtype.  ``sigma <= 0``
     skips the noise."""
-    global LAUNCHES
+    abstract.refuse_meta("ota_channel_apply", v)
     if v.dtype not in ref.K2_DTYPES:
         raise ValueError(f"v must be float32 or bfloat16, got {v.dtype}")
     if v.numel() > _MAX_ELEMS:
@@ -59,14 +61,28 @@ def ota_channel_apply(v: torch.Tensor, *, sigma: float, n_agents: int,
     out = torch.empty_like(src)
     if src.numel() == 0:
         return out
-    with torch.cuda.device(v.device):   # the launch goes to the current one
+    _launch(src, out, sigma=float(sigma),
+            scale=ref.ota_channel_scale(n_agents, m_h, debias), seed=seed)
+    return out
+
+
+def _launch(src: torch.Tensor, out: torch.Tensor, *, sigma: float,
+            scale: float, seed: int) -> None:
+    """Launch K2 over the contiguous CUDA ``src`` into ``out`` (abstract
+    on fake tensors)."""
+    global LAUNCHES
+    if abstract.is_abstract(src, out):
+        from repro_torch.utils.roofline import k2_cost
+
+        abstract.record("ota_channel", *k2_cost(
+            src.numel(), src.element_size(), with_noise=sigma > 0.0))
+        return
+    with torch.cuda.device(src.device):   # the launch goes to the current one
         rc = _lib().ota_channel_launch(
-            int(v.dtype == torch.bfloat16), int(sigma > 0.0), src.data_ptr(),
-            out.data_ptr(), src.numel(), float(sigma),
-            ref.ota_channel_scale(n_agents, m_h, debias),
+            int(src.dtype == torch.bfloat16), int(sigma > 0.0),
+            src.data_ptr(), out.data_ptr(), src.numel(), sigma, scale,
             int(seed) & ref.MASK32, _THREADS,
-            torch.cuda.current_stream(v.device).cuda_stream)
+            torch.cuda.current_stream(src.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ota_channel kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
-    return out

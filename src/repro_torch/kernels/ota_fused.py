@@ -12,7 +12,10 @@ Dispatch is by the device of the gradient stack:
   fold of ``ref.ota_fused_ref``), which is how the CPU tests reach it;
 * a CUDA tensor is checked (device, dtype, shape, contiguity, and what the
   chosen body needs) and launched on PyTorch's current stream, or the call
-  raises.  There is no fallback.
+  raises.  There is no fallback;
+* a fake CUDA tensor (a dry run) is checked and dispatched alike, and the
+  launch is abstract (``kernels/abstract.py``): recorded with
+  ``utils.roofline.k1_cost``, not launched; a ``meta`` tensor raises.
 
 K1 has two bodies, both the same strict sequential fold over agents, so
 both are bitwise the plain version (agg) and bitwise each other in every
@@ -83,7 +86,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import abstract, build, ref
 
 LAUNCHES = 0
 LAUNCHES_WIDE = 0
@@ -296,6 +299,14 @@ def _launch(mode: str, grads: torch.Tensor, gains: torch.Tensor,
         seed_ptr, seed_val = ptrs["seed"], 0
     else:
         seed_ptr, seed_val = _seed_args(seed, dev)
+    if abstract.is_abstract(grads, *outs):
+        from repro_torch.utils.roofline import k1_cost
+
+        abstract.record("ota_fused", *k1_cost(
+            n_params, n_agents, wire_bytes=grads.element_size(),
+            with_noise=with_noise, mode=mode, lanes=n_lanes,
+            shared_stack=n_lanes > 1 and grads.ndim == 2))
+        return tuple(outs)
     with torch.cuda.device(dev):   # the launch goes to the current device
         rc = _lib().ota_fused_launch(
             BODIES.index(body), _MODES[mode],
@@ -377,6 +388,7 @@ class CounterMap:
 
 
 def _prep(grads: torch.Tensor, gains: torch.Tensor, wire_dtype):
+    abstract.refuse_meta("K1", grads, gains)
     if grads.ndim != 2:
         raise ValueError(f"grads must be (n_agents, n_params), got "
                          f"{tuple(grads.shape)}")
@@ -447,6 +459,14 @@ def _launch_mapped(grads: torch.Tensor, gains: torch.Tensor,
     table = counter_map.table(dev)
     out = torch.empty(n_params, dtype=torch.float32, device=dev)
     seed_ptr, seed_val = _seed_args(seed, dev)
+    if abstract.is_abstract(grads, out):
+        from repro_torch.utils.roofline import k1_cost
+
+        abstract.record("ota_fused_mapped", *k1_cost(
+            n_params, n_agents, wire_bytes=grads.element_size(),
+            with_noise=with_noise, mode="agg",
+            map_bytes=table.numel() * table.element_size()))
+        return out
     with torch.cuda.device(dev):
         rc = _lib().ota_fused_mapped_launch(
             int(grads.dtype == torch.bfloat16), int(with_noise),
@@ -582,6 +602,7 @@ def _lane_array(x, n: int, dtype, device) -> Optional[torch.Tensor]:
 
 
 def _prep_lanes(grads, gains, wire_dtype):
+    abstract.refuse_meta("K1", grads, gains)
     if grads.ndim not in (2, 3) or gains.ndim not in (1, 2):
         raise ValueError(f"lanes take grads (A, P) or (L, A, P) and gains "
                          f"(A,) or (L, A), got {tuple(grads.shape)} and "

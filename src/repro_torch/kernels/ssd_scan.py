@@ -25,7 +25,10 @@ backward: a CUDA call under grad mode with an operand that requires grad
 raises (its output would carry no gradient); a forward that autograd
 differentiates runs ``ref.ssd_ref`` (``ssm_mixer(..., plain_scan=True)``,
 which the trainer's forward takes).  ``LAUNCHES`` counts the f32
-kernel's launches, ``LAUNCHES_TC`` the tensor-core kernel's.
+kernel's launches, ``LAUNCHES_TC`` the tensor-core kernel's.  On fake
+``cuda`` operands (a dry run) the launch is abstract
+(``kernels/abstract.py``): checked and dispatched alike, recorded with
+``utils.roofline.k4_cost``, not launched; a ``meta`` operand raises.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import abstract, build, ref
 
 LAUNCHES = 0
 LAUNCHES_TC = 0
@@ -73,7 +76,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              chunk: int = 128) -> torch.Tensor:
     """x (B, S, H, P), dt (B, S, H) post-softplus, A (H,) negative,
     B/C (B, S, G, N) -> y (B, S, H, P) in float32."""
-    global LAUNCHES, LAUNCHES_TC
+    abstract.refuse_meta("ssd_scan", x, dt, A, B, C)
     if not x.is_cuda:
         return ref.ssd_ref(x, dt, A, B, C, chunk)
     if torch.is_grad_enabled() and any(
@@ -108,8 +111,27 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dt32 = dt.float().contiguous()
     a32 = A.float().contiguous()
     y = torch.empty(x.shape, dtype=torch.float32, device=dev)
+    _launch(x, dt32, a32, B, C, y, q)
+    return y
+
+
+def _launch(x: torch.Tensor, dt32: torch.Tensor, a32: torch.Tensor,
+            B: torch.Tensor, C: torch.Tensor, y: torch.Tensor,
+            q: int) -> None:
+    """Launch K4 on checked CUDA operands, writing ``y`` (abstract on
+    fake ones)."""
+    global LAUNCHES, LAUNCHES_TC
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    dev = x.device
     tc = takes_tensor_cores(x, B, C)
     name = "ssd_scan_tc" if tc else "ssd_scan"
+    if abstract.is_abstract(x, B, C, y):
+        from repro_torch.utils.roofline import k4_cost
+
+        abstract.record(name, *k4_cost(b, s, h, p, g, n, q,
+                                       x.element_size(), tensor_cores=tc))
+        return
     lead = [] if tc else [int(x.dtype == torch.bfloat16)]
     with torch.cuda.device(dev):   # the launch goes to the current device
         rc = getattr(_lib(name), f"{name}_launch")(
@@ -122,4 +144,3 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         LAUNCHES_TC += 1
     else:
         LAUNCHES += 1
-    return y

@@ -114,6 +114,13 @@ class MLPPolicy:
         dpre = torch.where(pre > 0, dh, torch.zeros_like(dh))
         return torch.cat([dpre, dl, _outer(obs, dpre), _outer(h, dl)], -1)
 
+    def entropy(self, params: Params, obs: torch.Tensor) -> torch.Tensor:
+        """The action distribution's entropy summed over every row of
+        ``obs`` (one scalar, as the JAX package's ``jnp.sum`` over all
+        axes)."""
+        logp = torch.log_softmax(self.logits(params, obs), dim=-1)
+        return -torch.sum(torch.exp(logp) * logp)
+
     def sample_noise(self, generator: torch.Generator, batch, device
                      ) -> torch.Tensor:
         """The ``(*batch, n_actions)`` uniforms :meth:`sample` draws."""
@@ -206,6 +213,13 @@ class GaussianPolicy:
         z = (action - self.mean(params, obs)) * inv
         dmu = z * inv
         return torch.cat([dmu, z * z - 1.0, _outer(obs, dmu)], -1)
+
+    def entropy(self, params: Params, obs: torch.Tensor) -> torch.Tensor:
+        """Closed form ``sum(log_std) + (d/2)(1 + log 2 pi)``; ``obs`` is
+        not read (kept for the interface, as in the JAX package)."""
+        del obs
+        return torch.sum(params["log_std"]) + 0.5 * self.act_dim * (
+            1.0 + math.log(2.0 * math.pi))
 
     def sample_noise(self, generator, batch, device) -> torch.Tensor:
         """The ``(*batch, act_dim)`` standard normals :meth:`sample` takes."""

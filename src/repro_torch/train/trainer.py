@@ -522,7 +522,8 @@ def distribute_state(state: TrainState, plan, rules, mesh) -> TrainState:
 
 
 def shard_for_training(model: Model, tcfg: TrainConfig, state: TrainState,
-                       mesh) -> Tuple[TrainState, Callable]:
+                       mesh, *, fsdp: bool = True
+                       ) -> Tuple[TrainState, Callable]:
     """The sharded train step of ``model`` on a ``("data", "model")``
     ``DeviceMesh`` (JAX: ``launch/dryrun.py``'s ``build_train_lowering``,
     ``make_train_step`` partitioned under ``train_rules(fsdp=True)``).
@@ -564,7 +565,10 @@ def shard_for_training(model: Model, tcfg: TrainConfig, state: TrainState,
     ``NotImplementedError`` for a layout not ported
     (``shard_hints.Layout``) and ``ValueError`` for an ``n_agents`` that
     is not a multiple of the data shards.  ``train_step.sharded`` is the :class:`ShardedTrainer` it
-    runs (its layout, counter map and the keys it counts in a norm)."""
+    runs (its layout, counter map and the keys it counts in a norm).
+    ``fsdp=False`` lays the state out by ``train_rules(fsdp=False)`` (the
+    weights replicated over the data axes, each leaf's gradient
+    all-reduced over them), as the JAX dry run's ``--no-fsdp``."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import n_data_shards
@@ -577,7 +581,7 @@ def shard_for_training(model: Model, tcfg: TrainConfig, state: TrainState,
     if tcfg.n_agents % n_data:
         raise ValueError(f"n_agents = {tcfg.n_agents} is not a multiple of "
                          f"the {n_data} data shards of the mesh")
-    rules = train_rules(fsdp=True)
+    rules = train_rules(fsdp=fsdp)
     hint_map = shard_hints.attn_hints(cfg, mesh, "train")
     with shard_hints.hints(mesh, **hint_map):
         lay = shard_hints.layout(cfg)     # raises for what is not sharded

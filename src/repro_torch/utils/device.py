@@ -20,12 +20,18 @@ import torch
 
 DeviceLike = Union[str, torch.device, None]
 
+# Set inside a dry run's fake card (``launch.fake_card``): ``cuda`` stands
+# for its fake tensors there, with or without a GPU.
+FAKE_CARD = False
+
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` -> ``cuda`` (raises when no GPU is visible); anything else
-    goes through ``torch.device`` and is checked to exist."""
+    """``None`` -> ``cuda`` (raises when no GPU is visible, except inside a
+    dry run's fake card); anything else goes through ``torch.device`` and
+    is checked to exist."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if dev.type == "cuda" and not FAKE_CARD \
+            and not torch.cuda.is_available():
         hint = (" (pass device='cpu' to run the plain PyTorch path)"
                 if device is None else "")
         raise RuntimeError(f"device {dev} requested but CUDA is not "

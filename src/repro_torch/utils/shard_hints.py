@@ -69,7 +69,10 @@ runs exactly as it did before (bitwise).  Inside one every collective is
 issued, at width 1 too (where it is the identity; the combine's skip the
 sequence axes of one rank), and counted here where it is issued
 (``ALL_REDUCES``, ``ALL_GATHERS``, ``REDUCE_SCATTERS``; :func:`counts`
-reads them, :func:`reset_counts` zeroes them).  The ``q_seq`` hint
+reads them, :func:`reset_counts` zeroes them), each with its result's
+bytes and its group's size (:func:`collective_stats`: the wire bytes by
+kind, ``utils.collectives.wire_bytes``; a collective over a group of one
+rank moves nothing and adds none).  The ``q_seq`` hint
 (context parallelism where the heads do not divide the model axis) is not
 acted on (``ROADMAP.md``): there the attention weights are replicated and
 every rank of a ``model`` group runs all the heads.
@@ -78,10 +81,12 @@ from __future__ import annotations
 
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.utils.collectives import CollectiveStats, wire_bytes
 
 _STATE: Dict = {"mesh": None, "map": {}}
 _LAYOUTS: Dict = {}     # (cfg, mesh, hint map) -> Layout
@@ -94,18 +99,37 @@ _gather_single = getattr(dist, "all_gather_single", None) \
 ALL_REDUCES = 0
 ALL_GATHERS = 0
 REDUCE_SCATTERS = 0
+# (kind, result bytes, group size) of each, in issue order
+ISSUED: List[Tuple[str, int, int]] = []
 
 
 def reset_counts() -> None:
     """Zero the collective counters."""
     global ALL_REDUCES, ALL_GATHERS, REDUCE_SCATTERS
     ALL_REDUCES = ALL_GATHERS = REDUCE_SCATTERS = 0
+    ISSUED.clear()
 
 
 def counts() -> Dict[str, int]:
     """The collectives issued since the counters were last zeroed."""
     return {"all_reduce": ALL_REDUCES, "all_gather": ALL_GATHERS,
             "reduce_scatter": REDUCE_SCATTERS}
+
+
+def collective_stats() -> CollectiveStats:
+    """The wire bytes and counts by kind (``"all-reduce"``,
+    ``"all-gather"``, ``"reduce-scatter"``, the JAX package's HLO names) of
+    the collectives issued since the counters were last zeroed; a group of
+    one rank adds its count and no bytes."""
+    stats = CollectiveStats()
+    for kind, result, g in ISSUED:
+        stats.add(kind, wire_bytes(kind, result, g) if g > 1 else 0.0)
+    return stats
+
+
+def _issued(kind: str, result: torch.Tensor, group) -> None:
+    ISSUED.append((kind, result.numel() * result.element_size(),
+                   dist.get_world_size(group)))
 
 
 @contextmanager
@@ -328,6 +352,7 @@ def _reduce(x: torch.Tensor, groups, op: str = "sum") -> torch.Tensor:
     for g in groups:
         dist.all_reduce(x, op=red, group=g)
         ALL_REDUCES += 1
+        _issued("all-reduce", x, g)
     return x
 
 
@@ -341,6 +366,7 @@ def _gather(x: torch.Tensor, dim: int, groups) -> torch.Tensor:
         out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
         _gather_single(out, x, group=g)
         ALL_GATHERS += 1
+        _issued("all-gather", out, g)
         x = torch.cat(out.chunk(n), dim) if n > 1 else out
     return x
 
@@ -357,6 +383,7 @@ def _scatter(x: torch.Tensor, dim: int, groups) -> torch.Tensor:
         out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
         dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=g)
         REDUCE_SCATTERS += 1
+        _issued("reduce-scatter", out, g)
         x = out
     return torch.movedim(x, 0, dim)
 

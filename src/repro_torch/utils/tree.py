@@ -5,6 +5,14 @@ Counterpart of ``repro/utils/tree.py`` and of the flatten helpers in
 leaf order is the sorted dict-key order, as ``jax.tree.flatten`` gives it
 (``b1, b2, w1, w2`` for ``MLPPolicy``), so a flat vector here lines up
 element for element with the JAX package's.
+
+The generic helpers (:func:`tree_leaves`, :func:`tree_size`,
+:func:`tree_bytes`, :func:`tree_cast`, :func:`tree_dot`,
+:func:`tree_zeros_like`, :func:`tree_normal_like`,
+:func:`tree_map_with_path_names`) walk any tree the port builds: dicts
+(keys sorted, as JAX flattens them), named tuples (a train state, a
+cache), tuples and lists; ``None`` is an empty subtree and a leaf that is
+not a tensor (a cache's ``pos``) is no leaf, as neither holds an array.
 """
 from __future__ import annotations
 
@@ -116,6 +124,10 @@ def ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def round_up(a: int, b: int) -> int:
+    return ceil_div(a, b) * b
+
+
 def next_pow2(x: int) -> int:
     return 1 if x <= 1 else 2 ** math.ceil(math.log2(x))
 
@@ -203,3 +215,121 @@ def tree_sub(a, b):
 
 def tree_scale(tree, c):
     return tree_map(lambda x: x * c, tree)
+
+
+# ---------------------------------------------------------------------------
+# Generic trees (dicts, named tuples, tuples, lists of tensors)
+# ---------------------------------------------------------------------------
+
+def _children(tree):
+    """``(path part, child)`` pairs of a container in JAX's flatten order
+    (the part as ``tree_map_with_path_names`` writes it), or None for a
+    leaf."""
+    if isinstance(tree, dict):
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [(f".{f}", v) for f, v in zip(tree._fields, tree)]
+    if isinstance(tree, (tuple, list)):
+        return [(str(i), v) for i, v in enumerate(tree)]
+    return None
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensor leaves in JAX's flatten order."""
+    kids = _children(tree)
+    if kids is None:
+        return [tree] if isinstance(tree, torch.Tensor) else []
+    return [x for _, v in kids for x in tree_leaves(v)]
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
+def tree_size(tree) -> int:
+    """Total number of scalar elements across all leaves (a DTensor's
+    local shard)."""
+    return sum(_local(x).numel() for x in tree_leaves(tree))
+
+
+def tree_bytes(tree) -> int:
+    """Total bytes across all leaves (respects dtype); a DTensor counts
+    this rank's local shard, what the rank holds."""
+    return sum(_local(x).numel() * _local(x).element_size()
+               for x in tree_leaves(tree))
+
+
+def _rebuild(tree, kids, values):
+    if isinstance(tree, dict):
+        return {k: v for (k, _), v in zip(kids, values)}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*values)
+    return type(tree)(values)
+
+
+def tree_map_with_path_names(fn: Callable[[str, torch.Tensor], object],
+                             tree, _prefix: str = ""):
+    """Map ``fn(path, leaf)`` over the tensor leaves; ``path`` is the
+    ``/``-joined dict keys, sequence indices and ``.field`` names of
+    named tuples, letter for letter the JAX package's (whose
+    ``GetAttrKey`` prints as ``.field``)."""
+    kids = _children(tree)
+    if kids is None:
+        return fn(_prefix, tree) if isinstance(tree, torch.Tensor) else tree
+    vals = [tree_map_with_path_names(fn, v, f"{_prefix}/{k}" if _prefix
+                                     else k) for k, v in kids]
+    return _rebuild(tree, kids, vals)
+
+
+def _map_leaves(fn: Callable, tree):
+    return tree_map_with_path_names(lambda _, x: fn(x), tree)
+
+
+def tree_cast(tree, dtype):
+    """Every leaf as ``dtype``."""
+    return _map_leaves(lambda x: x.to(dtype), tree)
+
+
+def tree_zeros_like(tree):
+    return _map_leaves(torch.zeros_like, tree)
+
+
+def tree_dot(a, b) -> torch.Tensor:
+    """Inner product ``<a, b>`` across the whole tree (float32
+    accumulation: each leaf's sum, then the leaves in flatten order)."""
+    parts = [torch.sum(x.float() * y.float())
+             for x, y in zip(tree_leaves(a), tree_leaves(b))]
+    if not parts:
+        return torch.zeros(())
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
+
+
+def tree_normal_like(generator: torch.Generator, tree,
+                     stddev: float = 1.0):
+    """A tree of iid ``N(0, stddev^2)`` noise with ``tree``'s structure,
+    shapes and dtypes, drawn leaf by leaf in flatten order from
+    ``generator`` (of the leaves' device) in float32: the server AWGN
+    ``n_k`` of Eq. (6) leaf-wise.  The draws are torch's, not JAX's."""
+    return _map_leaves(
+        lambda x: (torch.randn(x.shape, generator=generator,
+                               dtype=torch.float32, device=x.device)
+                   .to(x.dtype) * stddev), tree)
+
+
+def human_bytes(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if abs(n) < 1024.0:
+            return f"{n:.2f}{unit}"
+        n /= 1024.0
+    return f"{n:.2f}PiB"
+
+
+def human_flops(n: float) -> str:
+    for unit in ("", "K", "M", "G", "T", "P"):
+        if abs(n) < 1000.0:
+            return f"{n:.2f}{unit}FLOP"
+        n /= 1000.0
+    return f"{n:.2f}EFLOP"
