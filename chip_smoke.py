@@ -315,9 +315,12 @@ Phases, in order; any failure raises and exits non-zero:
               ``DRYRUN_MEM_BAND`` of MemTracker's, ms a step against the
               roofline and the MFU; (b) the bf16 prefills of phase 10's cell:
               28 K3 and 24 K4 abstract launches as on the card, FLOPs equal;
-              (c) ``DRYRUN_POD`` through the CLI on a fake 256-rank pod,
-              started on the host's cores at the top of the run: each must
-              succeed (bytes a rank, dominant term, trace seconds).
+              (c) ``DRYRUN_POD`` through the CLI on a fake 256-rank pod
+              (granite-moe-1b-a400m ``train_4k``, mixtral-8x22b
+              ``prefill_32k``, seamless-m4t-large-v2 ``decode_32k``), one
+              process each, all started once (a) and (b) are done: each
+              must succeed within 60 s (bytes a rank, dominant term, trace
+              seconds).
 
 ``python3 chip_smoke.py --agent-mesh-across-cards`` runs phases 1, 2 and
 31's mesh over every visible card alone, then the card test of the mesh
@@ -341,8 +344,9 @@ metrics bitwise, loss, grad norm and update norm within 2e-2 of the one
 card's), then one more step a rank under the profiler (device busy time,
 the nccl kernels' part, the top kernels), and writes
 ``chiprun_out/sharded_train_cards.json``.  ``python3 chip_smoke.py
---dryrun-against-card`` runs phases 1, 2 and 45 alone and writes
-``chiprun_out/dryrun_against_card.json``.
+--dryrun-against-card`` runs phases 1, 2 and 45 alone, its (c) with
+llama3.2-3b's and deepseek-67b's ``train_4k`` as well (minutes of
+tracing each), and writes ``chiprun_out/dryrun_against_card.json``.
 
 It prints the card line, then one ``{"kernels": [...]}`` line (K1 as its two
 bodies, ``ota_fused_wide`` and ``ota_fused_tall``), and as its last
@@ -6568,45 +6572,50 @@ def max_rel_dev(torch, a, b):
 # Phase 45: the dry run against the card
 # ---------------------------------------------------------------------------
 
-# (c): pod-scale dry runs through the CLI, one process each, started at the
-# top of the run so they trace on the host's cores while the card works
-DRYRUN_POD = (("llama3.2-3b", "train_4k"), ("deepseek-67b", "train_4k"),
+# (c): pod-scale dry runs through the CLI, one process each, all at once
+# after (a) and (b): FSDP with tensor parallelism, experts and K1 mapped
+# (granite), a MoE prefill and an encdec decode.  ``--dryrun-against-card``
+# adds the dense train steps, which trace for minutes (deepseek-67b's about
+# 440 s of a host core).
+DRYRUN_POD = (("granite-moe-1b-a400m", "train_4k"),
               ("mixtral-8x22b", "prefill_32k"),
               ("seamless-m4t-large-v2", "decode_32k"))
+DRYRUN_POD_ALONE = DRYRUN_POD + (("llama3.2-3b", "train_4k"),
+                                 ("deepseek-67b", "train_4k"))
 DRYRUN_OUT = ROOT / "chiprun_out" / "dryrun_torch"
-DRYRUN_POD_WAIT = 600          # s phase 45 waits for (c) at most
+# s phase 45 waits for (c) at most: in the whole run, and alone
+DRYRUN_POD_WAIT = {DRYRUN_POD: 60, DRYRUN_POD_ALONE: 700}
 # the card's step peak over MemTracker's: 1.0001 on an H100 80GB HBM3 at
 # 700 W (the caching allocator's 512-byte blocks); the band is set from it
 DRYRUN_MEM_BAND = (0.99, 1.01)
 DRYRUN_PREFILL = (("llama3.2-3b", "flash_attention_wgmma", 28),
                   ("mamba2-130m", "ssd_scan_tc", 24))
 DRYRUN_ALONE = "--dryrun-against-card"
-POD_PROCS = []
 
 
-def start_pod_dryruns():
+def start_pod_dryruns(combos):
     """Start phase 45(c): ``python -m repro_torch.launch.dryrun --arch A
-    --shape S`` for each of ``DRYRUN_POD``, each its own process (its own
-    fake group of 256 ranks) at a lower priority than the phases' host
-    work, writing to ``chiprun_out/dryrun_torch``."""
+    --shape S`` for each of ``combos``, each its own process (its own
+    fake group of 256 ranks), writing to ``chiprun_out/dryrun_torch``.
+    Returns ``(arch, shape, log file, start time, process)`` of each."""
     DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    for arch, shape in DRYRUN_POD:
+    procs = []
+    for arch, shape in combos:
         logf = open(DRYRUN_OUT / f"{arch}_{shape}.log", "w")
-        POD_PROCS.append((arch, shape, logf, time.perf_counter(),
-                          subprocess.Popen(
-                              [sys.executable, "-m",
-                               "repro_torch.launch.dryrun", "--arch", arch,
-                               "--shape", shape, "--out", str(DRYRUN_OUT)],
-                              cwd=ROOT, env=env, stdout=logf,
-                              stderr=subprocess.STDOUT,
-                              # below the phases' own host work
-                              preexec_fn=lambda: os.nice(10))))
+        procs.append((arch, shape, logf, time.perf_counter(),
+                      subprocess.Popen(
+                          [sys.executable, "-m", "repro_torch.launch.dryrun",
+                           "--arch", arch, "--shape", shape,
+                           "--out", str(DRYRUN_OUT)],
+                          cwd=ROOT, env=env, stdout=logf,
+                          stderr=subprocess.STDOUT)))
+    return procs
 
 
-def stop_pod_dryruns():
+def stop_pod_dryruns(procs):
     """Kill what is left of phase 45(c)'s processes."""
-    for _, _, logf, _, proc in POD_PROCS:
+    for _, _, logf, _, proc in procs:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
@@ -6734,19 +6743,55 @@ def dryrun_alone():
               file=sys.stderr)
         return 1
     smi = phase_card(torch)
-    start_pod_dryruns()
-    try:
-        phase_build()
-        res = phase_dryrun(torch, smi)
-    finally:
-        stop_pod_dryruns()
+    phase_build()
+    res = phase_dryrun(torch, smi, DRYRUN_POD_ALONE)
     out = ROOT / "chiprun_out"
     (out / "dryrun_against_card.json").write_text(json.dumps(
         res, indent=1, default=str))
     return 0
 
 
-def phase_dryrun(torch, smi):
+def pod_dryruns(smi, combos):
+    """Phase 45(c): the dry runs of ``combos`` on a fake ``pod16x16``, one
+    process each, all at once; each must succeed within
+    ``DRYRUN_POD_WAIT``.  Returns their records by ``"arch shape"`` and
+    the seconds they took together."""
+    pod = {}
+    t_c = time.perf_counter()
+    procs = start_pod_dryruns(combos)
+    try:
+        for arch, shape, logf, t_start, proc in procs:
+            left = DRYRUN_POD_WAIT[combos] - (time.perf_counter() - t_c)
+            try:
+                rc = proc.wait(timeout=max(left, 1))
+            except subprocess.TimeoutExpired:
+                rc = None
+            logf.flush()
+            log_text = (DRYRUN_OUT / f"{arch}_{shape}.log").read_text()
+            check(rc == 0, f"(c) {arch} x {shape}: the dry run "
+                           f"{'timed out' if rc is None else f'exited {rc}'}"
+                           f": {log_text[-2000:]}")
+            rec = json.loads((DRYRUN_OUT / f"{arch}_{shape}_pod16x16.json")
+                             .read_text())
+            pod[f"{arch} {shape}"] = rec
+            log(f"(c) {arch} x {shape} x pod16x16: "
+                f"{rec['memory']['total'] / 1e9:.3f} GB a rank (arguments "
+                f"{rec['memory']['argument_total'] / 1e9:.3f}), dominant "
+                f"{rec['roofline']['dominant']} (compute "
+                f"{rec['roofline']['compute_s'] * 1e3:.2f} ms, memory "
+                f"{rec['roofline']['memory_s'] * 1e3:.2f}, collectives "
+                f"{rec['roofline']['collective_s'] * 1e3:.2f}), traced in "
+                f"{rec['t_trace_s']:.1f} s "
+                f"({time.perf_counter() - t_start:.1f} s since its start) "
+                f"on the host [{smi}]")
+    finally:
+        stop_pod_dryruns(procs)
+    seconds = time.perf_counter() - t_c
+    log(f"(c): {seconds:.1f} s")
+    return pod, seconds
+
+
+def phase_dryrun(torch, smi, pod_combos=DRYRUN_POD):
     """Phase 45: the dry run (``launch/dryrun.py``) against the card.  (a)
     llama3.2-3b's sharded train step of phase 41 (bf16, 8 layers, B=8
     S=256, 4 agents, bf16 wire) on a one-rank nccl (1, 1) mesh against its
@@ -6757,8 +6802,9 @@ def phase_dryrun(torch, smi):
     step beside the roofline's and the MFU; (b) the bf16 prefills of
     phase 10's cell (llama3.2-3b, mamba2-130m, B=4 S=2048): abstract K3/K4
     launches equal the card's (28, 24), FLOPs equal; (c) the pod-scale dry
-    runs started at the top of the run (``DRYRUN_POD``) must each have
-    succeeded: bytes a rank, dominant term, trace seconds."""
+    runs of ``pod_combos``, started together once (a) and (b) are done,
+    must each succeed within ``DRYRUN_POD_WAIT``: bytes a rank, dominant
+    term, trace seconds."""
     import multiprocessing as mp
 
     from repro_torch.launch import mesh as mesh_lib
@@ -6837,29 +6883,7 @@ def phase_dryrun(torch, smi):
     log(f"(a) and (b): {res['ab_seconds']:.1f} s")
 
     # (c) the pod-scale dry runs
-    pod = {}
-    for arch, shape, logf, t_start, proc in POD_PROCS:
-        left = DRYRUN_POD_WAIT - (time.perf_counter() - t0)
-        try:
-            rc = proc.wait(timeout=max(left, 1))
-        except subprocess.TimeoutExpired:
-            rc = None
-        logf.flush()
-        check(rc == 0, f"(c) {arch} x {shape}: the dry run "
-                       f"{'timed out' if rc is None else f'exited {rc}'}: "
-                       f"{(DRYRUN_OUT / f'{arch}_{shape}.log').read_text()[-2000:]}")
-        rec = json.loads((DRYRUN_OUT / f"{arch}_{shape}_pod16x16.json")
-                         .read_text())
-        pod[f"{arch} {shape}"] = rec
-        log(f"(c) {arch} x {shape} x pod16x16: "
-            f"{rec['memory']['total'] / 1e9:.3f} GB a rank (arguments "
-            f"{rec['memory']['argument_total'] / 1e9:.3f}), dominant "
-            f"{rec['roofline']['dominant']} (compute "
-            f"{rec['roofline']['compute_s'] * 1e3:.2f} ms, memory "
-            f"{rec['roofline']['memory_s'] * 1e3:.2f}, collectives "
-            f"{rec['roofline']['collective_s'] * 1e3:.2f}), traced in "
-            f"{rec['t_trace_s']:.1f} s ({time.perf_counter() - t_start:.1f} "
-            f"s since its start) on the host [{smi}]")
+    pod, res["c_seconds"] = pod_dryruns(smi, pod_combos)
     res["pod"] = {k: {"memory": v["memory"], "roofline": v["roofline"],
                       "t_trace_s": v["t_trace_s"]} for k, v in pod.items()}
     RECORD["dryrun"] = res
@@ -6878,15 +6902,6 @@ def main():
 
     t_all = time.perf_counter()
     smi = phase_card(torch)
-    start_pod_dryruns()     # phase 45(c), on the host beside the card
-    try:
-        return run_phases(torch, figures, t_all, smi)
-    finally:
-        stop_pod_dryruns()
-
-
-def run_phases(torch, figures, t_all, smi):
-    """Phases 2 to 45 and the closing lines (``main``)."""
     phase_build()
     k1_err = phase_k1(torch)
     launches, main_res = phase_main(torch)

@@ -23,8 +23,8 @@ kept on the CPU underneath and *presented* as ``cuda``: ``is_cuda`` and
 the port's own modules (``repro_torch.*``; torch's internals see the
 CPU), and a ``cuda`` device passed to a factory or ``.to`` is taken as
 the CPU (``utils.device.resolve_device`` lets ``cuda`` through while
-the mode is on).  The same presentation is used on a CUDA build, so a dry run
-touches no card and both hosts trace the same ops.  Inside the mode a
+a fake mode is on).  The same presentation is used on a CUDA build, so a
+dry run touches no card and both hosts trace the same ops.  Inside the mode a
 real (host) tensor's value can still be read (``int(state.step)``), and
 a fake tensor's ``data_ptr()`` is its offset in bytes from a base of 0
 (the caching allocator's blocks are 512-byte aligned), so the alignment
@@ -114,11 +114,8 @@ def _presented_device(self) -> torch.device:
 def fake_card() -> Iterator[FakeTensorMode]:
     """A ``FakeTensorMode`` (real host tensors allowed in) whose tensors
     stand on ``cuda`` for the port's code (module docstring)."""
-    from repro_torch.utils import device as device_lib
-
     mode = FakeTensorMode(allow_non_fake_inputs=True)
     FakeTensor.device = property(_presented_device, _FAKE_DEVICE.fset)
-    device_lib.FAKE_CARD = True
     try:
         with warnings.catch_warnings():
             # a fake tensor's data_ptr() is answered above, not read
@@ -128,7 +125,6 @@ def fake_card() -> Iterator[FakeTensorMode]:
                 yield mode
     finally:
         FakeTensor.device = _FAKE_DEVICE
-        device_lib.FAKE_CARD = False
 
 
 def on_card(x: torch.Tensor) -> torch.Tensor:

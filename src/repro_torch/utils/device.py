@@ -17,21 +17,19 @@ from __future__ import annotations
 from typing import Union
 
 import torch
+from torch._guards import detect_fake_mode
 
 DeviceLike = Union[str, torch.device, None]
 
-# Set inside a dry run's fake card (``launch.fake_card``): ``cuda`` stands
-# for its fake tensors there, with or without a GPU.
-FAKE_CARD = False
-
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` -> ``cuda`` (raises when no GPU is visible, except inside a
-    dry run's fake card); anything else goes through ``torch.device`` and
-    is checked to exist."""
+    """``None`` -> ``cuda`` (raises when no GPU is visible, except under an
+    active ``FakeTensorMode``, where ``cuda`` names fake tensors that need
+    no card); anything else goes through ``torch.device`` and is checked
+    to exist."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not FAKE_CARD \
-            and not torch.cuda.is_available():
+    if dev.type == "cuda" and not torch.cuda.is_available() \
+            and detect_fake_mode() is None:
         hint = (" (pass device='cpu' to run the plain PyTorch path)"
                 if device is None else "")
         raise RuntimeError(f"device {dev} requested but CUDA is not "

@@ -79,9 +79,10 @@ every rank of a ``model`` group runs all the heads.
 """
 from __future__ import annotations
 
+import weakref
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -99,15 +100,16 @@ _gather_single = getattr(dist, "all_gather_single", None) \
 ALL_REDUCES = 0
 ALL_GATHERS = 0
 REDUCE_SCATTERS = 0
-# (kind, result bytes, group size) of each, in issue order
-ISSUED: List[Tuple[str, int, int]] = []
+# their wire bytes and counts by kind, summed as each is issued
+_STATS = CollectiveStats()
+_GROUP_SIZES = weakref.WeakKeyDictionary()     # process group -> its size
 
 
 def reset_counts() -> None:
     """Zero the collective counters."""
-    global ALL_REDUCES, ALL_GATHERS, REDUCE_SCATTERS
+    global ALL_REDUCES, ALL_GATHERS, REDUCE_SCATTERS, _STATS
     ALL_REDUCES = ALL_GATHERS = REDUCE_SCATTERS = 0
-    ISSUED.clear()
+    _STATS = CollectiveStats()
 
 
 def counts() -> Dict[str, int]:
@@ -120,16 +122,24 @@ def collective_stats() -> CollectiveStats:
     """The wire bytes and counts by kind (``"all-reduce"``,
     ``"all-gather"``, ``"reduce-scatter"``, the JAX package's HLO names) of
     the collectives issued since the counters were last zeroed; a group of
-    one rank adds its count and no bytes."""
-    stats = CollectiveStats()
-    for kind, result, g in ISSUED:
-        stats.add(kind, wire_bytes(kind, result, g) if g > 1 else 0.0)
-    return stats
+    one rank adds its count and no bytes (a copy: later collectives do
+    not change it)."""
+    return CollectiveStats(dict(_STATS.bytes_by_kind),
+                           dict(_STATS.count_by_kind))
 
 
-def _issued(kind: str, result: torch.Tensor, group) -> None:
-    ISSUED.append((kind, result.numel() * result.element_size(),
-                   dist.get_world_size(group)))
+def _group_size(group) -> int:
+    """The number of ranks in ``group``, read once a group."""
+    n = _GROUP_SIZES.get(group)
+    if n is None:
+        n = _GROUP_SIZES[group] = dist.get_world_size(group)
+    return n
+
+
+def _issued(kind: str, result: torch.Tensor, g: int) -> None:
+    """Add one collective whose result is ``result`` over ``g`` ranks."""
+    nbytes = result.numel() * result.element_size()
+    _STATS.add(kind, wire_bytes(kind, nbytes, g) if g > 1 else 0.0)
 
 
 @contextmanager
@@ -352,7 +362,7 @@ def _reduce(x: torch.Tensor, groups, op: str = "sum") -> torch.Tensor:
     for g in groups:
         dist.all_reduce(x, op=red, group=g)
         ALL_REDUCES += 1
-        _issued("all-reduce", x, g)
+        _issued("all-reduce", x, _group_size(g))
     return x
 
 
@@ -361,12 +371,12 @@ def _gather(x: torch.Tensor, dim: int, groups) -> torch.Tensor:
     group the outer one (one counted ``all_gather`` a group)."""
     global ALL_GATHERS
     for g in reversed(groups):
-        n = dist.get_world_size(g)
+        n = _group_size(g)
         x = x.contiguous()
         out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
         _gather_single(out, x, group=g)
         ALL_GATHERS += 1
-        _issued("all-gather", out, g)
+        _issued("all-gather", out, n)
         x = torch.cat(out.chunk(n), dim) if n > 1 else out
     return x
 
@@ -378,12 +388,12 @@ def _scatter(x: torch.Tensor, dim: int, groups) -> torch.Tensor:
     global REDUCE_SCATTERS
     x = torch.movedim(x, dim, 0)
     for g in groups:
-        n = dist.get_world_size(g)
+        n = _group_size(g)
         src = x.contiguous()
         out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
         dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=g)
         REDUCE_SCATTERS += 1
-        _issued("reduce-scatter", out, g)
+        _issued("reduce-scatter", out, n)
         x = out
     return torch.movedim(x, 0, dim)
 

@@ -22,6 +22,13 @@ real; the JAX side runs in this process on ``jax.sharding.AbstractMesh``
   ``gloo`` step.
 * With ``aggregator="exact"`` (no kernel on the path) the dry run's FLOPs
   equal ``FlopCounterMode``'s count of rank 0's real step.
+* The replicated-weights layout (``shard_for_training(..., fsdp=False)``,
+  the dry run's ``--no-fsdp``: the weights replicated over ``data``, each
+  gradient summed over the batch axes): float32 smoke llama3.2-3b's OTA
+  step on (2, 2), with injected draws, against the port's unsharded step
+  from the same state, batch and draws (the metrics at rtol 1e-5, the
+  state as ``test_torch_sharded_train.py`` holds the sharded step's), and
+  its collectives by kind and wire bytes against the dry run's.
 * With every plain version in ``kernels/ref.py`` patched to raise, dry runs
   of train, prefill and decode (smoke llama3.2-3b and mamba2-130m at (2,
   2)) complete, launching K1, K3 and K4 abstractly: no plain version is
@@ -40,6 +47,8 @@ import torch
 from repro_torch.configs import ARCH_IDS
 
 SMOKE = "llama3.2-3b"
+RTOL = 1e-5
+DRAWS = ([0.7, 1.3], 777)
 BYTES_SHAPES = ("train_4k", "decode_32k", "long_500k")
 MESHES = {"pod16x16": ((16, 16), ("data", "model")),
           "pod2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
@@ -54,6 +63,26 @@ def _smoke_shape(kind="train"):
 
     return InputShape(name=f"smoke_{kind}", seq_len=32, global_batch=8,
                       kind=kind)
+
+
+def _replicated_start():
+    """Float32 smoke llama, its train config, initial state, batch and
+    draws for the replicated-weights step (the same in every process)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import trainer
+
+    cfg = get_smoke_config(SMOKE).with_(dtype="float32")
+    m = model_lib.build(cfg)
+    shape = _smoke_shape()
+    gen = torch.Generator().manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab, (shape.global_batch,
+                                             shape.seq_len), generator=gen)
+             for k in ("tokens", "labels")}
+    tcfg = trainer.TrainConfig(aggregator="ota", n_agents=2, microbatch=1,
+                               total_steps=10_000)
+    state = trainer.init_state(m, tcfg, torch.Generator().manual_seed(1))
+    return m, tcfg, state, batch, (torch.tensor(DRAWS[0]), DRAWS[1])
 
 
 def _port_bytes(multi_pod):
@@ -110,6 +139,12 @@ def _dry_worker():
         out[agg] = {"counts": r["collective_counts"],
                     "stats": r["collectives_rolled"], "flops": r["flops"],
                     "launches": r["launches"]["by_name"]}
+    r = dryrun.run_one(SMOKE, _smoke_shape(), tiny=2, fsdp=False,
+                       cfg=cfg.with_(dtype="float32"), out_dir="",
+                       verbose=False)
+    out["replicated"] = {"counts": r["collective_counts"],
+                         "stats": r["collectives_rolled"],
+                         "launches": r["launches"]["by_name"]}
 
     def raising(name):
         def plain(*a, **k):
@@ -134,8 +169,12 @@ def _dry_worker():
 
 def _real_rank(_mesh):
     """Rank r of four ``gloo`` ranks: smoke llama's sharded train step on
-    (2, 2), OTA and exact, its collectives and FLOPs counted."""
+    (2, 2), OTA and exact, its collectives and FLOPs counted; then the
+    replicated-weights step, its collectives counted and its state
+    gathered."""
     from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import interop
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import mesh as mesh_lib
@@ -167,6 +206,18 @@ def _real_rank(_mesh):
                     "flops": fc.get_total_flops(),
                     "bytes_by_kind": stats.bytes_by_kind,
                     "count_by_kind": stats.count_by_kind}
+    m, tcfg, start, batch, draws = _replicated_start()
+    state, step = trainer.shard_for_training(m, tcfg, start, mesh,
+                                             fsdp=False)
+    shard_hints.reset_counts()
+    state, met = step(state, batch, draws)
+    stats = shard_hints.collective_stats()
+    full = interop.train_state_to_numpy(state)   # every rank gathers
+    out["replicated"] = {
+        "counts": shard_hints.counts(), "bytes_by_kind": stats.bytes_by_kind,
+        "count_by_kind": stats.count_by_kind,
+        "metrics": {k: v.item() for k, v in met.items()},
+        "state": full if torch.distributed.get_rank() == 0 else None}
     return out
 
 
@@ -258,6 +309,53 @@ def test_exact_step_flops_match_flop_counter(runs):
     assert dry["exact"]["launches"] == {}
     assert dry["exact"]["flops"]["kernels"] == 0
     assert dry["exact"]["flops"]["total"] == real[0]["exact"]["flops"] > 0
+
+
+def test_replicated_weights_step_matches_unsharded(runs):
+    """``fsdp=False`` on (2, 2) against the port's unsharded step (itself
+    held to JAX by ``test_torch_trainer.py``) from the same state, batch
+    and draws; its collectives equal its dry run's."""
+    import numpy as np
+
+    from repro_torch import interop
+    from repro_torch.optim.optimizers import warmup_cosine
+    from repro_torch.train import trainer
+
+    dry, real = runs
+    got = real[0]["replicated"]
+    assert all(r["replicated"]["metrics"] == got["metrics"] for r in real)
+    m, tcfg, start, batch, draws = _replicated_start()
+    want, met = trainer.make_train_step(m, tcfg)(start, batch, draws)
+    for k, v in met.items():
+        np.testing.assert_allclose(got["metrics"][k], v.item(), rtol=RTOL,
+                                   err_msg=k)
+    want = interop.train_state_to_numpy(want)
+    have = got["state"]
+    assert have["step"] == want["step"] == 1
+    lr_t = warmup_cosine(tcfg.lr, tcfg.warmup, tcfg.total_steps)(
+        torch.tensor(1, dtype=torch.int32)).item()
+    n_out = n_all = 0
+    for k, w in want["params"].items():
+        diff = np.abs(have["params"][k] - w)
+        n_out += int((diff > 1e-6 + RTOL * np.abs(w)).sum())
+        n_all += w.size
+        assert diff.max() <= 2 * lr_t * 1.01 + 1e-6, k
+    assert n_out <= 5e-4 * n_all, (n_out, n_all)
+    for name in ("mu", "nu"):
+        assert set(have[name]) == set(want[name])
+        for k, w in want[name].items():
+            np.testing.assert_allclose(
+                have[name][k], w, rtol=RTOL,
+                atol=1e-5 * float(np.abs(w).max()), err_msg=f"{name}/{k}")
+    # replicated over data: no FSDP gather or reduce-scatter of a weight
+    assert got["counts"]["reduce_scatter"] == 0
+    assert got["counts"]["all_reduce"] > real[0]["ota"]["counts"][
+        "all_reduce"]
+    d = dry["replicated"]
+    assert d["counts"] == got["counts"]
+    assert d["stats"]["count_by_kind"] == got["count_by_kind"]
+    assert d["stats"]["bytes_by_kind"] == got["bytes_by_kind"]
+    assert d["launches"] == {"ota_fused_mapped": 1}
 
 
 def test_no_plain_version_is_traced(runs):
