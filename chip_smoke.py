@@ -320,7 +320,22 @@ Phases, in order; any failure raises and exits non-zero:
               ``prefill_32k``, seamless-m4t-large-v2 ``decode_32k``), one
               process each, all started once (a) and (b) are done: each
               must succeed within 60 s (bytes a rank, dominant term, trace
-              seconds).
+              seconds);
+46. analyze — the static contract checker on the card: (a) ``python -m
+              repro_torch.analyze --strict`` as a subprocess, every
+              contract on the cuda backend, exits 0 with no finding and
+              nothing skipped; the wire-dtype contract in-process, each of
+              its K1 launches real; (b) host-device syncs a round
+              (``analyze.budget.SyncCounter``) of the main cell, a batched
+              round at R = 1 and 20 lanes and a streamed round in blocks
+              of 4: the same every round after the first, R = 20's equal
+              to R = 1's; one more OTA train step of llama3.2-3b on phase
+              27's state (counted there); (c) the wire dtype at full width:
+              ``ota.add_awgn`` on llama3.2-3b's whole gradient (its leaves'
+              shapes and dtypes from phase 27), one (1, d) K1 launch read
+              in bf16 and no aten float narrowing of the row before it but
+              the wire hop of the three float32 norm-scale leaves, then
+              with the native wire one float32 launch and none.
 
 ``python3 chip_smoke.py --agent-mesh-across-cards`` runs phases 1, 2 and
 31's mesh over every visible card alone, then the card test of the mesh
@@ -347,6 +362,9 @@ the nccl kernels' part, the top kernels), and writes
 --dryrun-against-card`` runs phases 1, 2 and 45 alone, its (c) with
 llama3.2-3b's and deepseek-67b's ``train_4k`` as well (minutes of
 tracing each), and writes ``chiprun_out/dryrun_against_card.json``.
+``python3 chip_smoke.py --analyze-against-card`` runs phases 1, 2, 27 (for
+46(b)'s train step and 46(c)'s leaves) and 46 alone, and writes
+``chiprun_out/analyze_against_card.json``.
 
 It prints the card line, then one ``{"kernels": [...]}`` line (K1 as its two
 bodies, ``ota_fused_wide`` and ``ota_fused_tall``), and as its last
@@ -3520,6 +3538,13 @@ def phase_train(torch):
     check(res["k1_launches"] == res["k1_bodies"]["wide"] == TRAIN_STEPS,
           f"train: {res['k1_launches']} K1 launches ({res['k1_bodies']}), "
           f"expected one wide launch a step")
+    # for phase 46: the host syncs of one more OTA step on this state, and
+    # the gradient's leaves (shapes and dtype)
+    state, RECORD["train_syncs"] = train_step_syncs(torch, step, state,
+                                                    batches[0])
+    RECORD["train_leaves"] = [
+        (list(v.shape), str(v.dtype).replace("torch.", ""))
+        for v in flatten_paths(state.params).values()]
     # two exact steps: Algorithm 1 makes no K1 launch
     exact = trainer.make_train_step(model, train_config(
         "exact", TRAIN_STEPS, lr=1e-4, warmup=2))
@@ -3540,6 +3565,23 @@ def phase_train(torch):
     RECORD["train"] = {"d": d, **res, "k1_row": rows}
     done("train", t0)
     return RECORD["train"]
+
+
+def train_step_syncs(torch, step, state, batch):
+    """One train step under ``analyze.budget.SyncCounter``: the state and
+    the host-device syncs PyTorch made in it (K1's launch is invisible to
+    the count)."""
+    from repro_torch.analyze import budget
+
+    torch.cuda.synchronize()
+    with budget.SyncCounter() as sc:
+        state, m = step(state, batch)
+    torch.cuda.synchronize()
+    check(all(math_isfinite(v.item()) for v in m.values()),
+          "the counted train step's metrics are not finite")
+    log(f"llama3.2-3b OTA train step: {sc.count} host syncs (PyTorch's own; "
+        f"phase 46)")
+    return state, sc.count
 
 
 def math_isfinite(x):
@@ -6891,6 +6933,175 @@ def phase_dryrun(torch, smi, pod_combos=DRYRUN_POD):
     return res
 
 
+ANALYZE_WAIT = 150             # s: the analyzer's subprocess, all contracts
+ANALYZE_ALONE = "--analyze-against-card"
+
+
+def wire_at_full_width(torch, leaves):
+    """Phase 46(c): ``ota.add_awgn`` on a gradient of ``leaves`` (phase
+    27's llama3.2-3b leaves: bf16, the norm scales float32) with the bf16
+    wire and the native one,
+    under an op recorder and a launch log; the index of each K1 launch in
+    the op list splits the row's ops from the update's."""
+    from repro_torch.analyze.contracts import narrowing_ops
+    from repro_torch.core import ota
+    from repro_torch.core.channel import RayleighChannel
+    from repro_torch.kernels import abstract, ota_fused
+    from repro_torch.utils.optrace import OpRecorder
+
+    gen = torch.Generator(device="cuda").manual_seed(46)
+    grad = {f"leaf{i:04d}": torch.randn(shape, generator=gen, device="cuda",
+                                        dtype=getattr(torch, dtype))
+            for i, (shape, dtype) in enumerate(leaves)}
+    d = sum(v.numel() for v in grad.values())
+    n_f32 = sum(v.dtype == torch.float32 for v in grad.values())
+    f32_numel = sum(v.numel() for v in grad.values()
+                    if v.dtype == torch.float32)
+    rows = {}
+    for wire in ("bfloat16", ""):
+        cfg = ota.OTAConfig(RayleighChannel(), noise_sigma=1e-3, debias=True,
+                            wire_dtype=wire)
+        at = []
+        orig = ota_fused.fused_aggregate
+
+        def marked(*a, **k):
+            at.append(len(rec.ops))
+            return orig(*a, **k)
+
+        torch.cuda.synchronize()
+        ta = time.perf_counter()
+        ota_fused.fused_aggregate = marked
+        try:
+            with abstract.launch_log() as launches, OpRecorder() as rec:
+                out = ota.add_awgn(cfg, 123457, grad, TRAIN_AGENTS,
+                                   backend="cuda")
+        finally:
+            ota_fused.fused_aggregate = orig
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - ta
+        check(all(torch.isfinite(v).all().item() for v in out.values()),
+              f"add_awgn ({wire or 'native'} wire): a non-finite update")
+        del out
+        tag = wire or "native"
+        pre = narrowing_ops(rec.ops[:at[0]]) if at else None
+        post = narrowing_ops(rec.ops) if at else None
+        rows[tag] = {"d": d, "launches": [l._asdict() for l in launches],
+                     "aten_narrowing_of_row": pre,
+                     "aten_narrowing_after_launch": len(post) - len(pre)
+                     if at else None, "ops": len(rec.ops), "seconds": secs}
+        want = "bfloat16" if wire else "float32"
+        check(len(launches) == 1 and not launches[0].abstract
+              and launches[0].wire == want
+              and launches[0].shape == (1, d),
+              f"add_awgn ({tag} wire) at d = {d}: launches {launches}, "
+              f"expected one real (1, d) K1 launch read in {want}")
+        # the only narrowing before the launch is the wire hop itself:
+        # each float32 leaf (the norm scales) read in bf16, as K1 reads
+        # the bf16 leaves; with the native wire, none
+        hop = [("float32", "bfloat16")] * n_f32 if wire else []
+        check(pre == hop, f"add_awgn ({tag} wire) at d = {d}: aten "
+                          f"narrowed the row before K1: {pre}, expected "
+                          f"the wire hop {hop} alone")
+        log(f"add_awgn at d = {d} ({tag} wire): one K1 launch "
+            f"{launches[0].shape} read in {launches[0].wire}; aten "
+            f"narrowing of the row: {len(pre)} (the wire hop of the "
+            f"{n_f32} float32 leaves, {f32_numel} elements)"
+            if wire else
+            f"add_awgn at d = {d} ({tag} wire): one K1 launch "
+            f"{launches[0].shape} read in {launches[0].wire}; aten "
+            f"narrowing of the row: none")
+        log(f"    {len(rec.ops)} aten ops, "
+            f"{rows[tag]['aten_narrowing_after_launch']} of them the "
+            f"update's casts back to the leaves' dtype; {secs:.2f} s")
+    del grad
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_analyze(torch):
+    """Phase 46: ``repro_torch.analyze`` on the card (module docstring)."""
+    from repro_torch.analyze import contracts
+    from repro_torch.analyze.findings import Report
+    from repro_torch.kernels import abstract
+
+    t0 = phase("46. the static contract checker on the card")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    res = {}
+    # (a) the CLI, every contract on the cuda backend
+    report_path = out / "analyze_torch_report.json"
+    ta = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analyze", "--strict", "--json",
+         str(report_path)], cwd=ROOT, capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        timeout=ANALYZE_WAIT)
+    res["cli_seconds"] = time.perf_counter() - ta
+    log(proc.stdout[-2000:])
+    check(proc.returncode == 0,
+          f"python -m repro_torch.analyze --strict exited "
+          f"{proc.returncode}:\n{proc.stdout[-6000:]}\n{proc.stderr[-6000:]}")
+    rep = json.loads(report_path.read_text())
+    check(not rep["findings"] and not rep["skipped"],
+          f"the analyzer on the card: findings {rep['findings']}, skipped "
+          f"{rep['skipped']}")
+    res["cli"] = {"counts": rep["counts"],
+                  "files_scanned": rep["files_scanned"]}
+    log(f"(a) python -m repro_torch.analyze --strict: exit 0 in "
+        f"{res['cli_seconds']:.1f} s; {rep['counts']}, nothing skipped")
+    # the wire-dtype contract in-process: its K1 launches are real
+    with abstract.launch_log() as launches:
+        r = Report()
+        contracts.check_wire_dtype(r, device="cuda")
+    check(not r.findings, f"wire-dtype on the card: {r.findings}")
+    check(launches and not any(x.abstract for x in launches),
+          f"wire-dtype on the card: launches {launches}")
+    res["wire_dtype_launches"] = {
+        w: sum(x.wire == w for x in launches)
+        for w in sorted({x.wire for x in launches})}
+    log(f"    wire-dtype in-process: {len(launches)} real K1 launches by "
+        f"wire {res['wire_dtype_launches']}")
+    # (b) host syncs a round
+    counts = contracts.sync_counts(torch.device("cuda"))
+    r = Report()
+    contracts.judge_syncs(r, counts)
+    check(not r.findings, f"host syncs: {[f.message for f in r.findings]}")
+    res["syncs_per_round"] = counts
+    for label, per_round in counts.items():
+        log(f"(b) host syncs a round, {label}: {per_round}")
+    if "train_syncs" in RECORD:
+        res["syncs_train_step_llama"] = RECORD["train_syncs"]
+        log(f"    llama3.2-3b OTA train step (phase 27's state): "
+            f"{RECORD['train_syncs']}")
+    # (c) the wire at full width
+    if "train_leaves" in RECORD:
+        res["wire_full_width"] = wire_at_full_width(torch,
+                                                    RECORD["train_leaves"])
+    RECORD["analyze"] = res
+    done("analyze", t0)
+    return res
+
+
+def analyze_alone():
+    """Phases 1, 2, 27 and 46 alone (``--analyze-against-card``)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible; nothing was run",
+              file=sys.stderr)
+        return 1
+    smi = phase_card(torch)
+    phase_build()
+    phase_train(torch)
+    res = phase_analyze(torch)
+    out = ROOT / "chiprun_out"
+    (out / "analyze_against_card.json").write_text(json.dumps(
+        {"card": smi, **res, "phase_seconds": RECORD["phase_seconds"]},
+        indent=1, default=str))
+    log(smi)
+    return 0
+
+
 def main():
     import torch
 
@@ -6949,6 +7160,7 @@ def main():
     zoo_parts = phase_zoo_held(torch)
     part_parts, driver_k1 = phase_participation_held(torch)
     phase_dryrun(torch, smi)
+    phase_analyze(torch)
     train_phase = {GRANITE: "33", "mamba2-130m": "34", ZAMBA: "36",
                    VISION: "36", SEAMLESS: "36"}
     RECORD["seconds"] = time.perf_counter() - t_all
@@ -7347,6 +7559,8 @@ def sharded_across_cards(only=()):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == [ANALYZE_ALONE]:
+        sys.exit(analyze_alone())
     if sys.argv[1:] == [DRYRUN_ALONE]:
         sys.exit(dryrun_alone())
     if sys.argv[1:] == [RESUME_CHILD]:

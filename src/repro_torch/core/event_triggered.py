@@ -17,9 +17,11 @@ The two squared norms are per-agent sums over the flattened estimate by a
 fixed pairwise tree (``utils.tree.fixed_sum``), so a trigger never depends
 on how many agents share a call.  ``agent_blocks`` rolls the fleet out in
 blocks from the stacked draws (``fedpg``'s up-front draws) and stacks the
-estimates again: the stale copies are O(N x d) by design.  ``run_jit`` and
-its compiled-program cache have no meaning without ``jax.jit`` and are not
-ported.
+estimates again: the stale copies are O(N x d) by design.  :func:`run_jit`
+is JAX's compiled entry point in eager PyTorch: :func:`run` after the same
+normalisation of the participation config that keys JAX's cache (full
+participation is the same run as ``None``); there is no program to compile
+and nothing to cache.
 """
 from __future__ import annotations
 
@@ -160,3 +162,15 @@ def run(env, policy, cfg: FedPGConfig, et: ETConfig, seed: int = 0, *,
     rewards, grad_sq, uploads = (torch.stack(x) for x in zip(*metrics))
     return state.theta, ETHistory(rewards=rewards, grad_sq=grad_sq,
                                   uploads=uploads)
+
+
+def run_jit(env, policy, cfg: FedPGConfig, et: ETConfig, seed: int = 0, *,
+            agent_blocks: Optional[int] = None,
+            participation: Optional[ParticipationConfig] = None,
+            device: DeviceLike = None) -> Tuple[Params, ETHistory]:
+    """:func:`run`, bit for bit, with the participation config normalised
+    first, as JAX's ``event_triggered.run_jit`` normalises it before keying
+    its compiled program (module docstring)."""
+    return run(env, policy, cfg, et, seed, agent_blocks=agent_blocks,
+               participation=svc_part.normalize(participation, cfg.n_agents),
+               device=device)

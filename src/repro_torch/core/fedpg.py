@@ -75,6 +75,15 @@ gathered fleet in the run's fixed order and are bitwise the run's off the
 mesh; ``grad_sq``, the update, theta and the SNR carry the cross-rank
 association.  Staleness does not compose with a mesh, participation needs
 ``agent_blocks``, and so does an N the ranks do not divide (JAX's guards).
+
+:func:`run_jit` is JAX's compiled entry point in eager PyTorch: :func:`run`
+after the same normalisation of the participation and staleness configs
+that keys JAX's cache, so a full-participation config hits the same cached
+lane program (``lanes.lanes_for``) as ``None``.  The port's caches (that
+one, the moves tables of ``rl/env.py`` and ``rl/envs/gridworld.py``, the
+power-control moments) are listed in one place, and
+:func:`clear_compilation_cache` empties them all, modules' own registered
+ones (:func:`register_compiled_cache`) included.
 """
 from __future__ import annotations
 
@@ -327,6 +336,57 @@ def run(env, policy, cfg: FedPGConfig, seed: int = 0, *,
         theta0=theta0, telemetry=telemetry, ota_backend=ota_backend,
         agent_blocks=agent_blocks, agent_mesh=agent_mesh, device=device)
     return {k: v[0] for k, v in theta.items()}, hist.lane(0)
+
+
+# every cache of the package that one reset must empty; other modules
+# (core/lanes.py) register theirs
+_COMPILED_CACHES: list = []
+
+
+def register_compiled_cache(cache) -> None:
+    """Add a cache (anything with ``cache_clear()``) to the ones
+    :func:`clear_compilation_cache` empties."""
+    _COMPILED_CACHES.append(cache)
+
+
+def compiled_caches() -> list:
+    """Every cache :func:`clear_compilation_cache` empties: the moves
+    tables, the power-control moments, and the registered ones."""
+    from repro_torch.rl import env as rl_env
+    from repro_torch.rl.envs import gridworld
+
+    return [rl_env._moves, gridworld._moves,
+            power_control.effective_moments] + _COMPILED_CACHES
+
+
+def clear_compilation_cache() -> None:
+    """Drop every cached program and table (mainly for tests): the lane
+    programs and whatever :func:`compiled_caches` lists."""
+    for cache in compiled_caches():
+        cache.cache_clear()
+
+
+def run_jit(env, policy, cfg: FedPGConfig, seed: int = 0, *,
+            ota: Optional[OTAConfig] = None, theta0: Optional[Params] = None,
+            ota_backend: str = "auto", agent_blocks: Optional[int] = None,
+            participation: Optional[ParticipationConfig] = None,
+            staleness: Optional[StalenessConfig] = None,
+            telemetry: Optional[TelemetryConfig] = None,
+            agent_mesh: Optional[AgentMesh] = None,
+            device: DeviceLike = None) -> Tuple[Params, History]:
+    """JAX's compiled entry point: :func:`run`, bit for bit, with the
+    participation and staleness configs normalised first, as JAX's
+    ``run_jit`` normalises them before keying its compiled program (a
+    full-participation config is the same run, and the same cached lane
+    program, as ``None``).  Repeated calls with equal hashable settings
+    reuse the lane program (``lanes.lanes_for``); eager PyTorch has no
+    program to compile, so that reuse is all there is to cache."""
+    part = svc_part.normalize(participation, cfg.n_agents)
+    stale_cfg = svc_stale.normalize(staleness, part)
+    return run(env, policy, cfg, seed, ota=ota, theta0=theta0,
+               ota_backend=ota_backend, agent_blocks=agent_blocks,
+               participation=part, staleness=stale_cfg, telemetry=telemetry,
+               agent_mesh=agent_mesh, device=device)
 
 
 def avg_grad_sq(history: History) -> torch.Tensor:

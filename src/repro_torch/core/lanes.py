@@ -72,6 +72,7 @@ n_blocks + 1`` streamed (its own blocks), whatever L.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -85,6 +86,7 @@ from repro_torch.core.channel import (
 from repro_torch.core.fedpg import (
     FedPGConfig, History, RoundDraws, _round_mask, _round_weights,
     _service_gain_mean, _service_probes, _service_reward, env_on, predraw,
+    register_compiled_cache,
 )
 from repro_torch.core.ota import OTAConfig, sample_seed
 from repro_torch.core.power_control import LaneBudgets, check_agent_count
@@ -301,6 +303,27 @@ def _lane_value(packed: Dict[str, Any], name: str, shared, dev):
         else shared
 
 
+def _lane_f32(packed: Dict[str, Any], name: str, vals, dev) -> torch.Tensor:
+    """An ``(L,)`` float32 device array of a lane setting: the packed lanes
+    where it varies (the float32 roundings of ``vals``), else ``vals``."""
+    return torch.as_tensor(packed[name], device=dev) if name in packed \
+        else _dev_f32(vals, dev)
+
+
+def _lane_ota(o: OTAConfig, packed: Dict[str, Any], i: int) -> OTAConfig:
+    """Lane ``i``'s uplink on the plain chain: its noise sigma and server
+    scale read from the packed lanes where they vary.  A packed value is the
+    float32 rounding of the run's, and the chain rounds both to float32, so
+    the bits are the run's."""
+    kw = {name: float(packed[name][i])
+          for name in ("noise_sigma", "update_scale") if name in packed}
+    return dataclasses.replace(o, **kw) if kw else o
+
+
+# _Lanes constructions in this process (analyze's build-budget reads it)
+LANES_BUILT = 0
+
+
 class _Lanes:
     """The run-constant per-lane state of a lane-batched run; ``shapes``
     the parameters' (key, shape) pairs in key order; ``agent_blocks``
@@ -312,6 +335,8 @@ class _Lanes:
                  ota_backend: str, shapes: List[Tuple[str, torch.Size]],
                  agent_blocks: Optional[int] = None,
                  mesh: Optional[AgentMesh] = None):
+        global LANES_BUILT
+        LANES_BUILT += 1
         self.cfg, self.policy, self.dev = cfg, policy, dev
         self.specs = list(specs)
         self.n_lanes = len(specs)
@@ -345,9 +370,12 @@ class _Lanes:
             self.env_views = [base_env] * self.n_lanes
         # --- step size: a (L,) device array for K1 and the probes; the
         # torch SGD step multiplies by the run's literal or the lane value
+        # (every lane value read from the packed lanes where it varies)
         alphas = [s.alpha for s in specs]
-        self.alpha_t = _dev_f32(alphas, dev)
+        self.alpha_t = _lane_f32(packed, "alpha", alphas, dev)
         self.alpha = _lane_value(packed, "alpha", proto.alpha, dev)
+        self.lane_alpha = ([float(a) for a in packed["alpha"]]
+                           if "alpha" in packed else alphas)
         # --- uplink
         self.ota = proto.ota
         self.otas = [s.ota for s in specs]
@@ -378,9 +406,13 @@ class _Lanes:
                         k: torch.as_tensor(v, device=dev).reshape(-1, 1)
                         for k, v in packed["power_control"].items()})
             self.power = pc
-            self.sigma_t = _dev_f32([o.noise_sigma for o in self.otas], dev)
-            self.scale_t = _dev_f32(
+            self.sigma_t = _lane_f32(packed, "noise_sigma",
+                                     [o.noise_sigma for o in self.otas], dev)
+            self.scale_t = _lane_f32(
+                packed, "update_scale",
                 [ota._server_scale(o, n, n) for o in self.otas], dev)
+            self.uplink_otas = [_lane_ota(o, packed, i)
+                                for i, o in enumerate(self.otas)]
             self.wire = ota._wire_dtype(self.ota) \
                 if self.backend == "cuda" else None
         # --- service
@@ -520,12 +552,12 @@ def _uplink(lanes: _Lanes, grads: torch.Tensor, h: torch.Tensor,
         return ota_fused.fused_aggregate_sgd_lanes(grads, h, theta,
                                                    alpha=lanes.alpha_t, **kw)
     out = []
-    for i, o in enumerate(lanes.otas):
+    for i, o in enumerate(lanes.uplink_otas):
         g = _unflatten_stack(grads[i], lanes.shapes)
         u = ota._aggregate_stacked_torch(o, h[i], seeds[i], g)
         uf, _ = flatten_params(u)
         out.append(uf if theta is None
-                   else theta[i] - lanes.specs[i].alpha * uf)
+                   else theta[i] - lanes.lane_alpha[i] * uf)
     return torch.stack(out)
 
 
@@ -689,13 +721,13 @@ def _tail(lanes: _Lanes, v: torch.Tensor, seeds: torch.Tensor,
         return ota_fused.fused_aggregate_sgd_lanes(
             v.unsqueeze(1), ones, theta, alpha=lanes.alpha_t, **kw)
     out = []
-    for i, o in enumerate(lanes.otas):
+    for i, o in enumerate(lanes.uplink_otas):
         u = ota._server_epilogue(
             o, seeds[i], _unflatten_stack(v[i:i + 1], lanes.shapes), n, n,
             None if w_norm is None else w_norm[i])
         uf, _ = flatten_params(u)
         out.append(uf if theta is None
-                   else theta[i] - lanes.specs[i].alpha * uf)
+                   else theta[i] - lanes.lane_alpha[i] * uf)
     return torch.stack(out)
 
 
@@ -876,6 +908,61 @@ def _round(lanes: _Lanes, theta: torch.Tensor, gens,
     return fn(lanes, theta, gens, telem, svc_seed, k, stale, d)
 
 
+def _holds_arrays(obj, depth: int = 0) -> bool:
+    """Whether ``obj`` holds a tensor or an array (through dataclass fields,
+    tuples, lists and dicts): such an object cannot key a cache (a tensor
+    hashes by identity and compares elementwise)."""
+    if isinstance(obj, (torch.Tensor, np.ndarray)):
+        return True
+    if depth > 8:
+        return True
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return any(_holds_arrays(getattr(obj, f.name), depth + 1)
+                   for f in dataclasses.fields(obj))
+    if isinstance(obj, (tuple, list)):
+        return any(_holds_arrays(x, depth + 1) for x in obj)
+    if isinstance(obj, dict):
+        return any(_holds_arrays(x, depth + 1) for x in obj.values())
+    return False
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_lanes(env, policy, cfg, specs, dev, ota_backend, shapes,
+                  agent_blocks, mesh) -> "_Lanes":
+    return _Lanes(env, policy, cfg, specs, dev, ota_backend, list(shapes),
+                  agent_blocks, mesh)
+
+
+register_compiled_cache(_cached_lanes)
+
+
+def lanes_for(env, policy, cfg: FedPGConfig, specs: Sequence[LaneSpec],
+              dev: torch.device, ota_backend: str,
+              shapes: List[Tuple[str, torch.Size]],
+              agent_blocks: Optional[int] = None,
+              mesh: Optional[AgentMesh] = None) -> _Lanes:
+    """The lane program of these settings: the run-constant per-lane state
+    of a batched run (:class:`_Lanes`), made once and reused by every later
+    run of equal settings (the port's ``fedpg._compiled_run``: an lru cache
+    of 64, emptied by ``fedpg.clear_compilation_cache``).  The seeds are no
+    part of it (they only seed the runs' generators).  Settings that hold
+    tensors or arrays (a tabular env, a fleet of per-agent stacks) or do not
+    hash build a fresh program each run."""
+    specs = tuple(s._replace(seed=0) for s in specs)
+    shapes = tuple((k, torch.Size(s)) for k, s in shapes)
+    args = (env, policy, cfg, specs, dev, ota_backend, shapes, agent_blocks,
+            mesh)
+    if not _holds_arrays(args[:4]):
+        try:
+            hash(args)
+        except TypeError:
+            pass
+        else:
+            return _cached_lanes(*args)
+    return _Lanes(env, policy, cfg, specs, dev, ota_backend, list(shapes),
+                  agent_blocks, mesh)
+
+
 def run_lanes(env, policy, cfg: FedPGConfig, specs: Sequence[LaneSpec], *,
               theta0: Optional[Params] = None,
               telemetry: Optional[TelemetryConfig] = None,
@@ -910,9 +997,9 @@ def run_lanes(env, policy, cfg: FedPGConfig, specs: Sequence[LaneSpec], *,
     else:
         thetas = [{k: v.to(dev) for k, v in theta0.items()}] * len(specs)
     theta = torch.stack([flatten_params(t)[0] for t in thetas])  # (L, P)
-    lanes = _Lanes(env, policy, cfg, specs, dev, ota_backend,
-                   [(k, thetas[0][k].shape) for k in sorted(thetas[0])],
-                   agent_blocks, agent_mesh)
+    lanes = lanes_for(env, policy, cfg, specs, dev, ota_backend,
+                      [(k, thetas[0][k].shape) for k in sorted(thetas[0])],
+                      agent_blocks, agent_mesh)
     svc_seed = stale = None
     if lanes.part is not None:   # after theta_0, as a service run draws it
         svc_seed = torch.stack([sample_seed(g, dev) for g in gens]) \

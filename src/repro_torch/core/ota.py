@@ -54,19 +54,29 @@ The LLM trainer's form (the channel-weighted loss, JAX's Form 3) is
 :func:`example_weights` and :func:`add_awgn`: the gains enter the loss
 before autograd, and the server tail is one K1 launch over the flattened
 gradient as a ``(1, d)`` unit-gain row.
+
+:func:`uplink_ops` records the aten ops and kernel launches of one uplink
+(the counterpart of ``uplink_jaxpr``, the hook ``analyze``'s contracts
+walk).  The legacy entry points (``aggregate_stacked``, ``exact_aggregate``,
+``psum_aggregate``, ``psum_aggregate_stacked``) survive as
+``DeprecationWarning`` shims over :func:`aggregate`, as in the JAX package.
 """
 from __future__ import annotations
 
 import math
+import warnings
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.core.channel import Channel
 from repro_torch.core.power_control import PowerPolicy, effective_moments
 from repro_torch.kernels import ota_fused, ref
+from repro_torch.kernels import abstract
 from repro_torch.launch.mesh import AgentMesh
+from repro_torch.utils.device import make_generator, resolve_device
+from repro_torch.utils.optrace import AtenOp, OpRecorder
 from repro_torch.utils.tree import (
     Params, _unflattener, fixed_sum, flat_norm_sq, flatten_agent_stack,
     flatten_params, flatten_paths, replace_paths, theta_device, tree_keys,
@@ -736,6 +746,62 @@ def aggregate_apply(grads: Params, cfg: Optional[OTAConfig], params: Params,
     return _aggregate_apply_cuda(cfg, h, s, grads, params, alpha), h
 
 
+class UplinkOps(NamedTuple):
+    """What one uplink issued: every aten op's outputs (:class:`AtenOp`,
+    in order) and every kernel launch (``kernels.abstract.LaunchRecord``,
+    with the dtype its stack was read in)."""
+
+    ops: List[AtenOp]
+    launches: List[abstract.LaunchRecord]
+
+
+def uplink_ops(cfg: Optional[OTAConfig], *, n_agents: int = 4,
+               dim: int = 8, apply: bool = False, alpha: float = 1e-3,
+               backend: str = "torch", agent_blocks: Optional[int] = None,
+               device=None) -> UplinkOps:
+    """Run the stacked uplink once for structural inspection: ``aggregate``
+    (or ``aggregate_apply`` with ``apply=True``) on a ``(n_agents, dim)``
+    float32 gradient stack of zeros, its gains drawn from a generator
+    seeded 0, under an :class:`~repro_torch.utils.optrace.OpRecorder` and a
+    launch log.  The counterpart of ``uplink_jaxpr``: the hook
+    ``analyze.contracts``' wire-dtype checker walks (the uplink may narrow
+    floats only through the sanctioned ``OTAConfig.wire_dtype`` bf16 hop)
+    and, with ``agent_blocks``, the streamed form's (its allocations must
+    not grow with ``n_agents``).
+
+    ``device=None`` is the card (and raises without one).  On the CPU the
+    ``"cuda"`` backend is traced on the fake card (``launch.fake_card``):
+    every op runs on fake tensors and K1's launches are abstract; on the
+    card K1 runs and its wrapper records each launch."""
+    dev = resolve_device(device)
+    kw = dict(n_agents=n_agents, dim=dim, apply=apply, alpha=alpha,
+              backend=backend, agent_blocks=agent_blocks)
+    if backend == "cuda" and dev.type == "cpu":
+        from repro_torch.launch.fake_card import fake_card
+
+        card = torch.device("cuda")
+        with fake_card():
+            return _uplink_ops_on(cfg, card, **kw)
+    return _uplink_ops_on(cfg, dev, **kw)
+
+
+def _uplink_ops_on(cfg, dev, *, n_agents, dim, apply, alpha, backend,
+                   agent_blocks) -> UplinkOps:
+    grads = {"g": torch.zeros((n_agents, dim), device=dev)}
+    params = {"g": torch.zeros((dim,), device=dev)}
+    # the fake card's tensors stand on the CPU underneath: a CPU generator
+    gen = torch.Generator(device="cpu" if abstract.is_abstract(grads["g"])
+                          else dev).manual_seed(0)
+    with abstract.launch_log() as launches, OpRecorder() as rec:
+        if apply:
+            aggregate_apply(grads, cfg, params, alpha=alpha, generator=gen,
+                            backend=backend, agent_blocks=agent_blocks)
+        else:
+            aggregate(grads, cfg, generator=gen, backend=backend,
+                      agent_blocks=agent_blocks)
+    return UplinkOps(rec.ops, list(launches))
+
+
 # ---------------------------------------------------------------------------
 # Form 3: the channel-weighted loss (the distortion folded into autograd),
 # the LLM trainer's uplink.
@@ -845,3 +911,58 @@ def shard_counter_map(global_shapes: Sequence[Sequence[int]],
         row += count
         start += math.prod(shape)
     return ota_fused.CounterMap(segments)
+
+
+# ---------------------------------------------------------------------------
+# Deprecated entry points: thin wrappers over :func:`aggregate`, as in the
+# JAX package; ``analyze``'s ``deprecated-aggregation`` rule flags callers.
+# A seed takes the place of JAX's key: the gains and the kernel seed are
+# drawn from ``make_generator(seed)`` on the gradients' device (on the mesh
+# rank's device for the axis forms), as ``aggregate`` draws them from a
+# generator.
+# ---------------------------------------------------------------------------
+
+def _warn_deprecated(name: str, repl: str) -> None:
+    warnings.warn(
+        f"ota.{name} is deprecated; use ota.aggregate({repl})",
+        DeprecationWarning, stacklevel=3,
+    )
+
+
+def aggregate_stacked(cfg: OTAConfig, seed: int, grads_stacked: Params, *,
+                      gains: Optional[torch.Tensor] = None
+                      ) -> Tuple[Params, torch.Tensor]:
+    """Deprecated: ``aggregate(grads, cfg, generator=make_generator(seed),
+    backend="torch")`` (JAX's ``backend="xla"``)."""
+    _warn_deprecated("aggregate_stacked", "grads, cfg, generator=...")
+    return aggregate(grads_stacked, cfg, generator=make_generator(
+        seed, theta_device(grads_stacked)), backend="torch", gains=gains)
+
+
+def exact_aggregate(grads_stacked: Params) -> Params:
+    """Deprecated: ``aggregate(grads, None)[0]``."""
+    _warn_deprecated("exact_aggregate", "grads, None")
+    return aggregate(grads_stacked, None)[0]
+
+
+def psum_aggregate(cfg: OTAConfig, seed: int, local_grad: Params,
+                   mesh: AgentMesh, *,
+                   n_agents: Optional[int] = None) -> Params:
+    """Deprecated: ``aggregate(grad, cfg, generator=..., mesh=mesh)[0]``
+    (JAX's ``axis=axis_names``; call on every rank)."""
+    _warn_deprecated("psum_aggregate", "grads, cfg, generator=..., mesh=...")
+    return aggregate(local_grad, cfg,
+                     generator=make_generator(seed, mesh.device), mesh=mesh,
+                     n_agents=n_agents)[0]
+
+
+def psum_aggregate_stacked(cfg: OTAConfig, seed: int, local_grads: Params,
+                           mesh: AgentMesh, *,
+                           n_agents: Optional[int] = None
+                           ) -> Tuple[Params, torch.Tensor]:
+    """Deprecated: ``aggregate(..., mesh=mesh, local_stack=True)``."""
+    _warn_deprecated("psum_aggregate_stacked",
+                     "grads, cfg, generator=..., mesh=..., local_stack=True")
+    return aggregate(local_grads, cfg,
+                     generator=make_generator(seed, mesh.device), mesh=mesh,
+                     local_stack=True, n_agents=n_agents)

@@ -354,7 +354,9 @@ def _lane_budgets(cls, params, n_lanes: int, n_agents: int,
     run, so no round builds it or waits for the host."""
     key = f"_budgets.{n_agents}"
     if key not in params:
-        cols = {k[len("pc."):]: (v.tolist() if isinstance(v, torch.Tensor)
+        # one read of each (L,) column, on the run's first draw only
+        cols = {k[len("pc."):]: (v.tolist()  # repro: noqa[host-sync] once a run
+                                 if isinstance(v, torch.Tensor)
                                  else [v] * n_lanes)
                 for k, v in params.items() if k.startswith("pc.")}
         params[key] = LaneBudgets.of(
@@ -378,7 +380,11 @@ def estimate_moments(base: Channel, policy: PowerPolicy,
         shape = (n,)
     c = base.sample(generator, shape, generator.device)
     h = c * policy.apply(c)
-    return float(torch.mean(h)), float(torch.var(h, unbiased=False))
+    # set-up: the moments are read once, in one copy (effective_moments
+    # caches them)
+    moments = torch.stack([torch.mean(h), torch.var(h, unbiased=False)])
+    m_h, var_h = moments.tolist()  # repro: noqa[host-sync] set-up
+    return m_h, var_h
 
 
 def closed_form_moments(base: Channel, policy: PowerPolicy, *,

@@ -329,6 +329,11 @@ def _lane_scenarios(part: Partition) -> Tuple[List[Scenario], bool]:
     return (part.scenarios[:1] if replicate else part.scenarios), replicate
 
 
+# partitions' lane programs made in this process (``_make_lane``, behind
+# ``sweep`` and ``lane_program``; analyze's build-budget reads it)
+LANE_PROGRAMS = 0
+
+
 def _make_lane(env, policy, part: Partition,
                telemetry: Optional[TelemetryConfig] = None, *,
                ota_backend: str = "auto"):
@@ -336,6 +341,8 @@ def _make_lane(env, policy, part: Partition,
     leaves: the partition's ``scenarios`` times ``seeds`` as one
     lane-batched run on ``device`` (streamed in the partition's
     ``agent_blocks``)."""
+    global LANE_PROGRAMS
+    LANE_PROGRAMS += 1
     proto = part.proto
     lane_env, lane_policy = resolve_env_policy(proto, env, policy)
     cfg = proto.fedpg_config()

@@ -12,6 +12,11 @@ Nothing here runs when the module is imported: the CPU tests import every
 module on machines without the CUDA toolkit, so ``nvcc`` is looked for only
 when a kernel is first launched.  A missing ``nvcc`` or a failed build
 raises with the compiler's output.
+
+``BUILT`` and ``LOADED`` count, by source name, the libraries this process
+compiled and the ``ctypes`` loads it made: each source is built at most
+once and loaded at most once a process (``analyze/contracts.py``'s
+``build-budget`` holds the counts to that).
 """
 from __future__ import annotations
 
@@ -29,6 +34,8 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+BUILT: Dict[str, int] = {}    # nvcc runs by source name, this process
+LOADED: Dict[str, int] = {}   # ctypes loads by source name, this process
 
 
 class Built(NamedTuple):
@@ -94,6 +101,7 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, Built]:
             failures.append(f"$ {' '.join(cmd)}\n{log}")
             continue
         os.replace(tmp, target)
+        BUILT[name] = BUILT.get(name, 0) + 1
         out[name] = Built(target, log)
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
@@ -105,5 +113,6 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build([name])[name].path))
+        LOADED[name] = LOADED.get(name, 0) + 1
         _LIBS[name] = lib
     return lib

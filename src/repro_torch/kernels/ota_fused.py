@@ -77,6 +77,8 @@ uint32 counter wraps (``start.astype(uint32) + pos`` in its
 went through the kernel, and which body.  ``LAUNCHES`` is always their sum:
 it counts K1 as one kernel for the callers that do not ask which body.
 ``LAUNCHES_MAPPED`` counts the wide launches that took a counter map.
+Inside ``kernels.abstract.launch_log`` each launch, real or abstract, is
+also recorded with the dtype its stack was read in (its wire).
 """
 from __future__ import annotations
 
@@ -305,7 +307,8 @@ def _launch(mode: str, grads: torch.Tensor, gains: torch.Tensor,
         abstract.record("ota_fused", *k1_cost(
             n_params, n_agents, wire_bytes=grads.element_size(),
             with_noise=with_noise, mode=mode, lanes=n_lanes,
-            shared_stack=n_lanes > 1 and grads.ndim == 2))
+            shared_stack=n_lanes > 1 and grads.ndim == 2),
+            wire=grads.dtype, shape=grads.shape)
         return tuple(outs)
     with torch.cuda.device(dev):   # the launch goes to the current device
         rc = _lib().ota_fused_launch(
@@ -326,6 +329,9 @@ def _launch(mode: str, grads: torch.Tensor, gains: torch.Tensor,
     else:
         LAUNCHES_WIDE += 1
     LAUNCHES += 1
+    if abstract.recording():
+        abstract.note("ota_fused", grads.dtype, grads.shape,
+                      is_abstract=False)
     return tuple(outs)
 
 
@@ -465,7 +471,8 @@ def _launch_mapped(grads: torch.Tensor, gains: torch.Tensor,
         abstract.record("ota_fused_mapped", *k1_cost(
             n_params, n_agents, wire_bytes=grads.element_size(),
             with_noise=with_noise, mode="agg",
-            map_bytes=table.numel() * table.element_size()))
+            map_bytes=table.numel() * table.element_size()),
+            wire=grads.dtype, shape=grads.shape)
         return out
     with torch.cuda.device(dev):
         rc = _lib().ota_fused_mapped_launch(
@@ -480,6 +487,9 @@ def _launch_mapped(grads: torch.Tensor, gains: torch.Tensor,
     LAUNCHES_WIDE += 1
     LAUNCHES_MAPPED += 1
     LAUNCHES += 1
+    if abstract.recording():
+        abstract.note("ota_fused_mapped", grads.dtype, grads.shape,
+                      is_abstract=False)
     return out
 
 

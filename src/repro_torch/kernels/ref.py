@@ -143,7 +143,8 @@ def counter_map_index(table: torch.Tensor, n: int, lo: int = 0,
     elements ``[lo, hi)`` (default the whole row)."""
     hi = n if hi is None else hi
     out = torch.empty(hi - lo, dtype=torch.int64, device=table.device)
-    for seg in table.tolist():
+    # the segments are laid out on the host (K1 reads the table on the card)
+    for seg in table.tolist():  # repro: noqa[host-sync] a few rows a call
         off, base = seg[0], seg[1]
         sizes, strides = seg[2:2 + MAP_DIMS], seg[2 + MAP_DIMS:]
         a, b = max(lo, off), min(hi, off + math.prod(sizes))

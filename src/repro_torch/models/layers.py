@@ -79,8 +79,10 @@ def rope_frequencies(head_dim: int, theta: float,
                      device=None) -> torch.Tensor:
     half = head_dim // 2
     expo = torch.arange(0, half, dtype=torch.float32, device=device) / half
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), expo)
+    # a fill on the device, not a host-to-device copy (a sync per call on
+    # the card); theta rounds to float32 as torch.tensor rounds it
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), expo)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

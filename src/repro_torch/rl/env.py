@@ -181,7 +181,8 @@ class TabularMDP:
 
     def l_bar_for(self, horizon: int) -> float:
         """The largest loss of the table (horizon-independent)."""
-        return float(torch.max(self.l))
+        # a run constant of the theory's bounds, read once
+        return float(torch.max(self.l))  # repro: noqa[host-sync] set-up
 
     @property
     def l_bar(self) -> float:

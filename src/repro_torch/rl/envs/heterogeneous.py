@@ -148,9 +148,10 @@ def _pack_hetero(envs: Sequence[HeterogeneousEnv]) -> Dict[str, np.ndarray]:
             "cannot batch HeterogeneousEnv fleets whose bases differ in a "
             "non-stacked field in one partition; for tensor-valued bases "
             "reuse one base instance across fleets")
-    return {f"pa.{k}": np.stack([e.params[k].detach().cpu().double().numpy()
-                                 for e in envs])
-            for k in envs[0].params}
+    # the sweep lays its lanes out on the host, once a partition
+    return {f"pa.{k}": np.stack([
+        e.params[k].detach().cpu().double().numpy()  # repro: noqa[host-sync,numpy-on-device] packing
+        for e in envs]) for k in envs[0].params}
 
 
 def _build_hetero(kind: str, proto: HeterogeneousEnv,

@@ -54,9 +54,10 @@ def garnet(generator: torch.Generator, n_states: int = 8,
 def _pack_tabular(envs: Sequence[TabularMDP]) -> Dict[str, np.ndarray]:
     """Stack the P / l / rho tables (one (S, A) shape, by the kind tag);
     ``gamma`` and ``horizon`` are run metadata, not lane parameters."""
-    return {name: np.stack([getattr(e, name).detach().cpu().double().numpy()
-                            for e in envs])
-            for name in ("P", "l", "rho")}
+    # the sweep lays its lanes out on the host, once a partition
+    return {name: np.stack([
+        getattr(e, name).detach().cpu().double().numpy()  # repro: noqa[host-sync,numpy-on-device] packing
+        for e in envs]) for name in ("P", "l", "rho")}
 
 
 def _build_tabular(kind: str, proto: TabularMDP, params: Dict[str, Any],

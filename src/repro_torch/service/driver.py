@@ -70,7 +70,8 @@ class ServiceConfig:
 def _to_host(tensors: List[torch.Tensor]) -> List[np.ndarray]:
     """Device tensors -> numpy arrays of their shapes and dtypes, in one
     device-to-host copy (float64 holds every float32 and int32 value)."""
-    flat = torch.cat([t.reshape(-1).double() for t in tensors]).cpu().numpy()
+    flat = torch.cat([t.reshape(-1).double() for t in tensors])
+    flat = flat.cpu().numpy()  # repro: noqa[host-sync,numpy-on-device] commit
     out, off = [], 0
     for t in tensors:
         n = t.numel()

@@ -69,7 +69,9 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.checkpoint, repro_torch.service.driver, "
             "repro_torch.telemetry.ledger, repro_torch.telemetry.report, "
             "repro_torch.data.pipeline, repro_torch.train.trainer, "
-            "repro_torch.launch.train, repro_torch.utils.platform; "
+            "repro_torch.launch.train, repro_torch.utils.platform, "
+            "repro_torch.analyze, repro_torch.analyze.contracts, "
+            "repro_torch.analyze.budget, repro_torch.utils.optrace; "
             "assert 'jax' not in sys.modules, 'jax'; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'repro'")
@@ -81,12 +83,20 @@ def test_import_leaves_jax_unloaded():
 
 def test_no_raw_timers_in_package():
     """The span tracer (``telemetry/trace.py``) owns the package's clock;
-    no other module reads one."""
+    no other module reads one.  The checker's ``raw-timing`` rule
+    (``analyze/rules/timing.py``) names the clocks it flags, and finds no
+    call of one in the package either."""
     tracer = ROOT / "src" / "repro_torch" / "telemetry" / "trace.py"
-    assert tracer in PORT_FILES
+    rule = ROOT / "src" / "repro_torch" / "analyze" / "rules" / "timing.py"
+    assert tracer in PORT_FILES and rule in PORT_FILES
     for path in PORT_FILES[:-1]:
-        if path != tracer:
+        if path not in (tracer, rule):
             assert "perf_counter" not in path.read_text(), path
+    from repro_torch.analyze import get_rules, repo_root, scan
+
+    report = scan(repo_root(), ["src/repro_torch"],
+                  rules=get_rules(["raw-timing"]))
+    assert report.findings == [] and report.suppressed == []
 
 
 def test_entry_points_raise_without_cuda():
@@ -172,7 +182,8 @@ def test_slice8_entry_points_raise_without_cuda():
 
 
 @pytest.mark.parametrize("sub", ["service", "rl/envs", "checkpoint", "data",
-                                 "launch", "train"])
+                                 "launch", "train", "analyze",
+                                 "analyze/rules"])
 def test_new_subpackages_are_covered(sub):
     """The import check above walks every file of the port, the round
     service and the environment zoo included."""
